@@ -5,17 +5,43 @@ Run from the root of a checkout with no arguments::
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from ``mitransient_tpu_torch/csrc``, holds each
-kernel against its plain PyTorch version at the shapes of the flagship
-render, renders the flagship transient Cornell box (256x256, 300 bins,
-max_depth 8, spp 1024) on the card through the kernels, checks its
-physics, renders the small ``cbox_rgb`` config against its golden, and
-prints, as its last three lines, the card's name and power limit, one JSON
-object with each kernel's launches, error and times, and
-``{"ok": true, "device": {...}}``.  Any failed phase raises, so no ``ok``
-line is printed and the exit code is not 0.  Without a CUDA device, or
-without the rest of the repository beside it, it exits with an error.
-Nothing here imports jax.
+Phases, each of which raises on failure:
+
+1. Build the CUDA kernels from ``mitransient_tpu_torch/csrc`` (one nvcc per
+   source, in parallel) and print ptxas' register and spill report.
+2. K1-K3 against their plain PyTorch versions at the flagship's shapes
+   (2^21 rays against the 36-triangle box; a (3, 301, 65536) film).
+3. The flagship transient Cornell box (256x256, 300 bins, max_depth 8,
+   spp 1024) on the card: each of K1-K3 launches once per loop iteration,
+   the physics checks pass; rays/s of a second render.
+4. The ``cbox_rgb`` golden config on the card against its golden.
+5. The large-mesh path, ``cbox_mesh`` (the box with a 261,120-triangle
+   sphere): the host accel build is timed and must use the native SAH
+   builder.
+6. The BVH kernel in both modes (chunk, super) and for the three queries
+   (closest, any hit, mixed at n_closest = N/2), launched on all 2^21
+   rays: every 32nd ray (2^16 of them) is held against ``query_plain`` on
+   the same rays, ``t`` bit-equal and ``prim`` equal, at most
+   ``MAX_RAY_MISMATCHES`` rays out.
+7. The BVH kernel (Woop) in each mode against K1's brute force
+   (Moller-Trumbore) on all 2^21 rays: the share of rays whose ``prim``
+   differs (rounding at triangle edges) must be at most
+   ``K1_MISMATCH_SHARE``.
+8. ``cbox_mesh`` rendered in chunk mode, then in super mode, both at spp
+   1024: the BVH kernel launches twice per loop iteration (closest hit and
+   shadow rays), K1/K2 never, the physics checks pass; each mode's rays/s
+   and peak memory.
+9. One more chunk-mode ``cbox_mesh`` render (spp 64) under torch.profiler:
+   the device's busy share and its time by kernel group.
+10. The small sphere config (``small_cbox`` with a 4,512-triangle sphere)
+    on the card against the port on the host CPU, under test_golden's rule
+    with no element out.
+
+It prints, as its last three lines, the card's name and power limit, one
+JSON object with each kernel's launches, error, times and bound, and
+``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
+rest of the repository beside it, it exits with an error.  Nothing here
+imports jax.
 """
 from __future__ import annotations
 
@@ -30,9 +56,20 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP = dict(spp=1024, seed=0)  # cornell_box(): 256x256, 300 bins, depth 8
 N_RAYS = 1 << 21  # the flagship's lanes: 65536 pixels x 32 lanes per pixel
 SPLAT_LANES, SPLAT_BINS = 32, 300  # film (3, 301, 65536), two event sets
-MAX_RAY_MISMATCHES = 2  # of N_RAYS, for K1 and K2
+MAX_RAY_MISMATCHES = 2  # of N_RAYS for K1 and K2, of BVH_SUBSET for BVH
 SPLAT_TOL = 1e-6  # K3: max abs error <= SPLAT_TOL * max|film|
 TIMING_REPS = 20
+MESH = dict(spp=1024, seed=0)  # cbox_mesh: 256x256, 300 bins, depth 8
+PROFILE_SPP = 64  # the profiled render: the profiler slows the host
+BVH_SUBSET = 1 << 16  # rays of the kernel-against-plain comparison
+K1_MISMATCH_SHARE = 1e-4  # BVH kernel (Woop) against K1 (Moller-Trumbore)
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and FP32 (non-tensor) ops/s
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# FP32 operations of one test, as the kernels write them
+MT_OPS = 46  # Moller-Trumbore: 2 crosses, 3 dots, 4 subs, 1 div, u + v
+SLAB_OPS = 23  # 6 subs, 6 muls, 6 min/max per axis pair, 5 min/max
+WOOP_OPS = 40  # 6 dots of 3, 3 subs, neg, div, 2 mul-adds, u + v
 
 
 def _run(cmd):
@@ -58,6 +95,27 @@ def _time_ms(fn, reps=TIMING_REPS, warmup=3):
     return statistics.median(times)
 
 
+def _bound(n_bytes, n_ops):
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and FP32
+    operations over the FP32 peak."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _rays(cases, scene, rng, n, dev):
+    """``cases.box_rays`` for the scene's camera, on ``dev``."""
+    import numpy as np
+    import torch
+
+    from mitransient_tpu_torch.sensors.perspective import build_camera
+
+    cam = build_camera(scene.sensors[0], device="cpu")
+    rays = cases.box_rays(rng, n, cam.R.numpy().astype(np.float64),
+                          cam.origin.numpy(), cam.tan_half.numpy())
+    return tuple(torch.from_numpy(a).to(dev) for a in rays)
+
+
 def check_kernels(mt, cases, dev):
     """K1-K3 against their plain versions at the flagship's shapes."""
     import numpy as np
@@ -65,22 +123,12 @@ def check_kernels(mt, cases, dev):
 
     from mitransient_tpu_torch.film import transient_film as tf
     from mitransient_tpu_torch.ops import intersect as isect
-    from mitransient_tpu_torch.sensors.perspective import build_camera
 
     scene = mt.load_dict(mt.cornell_box(), device=dev)
     soup = (scene.data.tri.v0, scene.data.tri.e1, scene.data.tri.e2)
-    cam = build_camera(scene.sensors[0])
+    m = soup[0].shape[0]
     rng = np.random.default_rng(0)
-    half = N_RAYS // 2
-    o_c, d_c = cases.camera_rays(rng, half, cam.R.numpy().astype(np.float64),
-                                 cam.origin.numpy(), cam.tan_half.numpy())
-    o_r, d_r, maxt_r, act_r = cases.random_rays(rng, N_RAYS - half)
-    o = np.concatenate([o_c, o_r])
-    d = np.concatenate([d_c, d_r])
-    maxt = np.concatenate([np.full(half, np.inf, np.float32), maxt_r])
-    active = np.concatenate([rng.random(half) >= 0.1, act_r])
-    o, d, maxt, active = (torch.from_numpy(a).to(dev)
-                          for a in (o, d, maxt, active))
+    o, d, maxt, active = _rays(cases, scene, rng, N_RAYS, dev)
     # shadow rays get a finite maxt: the lengths of connections in the box
     maxt_sh = torch.from_numpy(
         rng.uniform(0.05, 3.0, N_RAYS).astype(np.float32)).to(dev)
@@ -106,7 +154,11 @@ def check_kernels(mt, cases, dev):
     report_rays("K1 closest_hit", (prim_k != prim_p) | t_bad, maxt)
     k1_err = float((t_k - t_p)[both].abs().max())
     print(f"K1: {int((prim_k >= 0).sum())} hits, max |dt| {k1_err}")
+    ray_bytes = N_RAYS * (12 + 12 + 4 + 1)  # o, d, maxt, active
     rows.append(dict(
+        **dict(zip(("bound_ms", "bound_by"), _bound(
+            ray_bytes + N_RAYS * 8 + m * 36, N_RAYS * m * MT_OPS))),
+        library_ms=None,
         name="closest_hit", route="cuda",
         source="mitransient_tpu_torch/csrc/intersect.cu",
         replaces="mitransient_tpu/ops/intersect_pallas.py:44",
@@ -121,7 +173,16 @@ def check_kernels(mt, cases, dev):
     torch.cuda.synchronize()
     report_rays("K2 ray_test", occ_k != occ_p, maxt_sh)
     print(f"K2: {int(occ_k.sum())} occluded of {int(active.sum())} active")
+    # K2 stops at a ray's first hit: count the tests these rays need
+    hit, tt, _u, _v = isect._moller_trumbore(o, d, *soup)
+    first = (hit & (tt < torch.where(active, maxt_sh, float("-inf"))[:, None]))
+    tests = torch.where(first.any(1), first.to(torch.int8).argmax(1) + 1,
+                        m).sum()
+    del hit, tt, first
     rows.append(dict(
+        **dict(zip(("bound_ms", "bound_by"), _bound(
+            ray_bytes + N_RAYS + m * 36, int(tests) * MT_OPS))),
+        library_ms=None,
         name="ray_test", route="cuda",
         source="mitransient_tpu_torch/csrc/intersect.cu",
         replaces="mitransient_tpu/ops/intersect_pallas.py:98",
@@ -153,7 +214,20 @@ def check_kernels(mt, cases, dev):
         tf._scatter_layout(film_p, hw, ba, va)
         tf._scatter_layout(film_p, hw, bb, vb)
 
+    # the library call: one index_add_ of both event sets into the flat
+    # film, with the flat cell indices made beforehand
+    n_ev = ba.shape[0]
+    pix = torch.arange(n_ev, device=dev) % hw
+    ch = torch.arange(3, device=dev)[:, None] * ((SPLAT_BINS + 1) * hw)
+    cells = torch.cat([(ch + b.long()[None] * hw + pix[None]).reshape(-1)
+                       for b in (ba, bb)])
+    vals = torch.cat([v.T.reshape(-1) for v in (va, vb)])
+    film_l = film_k.view(-1)
+    film_bytes = film_k.numel() * 4
     rows.append(dict(
+        **dict(zip(("bound_ms", "bound_by"), _bound(
+            2 * film_bytes + 2 * n_ev * (4 + 12), 2 * n_ev * 3))),
+        library_ms=_time_ms(lambda: film_l.index_add_(0, cells, vals)),
         name="splat_accumulate", route="cuda",
         source="mitransient_tpu_torch/csrc/splat.cu",
         replaces="mitransient_tpu/ops/splat_pallas.py:36",
@@ -162,7 +236,9 @@ def check_kernels(mt, cases, dev):
                                                 spp=SPLAT_LANES)),
         plain_ms=_time_ms(plain_splat)))
     for r in rows:
-        print(f"{r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
+        print(f"{r['name']}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), library {r['library_ms']} ms")
     return rows
 
 
@@ -228,6 +304,228 @@ def render_golden(mt, cases, dev):
             raise AssertionError(f"cbox_rgb {key} disagrees with its golden")
 
 
+def build_mesh(mt, cases, dev):
+    """cbox_mesh loaded on the card; the host accel build timed, and it
+    must run the native SAH builder."""
+    import torch
+
+    from mitransient_tpu_torch import native
+    from mitransient_tpu_torch.ops.accel import build_accel_numpy
+
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("the native BVH builder did not build or load")
+    print(f"native builder ready in {time.perf_counter() - t0:.3f} s: "
+          f"{native.library_path().name}")
+    desc = cases.cbox_mesh(mt)
+    t0 = time.perf_counter()
+    scene = mt.load_dict(desc, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    tri = scene.data.tri
+    host = [a.cpu().numpy() for a in (tri.v0, tri.e1, tri.e2)]
+    t0 = time.perf_counter()
+    tables = build_accel_numpy(*host)
+    build_s = time.perf_counter() - t0
+    acc = scene.data.accel
+    for k, a in tables.items():
+        if not torch.equal(getattr(acc, k).cpu(), torch.from_numpy(a)):
+            raise AssertionError(f"accel.{k} differs between two builds")
+    c = acc.pages.shape[0]
+    print(f"cbox_mesh: {tri.v0.shape[0]} triangles, {c} chunks of "
+          f"{acc.pages.shape[1]} rows ({float(acc.rows.mean()):.1f} used on "
+          f"average), {acc.sup_min.shape[0]} super-chunks, pages "
+          f"{acc.pages.numel() * 4 / 1e6:.1f} MB; host accel build "
+          f"{build_s:.3f} s, load_dict {load_s:.3f} s")
+    return scene
+
+
+def check_bvh(mt, cases, dev, scene):
+    """The BVH kernel in both modes on all 2^21 rays: every 32nd ray held
+    against query_plain for the three queries, and every ray against K1."""
+    import numpy as np
+    import torch
+
+    from mitransient_tpu_torch.ops import bvh
+    from mitransient_tpu_torch.ops import intersect as isect
+
+    sd = scene.data
+    acc = sd.accel
+    rng = np.random.default_rng(1)
+    rays = _rays(cases, scene, rng, N_RAYS, dev)
+    stride = N_RAYS // BVH_SUBSET
+    sub = tuple(a[::stride].contiguous() for a in rays)
+    n = BVH_SUBSET
+    accel_bytes = sum(t.numel() * 4 for t in acc)
+
+    # The bound counts the work the closest-hit query needs on these rays:
+    # a box's slab test gives the same answer on every visit, so each box
+    # at most once per ray, and no more box or triangle tests than the
+    # cheaper of the two modes makes.  Counted on the subset, scaled.
+    work = {}
+    for mode in bvh.MODES:
+        counts = {"slab": 0, "woop": 0, "box_once": 0}
+        bvh.query_plain(acc, *sub, n, mode, counts=counts)
+        work[mode] = {k: int(v) for k, v in counts.items()}
+        print(f"bvh {mode}: {work[mode]['slab'] / n:.1f} box tests "
+              f"({work[mode]['box_once'] / n:.1f} of distinct boxes) and "
+              f"{work[mode]['woop'] / n:.1f} triangle tests per ray")
+    box = min(w["box_once"] for w in work.values())
+    woop = min(w["woop"] for w in work.values())
+    ops = N_RAYS / n * (box * SLAB_OPS + woop * WOOP_OPS)
+    bound = _bound(N_RAYS * (12 + 12 + 4 + 1 + 8) + accel_bytes, ops)
+    print(f"bvh bound: {box / n:.1f} box and {woop / n:.1f} triangle tests "
+          f"per ray -> {bound[0]:.4f} ms ({bound[1]})")
+
+    # Moller-Trumbore over the whole soup (K1), for the cross-check below
+    t_1, p_1 = isect.closest_hit(sd.tri.v0, sd.tri.e1, sd.tri.e2, *rays)
+    rows = []
+    for mode in bvh.MODES:
+        err = 0.0
+        for query, n_closest in (("closest", N_RAYS), ("any", 0),
+                                 ("mixed", N_RAYS // 2)):
+            t_f, p_f = bvh.query_kernel(acc, *rays, n_closest, mode)
+            t_k, p_k = t_f[::stride], p_f[::stride]
+            t_p, p_p = bvh.query_plain(acc, *sub, n_closest // stride, mode)
+            torch.cuda.synchronize()
+            bad = (p_k != p_p) | ~((t_k == t_p) | (torch.isinf(t_k)
+                                                  & torch.isinf(t_p)))
+            nbad = int(bad.sum())
+            hit = (p_k >= 0) & (p_k == p_p)
+            if hit.any():
+                err = max(err, float((t_k - t_p)[hit].abs().max()))
+            print(f"bvh {mode} {query}: {int((p_f >= 0).sum())} hits of "
+                  f"{N_RAYS}; of rays [::{stride}] {nbad} differ from "
+                  f"query_plain (at most {MAX_RAY_MISMATCHES})")
+            for i in torch.nonzero(bad).flatten().tolist()[:5]:
+                print(f"  ray {i * stride}: kernel ({t_k[i].item()}, "
+                      f"{p_k[i].item()}) plain ({t_p[i].item()}, "
+                      f"{p_p[i].item()})")
+            if nbad > MAX_RAY_MISMATCHES:
+                raise AssertionError(f"bvh {mode} {query}: {nbad} rays differ")
+
+        # Woop through the BVH against Moller-Trumbore (K1), all rays
+        t_b, p_b = isect.closest_hit(sd.tri.v0, sd.tri.e1, sd.tri.e2, *rays,
+                                     accel=acc, bvh_mode=mode)
+        torch.cuda.synchronize()
+        share = float((p_b != p_1).float().mean())
+        both = (p_b == p_1) & (p_b >= 0)
+        rel = float(((t_b - t_1) / t_1)[both].abs().max())
+        print(f"bvh {mode} against K1 on {N_RAYS} rays: prim differs on "
+              f"{share:.3e} of the rays (at most {K1_MISMATCH_SHARE}); max "
+              f"relative |dt| {rel:.3e} where prim agrees")
+        if not share <= K1_MISMATCH_SHARE:
+            raise AssertionError(f"the BVH kernel ({mode}) disagrees with K1")
+
+        rows.append(dict(
+            name=f"bvh_query_{mode}", route="cuda",
+            source="mitransient_tpu_torch/csrc/bvh.cu",
+            replaces=("mitransient_tpu/ops/bvh_pallas.py:138+804" if
+                      mode == "chunk" else
+                      "mitransient_tpu/ops/bvh_pallas.py:424+588"),
+            max_abs_err=err,
+            ms=_time_ms(lambda: bvh.query_kernel(acc, *rays, N_RAYS, mode)),
+            plain_ms=_time_ms(lambda: bvh.query_plain(acc, *sub, n, mode),
+                              reps=3, warmup=1),
+            plain_rays=n, bound_ms=bound[0], bound_by=bound[1],
+            library_ms=None))
+        print(f"bvh_query_{mode}: kernel {rows[-1]['ms']:.4f} ms at 2^21 "
+              f"rays, plain {rows[-1]['plain_ms']:.4f} ms at 2^16 rays, "
+              f"bound {bound[0]:.4f} ms ({bound[1]})")
+    return rows
+
+
+def render_mesh(mt, cases, dev, scene):
+    """cbox_mesh through the BVH kernel in each mode at the same spp;
+    returns each mode's BVH launches in its run."""
+    import torch
+
+    from mitransient_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from mitransient_tpu_torch.ops import bvh
+
+    counts = {}
+    for mode in bvh.MODES:
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        s, t, stats = mt.render(scene, spp=MESH["spp"], seed=MESH["seed"],
+                                return_stats=True, bvh_mode=mode)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = launch_counts()
+        n = stats["loop_iters"]
+        rays = int(stats["rays"])
+        print(f"cbox_mesh {mode} spp {MESH['spp']}: {wall:.3f} s, {rays} rays"
+              f" -> {rays / wall / 1e6:.2f} M rays/s; launches {c}, loop "
+              f"iterations {n}, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        want = {f"bvh_query_{mode}": 2 * n, "splat_accumulate": n}
+        if n == 0 or c != want:
+            raise AssertionError(f"cbox_mesh {mode}: launches {c}, expected "
+                                 f"{want}")
+        s, t = s.cpu().numpy(), t.cpu().numpy()
+        fails = cases.physics_checks(s, t)
+        prof = t.sum(axis=(0, 1, 3))
+        print(f"  first arrival bin {prof.nonzero()[0][0]}, transient/steady "
+              f"{t.sum() / s.sum():.6f}, left wall {s[128, 6]}, right wall "
+              f"{s[128, 249]}")
+        if fails:
+            raise AssertionError(f"cbox_mesh {mode} physics checks: {fails}")
+        counts[f"bvh_query_{mode}"] = c[f"bvh_query_{mode}"]
+    return counts
+
+
+def profile_mesh(mt, scene):
+    """One chunk-mode cbox_mesh render (spp 64, seed 1) under
+    torch.profiler: device time by kernel group, and the union of the
+    kernels' intervals against the render's wall time (the device's busy
+    share; the profiler itself slows the host)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        mt.render(scene, spp=PROFILE_SPP, seed=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:  # union of the kernels' intervals, in us
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    groups = {}
+    for e in kernels:
+        g = ("bvh_query" if "bvh_query" in e.name else
+             "splat" if "splat_kernel" in e.name else "other")
+        groups[g] = groups.get(g, 0.0) + e.time_range.elapsed_us()
+    total = sum(groups.values())
+    print(f"cbox_mesh profiled render (chunk, spp {PROFILE_SPP}): wall "
+          f"{wall:.3f} s, {len(spans)} device kernels, busy {busy / 1e6:.4f} s"
+          f" = {busy / 1e6 / wall:.3f} of wall; device time by group: "
+          + ", ".join(f"{g} {t / 1e3:.2f} ms ({t / total:.3f})"
+                      for g, t in sorted(groups.items())))
+    if not groups.get("bvh_query"):
+        raise AssertionError("the profile shows no BVH kernel time")
+
+
+def render_small_sphere(mt, cases, dev):
+    """The small sphere config on the card against the port on the host
+    CPU: test_golden's rule, no element out."""
+    out = []
+    for d in (dev, "cpu"):
+        scene = mt.load_dict(cases.small_sphere_cbox(mt), device=d)
+        s, t = mt.render(scene, spp=8, seed=0)
+        out.append((s.cpu().numpy(), t.cpu().numpy()))
+    for k, got, want in zip(("steady", "transient"), out[0], out[1]):
+        m = cases.golden_mismatch(got, want)
+        print(f"small sphere {k}, card against CPU: {m}")
+        if not (m["shape_ok"] and m["n_bad"] == 0):
+            raise AssertionError(f"small sphere {k}: card and CPU disagree")
+
+
 def main() -> int:
     import torch
 
@@ -256,18 +554,25 @@ def main() -> int:
     info = kernels.build()
     print(f"kernels built in {info.seconds:.2f} s: {info.path.name}")
     for line in info.log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if any(w in line for w in ("registers", "spill", "Compiling entry")):
             print("  " + line.strip())
 
     rows = check_kernels(mt, cases, dev)
     counts = render_flagship(mt, cases, dev)
     render_golden(mt, cases, dev)
+    mesh = build_mesh(mt, cases, dev)
+    rows += check_bvh(mt, cases, dev, mesh)
+    counts.update(render_mesh(mt, cases, dev, mesh))
+    profile_mesh(mt, mesh)
+    render_small_sphere(mt, cases, dev)
     for r in rows:
         r["launches"] = counts[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi.splitlines()[0])
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(json.dumps({"kernels": [
+        {k: r[k] for k in keys + (("plain_rays",) if "plain_rays" in r
+                                  else ())} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

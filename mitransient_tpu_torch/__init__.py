@@ -6,10 +6,12 @@ layout and function names; the JAX package is the reference it is tested
 against.  This package imports torch and numpy, never jax.
 
 Today it renders the transient path tracer's regen path: scenes of
-rectangles and cubes with diffuse BSDFs and area emitters, seen through a
-perspective sensor into a transient film.  On a CUDA device the ray
-queries and the film splat run in the kernels of ``csrc/``; on the CPU
-they run their plain PyTorch versions.
+rectangles, cubes and triangle meshes with diffuse BSDFs and area
+emitters, seen through a perspective sensor into a transient film; above
+4096 triangles through a chunked acceleration structure.  Scenes load onto
+the card unless the caller asks for ``device="cpu"``.  On a CUDA device
+the ray queries and the film splat run in the kernels of ``csrc/``; on the
+CPU they run their plain PyTorch versions.
 """
 from .core.spectrum import set_variant, variant  # noqa: F401
 from .render import render  # noqa: F401

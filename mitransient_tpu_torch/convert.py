@@ -10,6 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .ops.accel import Accel
+from .scene.schema import resolve_device
 from .scene.scene import (
     BSDF_DIFFUSE,
     EM_AREA,
@@ -21,25 +23,26 @@ from .scene.scene import (
 )
 
 _RECORDS = {"tri": Triangles, "bsdf": BSDFParams, "emitter": EmitterParams,
-            "geom": GeomParams}
+            "accel": Accel, "geom": GeomParams}
 
 
-def scene_data_from_numpy(leaves: dict[str, np.ndarray], device="cpu") -> SceneData:
-    """Build the port's SceneData from ``{"record.field": array}``.
+def scene_data_from_numpy(leaves: dict[str, np.ndarray],
+                          device="cuda") -> SceneData:
+    """Build the port's SceneData on ``device`` from
+    ``{"record.field": array}``.
 
-    Every field of the port's records must be present (the ``geom`` record
-    may be left out).  Media leaves (``medium.*``) are ignored when no
-    triangle has an interior medium.  A leaf the port cannot render - an
-    acceleration structure, textures, another BSDF or emitter kind, media -
-    raises ``NotImplementedError``.
+    Every field of the port's records must be present (the ``accel`` and
+    ``geom`` records may be left out).  Media leaves (``medium.*``) are
+    ignored when no triangle has an interior medium.  A leaf the port cannot
+    render - textures, another BSDF or emitter kind, media - raises
+    ``NotImplementedError``.
     """
+    device = resolve_device(device)
     extra = set(leaves) - {f"{r}.{f}" for r, cls in _RECORDS.items()
                            for f in cls._fields}
     if np.any(np.asarray(leaves["tri.medium_id"]) >= 0):
         raise NotImplementedError("participating media (ROADMAP item 15)")
     extra = {k for k in extra if not k.startswith("medium.")}
-    if any(k.startswith("accel.") for k in extra):
-        raise NotImplementedError("BVH acceleration structures (ROADMAP item 17)")
     if extra:
         raise NotImplementedError(
             f"scene leaves not ported yet (ROADMAP item 11): {sorted(extra)}")
@@ -55,10 +58,13 @@ def scene_data_from_numpy(leaves: dict[str, np.ndarray], device="cpu") -> SceneD
         return cls(*(torch.tensor(np.asarray(leaves[f"{name}.{f}"]),
                                   device=device) for f in cls._fields))
 
-    has_geom = any(k.startswith("geom.") for k in leaves)
+    def optional(name):
+        has = any(k.startswith(name + ".") for k in leaves)
+        return record(name) if has else None
+
     return SceneData(tri=record("tri"), bsdf=record("bsdf"),
-                     emitter=record("emitter"),
-                     geom=record("geom") if has_geom else None)
+                     emitter=record("emitter"), accel=optional("accel"),
+                     geom=optional("geom"))
 
 
 def scene_data_to_numpy(sd: SceneData) -> dict[str, np.ndarray]:

@@ -19,6 +19,14 @@ device-to-host sync on every bounce.  This loop runs to the same
 ``max_iters`` bound and asks whether a lane is still live only every
 ``LIVE_CHECK_EVERY`` iterations; iterations after the last lane died add
 exact zeros, so the output does not depend on that period.
+
+Scenes with an acceleration structure keep the in-bounce shadow-ray
+``ray_test`` here.  The JAX loop instead resolves a bounce's NEE
+visibility inside the next bounce's query (shadow-ray pipelining), which
+gives the same estimator (``tests/test_accel.py:202``) but makes its loop
+run one extra iteration to drain the last shadow rays
+(``path_regen.py:198-202``); this loop has no such iteration, so for accel
+scenes its ``iters`` can be one less than the JAX package's.
 """
 from __future__ import annotations
 
@@ -28,6 +36,7 @@ from ..bsdf import api as bsdf_api
 from ..core.math import mis_weight, normalize
 from ..core.records import Ray
 from ..film.transient_film import TransientFilmState, splat_pair_any
+from ..ops.bvh import BVH_MODE
 from ..scene.scene import (
     SceneData,
     emitter_eval_hit,
@@ -69,6 +78,7 @@ def sample_primal_regen(
     icfg: IntegratorConfig,
     spp_total: int,
     lanes_per_pixel: int,
+    bvh_mode: str = BVH_MODE,
 ):
     """Render the full spp budget with path regeneration.
 
@@ -77,7 +87,8 @@ def sample_primal_regen(
     int64) counts the iterations the JAX loop would run, those that began
     with a live lane; ``loop_iters`` (a Python int) counts the iterations
     this loop ran, each of which launches every per-bounce kernel once.
-    The film's transient tensor is updated in place.
+    The film's transient tensor is updated in place.  ``bvh_mode`` is the
+    traversal mode of both ray queries in scenes with an accel.
     """
     hw = film_cfg.width * film_cfg.height
     L = lanes_per_pixel
@@ -143,7 +154,7 @@ def sample_primal_regen(
         def rnd2(k):
             return torch.stack([rnd1(k), rnd1(k + 1)], dim=-1)
 
-        si = ray_intersect(sd, Ray.make(o, d), active)
+        si = ray_intersect(sd, Ray.make(o, d), active, bvh_mode)
         hit = active & si.valid
         distance_hit = distance + torch.where(hit, si.t, 0.0) * eta
 
@@ -158,7 +169,7 @@ def sample_primal_regen(
         cont = active & (depth + 1 < icfg.max_depth) & si.valid
         active_em = cont & bsdf_api.is_smooth(lb)
         ds, em_weight = sample_emitter_direction(sd, si.p, rnd2(0), True,
-                                                 active_em)
+                                                 active_em, bvh_mode)
         active_em = active_em & (ds.pdf > 0.0)
         wo_em = si.frame.to_local(ds.d)
         f_em, pdf_bsdf_em = bsdf_api.eval_pdf(lb, si.wi, wo_em, active_em)

@@ -1,10 +1,11 @@
 """Build, load and count the port's CUDA kernels.
 
 The sources under ``mitransient_tpu_torch/csrc/`` are compiled by ``nvcc``
-into one shared library with a plain C interface, at first use, into
-``build/`` at the root of the checkout, and bound with ``ctypes``.  The
-library's file name carries a hash of the sources and flags, so an edited
-source is rebuilt.  Nothing here runs at import time.
+at first use, one process per source started together, then linked into one
+shared library with a plain C interface in ``build/`` at the root of the
+checkout, and bound with ``ctypes``.  The library's file name carries a
+hash of the sources and flags, so an edited source is rebuilt.  Nothing
+here runs at import time.
 
 Flags: ``--fmad=false`` keeps ``a*b + c`` as two rounded operations, the
 arithmetic of the plain PyTorch versions; ``-prec-div`` stays at its IEEE
@@ -21,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 from typing import NamedTuple
@@ -29,9 +31,9 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build"
 
+GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    *GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "--fmad=false", "-Xptxas", "-v",
 )
 
@@ -42,6 +44,8 @@ _SIGNATURES = {
     "mitr_closest_hit": (_P, _I, _P, _P, _P, _P, _I, _P, _P, _P),
     "mitr_ray_test": (_P, _I, _P, _P, _P, _P, _I, _P, _P),
     "mitr_splat_accumulate": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+    "mitr_bvh_query": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
+                       _I, _I, _I, _P, _P, _P),
 }
 
 
@@ -88,17 +92,35 @@ def build() -> BuildInfo:
         _build_info = BuildInfo(path, 0.0, "")
         return _build_info
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    nvcc = find_nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-            f"{res.stdout}{res.stderr}")
-    os.replace(tmp, path)
-    _build_info = BuildInfo(path, seconds, res.stdout + res.stderr)
+    log = []
+
+    def start(cmd):
+        return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
+
+    def finish(job, others=()):
+        cmd, proc = job
+        out = proc.communicate()[0]
+        log.append(out)
+        if proc.returncode != 0:
+            for _, other in others:
+                other.kill()
+                other.wait()
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [os.path.join(tmpdir, src.stem + ".o") for src in sources()]
+        jobs = [start([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)])
+                for src, obj in zip(sources(), objs)]
+        for job in jobs:
+            finish(job, jobs)
+        tmp = os.path.join(tmpdir, path.name)
+        finish(start([nvcc, *GENCODE, "-shared", "-o", tmp, *objs]))
+        os.replace(tmp, path)
+    _build_info = BuildInfo(path, time.perf_counter() - t0, "".join(log))
     return _build_info
 
 

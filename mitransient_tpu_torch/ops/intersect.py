@@ -4,8 +4,10 @@ hit) and their plain PyTorch versions.
 Counterpart of ``mitransient_tpu/ops/intersect.py`` (the contract) and
 ``ops/intersect_pallas.py`` (the TPU kernels).  :func:`closest_hit` and
 :func:`ray_test` dispatch on where the rays lie: a CPU tensor takes the
-plain version (:func:`intersect_soup`, :func:`ray_test_soup`); a CUDA
-tensor launches the kernel of ``csrc/intersect.cu`` or raises.
+plain version (:func:`intersect_soup`, :func:`ray_test_soup`), with or
+without an acceleration structure, as the JAX package does on the CPU; a
+CUDA tensor launches the BVH kernel of ``ops/bvh.py`` when the scene has
+an accel, else the kernel of ``csrc/intersect.cu``, or raises.
 
 The plain versions run Moller-Trumbore for all rays against chunks of
 ``TRI_CHUNK`` triangles at once, with each cross and dot product written
@@ -19,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import _build
+from . import bvh
 
 TRI_CHUNK = 32
 RAY_EPS = 1e-4
@@ -94,21 +97,30 @@ def ray_test_soup(v0, e1, e2, ray_o, ray_d, maxt, active):
     return occluded & active
 
 
-def closest_hit(v0, e1, e2, ray_o, ray_d, maxt, active):
+def closest_hit(v0, e1, e2, ray_o, ray_d, maxt, active, accel=None,
+                bvh_mode=bvh.BVH_MODE):
     """Closest hit returning (t (N,) f32, prim (N,) int32): the plain
-    version for CPU tensors, kernel K1 for CUDA tensors."""
+    version for CPU tensors; for CUDA tensors the BVH kernel in
+    ``bvh_mode`` when ``accel`` is given, else kernel K1."""
     if ray_o.device.type == "cpu":
         t, prim, _u, _v = intersect_soup(v0, e1, e2, ray_o, ray_d, maxt,
                                          active)
         return t, prim
+    if accel is not None:
+        return bvh.closest_hit_bvh(accel, ray_o, ray_d, maxt, active,
+                                   bvh_mode)
     return _soup_kernel("closest_hit", v0, e1, e2, ray_o, ray_d, maxt, active)
 
 
-def ray_test(v0, e1, e2, ray_o, ray_d, maxt, active):
-    """Occlusion (N,) bool: the plain version for CPU tensors, kernel K2
-    for CUDA tensors."""
+def ray_test(v0, e1, e2, ray_o, ray_d, maxt, active, accel=None,
+             bvh_mode=bvh.BVH_MODE):
+    """Occlusion (N,) bool: the plain version for CPU tensors; for CUDA
+    tensors the BVH kernel in ``bvh_mode`` when ``accel`` is given, else
+    kernel K2."""
     if ray_o.device.type == "cpu":
         return ray_test_soup(v0, e1, e2, ray_o, ray_d, maxt, active)
+    if accel is not None:
+        return bvh.ray_test_bvh(accel, ray_o, ray_d, maxt, active, bvh_mode)
     return _soup_kernel("ray_test", v0, e1, e2, ray_o, ray_d, maxt, active)
 
 

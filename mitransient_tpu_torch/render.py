@@ -14,6 +14,7 @@ import logging
 
 from .film.transient_film import develop, film_init
 from .integrators.path_regen import sample_primal_regen
+from .ops.bvh import BVH_MODE, MODES
 from .scene.scene import primal_sd
 from .scene.schema import Scene
 from .sensors.perspective import build_camera
@@ -26,9 +27,10 @@ _log = logging.getLogger("mitransient_tpu_torch")
 
 
 def _regen_render(sd, cam, film, seed, *, film_cfg, icfg, spp_total,
-                  lanes_per_pixel):
+                  lanes_per_pixel, bvh_mode):
     film, steady_lanes, n_rays, iters, loop_iters = sample_primal_regen(
-        sd, seed, cam, film, film_cfg, icfg, spp_total, lanes_per_pixel)
+        sd, seed, cam, film, film_cfg, icfg, spp_total, lanes_per_pixel,
+        bvh_mode)
     # steady_lanes holds per-lane SUMS of finished-sample radiances; every
     # pixel finishes exactly spp_total samples, so add up the lane rows (in
     # row order) and count spp_total unit sample weights per pixel
@@ -59,6 +61,7 @@ def render(
     regenerate: bool | None = None,
     film_state=None,
     checkpoint_callback=None,
+    bvh_mode: str = BVH_MODE,
 ):
     """Render ``(steady (H, W, C), transient (H, W, T, C))`` for the
     scene's sensor, on the scene's device.
@@ -68,6 +71,8 @@ def render(
     iterations the JAX loop runs) and ``loop_iters`` (iterations this loop
     ran, one launch of each kernel apiece).  As in the JAX regen branch,
     ``checkpoint_callback`` is not called: the render is one pass.
+    ``bvh_mode`` (``"chunk"`` or ``"super"``) is the BVH kernel's traversal
+    mode in scenes with an accel (``ops/bvh.py``).
     """
     cfg = scene.sensors[sensor]
     icfg = scene.integrator
@@ -85,6 +90,8 @@ def render(
             and not film_cfg.is_cropped
             and spp >= 8
         )
+    if bvh_mode not in MODES:
+        raise ValueError(f"bvh_mode {bvh_mode!r}: expected one of {MODES}")
     if film_state is not None:  # resuming implies the multi-pass accumulator
         _refuse_multipass("film_state")
     if not regenerate:
@@ -101,7 +108,7 @@ def render(
     film, n_rays, iters, loop_iters = _regen_render(
         primal_sd(scene.data), cam, film, seed,
         film_cfg=film_cfg, icfg=icfg, spp_total=spp,
-        lanes_per_pixel=lanes_per_pixel)
+        lanes_per_pixel=lanes_per_pixel, bvh_mode=bvh_mode)
     if progress_callback is not None:
         progress_callback(1.0)
     steady, transient = develop(film, film_cfg)

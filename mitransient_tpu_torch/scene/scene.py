@@ -1,8 +1,8 @@
 """Loaded scene tables and device-side scene queries.
 
 Counterpart of ``mitransient_tpu/scene/scene.py`` for the slice the port
-runs today: triangle soups without an acceleration structure, diffuse
-BSDFs and area emitters.  Everything the device touches lives in
+runs today: triangle soups, with the chunked acceleration structure of
+``ops/accel.py`` above 4096 triangles, diffuse BSDFs and area emitters.  Everything the device touches lives in
 :class:`SceneData`, a NamedTuple of flat tensors on one device.  Row
 lookups are plain ``index_select`` gathers; the JAX package's one-hot
 matmuls (``ops/gather.py``) were a TPU workaround and give the same values.
@@ -22,6 +22,8 @@ import torch
 from ..core.frame import Frame
 from ..core.math import dot, safe_div
 from ..core.records import DirectionSample, Ray, SurfaceInteraction
+from ..ops.bvh import BVH_MODE
+from ..ops.accel import Accel
 from ..ops.intersect import closest_hit as _closest_hit_q
 from ..ops.intersect import ray_test as _ray_test_q
 
@@ -102,6 +104,9 @@ class SceneData(NamedTuple):
     tri: Triangles
     bsdf: BSDFParams
     emitter: EmitterParams
+    # chunked acceleration structure for scenes above ACCEL_MIN_TRIS
+    # triangles (ops/accel.py); None for small scenes
+    accel: Accel | None = None
     geom: GeomParams | None = None
 
 
@@ -114,13 +119,14 @@ def primal_sd(sd: SceneData) -> SceneData:
 # Ray queries
 # --------------------------------------------------------------------------
 
-def ray_intersect(sd: SceneData, ray: Ray,
-                  active: torch.Tensor) -> SurfaceInteraction:
+def ray_intersect(sd: SceneData, ray: Ray, active: torch.Tensor,
+                  bvh_mode: str = BVH_MODE) -> SurfaceInteraction:
     """Closest hit + shading record (``mi.Scene.ray_intersect``).  The
-    kernel's inputs are detached: visibility is a discrete choice."""
+    kernel's inputs are detached: visibility is a discrete choice.
+    ``bvh_mode`` is the traversal mode of scenes with an accel."""
     t, prim = _closest_hit_q(
         sd.tri.v0, sd.tri.e1, sd.tri.e2, ray.o.detach(), ray.d.detach(),
-        ray.maxt.detach(), active)
+        ray.maxt.detach(), active, accel=sd.accel, bvh_mode=bvh_mode)
     return _si_from_t_prim(sd, ray, t, prim)
 
 
@@ -174,12 +180,14 @@ def _si_from_t_prim(sd: SceneData, ray: Ray, t, prim) -> SurfaceInteraction:
 
 
 def ray_test(sd: SceneData, o: torch.Tensor, d_unit: torch.Tensor,
-             dist: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+             dist: torch.Tensor, active: torch.Tensor,
+             bvh_mode: str = BVH_MODE) -> torch.Tensor:
     """Occlusion between ``o`` and ``o + d_unit * dist`` (shadow ray), with
     the far end shortened by 0.1%; cf. ``mi.Scene.ray_test``."""
     maxt = dist * (1.0 - 1e-3)
     return _ray_test_q(sd.tri.v0, sd.tri.e1, sd.tri.e2, o.detach(),
-                       d_unit.detach(), maxt.detach(), active)
+                       d_unit.detach(), maxt.detach(), active, accel=sd.accel,
+                       bvh_mode=bvh_mode)
 
 
 # --------------------------------------------------------------------------
@@ -226,6 +234,7 @@ def sample_emitter_direction(
     sample2: torch.Tensor,
     test_visibility: bool,
     active: torch.Tensor,
+    bvh_mode: str = BVH_MODE,
 ):
     """Next-event estimation sample (``mi.Scene.sample_emitter_direction``).
 
@@ -266,7 +275,7 @@ def sample_emitter_direction(
     valid = active & (pdf > 0.0) & (torch.abs(spec).sum(dim=-1) > 0.0)
     if test_visibility:
         o = ref_p + d * 1e-4  # offset along the connection
-        occluded = ray_test(sd, o, d, dist - 2e-4, valid)
+        occluded = ray_test(sd, o, d, dist - 2e-4, valid, bvh_mode)
         valid = valid & ~occluded
 
     weight = torch.where(valid[:, None], safe_div(spec, pdf[:, None]), 0.0)

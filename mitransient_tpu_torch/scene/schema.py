@@ -2,14 +2,18 @@
 :class:`SceneData` on one device.
 
 Counterpart of ``mitransient_tpu/scene/schema.py`` for the plugin set of
-the transient Cornell box: ``rectangle`` and ``cube`` shapes, ``diffuse``
-BSDFs (top level, nested or by ``ref``), ``area`` emitters, the
-``perspective`` sensor with a ``transient_hdr_film`` and the
-``transient_path`` integrator.  Every other plugin raises
-``NotImplementedError`` naming the ROADMAP item that will port it.
+the transient Cornell box and of large meshes: ``rectangle``, ``cube``,
+``obj``, ``ply`` and in-memory ``mesh`` shapes, ``diffuse`` BSDFs (top
+level, nested or by ``ref``), ``area`` emitters, the ``perspective``
+sensor with a ``transient_hdr_film`` and the ``transient_path``
+integrator.  Every other plugin raises ``NotImplementedError`` naming the
+ROADMAP item that will port it.
 
 The tables are built on the host with numpy exactly as the JAX loader
-builds them, then each one is moved to ``device`` once.
+builds them, then each one is moved to ``device`` once.  Above
+``ACCEL_MIN_TRIS`` triangles the loader also builds the chunked
+acceleration structure (``ops/accel.py``).  The device is the card unless
+the caller asks for the CPU.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import torch
 
 from ..core.spectrum import Variant, variant
 from ..core.transform import from_spec
+from ..ops.accel import ACCEL_MIN_TRIS, build_accel
 from .scene import (
     BSDF_DIFFUSE,
     EM_AREA,
@@ -33,10 +38,6 @@ from .shapes import SHAPE_REGISTRY, Shape
 
 RGB_TO_LUMA = np.array([0.212671, 0.715160, 0.072169])
 
-# Above this triangle count the JAX package builds a BVH and runs its BVH
-# kernels (ops/accel.py ACCEL_MIN_TRIS); the port has no BVH yet.
-ACCEL_MIN_TRIS = 4096
-
 # BSDF plugin types of the JAX package; all but "diffuse" are refused.
 _BSDF_TYPES = (
     "diffuse", "conductor", "mirror", "roughconductor",
@@ -47,8 +48,7 @@ _BSDF_TYPES = (
 _ROADMAP_ITEM = {
     # scene entries the JAX package accepts and the port does not yet
     "bsdf": "11", "angulararea": "11", "projector": "11", "point": "11",
-    "spot": "11", "thinlens": "11", "obj": "11", "ply": "11", "mesh": "11",
-    "texture": "11", "homogeneous": "15", "heterogeneous": "15",
+    "spot": "11", "thinlens": "11", "texture": "11", "homogeneous": "15", "heterogeneous": "15",
     "transient_nlos_path": "13", "nlos_capture_meter": "13",
     "irradiancemeter": "13", "transient_prbvolpath": "15", "path": "10",
     "phasor_hdr_film": "12",
@@ -60,6 +60,17 @@ def _not_ported(what: str, key: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to mitransient_tpu_torch yet "
         f"(ROADMAP item {item})")
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device must exist."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r}: no CUDA device is available "
+            "(torch.cuda.is_available() is false); pass device='cpu' to "
+            "run the plain PyTorch versions on the CPU")
+    return dev
 
 
 def parse_color(spec: Any, channels: int) -> np.ndarray:
@@ -223,11 +234,11 @@ class _EmitterEntry(NamedTuple):
 
 class Scene:
     """Loaded scene: host-side object model + :class:`SceneData` on
-    ``device``."""
+    ``device``; relative mesh file names resolve against ``base_dir``."""
 
-    def __init__(self, desc: dict, device="cpu"):
+    def __init__(self, desc: dict, device="cuda", base_dir: str = "."):
         self.variant: Variant = variant()
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         C = self.variant.color_channels
         self.integrator = IntegratorConfig()
         self.sensors: list[SensorConfig] = []
@@ -274,6 +285,7 @@ class Scene:
                 shape_idx = len(self.shapes)
                 props = dict(val)
                 props["id"] = key
+                props["_base_dir"] = base_dir
                 shape = SHAPE_REGISTRY[t](props)
                 bsdf_idx = None
                 for ck, cv in val.items():
@@ -337,10 +349,6 @@ class Scene:
         count = sum(counts)
         if count == 0:
             raise ValueError("scene has no geometry")
-        if count > ACCEL_MIN_TRIS:
-            raise NotImplementedError(
-                f"{count} triangles: scenes above {ACCEL_MIN_TRIS} triangles "
-                "need the BVH kernels, not ported yet (ROADMAP item 17)")
         starts = np.cumsum([0] + counts[:-1])
         self.shape_tri_ranges = list(zip(starts.tolist(), counts))
 
@@ -394,7 +402,10 @@ class Scene:
             return type(table)(*(torch.from_numpy(np.ascontiguousarray(a))
                                  .to(self.device) for a in table))
 
-        return SceneData(**{k: dev(v) for k, v in host.items()})
+        accel = None
+        if count > ACCEL_MIN_TRIS:
+            accel = build_accel(v0, e1, e2, device=self.device)
+        return SceneData(**{k: dev(v) for k, v in host.items()}, accel=accel)
 
     def _emitter_table(self, C, v0, e1, e2, ng, area, shape_id):
         E = len(self._emitters)
@@ -447,9 +458,11 @@ class Scene:
         )
 
 
-def load_dict(desc: dict, device="cpu") -> Scene:
+def load_dict(desc: dict, device="cuda", base_dir: str = ".") -> Scene:
     """Entry point mirroring ``mi.load_dict``; ``scene.data`` lives on
-    ``device`` and :func:`render` runs there."""
+    ``device`` (the card by default; ``"cpu"`` runs the plain versions)
+    and :func:`render` runs there.  Without a CUDA device the default
+    raises rather than falling back to the CPU."""
     if desc.get("type") != "scene":
         raise ValueError("top-level dict must have type='scene'")
-    return Scene(desc, device=device)
+    return Scene(desc, device=device, base_dir=base_dir)

@@ -59,7 +59,7 @@ def _inputs(seed=0):
 
 def _lanes(ids):
     jbp = mitr.load_dict(mitr.cornell_box()).data.bsdf
-    tbp = mt.load_dict(mt.cornell_box()).data.bsdf
+    tbp = mt.load_dict(mt.cornell_box(), device="cpu").data.bsdf
     return (jb.gather_lane_bsdf(jbp, jnp.asarray(ids)),
             tb.gather_lane_bsdf(tbp, torch.from_numpy(ids)))
 

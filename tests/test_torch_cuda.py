@@ -1,4 +1,5 @@
-"""CUDA kernels K1-K3 of the PyTorch port against their plain versions.
+"""CUDA kernels of the PyTorch port (K1-K3 and the BVH kernel) against
+their plain versions.
 
 Every test is marked ``cuda`` and skips without an NVIDIA GPU.  This file
 imports neither jax nor the JAX package, so on a machine with only PyTorch
@@ -7,7 +8,7 @@ it runs with ``python -m pytest tests/test_torch_cuda.py -m cuda
 
 Tolerances: the kernels are built with ``--fmad=false`` and follow the
 plain versions' operation order, so ``prim``, ``occluded`` and ``t`` must
-be equal.  The plain splat adds with atomics on the card (order varies),
+be equal (for the BVH kernel: all rays of a 2^14-ray set).  The plain splat adds with atomics on the card (order varies),
 so the film is held to 1e-6 of its maximum.
 """
 import numpy as np
@@ -17,12 +18,16 @@ import torch
 import mitransient_tpu_torch as mt
 from mitransient_tpu_torch.film import transient_film as tf
 from mitransient_tpu_torch.kernels import launch_counts, reset_launch_counts
+from mitransient_tpu_torch.ops import bvh
 from mitransient_tpu_torch.ops import intersect as isect
+from mitransient_tpu_torch.sensors.perspective import build_camera
 from torch_cases import (
+    box_rays,
     golden_mismatch,
     random_rays,
     random_soup,
     small_cbox,
+    small_sphere_cbox,
     splat_events,
 )
 
@@ -131,6 +136,78 @@ def test_small_render_on_cuda_goes_through_the_kernels(cuda):
     assert n > 0 and counts_g == {"closest_hit": n, "ray_test": n,
                                   "splat_accumulate": n}
     assert np.isfinite(s_g).all() and np.isfinite(t_g).all()
+    for got, want in ((s_g, s_c), (t_g, t_c)):
+        m = golden_mismatch(got, want)
+        assert m["shape_ok"] and m["n_bad"] == 0, m
+
+
+def _sphere_rays(scene, dev, n=1 << 14, seed=5):
+    cam = build_camera(scene.sensors[0], device="cpu")
+    rays = box_rays(np.random.default_rng(seed), n,
+                    cam.R.numpy().astype(np.float64), cam.origin.numpy(),
+                    cam.tan_half.numpy())
+    return tuple(torch.from_numpy(a).to(dev) for a in rays)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", bvh.MODES)
+@pytest.mark.parametrize("query", ["closest", "any", "mixed"])
+def test_bvh_kernel_matches_plain(cuda, mode, query):
+    scene = mt.load_dict(small_sphere_cbox(mt), device=cuda)
+    acc = scene.data.accel
+    assert acc is not None
+    rays = _sphere_rays(scene, cuda)
+    n = rays[0].shape[0]
+    n_closest = {"closest": n, "any": 0, "mixed": n // 2}[query]
+    reset_launch_counts()
+    t_k, p_k = bvh.query_kernel(acc, *rays, n_closest, mode)
+    assert launch_counts() == {f"bvh_query_{mode}": 1}
+    t_p, p_p = bvh.query_plain(acc, *rays, n_closest, mode)
+    torch.cuda.synchronize()
+    assert torch.equal(p_k, p_p)
+    assert torch.equal(t_k, t_p)
+    assert (p_k >= 0).any() and (p_k < 0).any()
+
+
+@pytest.mark.cuda
+def test_bvh_kernel_agrees_with_k1(cuda):
+    """Woop (BVH) against Moller-Trumbore (K1) brute force: the same hits
+    up to rounding at triangle edges (at most 1e-4 of the rays), and ``t``
+    under tests/test_accel.py's ``_same_hits`` rule (rtol 1e-3, atol 1e-4):
+    the two tests round ``t`` differently."""
+    scene = mt.load_dict(small_sphere_cbox(mt), device=cuda)
+    sd = scene.data
+    rays = _sphere_rays(scene, cuda, seed=6)
+    t_b, p_b = isect.closest_hit(sd.tri.v0, sd.tri.e1, sd.tri.e2, *rays,
+                                 accel=sd.accel)
+    t_1, p_1 = isect.closest_hit(sd.tri.v0, sd.tri.e1, sd.tri.e2, *rays)
+    torch.cuda.synchronize()
+    assert float((p_b != p_1).float().mean()) <= 1e-4
+    both = (p_b == p_1) & (p_b >= 0)
+    assert torch.allclose(t_b[both], t_1[both], rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", bvh.MODES)
+def test_small_sphere_render_on_cuda_goes_through_the_bvh_kernel(cuda, mode):
+    """The small sphere config on the card, in each traversal mode: the
+    BVH kernel launches twice per loop iteration (closest hit, shadow
+    rays), K1/K2 never, and the images agree with the port on the CPU
+    under the golden rule."""
+    out = {}
+    for dev in ("cpu", cuda):
+        scene = mt.load_dict(small_sphere_cbox(mt), device=dev)
+        reset_launch_counts()
+        s, t, stats = mt.render(scene, spp=8, seed=0, return_stats=True,
+                                bvh_mode=mode)
+        out[str(dev)] = (s.cpu().numpy(), t.cpu().numpy(), stats,
+                         launch_counts())
+    s_c, t_c, _, counts_c = out["cpu"]
+    s_g, t_g, stats_g, counts_g = out[str(cuda)]
+    assert counts_c == {}
+    n = stats_g["loop_iters"]
+    assert n > 0 and counts_g == {f"bvh_query_{mode}": 2 * n,
+                                  "splat_accumulate": n}
     for got, want in ((s_g, s_c), (t_g, t_c)):
         m = golden_mismatch(got, want)
         assert m["shape_ok"] and m["n_bad"] == 0, m

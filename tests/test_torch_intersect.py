@@ -32,7 +32,7 @@ torch.set_num_threads(1)
 
 def _soup(kind):
     if kind == "cbox":
-        sd = mt.load_dict(mt.cornell_box()).data
+        sd = mt.load_dict(mt.cornell_box(), device="cpu").data
         return tuple(a.numpy() for a in (sd.tri.v0, sd.tri.e1, sd.tri.e2))
     return random_soup(np.random.default_rng(11), 200)
 
@@ -52,7 +52,7 @@ def _rays(kind, soup, n=4000):
     if kind == "cbox":
         keep = _outside_cubes(o)
         o, d, maxt, act = o[keep], d[keep], maxt[keep], act[keep]
-        cam = mt.load_dict(mt.cornell_box()).sensors[0].to_world.m
+        cam = mt.load_dict(mt.cornell_box(), device="cpu").sensors[0].to_world.m
         o2, d2 = camera_rays(rng, n // 2, cam[:3, :3], cam[:3, 3],
                              np.array([0.357, 0.357]))
         o[: n // 2], d[: n // 2] = o2, d2  # half of them camera rays

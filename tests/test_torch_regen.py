@@ -24,7 +24,7 @@ GOLDEN = os.path.join(os.path.dirname(__file__), "goldens", "cbox_rgb.npz")
 
 
 def _render(desc, **kw):
-    s, t = mt.render(mt.load_dict(desc), **kw)
+    s, t = mt.render(mt.load_dict(desc, device="cpu"), **kw)
     return s.numpy(), t.numpy()
 
 
@@ -50,7 +50,7 @@ def test_matches_jax_render_and_ray_count():
     desc = small_cbox(mitr, 12, 12, 60, 5)
     js, jt, jstats = mitr.render(mitr.load_dict(desc), spp=12, seed=3,
                                  return_stats=True)
-    ts, tt, tstats = mt.render(mt.load_dict(desc), spp=12, seed=3,
+    ts, tt, tstats = mt.render(mt.load_dict(desc, device="cpu"), spp=12, seed=3,
                                return_stats=True)
     _assert_matches({"steady": ts.numpy(), "transient": tt.numpy()},
                     {"steady": np.asarray(js), "transient": np.asarray(jt)})
@@ -120,10 +120,16 @@ def test_output_does_not_depend_on_the_live_check_period(monkeypatch):
 
 
 def test_multipass_renders_are_refused():
-    scene = mt.load_dict(small_cbox(mt))
+    scene = mt.load_dict(small_cbox(mt), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
         mt.render(scene, spp=4)  # below 8 spp the JAX package goes multi-pass
     with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
         mt.render(scene, spp=8, regenerate=False)
     with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
         mt.render(scene, spp=8, film_state=object())
+
+
+def test_unknown_bvh_mode_is_refused():
+    scene = mt.load_dict(small_cbox(mt), device="cpu")
+    with pytest.raises(ValueError, match="bvh_mode"):
+        mt.render(scene, spp=8, bvh_mode="tree")

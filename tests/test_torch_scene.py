@@ -50,7 +50,7 @@ def both_scenes(request):
     mt.set_variant(request.param)
     try:
         desc = mitr.cornell_box()
-        yield mitr.load_dict(desc), mt.load_dict(desc)
+        yield mitr.load_dict(desc), mt.load_dict(desc, device="cpu")
     finally:
         mitr.set_variant(old)
         mt.set_variant("rgb")
@@ -76,12 +76,13 @@ def test_scene_leaves_equal_jax(both_scenes):
 def test_scene_data_from_numpy_round_trips(both_scenes):
     jsc, tsc = both_scenes
     leaves = scene_data_to_numpy(tsc.data)
-    back = scene_data_to_numpy(scene_data_from_numpy(leaves))
+    back = scene_data_to_numpy(scene_data_from_numpy(leaves, device="cpu"))
     assert back.keys() == leaves.keys()
     for k in leaves:
         np.testing.assert_array_equal(back[k], leaves[k], err_msg=k)
     # the JAX scene carried across gives the port's own tables
-    carried = scene_data_to_numpy(scene_data_from_numpy(jax_leaves(jsc.data)))
+    carried = scene_data_to_numpy(
+        scene_data_from_numpy(jax_leaves(jsc.data), device="cpu"))
     for k in leaves:
         np.testing.assert_allclose(carried[k], leaves[k], rtol=0, atol=1e-7,
                                    err_msg=k)
@@ -91,11 +92,12 @@ def test_scene_data_from_numpy_refuses_what_is_not_ported():
     leaves = jax_leaves(mitr.load_dict(mitr.cornell_box()).data)
     bad = dict(leaves, **{"bsdf.kind": np.array([0, 1, 0], np.int32)})
     with pytest.raises(NotImplementedError):
-        scene_data_from_numpy(bad)
+        scene_data_from_numpy(bad, device="cpu")
     with pytest.raises(NotImplementedError):
-        scene_data_from_numpy(dict(leaves, **{"bsdf.tex_id": np.zeros(3)}))
+        scene_data_from_numpy(dict(leaves, **{"bsdf.tex_id": np.zeros(3)}),
+                              device="cpu")
     sd = scene_data_from_numpy({k: v for k, v in leaves.items()
-                                if not k.startswith("geom.")})
+                                if not k.startswith("geom.")}, device="cpu")
     assert sd.geom is None
 
 
@@ -106,7 +108,7 @@ def test_build_camera_matches_jax(w, h, axis):
     desc["sensor"]["film"].update(width=w, height=h)
     desc["sensor"]["fov_axis"] = axis
     jcam = j_build_camera(mitr.load_dict(desc).sensors[0])
-    tcam = build_camera(mt.load_dict(desc).sensors[0])
+    tcam = build_camera(mt.load_dict(desc, device="cpu").sensors[0])
     for f in ("R", "origin", "tan_half"):
         np.testing.assert_array_equal(getattr(tcam, f).numpy(),
                                       np.asarray(getattr(jcam, f)), err_msg=f)
@@ -115,7 +117,7 @@ def test_build_camera_matches_jax(w, h, axis):
 def test_configs_match_jax():
     desc = small_cbox(mitr)
     desc["sensor"]["film"]["warn_negative"] = True
-    jsc, tsc = mitr.load_dict(desc), mt.load_dict(desc)
+    jsc, tsc = mitr.load_dict(desc), mt.load_dict(desc, device="cpu")
     for tcfg, jcfg in ((tsc.sensors[0].film, jsc.sensors[0].film),
                        (tsc.integrator, jsc.integrator)):
         for f in tcfg._fields:
@@ -128,7 +130,7 @@ def test_configs_match_jax():
 
 @pytest.mark.parametrize("change", [
     lambda d: d["white"].update(type="conductor"),
-    lambda d: d.update(extra={"type": "obj", "filename": "x.obj"}),
+    lambda d: d.update(extra={"type": "point", "intensity": 1.0}),
     lambda d: d.update(laser={"type": "projector"}),
     lambda d: d["sensor"]["film"].update(type="phasor_hdr_film"),
     lambda d: d["integrator"].update(type="transient_nlos_path"),
@@ -139,7 +141,21 @@ def test_unported_plugins_raise(change):
     desc = mt.cornell_box()
     change(desc)
     with pytest.raises(NotImplementedError, match="ROADMAP item"):
+        mt.load_dict(desc, device="cpu")
+
+
+def test_load_dict_defaults_to_the_card():
+    """Without ``device`` a scene goes to CUDA; where there is no CUDA
+    device that raises rather than quietly building on the CPU."""
+    desc = mt.cornell_box()
+    if torch.cuda.is_available():
+        assert mt.load_dict(desc).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         mt.load_dict(desc)
+    leaves = scene_data_to_numpy(mt.load_dict(desc, device="cpu").data)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        scene_data_from_numpy(leaves)
 
 
 def test_unported_variants_raise():
@@ -169,7 +185,8 @@ def _close(got, want, name):
 
 
 def test_ray_intersect_matches_jax():
-    jsc, tsc = mitr.load_dict(mitr.cornell_box()), mt.load_dict(mt.cornell_box())
+    jsc, tsc = (mitr.load_dict(mitr.cornell_box()),
+                mt.load_dict(mt.cornell_box(), device="cpu"))
     o, d, maxt, act = _query_rays(jsc)
     jsi = jscene.ray_intersect(jscene.primal_sd(jsc.data),
                                JRay(jnp.asarray(o), jnp.asarray(d),
@@ -193,7 +210,7 @@ def test_ray_intersect_matches_jax():
 
 
 def test_ray_intersect_refuses_geometry_deltas():
-    tsc = mt.load_dict(mt.cornell_box())
+    tsc = mt.load_dict(mt.cornell_box(), device="cpu")
     ray = Ray.make(torch.zeros((4, 3)), torch.tensor([[0.0, 0.0, -1.0]] * 4))
     with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
         tscene.ray_intersect(tsc.data, ray, torch.ones(4, dtype=torch.bool))
@@ -202,7 +219,8 @@ def test_ray_intersect_refuses_geometry_deltas():
 def test_emitter_queries_match_jax():
     """NEE sampling with the shadow-ray test, the MIS pdf at emitter hits
     and the radiance seen at hits."""
-    jsc, tsc = mitr.load_dict(mitr.cornell_box()), mt.load_dict(mt.cornell_box())
+    jsc, tsc = (mitr.load_dict(mitr.cornell_box()),
+                mt.load_dict(mt.cornell_box(), device="cpu"))
     jsd, tsd = jscene.primal_sd(jsc.data), tscene.primal_sd(tsc.data)
     o, d, maxt, act = _query_rays(jsc, seed=1)
     jsi = jscene.ray_intersect(jsd, JRay(jnp.asarray(o), jnp.asarray(d),

@@ -22,6 +22,58 @@ def small_cbox(mt, w=16, h=16, bins=120, max_depth=6):
     return d
 
 
+def uv_sphere(rings: int, segments: int, radius: float = 1.0,
+              center=(0.0, 0.0, 0.0)):
+    """(vertices (V, 3) f64, faces (F, 3) int32) of a UV sphere: two poles
+    and ``rings - 1`` circles of ``segments`` vertices, y up, every
+    triangle facing outward; ``segments * (2 * rings - 2)`` triangles
+    (48 x 48: 4,512; 256 x 512: 261,120)."""
+    theta = np.pi * np.arange(1, rings) / rings
+    phi = 2.0 * np.pi * np.arange(segments) / segments
+    st, ct = np.sin(theta)[:, None], np.cos(theta)[:, None]
+    ring = np.stack([st * np.cos(phi),
+                     np.broadcast_to(ct, (rings - 1, segments)),
+                     st * np.sin(phi)], axis=-1).reshape(-1, 3)
+    verts = np.concatenate([[[0.0, 1.0, 0.0]], ring, [[0.0, -1.0, 0.0]]])
+    j = np.arange(segments)
+    j1 = (j + 1) % segments
+    faces = [np.stack([np.zeros_like(j), 1 + j1, 1 + j], axis=-1)]
+    for i in range(rings - 2):
+        a, b = 1 + i * segments + j, 1 + i * segments + j1
+        faces += [np.stack([a, b, a + segments], axis=-1),
+                  np.stack([b, b + segments, a + segments], axis=-1)]
+    base = 1 + (rings - 2) * segments
+    faces.append(np.stack([np.full_like(j, len(verts) - 1), base + j,
+                           base + j1], axis=-1))
+    verts = np.asarray(center, np.float64) + radius * verts
+    return verts, np.concatenate(faces).astype(np.int32)
+
+
+SPHERE_RADIUS = 0.3
+SPHERE_CENTER = (0.335, -0.7, 0.38)  # where cornell_box() has its small box
+
+
+def with_sphere(desc: dict, rings: int, segments: int) -> dict:
+    """``desc`` with its ``small-box`` cube replaced, in place in the shape
+    order, by a diffuse white UV sphere ``mesh`` of radius 0.3."""
+    verts, faces = uv_sphere(rings, segments, SPHERE_RADIUS, SPHERE_CENTER)
+    sphere = {"type": "mesh", "vertices": verts, "faces": faces,
+              "bsdf": {"type": "ref", "id": "white"}}
+    return {k: (sphere if k == "small-box" else v) for k, v in desc.items()}
+
+
+def cbox_mesh(mt, rings=256, segments=512):
+    """The large-mesh config: cornell_box() (256x256, 300 bins, depth 8)
+    with a 261,120-triangle sphere for the small box."""
+    return with_sphere(mt.cornell_box(), rings, segments)
+
+
+def small_sphere_cbox(mt):
+    """small_cbox() with a 48 x 48 sphere (4,512 triangles, just above the
+    4,096 at which the loader builds an accel) for the small box."""
+    return with_sphere(small_cbox(mt), 48, 48)
+
+
 def golden_mismatch(got: np.ndarray, want: np.ndarray) -> dict:
     """Compare a render with a golden under test_golden's rule (rtol 5e-4,
     atol 5e-5 * max|want|).  Returns the share of elements within that
@@ -100,6 +152,18 @@ def camera_rays(rng: np.random.Generator, n: int, R: np.ndarray,
     d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
     o = np.broadcast_to(origin, (n, 3)).astype(np.float32)
     return o, d
+
+
+def box_rays(rng: np.random.Generator, n: int, R: np.ndarray,
+             origin: np.ndarray, tan_half: np.ndarray):
+    """The kernels' test rays for a box scene: half camera rays (inf maxt,
+    a tenth inactive), half ``random_rays`` inside the box."""
+    half = n // 2
+    o_c, d_c = camera_rays(rng, half, R, origin, tan_half)
+    o_r, d_r, maxt_r, act_r = random_rays(rng, n - half)
+    return (np.concatenate([o_c, o_r]), np.concatenate([d_c, d_r]),
+            np.concatenate([np.full(half, np.inf, np.float32), maxt_r]),
+            np.concatenate([rng.random(half) >= 0.1, act_r]))
 
 
 def splat_events(rng: np.random.Generator, lanes: int, hw: int, bins: int,
