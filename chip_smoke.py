@@ -10,7 +10,10 @@ Phases, each of which raises on failure:
 1. Build the CUDA kernels from ``mitransient_tpu_torch/csrc`` (one nvcc per
    source, in parallel) and print ptxas' register and spill report.
 2. K1-K3 against their plain PyTorch versions at the flagship's shapes
-   (2^21 rays against the 36-triangle box; a (3, 301, 65536) film).
+   (2^21 rays against the 36-triangle box; a (3, 301, 65536) film).  K3's
+   film must be bit-equal to the plain version run on a copy on the host
+   CPU (sequential adds), on random events and on the events of one loop
+   iteration of a flagship render, and is timed on both.
 3. The flagship transient Cornell box (256x256, 300 bins, max_depth 8,
    spp 1024) on the card: each of K1-K3 launches once per loop iteration,
    the physics checks pass; rays/s of a second render.
@@ -22,7 +25,10 @@ Phases, each of which raises on failure:
    (closest, any hit, mixed at n_closest = N/2), launched on all 2^21
    rays: every 32nd ray (2^16 of them) is held against ``query_plain`` on
    the same rays, ``t`` bit-equal and ``prim`` equal, at most
-   ``MAX_RAY_MISMATCHES`` rays out.
+   ``MAX_RAY_MISMATCHES`` rays out.  Chunk mode also counts, on all rays,
+   its chunk-tree box tests and triangle tests per ray and the share of
+   rays whose queue overflowed; on the subset its triangle tests must equal
+   ``query_plain``'s (both sweep the same chunks).
 7. The BVH kernel (Woop) in each mode against K1's brute force
    (Moller-Trumbore) on all 2^21 rays: the share of rays whose ``prim``
    differs (rounding at triangle edges) must be at most
@@ -57,7 +63,7 @@ FLAGSHIP = dict(spp=1024, seed=0)  # cornell_box(): 256x256, 300 bins, depth 8
 N_RAYS = 1 << 21  # the flagship's lanes: 65536 pixels x 32 lanes per pixel
 SPLAT_LANES, SPLAT_BINS = 32, 300  # film (3, 301, 65536), two event sets
 MAX_RAY_MISMATCHES = 2  # of N_RAYS for K1 and K2, of BVH_SUBSET for BVH
-SPLAT_TOL = 1e-6  # K3: max abs error <= SPLAT_TOL * max|film|
+FLAGSHIP_EVENTS = dict(spp=64, seed=2, iteration=8)  # K3's render events
 TIMING_REPS = 20
 MESH = dict(spp=1024, seed=0)  # cbox_mesh: 256x256, 300 bins, depth 8
 PROFILE_SPP = 64  # the profiled render: the profiler slows the host
@@ -191,26 +197,89 @@ def check_kernels(mt, cases, dev):
         plain_ms=_time_ms(lambda: isect.ray_test_soup(*soup, o, d, maxt_sh,
                                                       active))))
 
-    # K3 splat, two event sets into a (3, 301, 65536) film
+    # K3 splat, two event sets into a (3, 301, 65536) film: random events
+    # and one loop iteration's events of a flagship render
     hw = 256 * 256
-    (ba, va), (bb, vb) = (
-        tuple(torch.from_numpy(a).to(dev)
-              for a in cases.splat_events(rng, SPLAT_LANES, hw, SPLAT_BINS))
-        for _ in range(2))
-    film_k = torch.zeros((3, SPLAT_BINS + 1, hw), device=dev)
-    film_p = torch.zeros_like(film_k)
-    tf.splat_accumulate(film_k, ba, va, bb, vb, spp=SPLAT_LANES)
-    tf._scatter_layout(film_p, hw, ba, va)
-    tf._scatter_layout(film_p, hw, bb, vb)
-    torch.cuda.synchronize()
-    k3_err = float((film_k - film_p).abs().max())
-    scale = float(film_p.abs().max())
-    print(f"K3 splat_accumulate: max |dfilm| {k3_err} (limit "
-          f"{SPLAT_TOL} * {scale})")
-    if not k3_err <= SPLAT_TOL * scale:
-        raise AssertionError("K3 disagrees with its plain version")
+    random_events = [
+        torch.from_numpy(a).to(dev) for _ in range(2)
+        for a in cases.splat_events(rng, SPLAT_LANES, hw, SPLAT_BINS)]
+    k3 = {name: check_splat(tf, events, hw, dev) for name, events in (
+        ("random", random_events), ("flagship", flagship_events(mt, dev)))}
+    for name, r in k3.items():
+        print(f"K3 splat_accumulate on {name} events: bit-equal to the plain "
+              f"version on the CPU; kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, index_add_ {r['library_ms']:.4f} ms")
+    film_bytes = 3 * (SPLAT_BINS + 1) * hw * 4
+    n_ev = SPLAT_LANES * hw
+    rows.append(dict(
+        **dict(zip(("bound_ms", "bound_by"), _bound(
+            2 * film_bytes + 2 * n_ev * (4 + 12), 2 * n_ev * 3))),
+        **k3["random"],
+        name="splat_accumulate", route="cuda",
+        source="mitransient_tpu_torch/csrc/splat.cu",
+        replaces="mitransient_tpu/ops/splat_pallas.py:36",
+        max_abs_err=0.0,
+        flagship_ms=k3["flagship"]["ms"],
+        flagship_library_ms=k3["flagship"]["library_ms"]))
+    for r in rows:
+        print(f"{r['name']}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), library {r['library_ms']} ms")
+    return rows
 
-    def plain_splat():
+
+def flagship_events(mt, dev):
+    """The two event sets (bins_a, vals_a, bins_b, vals_b) that one loop
+    iteration of a flagship render splats: FLAGSHIP_EVENTS' iteration of a
+    render at its spp and seed, copied as K3's wrapper receives them."""
+    import torch
+
+    from mitransient_tpu_torch.film import transient_film as tf
+
+    seen, kept = [], []
+    splat = tf.splat_accumulate
+
+    def capture(film, *events, spp):
+        if len(seen) == FLAGSHIP_EVENTS["iteration"]:
+            kept.extend(e.clone() for e in events)
+        seen.append(1)
+        splat(film, *events, spp=spp)
+
+    scene = mt.load_dict(mt.cornell_box(), device=dev)
+    tf.splat_accumulate = capture
+    try:
+        mt.render(scene, spp=FLAGSHIP_EVENTS["spp"],
+                  seed=FLAGSHIP_EVENTS["seed"])
+    finally:
+        tf.splat_accumulate = splat
+    torch.cuda.synchronize()
+    if len(kept) != 4:
+        raise AssertionError(f"the flagship render splatted {len(seen)} "
+                             "times, too few to capture its events")
+    return kept
+
+
+def check_splat(tf, events, hw, dev):
+    """K3 on two event sets into a zeroed (3, 301, hw) film: the film must
+    be bit-equal to the plain version run on the host CPU (which
+    adds in lane order).  -> the kernel's, the plain version's (on the
+    card, where index_add_ uses atomics) and one index_add_'s ms."""
+    import torch
+
+    ba, va, bb, vb = events
+    lanes = ba.shape[0] // hw
+    film_k = torch.zeros((3, SPLAT_BINS + 1, hw), device=dev)
+    film_c = torch.zeros(film_k.shape)
+    tf.splat_accumulate(film_k, ba, va, bb, vb, spp=lanes)
+    for b, v in ((ba, va), (bb, vb)):
+        tf._scatter_layout(film_c, hw, b.cpu(), v.cpu())
+    if not torch.equal(film_k.cpu(), film_c):
+        err = float((film_k.cpu() - film_c).abs().max())
+        raise AssertionError(f"K3 is not bit-equal to its plain version "
+                             f"(max |dfilm| {err})")
+    film_p = torch.zeros_like(film_k)
+
+    def plain():
         tf._scatter_layout(film_p, hw, ba, va)
         tf._scatter_layout(film_p, hw, bb, vb)
 
@@ -222,24 +291,12 @@ def check_kernels(mt, cases, dev):
     cells = torch.cat([(ch + b.long()[None] * hw + pix[None]).reshape(-1)
                        for b in (ba, bb)])
     vals = torch.cat([v.T.reshape(-1) for v in (va, vb)])
-    film_l = film_k.view(-1)
-    film_bytes = film_k.numel() * 4
-    rows.append(dict(
-        **dict(zip(("bound_ms", "bound_by"), _bound(
-            2 * film_bytes + 2 * n_ev * (4 + 12), 2 * n_ev * 3))),
-        library_ms=_time_ms(lambda: film_l.index_add_(0, cells, vals)),
-        name="splat_accumulate", route="cuda",
-        source="mitransient_tpu_torch/csrc/splat.cu",
-        replaces="mitransient_tpu/ops/splat_pallas.py:36",
-        max_abs_err=k3_err,
+    film_l = film_p.view(-1)
+    return dict(
         ms=_time_ms(lambda: tf.splat_accumulate(film_k, ba, va, bb, vb,
-                                                spp=SPLAT_LANES)),
-        plain_ms=_time_ms(plain_splat)))
-    for r in rows:
-        print(f"{r['name']}: kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}), library {r['library_ms']} ms")
-    return rows
+                                                spp=lanes)),
+        plain_ms=_time_ms(plain),
+        library_ms=_time_ms(lambda: film_l.index_add_(0, cells, vals)))
 
 
 def render_flagship(mt, cases, dev):
@@ -361,16 +418,26 @@ def check_bvh(mt, cases, dev, scene):
     # The bound counts the work the closest-hit query needs on these rays:
     # a box's slab test gives the same answer on every visit, so each box
     # at most once per ray, and no more box or triangle tests than the
-    # cheaper of the two modes makes.  Counted on the subset, scaled.
+    # least of the linear picks of both modes and the chunk tree makes.
+    # Counted on the subset, scaled.
     work = {}
     for mode in bvh.MODES:
         counts = {"slab": 0, "woop": 0, "box_once": 0}
         bvh.query_plain(acc, *sub, n, mode, counts=counts)
         work[mode] = {k: int(v) for k, v in counts.items()}
-        print(f"bvh {mode}: {work[mode]['slab'] / n:.1f} box tests "
+        print(f"bvh {mode} linear pick (query_plain): "
+              f"{work[mode]['slab'] / n:.1f} box tests "
               f"({work[mode]['box_once'] / n:.1f} of distinct boxes) and "
               f"{work[mode]['woop'] / n:.1f} triangle tests per ray")
-    box = min(w["box_once"] for w in work.values())
+    tree = tree_stats(bvh, acc, sub, n)
+    print(f"bvh chunk tree (kernel) on rays [::{stride}]: "
+          f"{tree['box_tests'] / n:.1f} box tests and "
+          f"{tree['triangle_tests'] / n:.1f} triangle tests per ray, "
+          f"{tree['overflow_rays']} rays overflowed the queue")
+    if tree["triangle_tests"] != work["chunk"]["woop"]:
+        raise AssertionError("the chunk tree swept other chunks than "
+                             "query_plain's linear pick")
+    box = min([w["box_once"] for w in work.values()] + [tree["box_tests"]])
     woop = min(w["woop"] for w in work.values())
     ops = N_RAYS / n * (box * SLAB_OPS + woop * WOOP_OPS)
     bound = _bound(N_RAYS * (12 + 12 + 4 + 1 + 8) + accel_bytes, ops)
@@ -380,11 +447,20 @@ def check_bvh(mt, cases, dev, scene):
     # Moller-Trumbore over the whole soup (K1), for the cross-check below
     t_1, p_1 = isect.closest_hit(sd.tri.v0, sd.tri.e1, sd.tri.e2, *rays)
     rows = []
+    stats = {}
     for mode in bvh.MODES:
         err = 0.0
         for query, n_closest in (("closest", N_RAYS), ("any", 0),
                                  ("mixed", N_RAYS // 2)):
             t_f, p_f = bvh.query_kernel(acc, *rays, n_closest, mode)
+            if mode == "chunk":
+                st = tree_stats(bvh, acc, rays, n_closest)
+                stats[query] = {k: v / N_RAYS for k, v in st.items()}
+                print(f"bvh chunk tree {query} on all {N_RAYS} rays: "
+                      f"{st['box_tests'] / N_RAYS:.2f} box tests, "
+                      f"{st['triangle_tests'] / N_RAYS:.2f} triangle tests "
+                      f"per ray; queue overflowed on "
+                      f"{st['overflow_rays'] / N_RAYS:.3e} of the rays")
             t_k, p_k = t_f[::stride], p_f[::stride]
             t_p, p_p = bvh.query_plain(acc, *sub, n_closest // stride, mode)
             torch.cuda.synchronize()
@@ -429,10 +505,22 @@ def check_bvh(mt, cases, dev, scene):
                               reps=3, warmup=1),
             plain_rays=n, bound_ms=bound[0], bound_by=bound[1],
             library_ms=None))
+        if mode == "chunk":  # per-ray counts of the chunk tree, all rays
+            rows[-1]["per_ray"] = stats
         print(f"bvh_query_{mode}: kernel {rows[-1]['ms']:.4f} ms at 2^21 "
               f"rays, plain {rows[-1]['plain_ms']:.4f} ms at 2^16 rays, "
               f"bound {bound[0]:.4f} ms ({bound[1]})")
     return rows
+
+
+def tree_stats(bvh, acc, rays, n_closest):
+    """Chunk mode's counts (``bvh.STATS``) over one launch on ``rays``."""
+    import torch
+
+    buf = torch.zeros(len(bvh.STATS), dtype=torch.int64,
+                      device=rays[0].device)
+    bvh.query_kernel(acc, *rays, n_closest, "chunk", stats=buf)
+    return dict(zip(bvh.STATS, buf.tolist()))
 
 
 def render_mesh(mt, cases, dev, scene):
@@ -498,7 +586,7 @@ def profile_mesh(mt, scene):
         end = max(end, b)
     groups = {}
     for e in kernels:
-        g = ("bvh_query" if "bvh_query" in e.name else
+        g = ("bvh_query" if "bvh_tree_kernel" in e.name else
              "splat" if "splat_kernel" in e.name else "other")
         groups[g] = groups.get(g, 0.0) + e.time_range.elapsed_us()
     total = sum(groups.values())
@@ -571,8 +659,8 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi.splitlines()[0])
     print(json.dumps({"kernels": [
-        {k: r[k] for k in keys + (("plain_rays",) if "plain_rays" in r
-                                  else ())} for r in rows]}))
+        {**{k: r[k] for k in keys}, **{k: v for k, v in r.items()
+                                        if k not in keys}} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

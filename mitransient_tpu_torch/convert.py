@@ -3,14 +3,16 @@
 The renderer's counterpart of carrying weights across: the JAX package's
 ``SceneData``, flattened by path into numpy arrays (``"tri.v0"``,
 ``"bsdf.reflectance"``, ...), becomes the port's :class:`SceneData`, so
-that both packages can trace the very same scene.
+that both packages can trace the very same scene.  The accel's chunk tree
+(``ops/accel.py:TREE_FIELDS``) is the port's own: it is rebuilt from the
+chunk bounds here and left out of the flattened leaves.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .ops.accel import Accel
+from .ops.accel import TREE_FIELDS, Accel, chunk_tree
 from .scene.schema import resolve_device
 from .scene.scene import (
     BSDF_DIFFUSE,
@@ -32,7 +34,8 @@ def scene_data_from_numpy(leaves: dict[str, np.ndarray],
     ``{"record.field": array}``.
 
     Every field of the port's records must be present (the ``accel`` and
-    ``geom`` records may be left out).  Media leaves (``medium.*``) are
+    ``geom`` records may be left out; the accel's tree is built from its
+    chunk bounds, not read).  Media leaves (``medium.*``) are
     ignored when no triangle has an interior medium.  A leaf the port cannot
     render - textures, another BSDF or emitter kind, media - raises
     ``NotImplementedError``.
@@ -55,8 +58,12 @@ def scene_data_from_numpy(leaves: dict[str, np.ndarray],
 
     def record(name):
         cls = _RECORDS[name]
-        return cls(*(torch.tensor(np.asarray(leaves[f"{name}.{f}"]),
-                                  device=device) for f in cls._fields))
+        host = {f: np.asarray(leaves[f"{name}.{f}"]) for f in cls._fields
+                if name != "accel" or f not in TREE_FIELDS}
+        if name == "accel":
+            host.update(chunk_tree(host["aabb_min"], host["aabb_max"]))
+        return cls(**{f: torch.tensor(a, device=device)
+                      for f, a in host.items()})
 
     def optional(name):
         has = any(k.startswith(name + ".") for k in leaves)
@@ -68,12 +75,14 @@ def scene_data_from_numpy(leaves: dict[str, np.ndarray],
 
 
 def scene_data_to_numpy(sd: SceneData) -> dict[str, np.ndarray]:
-    """Flatten the port's SceneData by path into host numpy arrays."""
+    """Flatten the port's SceneData by path into host numpy arrays: the
+    leaves of the JAX package's SceneData (no chunk tree)."""
     out = {}
     for name in SceneData._fields:
         rec = getattr(sd, name)
         if rec is None:
             continue
         for f in rec._fields:
-            out[f"{name}.{f}"] = getattr(rec, f).cpu().numpy()
+            if name != "accel" or f not in TREE_FIELDS:
+                out[f"{name}.{f}"] = getattr(rec, f).cpu().numpy()
     return out

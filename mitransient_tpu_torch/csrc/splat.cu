@@ -3,53 +3,117 @@
 // Replaces mitransient_tpu/ops/splat_pallas.py:_splat_kernel.  Lanes are
 // spp-major (lane = s * hw + p), so a lane's pixel is fixed and a splat is
 // a per-pixel histogram over time.  The TPU kernel sweeps the time axis
-// with dense compares because it has no scatter; here one thread owns one
-// pixel p and, for s = 0..L-1, adds lane s*hw + p of event set a into
-// film[c, bin, p], then does the same for event set b.  Only that thread
-// writes column p, so the kernel needs no atomics, is deterministic, and
-// adds in the order of the sequential scatter (all of set a, then set b).
+// with dense compares because it has no scatter.
+//
+// Bound: memory.  The least traffic is the film (C, t_pad, hw) read once
+// and written once plus the events, 2 * N * (4 + 4C) bytes.  One thread per
+// pixel working straight on the film in device memory would run only hw
+// threads (65,536 at 256x256), each making 2L dependent read-modify-writes
+// of 4-byte cells hw floats apart: latency bound, and a 32-byte sector
+// paid per touched cell.
+//
+// This design: a block owns P consecutive pixels and their film slab
+// (C, t_pad, P) in shared memory.  It
+//  1. loads the slab with every thread, coalesced (float4 where the rows
+//     are 16-byte aligned);
+//  2. applies the events in shared memory, one thread per (pixel, channel)
+//     walking lanes s = 0..L-1 of set a, then of set b, its loads of bins
+//     and values issued UNROLL lanes ahead;
+//  3. writes the slab back.
+// Only that thread adds into its cells, in the order of the sequential
+// scatter (all of set a, then set b, each in lane order), so the film is
+// bit-equal to the CPU plain version, with no atomics.  The wrapper
+// (film/transient_film.py) picks P so the slab fits.
 //
 // The film is updated IN PLACE (the JAX version donated the buffer and
 // returned a new one).  Bins outside [0, t_pad) are dropped, like the
 // scatter's mode="drop"; the film's overflow bin t_pad - 1 is kept and
 // sliced away by develop().
-//
-// Bound: memory.  Each call reads 2 * N * (4 + 4C) bytes of bins and values
-// (neighbouring threads read neighbouring lanes, so the reads coalesce)
-// plus the film lines it touches; film writes are coherent in bin because
-// neighbouring pixels see similar path lengths.  There are only hw threads
-// (65536 at 256x256), each running 2L dependent read-modify-writes, so the
-// kernel is latency bound at small hw; making it faster is later work.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BLOCK = 128;
+constexpr int BLOCK = 256;
+constexpr int UNROLL = 8;
+constexpr int MAX_SHARED_BYTES = 232448;
 
-__device__ __forceinline__ void add_events(float* __restrict__ film, int C,
-                                           int t_pad, int hw, int lanes, int p,
+// Adds one event set into the column `col` (cell (c, b, j) at col[b * P])
+// of the pixel p, channel c.
+__device__ __forceinline__ void add_events(float* col, int P, int C, int c,
+                                           int t_pad, int hw, int lanes,
+                                           int p,
                                            const int32_t* __restrict__ bins,
                                            const float* __restrict__ vals) {
-  for (int s = 0; s < lanes; ++s) {
-    const int64_t lane = (int64_t)s * hw + p;
-    const int b = bins[lane];
-    if (b < 0 || b >= t_pad) continue;
-    for (int c = 0; c < C; ++c) {
-      film[((int64_t)c * t_pad + b) * hw + p] += vals[lane * C + c];
+  for (int s0 = 0; s0 < lanes; s0 += UNROLL) {
+    int b[UNROLL];
+    float v[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int64_t lane = (int64_t)(s0 + u) * hw + p;
+      const bool in = s0 + u < lanes;
+      b[u] = in ? __ldg(bins + lane) : -1;
+      v[u] = in ? __ldg(vals + lane * C + c) : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u)
+      if (b[u] >= 0 && b[u] < t_pad) col[b[u] * P] += v[u];
+  }
+}
+
+// Copies the slab rows r = 0..rows-1 (P floats at film + r * hw) between
+// the film and shared memory, np of them real; P divides BLOCK.
+template <bool LOAD>
+__device__ __forceinline__ void copy_slab(float* __restrict__ film,
+                                          float* slab, int rows, int P,
+                                          int np, int hw, bool vec) {
+  if (vec) {  // np == P, P % 4 == 0, rows 16-byte aligned
+    const int q = P / 4;
+    const int j = threadIdx.x % q;
+    for (int r = threadIdx.x / q; r < rows; r += BLOCK / q) {
+      float4* g = reinterpret_cast<float4*>(film + (int64_t)r * hw) + j;
+      float4* sh = reinterpret_cast<float4*>(slab + r * P) + j;
+      if (LOAD)
+        *sh = *g;
+      else
+        *g = *sh;
+    }
+  } else {
+    const int j = threadIdx.x % P;
+    for (int r = threadIdx.x / P; r < rows; r += BLOCK / P) {
+      if (j >= np) continue;
+      if (LOAD)
+        slab[r * P + j] = film[(int64_t)r * hw + j];
+      else
+        film[(int64_t)r * hw + j] = slab[r * P + j];
     }
   }
 }
 
 __global__ void __launch_bounds__(BLOCK)
 splat_kernel(float* __restrict__ film, int C, int t_pad, int hw, int lanes,
-             const int32_t* __restrict__ bins_a, const float* __restrict__ vals_a,
+             int P, const int32_t* __restrict__ bins_a,
+             const float* __restrict__ vals_a,
              const int32_t* __restrict__ bins_b,
              const float* __restrict__ vals_b) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= hw) return;
-  add_events(film, C, t_pad, hw, lanes, p, bins_a, vals_a);
-  if (bins_b != nullptr) add_events(film, C, t_pad, hw, lanes, p, bins_b, vals_b);
+  extern __shared__ __align__(16) float slab[];  // (C * t_pad, P)
+  const int p0 = blockIdx.x * P;
+  const int np = min(P, hw - p0);
+  const int rows = C * t_pad;
+  float* base = film + p0;
+  const bool vec = np == P && P % 4 == 0 && hw % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(base) % 16 == 0;
+  copy_slab<true>(base, slab, rows, P, np, hw, vec);
+  __syncthreads();
+  for (int w = threadIdx.x; w < np * C; w += BLOCK) {
+    const int j = w / C, c = w - j * C;  // neighbouring threads: channels
+    float* col = slab + c * t_pad * P + j;
+    add_events(col, P, C, c, t_pad, hw, lanes, p0 + j, bins_a, vals_a);
+    if (bins_b != nullptr)
+      add_events(col, P, C, c, t_pad, hw, lanes, p0 + j, bins_b, vals_b);
+  }
+  __syncthreads();
+  copy_slab<false>(base, slab, rows, P, np, hw, vec);
 }
 
 }  // namespace
@@ -57,16 +121,25 @@ splat_kernel(float* __restrict__ film, int C, int t_pad, int hw, int lanes,
 extern "C" {
 
 // film: (C, t_pad, hw) f32, updated in place; bins_*: (lanes * hw,) int32;
-// vals_*: (lanes * hw, C) f32.  bins_b and vals_b may be null (one event set).
+// vals_*: (lanes * hw, C) f32.  bins_b and vals_b may be null (one event
+// set).  P: pixels per block, a power of two <= 32 whose slab
+// C * t_pad * P floats fits in shared memory.
 int mitr_splat_accumulate(float* film, int C, int t_pad, int hw, int lanes,
-                          const int32_t* bins_a, const float* vals_a,
+                          int P, const int32_t* bins_a, const float* vals_a,
                           const int32_t* bins_b, const float* vals_b,
                           void* stream) {
-  if (hw > 0 && lanes > 0) {
-    const int grid = (hw + BLOCK - 1) / BLOCK;
-    splat_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
-        film, C, t_pad, hw, lanes, bins_a, vals_a, bins_b, vals_b);
+  if (hw <= 0 || lanes <= 0) return (int)cudaGetLastError();
+  if (P < 1 || P > 32 || (P & (P - 1)) != 0) return (int)cudaErrorInvalidValue;
+  const int64_t smem = (int64_t)4 * C * t_pad * P;
+  if (smem > MAX_SHARED_BYTES) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        splat_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
   }
+  const int grid = (hw + P - 1) / P;
+  splat_kernel<<<grid, BLOCK, (size_t)smem, (cudaStream_t)stream>>>(
+      film, C, t_pad, hw, lanes, P, bins_a, vals_a, bins_b, vals_b);
   return (int)cudaGetLastError();
 }
 

@@ -27,6 +27,9 @@ import time
 from pathlib import Path
 from typing import NamedTuple
 
+# the dynamic shared memory a block may use on sm_90 (227 KB)
+MAX_SHARED_BYTES = 232448
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build"
@@ -43,9 +46,9 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "mitr_closest_hit": (_P, _I, _P, _P, _P, _P, _I, _P, _P, _P),
     "mitr_ray_test": (_P, _I, _P, _P, _P, _P, _I, _P, _P),
-    "mitr_splat_accumulate": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
-    "mitr_bvh_query": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
-                       _I, _I, _I, _P, _P, _P),
+    "mitr_splat_accumulate": (_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+    "mitr_bvh_query": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
+                       _P, _P, _I, _I, _I, _P, _P, _P, _P),
 }
 
 

@@ -7,7 +7,9 @@ Triangles are ordered by the native SAH builder (``native.build_bvh``),
 then cut into subtree-aligned chunks of at most ``2 * CHUNK_TRIS``
 triangles.  Each chunk is a page of Woop triangle records plus one AABB;
 groups of ``SUPER_CHUNKS`` consecutive chunks share a super-chunk AABB.
-``ops/bvh.py`` traverses the chunks front to back per ray.
+A binary tree over the chunk boxes (:func:`chunk_tree`, the port's own
+table; the JAX package has none) lets the chunk-mode kernel of
+``ops/bvh.py`` visit the chunks front to back without scanning them all.
 """
 from __future__ import annotations
 
@@ -21,6 +23,9 @@ from .. import native
 CHUNK_TRIS = 256  # target triangles per chunk; subtree cuts are <= 2x this
 ACCEL_MIN_TRIS = 4096  # scenes above this triangle count get an Accel
 SUPER_CHUNKS = 8  # chunks per super-chunk
+# Accel fields that chunk_tree derives from the chunk bounds; the JAX
+# package's Accel has the others
+TREE_FIELDS = ("tree_box", "tree_link")
 
 
 class Accel(NamedTuple):
@@ -34,6 +39,8 @@ class Accel(NamedTuple):
     #   per row: A = [e1 e2 n]^-1 row-major (fields 0:9), original prim id
     #   (-1 pad, field 9), c = A @ v0 (fields 10:13), 3 spare
     rows: torch.Tensor  # (C,) f32 rows of 8 triangles used per page
+    tree_box: torch.Tensor  # (2C-1, 6) f32 chunk-tree node bounds, min | max
+    tree_link: torch.Tensor  # (2C-1,) int32: right child, or -1 - chunk
 
 
 def woop_records(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray):
@@ -96,6 +103,52 @@ def _subtree_ranges(glob, m: int, max_tris: int):
     return ranges
 
 
+def chunk_tree(aabb_min: np.ndarray,
+               aabb_max: np.ndarray) -> dict[str, np.ndarray]:
+    """Binary tree over the C chunk boxes, as the Accel's ``tree_*`` tables.
+
+    Every node covers a contiguous range of chunk ids and its leaves are
+    chunks 0..C-1 in order.  Nodes are numbered in preorder: node i's left
+    child is i + 1, ``tree_link[i]`` its right child; a leaf has
+    ``tree_link = -1 - chunk``.  So for two nodes of which neither contains
+    the other, the lower number covers the lower chunk ids.  A node's box
+    ``tree_box[i] = [min xyz, max xyz]`` is the exact float32 min/max of its
+    chunks' boxes, hence of its children's.  Ranges are split where the
+    surface-area heuristic (box area times chunk count, both sides) is
+    least, the first such split on ties.  Built from the bounds alone, so
+    an Accel carried across from the JAX package gets the same tree."""
+    lo_b = np.asarray(aabb_min, np.float32)
+    hi_b = np.asarray(aabb_max, np.float32)
+    c = lo_b.shape[0]
+    box = np.zeros((2 * c - 1, 6), np.float32)
+    link = np.zeros(2 * c - 1, np.int32)
+
+    def half_area(lo, hi):
+        e = (hi - lo).astype(np.float64)
+        return (e[..., 0] * e[..., 1] + e[..., 1] * e[..., 2]
+                + e[..., 2] * e[..., 0])
+
+    stack = [(0, 0, c)]  # (node, first chunk, end chunk)
+    while stack:
+        node, a, b = stack.pop()
+        box[node, :3] = lo_b[a:b].min(axis=0)
+        box[node, 3:] = hi_b[a:b].max(axis=0)
+        if b - a == 1:
+            link[node] = -1 - a
+            continue
+        # left part [a, a+k), right part [a+k, b) for k = 1 .. b-a-1
+        left = half_area(np.minimum.accumulate(lo_b[a:b - 1]),
+                         np.maximum.accumulate(hi_b[a:b - 1]))
+        right = half_area(np.minimum.accumulate(lo_b[b - 1:a:-1])[::-1],
+                          np.maximum.accumulate(hi_b[b - 1:a:-1])[::-1])
+        k = np.arange(1, b - a)
+        m = a + 1 + int(np.argmin(left * k + right * (b - a - k)))
+        link[node] = node + 2 * (m - a)  # after the left subtree's nodes
+        stack.append((link[node], m, b))
+        stack.append((node + 1, a, m))
+    return {"tree_box": box, "tree_link": link}
+
+
 def build_accel_numpy(v0: np.ndarray, e1: np.ndarray,
                       e2: np.ndarray) -> dict[str, np.ndarray]:
     """The Accel tables as host arrays, keyed by field."""
@@ -137,6 +190,7 @@ def build_accel_numpy(v0: np.ndarray, e1: np.ndarray,
         "sup_max": smax.reshape(-1, SUPER_CHUNKS, 3).max(axis=1),
         "pages": tri16.reshape(c, cap // 8, 128),
         "rows": used_rows,
+        **chunk_tree(aabb_min, aabb_max),
     }
 
 

@@ -7,15 +7,14 @@ super-chunk), sort the rays by it, sweep the chunk pages (K4, or K6), with
 a candidate cache and an alive-compaction cascade.  That design exists
 because a TPU lane has no control flow of its own; a Hopper thread does.
 So the port traverses per ray, over the same :class:`~.accel.Accel`
-tables, in one launch per query:
+tables, in one launch per query.  What a query computes, the contract of
+both versions:
 
 1. ``best_t = min(maxt, BIG)`` for active rays, ``-BIG`` for inactive ones.
-2. Pick the next box front to back: among the chunks (``"chunk"`` mode) or
-   super-chunks (``"super"`` mode) whose slab test passes
-   (``tn <= tf``) with ``tn < best_t`` and whose ``(tn, id)`` comes
-   lexicographically after the ray's gate, the smallest ``(tn, id)``.
-   None left: the ray is done.  The pick becomes the new gate.
-3. Sweep the picked chunk's used page rows (in super mode: each of the
+2. The boxes (chunks in ``"chunk"`` mode, super-chunks in ``"super"``
+   mode) whose slab test passes (``tn <= tf``) are visited by increasing
+   ``(tn, id)``; the first one with ``tn >= best_t`` ends the query.
+3. A visited chunk's used page rows are swept (in super mode: each of the
    super-chunk's 8 chunks whose slab test passes against the current
    ``best_t``) with the Woop test of ``bvh_pallas._woop_update``, in
    triangle order; a hit must be strictly nearer, so on equal ``t`` the
@@ -26,13 +25,27 @@ tables, in one launch per query:
 
 Outputs are ``t`` (inf on a miss) and ``prim`` in the scene's original
 triangle numbering (-1 on a miss).  Every pick that the TPU's pass loop
-makes is one this loop makes, so ``t`` is the same closest hit; only the
+makes is one this order makes, so ``t`` is the same closest hit; only the
 order in which chunks are visited differs, which can change ``prim`` on an
 exact tie between triangles of different chunks.
 
-:func:`query_plain` runs the same algorithm in lockstep over blocks of
-rays; :func:`query_kernel` launches the CUDA kernel.  The public queries
-take the plain version for CPU tensors and the kernel for CUDA tensors.
+How each version finds the next box:
+
+* :func:`query_plain`, the plain version, picks it linearly: of all boxes
+  after the ray's gate (the last visited ``(tn, id)``) with ``tn < best_t``
+  the smallest ``(tn, id)``, by an (R, K) slab test over blocks of rays in
+  lockstep.
+* :func:`query_kernel` launches the CUDA kernel.  In chunk mode it walks
+  the Accel's chunk tree (``ops/accel.py:chunk_tree``) best first, with a
+  per-ray priority queue of tree nodes keyed by ``(tn, node)``; node boxes
+  are exact unions and the slab test is monotone, so it visits the same
+  chunks in the same order as the linear pick, bit for bit (the argument is
+  in ``csrc/bvh.cu``).  A ray whose queue fills goes on with the linear
+  pick from its gate.  In super mode it picks super-chunks linearly from
+  shared memory, as the plain version does.
+
+The public queries take the plain version for CPU tensors and the kernel
+for CUDA tensors.
 """
 from __future__ import annotations
 
@@ -50,8 +63,8 @@ BVH_MODE = "chunk"
 MODES = ("chunk", "super")
 # query_plain works on blocks of rays whose gathered pages take about this
 PLAIN_BLOCK_BYTES = 128 << 20
-# the kernel's dynamic shared memory: 7 floats per chunk (+6 per super)
-MAX_SHARED_BYTES = 232448
+# chunk mode's optional counts (query_kernel(stats=...)), in this order
+STATS = ("box_tests", "triangle_tests", "overflow_rays")
 
 
 def closest_hit_bvh(accel: Accel, ray_o, ray_d, maxt, active,
@@ -246,8 +259,12 @@ def query_plain(accel: Accel, ray_o, ray_d, maxt, active, n_closest: int,
 # --------------------------------------------------------------------------
 
 def query_kernel(accel: Accel, ray_o, ray_d, maxt, active, n_closest: int,
-                 mode: str = "chunk"):
-    """Launch the BVH kernel of ``csrc/bvh.cu`` on CUDA tensors."""
+                 mode: str = "chunk", stats=None):
+    """Launch the BVH kernel of ``csrc/bvh.cu`` on CUDA tensors.
+
+    ``stats``: None, or a zeroed (3,) int64 CUDA tensor into which chunk
+    mode adds the slab tests of tree nodes and chunks, the triangle tests
+    and the rays whose queue overflowed (names in :data:`STATS`)."""
     kernel = f"bvh_query_{mode}"
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}: expected one of {MODES}")
@@ -258,26 +275,34 @@ def query_kernel(accel: Accel, ray_o, ray_d, maxt, active, n_closest: int,
     c, page_rows, width = accel.pages.shape
     s = accel.sup_min.shape[0]
     f32 = torch.float32
-    if width != 128 or s != -(-c // SUPER_CHUNKS):
+    if width != 128 or c < 1 or s != -(-c // SUPER_CHUNKS):
         raise ValueError(f"{kernel}: malformed accel (pages "
                          f"{tuple(accel.pages.shape)}, {s} supers)")
     if not 0 <= n_closest <= n:
         raise ValueError(f"{kernel}: n_closest {n_closest} not in [0, {n}]")
-    smem = 4 * (7 * c + (6 * s if mode == "super" else 0))
-    if smem > MAX_SHARED_BYTES:
+    smem = 4 * (7 * c + 6 * s)  # super mode stages its bounds
+    if mode == "super" and smem > _build.MAX_SHARED_BYTES:
         raise ValueError(f"{kernel}: {c} chunks need {smem} bytes of shared "
-                         f"memory, more than {MAX_SHARED_BYTES}")
+                         f"memory, more than {_build.MAX_SHARED_BYTES}")
     for name, t, shape in (
             ("aabb_min", accel.aabb_min, (c, 3)),
             ("aabb_max", accel.aabb_max, (c, 3)),
             ("rows", accel.rows, (c,)),
             ("sup_min", accel.sup_min, (s, 3)),
             ("sup_max", accel.sup_max, (s, 3)),
+            ("tree_box", accel.tree_box, (2 * c - 1, 6)),
             ("pages", accel.pages, (c, page_rows, 128)),
             ("ray_o", ray_o, (n, 3)), ("ray_d", ray_d, (n, 3)),
             ("maxt", maxt, (n,))):
         _build.require(kernel, name, t, f32, shape, dev)
+    _build.require(kernel, "tree_link", accel.tree_link, torch.int32,
+                   (2 * c - 1,), dev)
     _build.require(kernel, "active", active, torch.bool, (n,), dev)
+    if stats is not None:
+        if mode != "chunk":
+            raise ValueError(f"{kernel}: stats are counted in chunk mode only")
+        _build.require(kernel, "stats", stats, torch.int64, (len(STATS),),
+                       dev)
     lib = _build.library()
     t_out = torch.empty((n,), dtype=f32, device=dev)
     prim = torch.empty((n,), dtype=torch.int32, device=dev)
@@ -285,10 +310,13 @@ def query_kernel(accel: Accel, ray_o, ray_d, maxt, active, n_closest: int,
         err = lib.mitr_bvh_query(
             accel.aabb_min.data_ptr(), accel.aabb_max.data_ptr(),
             accel.rows.data_ptr(), accel.sup_min.data_ptr(),
-            accel.sup_max.data_ptr(), accel.pages.data_ptr(), c, s,
+            accel.sup_max.data_ptr(), accel.tree_box.data_ptr(),
+            accel.tree_link.data_ptr(), accel.pages.data_ptr(), c, s,
             page_rows, ray_o.data_ptr(), ray_d.data_ptr(), maxt.data_ptr(),
             active.data_ptr(), n, n_closest, int(mode == "super"),
-            t_out.data_ptr(), prim.data_ptr(), _build.stream_of(dev))
+            t_out.data_ptr(), prim.data_ptr(),
+            None if stats is None else stats.data_ptr(),
+            _build.stream_of(dev))
     _build.check(err, kernel)
     _build.count_launch(kernel)
     return t_out, prim

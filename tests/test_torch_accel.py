@@ -2,7 +2,8 @@
 package on the CPU.
 
 - ``build_accel`` builds the very tables of ``mitransient_tpu.ops.accel``
-  (``np.array_equal`` on every field): same native SAH builder, same numpy.
+  (``np.array_equal`` on every field): same native SAH builder, same numpy;
+  the port's own chunk tree is the one built from the JAX chunk bounds.
 - ``query_plain`` (the plain version of the BVH kernel) against the JAX
   package's Pallas BVH kernels in interpret mode, on ``_soup``-sized inputs
   (tests/test_accel.py:18-26; interpret mode takes seconds per query).
@@ -85,9 +86,11 @@ def test_build_accel_equals_jax(case):
     assert native.available()
     want = JA.build_accel(*soup)
     got = TA.build_accel(*soup, device="cpu")
-    assert got._fields == want._fields
-    for f in want._fields:
-        w, g = np.asarray(getattr(want, f)), getattr(got, f).numpy()
+    assert got._fields == want._fields + TA.TREE_FIELDS
+    tree = TA.chunk_tree(np.asarray(want.aabb_min), np.asarray(want.aabb_max))
+    for f in got._fields:
+        w = tree[f] if f in tree else np.asarray(getattr(want, f))
+        g = getattr(got, f).numpy()
         assert g.dtype == w.dtype and np.array_equal(g, w), f
     if case == "pad_chunks":
         assert got.pages.shape[0] % TA.SUPER_CHUNKS != 0

@@ -8,8 +8,11 @@ it runs with ``python -m pytest tests/test_torch_cuda.py -m cuda
 
 Tolerances: the kernels are built with ``--fmad=false`` and follow the
 plain versions' operation order, so ``prim``, ``occluded`` and ``t`` must
-be equal (for the BVH kernel: all rays of a 2^14-ray set).  The plain splat adds with atomics on the card (order varies),
-so the film is held to 1e-6 of its maximum.
+be equal (for the BVH kernel: all rays of a 2^14-ray set, and on a soup
+whose rays overflow the chunk-mode queue).  The plain splat adds with
+atomics on the card (order varies), so against it the film is held to
+1e-6 of its maximum; against the plain version on the host CPU, which adds
+in lane order as K3 does, it must be bit-equal.
 """
 import numpy as np
 import pytest
@@ -20,10 +23,13 @@ from mitransient_tpu_torch.film import transient_film as tf
 from mitransient_tpu_torch.kernels import launch_counts, reset_launch_counts
 from mitransient_tpu_torch.ops import bvh
 from mitransient_tpu_torch.ops import intersect as isect
+from mitransient_tpu_torch.ops.accel import build_accel
 from mitransient_tpu_torch.sensors.perspective import build_camera
 from torch_cases import (
     box_rays,
     golden_mismatch,
+    overlapping_rays,
+    overlapping_soup,
     random_rays,
     random_soup,
     small_cbox,
@@ -101,6 +107,58 @@ def test_splat_kernel_matches_plain(cuda, two_events):
     film_k2 = init.to(cuda)
     tf.splat_accumulate(film_k2, ba, va, bb, vb, spp=lanes)
     assert torch.equal(film_k, film_k2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels, hw, lanes, bins, two_events", [
+    (3, 300, 6, 50, True),  # hw not a multiple of the 32-pixel tile
+    (1, 301, 5, 40, False),  # rows not 16-byte aligned: no float4
+    (3, 4096, 1, 300, True),  # one lane
+    (3, 100, 3, 12000, True),  # a 144 KB pixel slab: one pixel a block
+])
+def test_splat_kernel_is_bit_equal_to_cpu_plain(cuda, channels, hw, lanes,
+                                                bins, two_events):
+    rng = np.random.default_rng(7)
+    sets = []
+    for _ in range(2):
+        b, v = splat_events(rng, lanes, hw, bins, channels)
+        b[rng.random(b.shape[0]) < 0.05] = -3  # dropped below the film
+        b[rng.random(b.shape[0]) < 0.05] = bins + 5  # and beyond it
+        sets.append((torch.from_numpy(b), torch.from_numpy(v)))
+    if not two_events:
+        sets[1] = (None, None)
+    init = torch.from_numpy(
+        rng.random((channels, bins + 1, hw)).astype(np.float32))
+    film_k = init.to(cuda)
+    tf.splat_accumulate(film_k, *(None if a is None else a.to(cuda)
+                                  for s in sets for a in s), spp=lanes)
+    film_c = init.clone()
+    tf.splat_accumulate(film_c, *(a for s in sets for a in s), spp=lanes)
+    torch.cuda.synchronize()
+    assert torch.equal(film_k.cpu(), film_c)
+    assert not torch.equal(film_c, init)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("query", ["closest", "any", "mixed"])
+def test_bvh_chunk_kernel_matches_plain_when_queues_overflow(cuda, query):
+    """Large random triangles whose chunk boxes all overlap, rays from
+    outside: many queues fill, and those rays finish with the linear pick,
+    still equal to query_plain."""
+    acc = build_accel(*overlapping_soup(np.random.default_rng(5)), device=cuda)
+    n = 4096
+    rays = tuple(torch.from_numpy(a).to(cuda) for a in
+                 overlapping_rays(np.random.default_rng(6), n))
+    n_closest = {"closest": n, "any": 0, "mixed": n // 2}[query]
+    stats = torch.zeros(len(bvh.STATS), dtype=torch.int64, device=cuda)
+    t_k, p_k = bvh.query_kernel(acc, *rays, n_closest, "chunk", stats=stats)
+    t_p, p_p = bvh.query_plain(acc, *rays, n_closest, "chunk")
+    torch.cuda.synchronize()
+    assert torch.equal(p_k, p_p)
+    assert torch.equal(t_k, t_p)
+    assert (p_k >= 0).any() and (p_k < 0).any()
+    box_tests, tri_tests, overflowed = stats.tolist()
+    assert 0 < overflowed < n and box_tests > n and tri_tests > n
 
 
 @pytest.mark.cuda

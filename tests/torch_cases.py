@@ -177,3 +177,26 @@ def splat_events(rng: np.random.Generator, lanes: int, hw: int, bins: int,
     v = rng.random((n, channels)).astype(np.float32)
     v[rng.random(n) < 0.3] = 0.0
     return b, v
+
+
+def overlapping_soup(rng: np.random.Generator, m: int = 20000):
+    """m long thin triangles (slivers) in [-1, 1]^3: every chunk box of
+    their accel covers most of the cube while a ray meets few triangles,
+    so rays from outside cross many boxes without a hit, which fills the
+    chunk-mode kernel's queues."""
+    v0 = rng.uniform(-1.0, 1.0, (m, 3)).astype(np.float32)
+    e1 = rng.uniform(-1.0, 1.0, (m, 3)).astype(np.float32)
+    e2 = rng.uniform(-1e-3, 1e-3, (m, 3)).astype(np.float32)
+    return v0, e1, e2
+
+
+def overlapping_rays(rng: np.random.Generator, n: int):
+    """Rays for ``overlapping_soup``: origins on a sphere of radius 4
+    around it, aimed at random points of [-0.5, 0.5]^3; a tenth inactive,
+    a fifth with a maxt short of the cube."""
+    o = rng.normal(size=(n, 3))
+    o = 4.0 * o / np.linalg.norm(o, axis=1, keepdims=True)
+    d = rng.uniform(-0.5, 0.5, (n, 3)) - o
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    maxt = np.where(rng.random(n) < 0.2, 2.5, np.inf).astype(np.float32)
+    return o.astype(np.float32), d, maxt, rng.random(n) >= 0.1
