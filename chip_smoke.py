@@ -13,7 +13,8 @@ Phases, each of which raises on failure:
    (2^21 rays against the 36-triangle box; a (3, 301, 65536) film).  K3's
    film must be bit-equal to the plain version run on a copy on the host
    CPU (sequential adds), on random events and on the events of one loop
-   iteration of a flagship render, and is timed on both.
+   iteration of a flagship render, and is timed on both; its bound on each
+   counts the film sectors those events touch.
 3. The flagship transient Cornell box (256x256, 300 bins, max_depth 8,
    spp 1024) on the card: each of K1-K3 launches once per loop iteration,
    the physics checks pass; rays/s of a second render.
@@ -208,19 +209,24 @@ def check_kernels(mt, cases, dev):
     for name, r in k3.items():
         print(f"K3 splat_accumulate on {name} events: bit-equal to the plain "
               f"version on the CPU; kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, index_add_ {r['library_ms']:.4f} ms")
-    film_bytes = 3 * (SPLAT_BINS + 1) * hw * 4
-    n_ev = SPLAT_LANES * hw
+              f"{r['plain_ms']:.4f} ms, index_add_ {r['library_ms']:.4f} ms; "
+              f"{r['sectors']} of {3 * (SPLAT_BINS + 1) * hw // 8} film "
+              f"sectors touched -> bound {r['bound'][0]:.4f} ms "
+              f"({r['bound'][1]})")
+    rnd, flag = k3["random"], k3["flagship"]
     rows.append(dict(
-        **dict(zip(("bound_ms", "bound_by"), _bound(
-            2 * film_bytes + 2 * n_ev * (4 + 12), 2 * n_ev * 3))),
-        **k3["random"],
+        bound_ms=rnd["bound"][0], bound_by=rnd["bound"][1],
+        library_ms=rnd["library_ms"],
         name="splat_accumulate", route="cuda",
         source="mitransient_tpu_torch/csrc/splat.cu",
         replaces="mitransient_tpu/ops/splat_pallas.py:36",
-        max_abs_err=0.0,
-        flagship_ms=k3["flagship"]["ms"],
-        flagship_library_ms=k3["flagship"]["library_ms"]))
+        max_abs_err=max(rnd["max_abs_err"], flag["max_abs_err"]),
+        ms=rnd["ms"], plain_ms=rnd["plain_ms"],
+        sectors=rnd["sectors"],
+        flagship_ms=flag["ms"], flagship_plain_ms=flag["plain_ms"],
+        flagship_library_ms=flag["library_ms"],
+        flagship_bound_ms=flag["bound"][0], flagship_bound_by=flag["bound"][1],
+        flagship_sectors=flag["sectors"]))
     for r in rows:
         print(f"{r['name']}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
@@ -261,9 +267,10 @@ def flagship_events(mt, dev):
 
 def check_splat(tf, events, hw, dev):
     """K3 on two event sets into a zeroed (3, 301, hw) film: the film must
-    be bit-equal to the plain version run on the host CPU (which
-    adds in lane order).  -> the kernel's, the plain version's (on the
-    card, where index_add_ uses atomics) and one index_add_'s ms."""
+    be bit-equal to the plain version run on the host CPU (which adds in
+    lane order).  -> the largest |film difference|, the kernel's, the plain
+    version's (on the card, where index_add_ uses atomics) and one
+    index_add_'s ms, and the bound on these events (``splat_bound``)."""
     import torch
 
     ba, va, bb, vb = events
@@ -273,10 +280,11 @@ def check_splat(tf, events, hw, dev):
     tf.splat_accumulate(film_k, ba, va, bb, vb, spp=lanes)
     for b, v in ((ba, va), (bb, vb)):
         tf._scatter_layout(film_c, hw, b.cpu(), v.cpu())
+    err = float((film_k.cpu() - film_c).abs().max())
     if not torch.equal(film_k.cpu(), film_c):
-        err = float((film_k.cpu() - film_c).abs().max())
         raise AssertionError(f"K3 is not bit-equal to its plain version "
                              f"(max |dfilm| {err})")
+    sectors, bound = splat_bound(events, hw)
     film_p = torch.zeros_like(film_k)
 
     def plain():
@@ -293,10 +301,32 @@ def check_splat(tf, events, hw, dev):
     vals = torch.cat([v.T.reshape(-1) for v in (va, vb)])
     film_l = film_p.view(-1)
     return dict(
+        max_abs_err=err, sectors=sectors, bound=bound,
         ms=_time_ms(lambda: tf.splat_accumulate(film_k, ba, va, bb, vb,
                                                 spp=lanes)),
         plain_ms=_time_ms(plain),
         library_ms=_time_ms(lambda: film_l.index_add_(0, cells, vals)))
+
+
+def splat_bound(events, hw):
+    """K3's least work on these events: the film's 32-byte sectors (8
+    pixels of one (channel, bin) row) that a nonzero event with a bin in
+    the film lands in, read once and written once, plus every event read
+    once; one add for each such (event, channel).  -> (sectors, (bound_ms,
+    bound_by))."""
+    import torch
+
+    t_pad = SPLAT_BINS + 1
+    keys, adds, event_bytes = [], 0, 0
+    for b, v in zip(events[0::2], events[1::2]):
+        pix = torch.arange(b.shape[0], device=b.device) % hw
+        lands = ((b >= 0) & (b < t_pad))[:, None] & (v != 0)  # (lanes, C)
+        lane, c = torch.nonzero(lands, as_tuple=True)
+        keys.append((c * t_pad + b[lane].long()) * (hw // 8) + pix[lane] // 8)
+        adds += lane.numel()
+        event_bytes += (b.numel() + v.numel()) * 4
+    sectors = torch.unique(torch.cat(keys)).numel()
+    return sectors, _bound(2 * 32 * sectors + event_bytes, adds)
 
 
 def render_flagship(mt, cases, dev):

@@ -199,6 +199,17 @@ __device__ __forceinline__ uint64_t make_key(float tn, int node) {
   return ((uint64_t)__float_as_uint(tn) << 32) | (uint32_t)node;
 }
 
+// Inserts key into a thread's queue (q[k * TREE_BLOCK], sorted, the least
+// key at q[nq - 1]); false when the queue is full.
+__device__ __forceinline__ bool push(uint64_t* q, int& nq, uint64_t key) {
+  if (nq == QUEUE) return false;
+  int j = nq++;
+  for (; j > 0 && q[(j - 1) * TREE_BLOCK] < key; --j)
+    q[j * TREE_BLOCK] = q[(j - 1) * TREE_BLOCK];
+  q[j * TREE_BLOCK] = key;
+  return true;
+}
+
 // Adds per-warp sums of the per-ray counts into stats[0..2]: box tests,
 // triangle tests, rays whose queue overflowed.
 __device__ __forceinline__ void add_stats(unsigned long long* stats,
@@ -277,29 +288,17 @@ bvh_tree_kernel(const float* __restrict__ aabb_min,
         va = vb;
         vb = v;
       }
-      if (vb) {
-        if (nq == QUEUE) {
-          overflow = true;
-          break;
-        }
-        int j = nq++;
-        for (; j > 0 && q[(j - 1) * TREE_BLOCK] < kb; --j)
-          q[j * TREE_BLOCK] = q[(j - 1) * TREE_BLOCK];
-        q[j * TREE_BLOCK] = kb;
+      if (vb && !push(q, nq, kb)) {
+        overflow = true;
+        break;
       }
       if (va && (nq == 0 || ka < q[(nq - 1) * TREE_BLOCK])) {
         cur = ka;  // the least key of all: no need to queue it
         continue;
       }
-      if (va) {
-        if (nq == QUEUE) {
-          overflow = true;
-          break;
-        }
-        int j = nq++;
-        for (; j > 0 && q[(j - 1) * TREE_BLOCK] < ka; --j)
-          q[j * TREE_BLOCK] = q[(j - 1) * TREE_BLOCK];
-        q[j * TREE_BLOCK] = ka;
+      if (va && !push(q, nq, ka)) {
+        overflow = true;
+        break;
       }
     }
     have = nq > 0;

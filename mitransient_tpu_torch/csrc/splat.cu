@@ -22,8 +22,9 @@
 //  3. writes the slab back.
 // Only that thread adds into its cells, in the order of the sequential
 // scatter (all of set a, then set b, each in lane order), so the film is
-// bit-equal to the CPU plain version, with no atomics.  The wrapper
-// (film/transient_film.py) picks P so the slab fits.
+// bit-equal to the CPU plain version, with no atomics.  P is the largest
+// power of two up to 32 whose slab stays within SLAB_BYTES (32 pixels,
+// 115.6 KB, at 3 x 301 bins: whole 128-byte rows), and at least one pixel.
 //
 // The film is updated IN PLACE (the JAX version donated the buffer and
 // returned a new one).  Bins outside [0, t_pad) are dropped, like the
@@ -36,6 +37,8 @@ namespace {
 
 constexpr int BLOCK = 256;
 constexpr int UNROLL = 8;
+constexpr int MAX_PIXELS = 32;
+constexpr int SLAB_BYTES = 128 * 1024;
 constexpr int MAX_SHARED_BYTES = 232448;
 
 // Adds one event set into the column `col` (cell (c, b, j) at col[b * P])
@@ -122,16 +125,17 @@ extern "C" {
 
 // film: (C, t_pad, hw) f32, updated in place; bins_*: (lanes * hw,) int32;
 // vals_*: (lanes * hw, C) f32.  bins_b and vals_b may be null (one event
-// set).  P: pixels per block, a power of two <= 32 whose slab
-// C * t_pad * P floats fits in shared memory.
+// set).  One pixel's slab, C * t_pad floats, must fit in shared memory.
 int mitr_splat_accumulate(float* film, int C, int t_pad, int hw, int lanes,
-                          int P, const int32_t* bins_a, const float* vals_a,
+                          const int32_t* bins_a, const float* vals_a,
                           const int32_t* bins_b, const float* vals_b,
                           void* stream) {
   if (hw <= 0 || lanes <= 0) return (int)cudaGetLastError();
-  if (P < 1 || P > 32 || (P & (P - 1)) != 0) return (int)cudaErrorInvalidValue;
-  const int64_t smem = (int64_t)4 * C * t_pad * P;
-  if (smem > MAX_SHARED_BYTES) return (int)cudaErrorInvalidValue;
+  const int64_t pixel_bytes = (int64_t)4 * C * t_pad;
+  if (pixel_bytes > MAX_SHARED_BYTES) return (int)cudaErrorInvalidValue;
+  int P = 1;
+  while (P < MAX_PIXELS && 2 * P * pixel_bytes <= SLAB_BYTES) P *= 2;
+  const int64_t smem = pixel_bytes * P;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         splat_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -23,13 +23,6 @@ import torch
 from ..kernels import _build
 from ..scene.schema import FilmConfig
 
-# K3 stages the film of P consecutive pixels in shared memory: the largest
-# power of two up to 32 whose slab C * (T + 1) * P floats stays within
-# SPLAT_SLAB_BYTES (32 pixels, 115.6 KB, at 3 x 301 bins: whole 128-byte
-# rows), and at least one pixel, whose slab must fit in a block's 227 KB.
-SPLAT_MAX_PIXELS = 32
-SPLAT_SLAB_BYTES = 128 * 1024
-
 
 class TransientFilmState(NamedTuple):
     steady: torch.Tensor  # (HW, C) accumulated radiance * filter weight
@@ -165,11 +158,11 @@ def splat_accumulate(film: torch.Tensor, bins_a: torch.Tensor,
     for k, (b, v) in enumerate(sets):
         _build.require(kernel, f"bins[{k}]", b, torch.int32, (n,), dev)
         _build.require(kernel, f"vals[{k}]", v, torch.float32, (n, C), dev)
-    pixels = splat_pixels(C, t_pad)
+    check_pixel_slab(C, t_pad)
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.mitr_splat_accumulate(
-            film.data_ptr(), C, t_pad, hw, spp, pixels,
+            film.data_ptr(), C, t_pad, hw, spp,
             bins_a.data_ptr(), vals_a.data_ptr(),
             bins_b.data_ptr() if bins_b is not None else None,
             vals_b.data_ptr() if vals_b is not None else None,
@@ -178,19 +171,16 @@ def splat_accumulate(film: torch.Tensor, bins_a: torch.Tensor,
     _build.count_launch(kernel)
 
 
-def splat_pixels(channels: int, t_pad: int) -> int:
-    """Pixels per block of K3 for a (channels, t_pad, HW) film; raises
-    when one pixel's slab does not fit in shared memory."""
+def check_pixel_slab(channels: int, t_pad: int) -> None:
+    """K3 stages the film of a few consecutive pixels in a block's shared
+    memory (``csrc/splat.cu`` picks how many): raise when one pixel's slab
+    does not fit."""
     pixel_bytes = 4 * channels * t_pad
     if pixel_bytes > _build.MAX_SHARED_BYTES:
         raise ValueError(
             f"splat_accumulate: one pixel's film slab ({channels} x {t_pad} "
             f"floats, {pixel_bytes} bytes) exceeds {_build.MAX_SHARED_BYTES} "
             "bytes of shared memory")
-    p = 1
-    while p < SPLAT_MAX_PIXELS and 2 * p * pixel_bytes <= SPLAT_SLAB_BYTES:
-        p *= 2
-    return p
 
 
 def develop(state: TransientFilmState, cfg: FilmConfig):

@@ -46,7 +46,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "mitr_closest_hit": (_P, _I, _P, _P, _P, _P, _I, _P, _P, _P),
     "mitr_ray_test": (_P, _I, _P, _P, _P, _P, _I, _P, _P),
-    "mitr_splat_accumulate": (_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+    "mitr_splat_accumulate": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
     "mitr_bvh_query": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
                        _P, _P, _I, _I, _I, _P, _P, _P, _P),
 }

@@ -174,6 +174,14 @@ def best_first_order(tn, tf, link, sweep, best_t, queue_size):
     swept, queue, gate = [], [], (-np.inf, -1)  # queue: sorted keys
     cur = (tn[0], 0) if tn[0] <= tf[0] and tn[0] < best_t else None
     overflow = False
+
+    def push(key):  # False when the queue is full
+        if len(queue) == queue_size:
+            return False
+        queue.append(key)
+        queue.sort()
+        return True
+
     while cur is not None:
         if not cur[0] < best_t:
             break
@@ -188,21 +196,15 @@ def best_first_order(tn, tf, link, sweep, best_t, queue_size):
         else:
             kids = sorted((tn[k], k) for k in (node + 1, int(link[node]))
                           if tn[k] <= tf[k] and tn[k] < best_t)
-            if len(kids) == 2:
-                if len(queue) == queue_size:
-                    overflow = True
-                    break
-                queue.append(kids[1])
-                queue.sort()
+            if len(kids) == 2 and not push(kids[1]):
+                overflow = True
+                break
             if kids and (not queue or kids[0] < queue[0]):
                 cur = kids[0]
                 continue
-            if kids:
-                if len(queue) == queue_size:
-                    overflow = True
-                    break
-                queue.append(kids[0])
-                queue.sort()
+            if kids and not push(kids[0]):
+                overflow = True
+                break
         cur = queue.pop(0) if queue else None
     if overflow:
         more, best_t = linear_order(tn[leaf], tf[leaf], sweep, best_t, gate)

@@ -129,16 +129,11 @@ def test_gaussian_temporal_filter_is_refused():
 
 
 def test_splat_tile_fits_shared_memory():
-    """K3's pixels per block: 32 at the flagship's (3, 301) film, a power
-    of two whose slab stays within SPLAT_SLAB_BYTES, one for a pixel slab
-    above it, and a film whose single pixel exceeds a block's shared
-    memory is refused."""
-    assert tf.splat_pixels(3, 301) == 32
-    assert tf.splat_pixels(3, 1201) == 8
-    for c, t in ((1, 2), (3, 301), (2, 1000), (3, 12001)):
-        p = tf.splat_pixels(c, t)
-        assert p & (p - 1) == 0 and 1 <= p <= tf.SPLAT_MAX_PIXELS
-        assert p == 1 or 4 * c * t * p <= tf.SPLAT_SLAB_BYTES
-    assert tf.splat_pixels(3, 12001) == 1
-    with pytest.raises(ValueError, match="shared memory"):
-        tf.splat_pixels(3, 20000)
+    """K3 takes films whose single pixel's slab fits in a block's shared
+    memory (227 KB: up to 3 x 19370 bins) and refuses a larger one."""
+    for c, t in ((1, 2), (3, 301), (2, 1000), (3, 12001), (3, 19370),
+                 (1, 58112)):
+        tf.check_pixel_slab(c, t)
+    for c, t in ((3, 19371), (3, 20000), (1, 58113)):
+        with pytest.raises(ValueError, match="shared memory"):
+            tf.check_pixel_slab(c, t)
