@@ -10,11 +10,15 @@ Phases, each of which raises on failure:
 1. Build the CUDA kernels from ``mitransient_tpu_torch/csrc`` (one nvcc per
    source, in parallel) and print ptxas' register and spill report.
 2. K1-K3 against their plain PyTorch versions at the flagship's shapes
-   (2^21 rays against the 36-triangle box; a (3, 301, 65536) film).  K3's
+   (2^21 rays against the 36-triangle box; a (3, 301, 65536) film).  K2
+   must equal its plain version on every ray, on random rays and on the
+   shadow rays of one loop iteration of a flagship render, and is timed on
+   both; K1's and K2's bounds count the tests and the ray bytes of the
+   active rays only.  K3's
    film must be bit-equal to the plain version run on a copy on the host
-   CPU (sequential adds), on random events and on the events of one loop
-   iteration of a flagship render, and is timed on both; its bound on each
-   counts the film sectors those events touch.
+   CPU (sequential adds), on random events and on the events of the same
+   loop iteration, and is timed on both; its bound on each counts the film
+   sectors those events touch.
 3. The flagship transient Cornell box (256x256, 300 bins, max_depth 8,
    spp 1024) on the card: each of K1-K3 launches once per loop iteration,
    the physics checks pass; rays/s of a second render.
@@ -26,9 +30,9 @@ Phases, each of which raises on failure:
    (closest, any hit, mixed at n_closest = N/2), launched on all 2^21
    rays: every 32nd ray (2^16 of them) is held against ``query_plain`` on
    the same rays, ``t`` bit-equal and ``prim`` equal, at most
-   ``MAX_RAY_MISMATCHES`` rays out.  Chunk mode also counts, on all rays,
-   its chunk-tree box tests and triangle tests per ray and the share of
-   rays whose queue overflowed; on the subset its triangle tests must equal
+   ``MAX_RAY_MISMATCHES`` rays out.  Each mode also counts, on all rays,
+   its tree's box tests and triangle tests per ray and the share of rays
+   whose queue overflowed; on the subset its triangle tests must equal
    ``query_plain``'s (both sweep the same chunks).
 7. The BVH kernel (Woop) in each mode against K1's brute force
    (Moller-Trumbore) on all 2^21 rays: the share of rays whose ``prim``
@@ -38,8 +42,8 @@ Phases, each of which raises on failure:
    1024: the BVH kernel launches twice per loop iteration (closest hit and
    shadow rays), K1/K2 never, the physics checks pass; each mode's rays/s
    and peak memory.
-9. One more chunk-mode ``cbox_mesh`` render (spp 64) under torch.profiler:
-   the device's busy share and its time by kernel group.
+9. One more ``cbox_mesh`` render in each mode (spp 64) under
+   torch.profiler: the device's busy share and its time by kernel group.
 10. The small sphere config (``small_cbox`` with a 4,512-triangle sphere)
     on the card against the port on the host CPU, under test_golden's rule
     with no element out.
@@ -63,8 +67,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP = dict(spp=1024, seed=0)  # cornell_box(): 256x256, 300 bins, depth 8
 N_RAYS = 1 << 21  # the flagship's lanes: 65536 pixels x 32 lanes per pixel
 SPLAT_LANES, SPLAT_BINS = 32, 300  # film (3, 301, 65536), two event sets
-MAX_RAY_MISMATCHES = 2  # of N_RAYS for K1 and K2, of BVH_SUBSET for BVH
-FLAGSHIP_EVENTS = dict(spp=64, seed=2, iteration=8)  # K3's render events
+MAX_RAY_MISMATCHES = 2  # of N_RAYS for K1, of BVH_SUBSET for BVH (K2: 0)
+# the loop iteration of a flagship render whose K2 shadow rays and K3
+# events are captured
+FLAGSHIP_EVENTS = dict(spp=64, seed=2, iteration=8)
 TIMING_REPS = 20
 MESH = dict(spp=1024, seed=0)  # cbox_mesh: 256x256, 300 bins, depth 8
 PROFILE_SPP = 64  # the profiled render: the profiler slows the host
@@ -140,16 +146,18 @@ def check_kernels(mt, cases, dev):
     maxt_sh = torch.from_numpy(
         rng.uniform(0.05, 3.0, N_RAYS).astype(np.float32)).to(dev)
     rows = []
+    events, shadow = flagship_iteration(mt, dev)
 
-    def report_rays(name, bad, extra):
+    def report_rays(name, bad, rays, allowed=MAX_RAY_MISMATCHES):
+        o, d, extra, active = rays
         idx = torch.nonzero(bad).flatten().tolist()
         for i in idx[:10]:
             print(f"  {name} mismatch ray {i}: o={o[i].tolist()} "
                   f"d={d[i].tolist()} maxt={extra[i].item()} "
                   f"active={bool(active[i])}")
-        print(f"{name}: {len(idx)} of {N_RAYS} rays differ "
-              f"(at most {MAX_RAY_MISMATCHES} allowed)")
-        if len(idx) > MAX_RAY_MISMATCHES:
+        print(f"{name}: {len(idx)} of {bad.numel()} rays differ "
+              f"(at most {allowed} allowed)")
+        if len(idx) > allowed:
             raise AssertionError(f"{name}: {len(idx)} rays differ")
 
     # K1 closest hit
@@ -158,13 +166,15 @@ def check_kernels(mt, cases, dev):
     torch.cuda.synchronize()
     both = (prim_k == prim_p) & (prim_k >= 0)
     t_bad = both & ~torch.isclose(t_k, t_p, rtol=1e-6, atol=0.0)
-    report_rays("K1 closest_hit", (prim_k != prim_p) | t_bad, maxt)
+    report_rays("K1 closest_hit", (prim_k != prim_p) | t_bad,
+                (o, d, maxt, active))
     k1_err = float((t_k - t_p)[both].abs().max())
     print(f"K1: {int((prim_k >= 0).sum())} hits, max |dt| {k1_err}")
-    ray_bytes = N_RAYS * (12 + 12 + 4 + 1)  # o, d, maxt, active
+    n_active = int(active.sum())
     rows.append(dict(
         **dict(zip(("bound_ms", "bound_by"), _bound(
-            ray_bytes + N_RAYS * 8 + m * 36, N_RAYS * m * MT_OPS))),
+            ray_bytes(N_RAYS, n_active, 8) + m * 36,
+            n_active * m * MT_OPS))),
         library_ms=None,
         name="closest_hit", route="cuda",
         source="mitransient_tpu_torch/csrc/intersect.cu",
@@ -174,29 +184,42 @@ def check_kernels(mt, cases, dev):
         plain_ms=_time_ms(lambda: isect.intersect_soup(*soup, o, d, maxt,
                                                        active))))
 
-    # K2 any hit
-    occ_k = isect.ray_test(*soup, o, d, maxt_sh, active)
-    occ_p = isect.ray_test_soup(*soup, o, d, maxt_sh, active)
-    torch.cuda.synchronize()
-    report_rays("K2 ray_test", occ_k != occ_p, maxt_sh)
-    print(f"K2: {int(occ_k.sum())} occluded of {int(active.sum())} active")
-    # K2 stops at a ray's first hit: count the tests these rays need
-    hit, tt, _u, _v = isect._moller_trumbore(o, d, *soup)
-    first = (hit & (tt < torch.where(active, maxt_sh, float("-inf"))[:, None]))
-    tests = torch.where(first.any(1), first.to(torch.int8).argmax(1) + 1,
-                        m).sum()
-    del hit, tt, first
+    # K2 any hit, bit-equal on random rays and on a flagship iteration's
+    # shadow rays (0 rays may differ)
+    k2 = {}
+    for name, (v0, e1, e2, *rays) in (("random", (*soup, o, d, maxt_sh,
+                                                  active)),
+                                      ("flagship", shadow)):
+        occ_k = isect.ray_test(v0, e1, e2, *rays)
+        occ_p = isect.ray_test_soup(v0, e1, e2, *rays)
+        torch.cuda.synchronize()
+        report_rays(f"K2 ray_test on {name} rays", occ_k != occ_p, rays, 0)
+        n_rays, n_active = rays[0].shape[0], int(rays[3].sum())
+        tests = any_hit_tests(isect, (v0, e1, e2), *rays)
+        bound = _bound(ray_bytes(n_rays, n_active, 1) + v0.shape[0] * 36,
+                       tests * MT_OPS)
+        k2[name] = dict(
+            max_abs_err=float((occ_k.float() - occ_p.float()).abs().max()),
+            bound=bound,
+            ms=_time_ms(lambda: isect.ray_test(v0, e1, e2, *rays)),
+            plain_ms=_time_ms(lambda: isect.ray_test_soup(v0, e1, e2, *rays)))
+        print(f"K2 on {name} rays: {int(occ_k.sum())} occluded of {n_active} "
+              f"active of {n_rays} (active share {n_active / n_rays:.4f}); "
+              f"{tests / max(n_active, 1):.2f} tests per active ray -> bound "
+              f"{bound[0]:.4f} ms ({bound[1]}); kernel {k2[name]['ms']:.4f} "
+              f"ms, plain {k2[name]['plain_ms']:.4f} ms")
+    rnd, flag = k2["random"], k2["flagship"]
     rows.append(dict(
-        **dict(zip(("bound_ms", "bound_by"), _bound(
-            ray_bytes + N_RAYS + m * 36, int(tests) * MT_OPS))),
+        bound_ms=rnd["bound"][0], bound_by=rnd["bound"][1],
         library_ms=None,
         name="ray_test", route="cuda",
         source="mitransient_tpu_torch/csrc/intersect.cu",
         replaces="mitransient_tpu/ops/intersect_pallas.py:98",
-        max_abs_err=float((occ_k.float() - occ_p.float()).abs().max()),
-        ms=_time_ms(lambda: isect.ray_test(*soup, o, d, maxt_sh, active)),
-        plain_ms=_time_ms(lambda: isect.ray_test_soup(*soup, o, d, maxt_sh,
-                                                      active))))
+        max_abs_err=max(rnd["max_abs_err"], flag["max_abs_err"]),
+        ms=rnd["ms"], plain_ms=rnd["plain_ms"],
+        flagship_ms=flag["ms"], flagship_plain_ms=flag["plain_ms"],
+        flagship_bound_ms=flag["bound"][0], flagship_bound_by=flag["bound"][1],
+        flagship_active_share=float(shadow[6].float().mean())))
 
     # K3 splat, two event sets into a (3, 301, 65536) film: random events
     # and one loop iteration's events of a flagship render
@@ -204,8 +227,8 @@ def check_kernels(mt, cases, dev):
     random_events = [
         torch.from_numpy(a).to(dev) for _ in range(2)
         for a in cases.splat_events(rng, SPLAT_LANES, hw, SPLAT_BINS)]
-    k3 = {name: check_splat(tf, events, hw, dev) for name, events in (
-        ("random", random_events), ("flagship", flagship_events(mt, dev)))}
+    k3 = {name: check_splat(tf, ev, hw, dev) for name, ev in (
+        ("random", random_events), ("flagship", events))}
     for name, r in k3.items():
         print(f"K3 splat_accumulate on {name} events: bit-equal to the plain "
               f"version on the CPU; kernel {r['ms']:.4f} ms, plain "
@@ -234,35 +257,66 @@ def check_kernels(mt, cases, dev):
     return rows
 
 
-def flagship_events(mt, dev):
-    """The two event sets (bins_a, vals_a, bins_b, vals_b) that one loop
-    iteration of a flagship render splats: FLAGSHIP_EVENTS' iteration of a
-    render at its spp and seed, copied as K3's wrapper receives them."""
+def ray_bytes(n_rays, n_active, out_bytes):
+    """The bytes a soup query must move: every ray's active flag and
+    result, and the o, d and maxt (28 bytes) of the active rays only."""
+    return n_rays * (1 + out_bytes) + n_active * (12 + 12 + 4)
+
+
+def any_hit_tests(isect, soup, o, d, maxt, active):
+    """The Moller-Trumbore tests an any-hit query needs on these rays: up
+    to the first hit below maxt for an active ray, all M for an active ray
+    that misses, none for an inactive ray or one whose maxt leaves no room
+    for a hit."""
+    import torch
+
+    m = soup[0].shape[0]
+    hit, tt, _u, _v = isect._moller_trumbore(o, d, *soup)
+    first = hit & (tt < maxt[:, None])
+    need = torch.where(first.any(1), first.to(torch.int8).argmax(1) + 1, m)
+    return int(torch.where(active & (maxt > isect.RAY_EPS), need, 0).sum())
+
+
+def flagship_iteration(mt, dev):
+    """What FLAGSHIP_EVENTS' loop iteration of a flagship render (at its
+    spp and seed) hands the kernels, copied as their wrappers receive them:
+    the two event sets K3 splats (bins_a, vals_a, bins_b, vals_b) and the
+    shadow rays K2 tests (v0, e1, e2, o, d, maxt, active)."""
     import torch
 
     from mitransient_tpu_torch.film import transient_film as tf
+    from mitransient_tpu_torch.ops import intersect as isect
 
-    seen, kept = [], []
-    splat = tf.splat_accumulate
+    it = FLAGSHIP_EVENTS["iteration"]
+    calls = {"splat": 0, "ray_test": 0}
+    kept = {}
+    splat, soup_kernel = tf.splat_accumulate, isect._soup_kernel
 
-    def capture(film, *events, spp):
-        if len(seen) == FLAGSHIP_EVENTS["iteration"]:
-            kept.extend(e.clone() for e in events)
-        seen.append(1)
+    def capture_splat(film, *events, spp):
+        if calls["splat"] == it:
+            kept["events"] = [e.clone() for e in events]
+        calls["splat"] += 1
         splat(film, *events, spp=spp)
 
+    def capture_soup(kernel, *args):
+        if kernel == "ray_test":
+            if calls["ray_test"] == it:
+                kept["shadow"] = [a.clone() for a in args]
+            calls["ray_test"] += 1
+        return soup_kernel(kernel, *args)
+
     scene = mt.load_dict(mt.cornell_box(), device=dev)
-    tf.splat_accumulate = capture
+    tf.splat_accumulate, isect._soup_kernel = capture_splat, capture_soup
     try:
         mt.render(scene, spp=FLAGSHIP_EVENTS["spp"],
                   seed=FLAGSHIP_EVENTS["seed"])
     finally:
-        tf.splat_accumulate = splat
+        tf.splat_accumulate, isect._soup_kernel = splat, soup_kernel
     torch.cuda.synchronize()
-    if len(kept) != 4:
-        raise AssertionError(f"the flagship render splatted {len(seen)} "
-                             "times, too few to capture its events")
-    return kept
+    if len(kept) != 2 or len(kept["events"]) != 4:
+        raise AssertionError(f"the flagship render made {calls}, too few "
+                             f"to capture iteration {it}")
+    return kept["events"], kept["shadow"]
 
 
 def check_splat(tf, events, hw, dev):
@@ -448,7 +502,7 @@ def check_bvh(mt, cases, dev, scene):
     # The bound counts the work the closest-hit query needs on these rays:
     # a box's slab test gives the same answer on every visit, so each box
     # at most once per ray, and no more box or triangle tests than the
-    # least of the linear picks of both modes and the chunk tree makes.
+    # least of the linear picks of both modes and the two trees makes.
     # Counted on the subset, scaled.
     work = {}
     for mode in bvh.MODES:
@@ -459,15 +513,17 @@ def check_bvh(mt, cases, dev, scene):
               f"{work[mode]['slab'] / n:.1f} box tests "
               f"({work[mode]['box_once'] / n:.1f} of distinct boxes) and "
               f"{work[mode]['woop'] / n:.1f} triangle tests per ray")
-    tree = tree_stats(bvh, acc, sub, n)
-    print(f"bvh chunk tree (kernel) on rays [::{stride}]: "
-          f"{tree['box_tests'] / n:.1f} box tests and "
-          f"{tree['triangle_tests'] / n:.1f} triangle tests per ray, "
-          f"{tree['overflow_rays']} rays overflowed the queue")
-    if tree["triangle_tests"] != work["chunk"]["woop"]:
-        raise AssertionError("the chunk tree swept other chunks than "
-                             "query_plain's linear pick")
-    box = min([w["box_once"] for w in work.values()] + [tree["box_tests"]])
+    trees = {mode: tree_stats(bvh, acc, sub, n, mode) for mode in bvh.MODES}
+    for mode, tree in trees.items():
+        print(f"bvh {mode} tree (kernel) on rays [::{stride}]: "
+              f"{tree['box_tests'] / n:.1f} box tests and "
+              f"{tree['triangle_tests'] / n:.1f} triangle tests per ray, "
+              f"{tree['overflow_rays']} rays overflowed the queue")
+        if tree["triangle_tests"] != work[mode]["woop"]:
+            raise AssertionError(f"the {mode} tree swept other chunks than "
+                                 "query_plain's linear pick")
+    box = min([w["box_once"] for w in work.values()]
+              + [t["box_tests"] for t in trees.values()])
     woop = min(w["woop"] for w in work.values())
     ops = N_RAYS / n * (box * SLAB_OPS + woop * WOOP_OPS)
     bound = _bound(N_RAYS * (12 + 12 + 4 + 1 + 8) + accel_bytes, ops)
@@ -477,20 +533,19 @@ def check_bvh(mt, cases, dev, scene):
     # Moller-Trumbore over the whole soup (K1), for the cross-check below
     t_1, p_1 = isect.closest_hit(sd.tri.v0, sd.tri.e1, sd.tri.e2, *rays)
     rows = []
-    stats = {}
     for mode in bvh.MODES:
         err = 0.0
+        stats = {}
         for query, n_closest in (("closest", N_RAYS), ("any", 0),
                                  ("mixed", N_RAYS // 2)):
             t_f, p_f = bvh.query_kernel(acc, *rays, n_closest, mode)
-            if mode == "chunk":
-                st = tree_stats(bvh, acc, rays, n_closest)
-                stats[query] = {k: v / N_RAYS for k, v in st.items()}
-                print(f"bvh chunk tree {query} on all {N_RAYS} rays: "
-                      f"{st['box_tests'] / N_RAYS:.2f} box tests, "
-                      f"{st['triangle_tests'] / N_RAYS:.2f} triangle tests "
-                      f"per ray; queue overflowed on "
-                      f"{st['overflow_rays'] / N_RAYS:.3e} of the rays")
+            st = tree_stats(bvh, acc, rays, n_closest, mode)
+            stats[query] = {k: v / N_RAYS for k, v in st.items()}
+            print(f"bvh {mode} tree {query} on all {N_RAYS} rays: "
+                  f"{st['box_tests'] / N_RAYS:.2f} box tests, "
+                  f"{st['triangle_tests'] / N_RAYS:.2f} triangle tests "
+                  f"per ray; queue overflowed on "
+                  f"{st['overflow_rays'] / N_RAYS:.3e} of the rays")
             t_k, p_k = t_f[::stride], p_f[::stride]
             t_p, p_p = bvh.query_plain(acc, *sub, n_closest // stride, mode)
             torch.cuda.synchronize()
@@ -534,22 +589,20 @@ def check_bvh(mt, cases, dev, scene):
             plain_ms=_time_ms(lambda: bvh.query_plain(acc, *sub, n, mode),
                               reps=3, warmup=1),
             plain_rays=n, bound_ms=bound[0], bound_by=bound[1],
-            library_ms=None))
-        if mode == "chunk":  # per-ray counts of the chunk tree, all rays
-            rows[-1]["per_ray"] = stats
+            library_ms=None, per_ray=stats))
         print(f"bvh_query_{mode}: kernel {rows[-1]['ms']:.4f} ms at 2^21 "
               f"rays, plain {rows[-1]['plain_ms']:.4f} ms at 2^16 rays, "
               f"bound {bound[0]:.4f} ms ({bound[1]})")
     return rows
 
 
-def tree_stats(bvh, acc, rays, n_closest):
-    """Chunk mode's counts (``bvh.STATS``) over one launch on ``rays``."""
+def tree_stats(bvh, acc, rays, n_closest, mode):
+    """The kernel's counts (``bvh.STATS``) over one launch on ``rays``."""
     import torch
 
     buf = torch.zeros(len(bvh.STATS), dtype=torch.int64,
                       device=rays[0].device)
-    bvh.query_kernel(acc, *rays, n_closest, "chunk", stats=buf)
+    bvh.query_kernel(acc, *rays, n_closest, mode, stats=buf)
     return dict(zip(bvh.STATS, buf.tolist()))
 
 
@@ -594,39 +647,46 @@ def render_mesh(mt, cases, dev, scene):
 
 
 def profile_mesh(mt, scene):
-    """One chunk-mode cbox_mesh render (spp 64, seed 1) under
+    """One cbox_mesh render in each mode (spp 64, seed 1) under
     torch.profiler: device time by kernel group, and the union of the
     kernels' intervals against the render's wall time (the device's busy
     share; the profiler itself slows the host)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        mt.render(scene, spp=PROFILE_SPP, seed=1)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, end = 0.0, float("-inf")
-    for a, b in spans:  # union of the kernels' intervals, in us
-        busy += max(0.0, b - max(a, end))
-        end = max(end, b)
-    groups = {}
-    for e in kernels:
-        g = ("bvh_query" if "bvh_tree_kernel" in e.name else
-             "splat" if "splat_kernel" in e.name else "other")
-        groups[g] = groups.get(g, 0.0) + e.time_range.elapsed_us()
-    total = sum(groups.values())
-    print(f"cbox_mesh profiled render (chunk, spp {PROFILE_SPP}): wall "
-          f"{wall:.3f} s, {len(spans)} device kernels, busy {busy / 1e6:.4f} s"
-          f" = {busy / 1e6 / wall:.3f} of wall; device time by group: "
-          + ", ".join(f"{g} {t / 1e3:.2f} ms ({t / total:.3f})"
-                      for g, t in sorted(groups.items())))
-    if not groups.get("bvh_query"):
-        raise AssertionError("the profile shows no BVH kernel time")
+    from mitransient_tpu_torch.ops import bvh
+
+    for mode in bvh.MODES:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            mt.render(scene, spp=PROFILE_SPP, seed=1, bvh_mode=mode)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in kernels)
+        busy, end = 0.0, float("-inf")
+        for a, b in spans:  # union of the kernels' intervals, in us
+            busy += max(0.0, b - max(a, end))
+            end = max(end, b)
+        groups = {}
+        for e in kernels:
+            g = ("bvh_query" if "bvh_tree_kernel" in e.name
+                 or "bvh_super_kernel" in e.name else
+                 "splat" if "splat_kernel" in e.name else "other")
+            groups[g] = groups.get(g, 0.0) + e.time_range.elapsed_us()
+        total = sum(groups.values())
+        print(f"cbox_mesh profiled render ({mode}, spp {PROFILE_SPP}): wall "
+              f"{wall:.3f} s, {len(spans)} device kernels, busy "
+              f"{busy / 1e6:.4f} s = {busy / 1e6 / wall:.3f} of wall; device "
+              "time by group: "
+              + ", ".join(f"{g} {t / 1e3:.2f} ms ({t / total:.3f})"
+                          for g, t in sorted(groups.items())))
+        if not groups.get("bvh_query"):
+            raise AssertionError(f"the {mode} profile shows no BVH kernel "
+                                 "time")
 
 
 def render_small_sphere(mt, cases, dev):

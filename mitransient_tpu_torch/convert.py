@@ -3,16 +3,17 @@
 The renderer's counterpart of carrying weights across: the JAX package's
 ``SceneData``, flattened by path into numpy arrays (``"tri.v0"``,
 ``"bsdf.reflectance"``, ...), becomes the port's :class:`SceneData`, so
-that both packages can trace the very same scene.  The accel's chunk tree
-(``ops/accel.py:TREE_FIELDS``) is the port's own: it is rebuilt from the
-chunk bounds here and left out of the flattened leaves.
+that both packages can trace the very same scene.  The accel's trees over
+the chunk and super-chunk boxes (``ops/accel.py:TREE_FIELDS``) are the
+port's own: they are rebuilt from those bounds here and left out of the
+flattened leaves.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .ops.accel import TREE_FIELDS, Accel, chunk_tree
+from .ops.accel import TREE_FIELDS, Accel, accel_trees
 from .scene.schema import resolve_device
 from .scene.scene import (
     BSDF_DIFFUSE,
@@ -34,8 +35,8 @@ def scene_data_from_numpy(leaves: dict[str, np.ndarray],
     ``{"record.field": array}``.
 
     Every field of the port's records must be present (the ``accel`` and
-    ``geom`` records may be left out; the accel's tree is built from its
-    chunk bounds, not read).  Media leaves (``medium.*``) are
+    ``geom`` records may be left out; the accel's trees are built from its
+    bounds, not read).  Media leaves (``medium.*``) are
     ignored when no triangle has an interior medium.  A leaf the port cannot
     render - textures, another BSDF or emitter kind, media - raises
     ``NotImplementedError``.
@@ -61,7 +62,8 @@ def scene_data_from_numpy(leaves: dict[str, np.ndarray],
         host = {f: np.asarray(leaves[f"{name}.{f}"]) for f in cls._fields
                 if name != "accel" or f not in TREE_FIELDS}
         if name == "accel":
-            host.update(chunk_tree(host["aabb_min"], host["aabb_max"]))
+            host.update(accel_trees(host["aabb_min"], host["aabb_max"],
+                                    host["sup_min"], host["sup_max"]))
         return cls(**{f: torch.tensor(a, device=device)
                       for f, a in host.items()})
 
@@ -76,7 +78,7 @@ def scene_data_from_numpy(leaves: dict[str, np.ndarray],
 
 def scene_data_to_numpy(sd: SceneData) -> dict[str, np.ndarray]:
     """Flatten the port's SceneData by path into host numpy arrays: the
-    leaves of the JAX package's SceneData (no chunk tree)."""
+    leaves of the JAX package's SceneData (no trees)."""
     out = {}
     for name in SceneData._fields:
         rec = getattr(sd, name)

@@ -7,9 +7,11 @@ Triangles are ordered by the native SAH builder (``native.build_bvh``),
 then cut into subtree-aligned chunks of at most ``2 * CHUNK_TRIS``
 triangles.  Each chunk is a page of Woop triangle records plus one AABB;
 groups of ``SUPER_CHUNKS`` consecutive chunks share a super-chunk AABB.
-A binary tree over the chunk boxes (:func:`chunk_tree`, the port's own
-table; the JAX package has none) lets the chunk-mode kernel of
-``ops/bvh.py`` visit the chunks front to back without scanning them all.
+Binary trees over the chunk boxes and over the super-chunk boxes
+(:func:`chunk_tree`, :func:`accel_trees`: the port's own tables; the JAX
+package has none) let the BVH kernel of ``ops/bvh.py`` visit the chunks
+(chunk mode) or the super-chunks (super mode) front to back without
+scanning them all.
 """
 from __future__ import annotations
 
@@ -23,9 +25,9 @@ from .. import native
 CHUNK_TRIS = 256  # target triangles per chunk; subtree cuts are <= 2x this
 ACCEL_MIN_TRIS = 4096  # scenes above this triangle count get an Accel
 SUPER_CHUNKS = 8  # chunks per super-chunk
-# Accel fields that chunk_tree derives from the chunk bounds; the JAX
-# package's Accel has the others
-TREE_FIELDS = ("tree_box", "tree_link")
+# Accel fields that accel_trees derives from the chunk and super-chunk
+# bounds; the JAX package's Accel has the others
+TREE_FIELDS = ("tree_box", "tree_link", "sup_tree_box", "sup_tree_link")
 
 
 class Accel(NamedTuple):
@@ -41,6 +43,8 @@ class Accel(NamedTuple):
     rows: torch.Tensor  # (C,) f32 rows of 8 triangles used per page
     tree_box: torch.Tensor  # (2C-1, 6) f32 chunk-tree node bounds, min | max
     tree_link: torch.Tensor  # (2C-1,) int32: right child, or -1 - chunk
+    sup_tree_box: torch.Tensor  # (2S-1, 6) f32 super-tree node bounds
+    sup_tree_link: torch.Tensor  # (2S-1,) int32: right child, or -1 - super
 
 
 def woop_records(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray):
@@ -149,6 +153,16 @@ def chunk_tree(aabb_min: np.ndarray,
     return {"tree_box": box, "tree_link": link}
 
 
+def accel_trees(aabb_min, aabb_max, sup_min,
+                sup_max) -> dict[str, np.ndarray]:
+    """The Accel's :data:`TREE_FIELDS`: :func:`chunk_tree` over the chunk
+    boxes, and over the super-chunk boxes as ``sup_tree_*``."""
+    sup = chunk_tree(sup_min, sup_max)
+    return {**chunk_tree(aabb_min, aabb_max),
+            "sup_tree_box": sup["tree_box"],
+            "sup_tree_link": sup["tree_link"]}
+
+
 def build_accel_numpy(v0: np.ndarray, e1: np.ndarray,
                       e2: np.ndarray) -> dict[str, np.ndarray]:
     """The Accel tables as host arrays, keyed by field."""
@@ -183,14 +197,16 @@ def build_accel_numpy(v0: np.ndarray, e1: np.ndarray,
     spad = (-c) % SUPER_CHUNKS
     smin = np.concatenate([aabb_min, np.full((spad, 3), 1.0, np.float32)])
     smax = np.concatenate([aabb_max, np.full((spad, 3), -1.0, np.float32)])
+    sup_min = smin.reshape(-1, SUPER_CHUNKS, 3).min(axis=1)
+    sup_max = smax.reshape(-1, SUPER_CHUNKS, 3).max(axis=1)
     return {
         "aabb_min": aabb_min,
         "aabb_max": aabb_max,
-        "sup_min": smin.reshape(-1, SUPER_CHUNKS, 3).min(axis=1),
-        "sup_max": smax.reshape(-1, SUPER_CHUNKS, 3).max(axis=1),
+        "sup_min": sup_min,
+        "sup_max": sup_max,
         "pages": tri16.reshape(c, cap // 8, 128),
         "rows": used_rows,
-        **chunk_tree(aabb_min, aabb_max),
+        **accel_trees(aabb_min, aabb_max, sup_min, sup_max),
     }
 
 

@@ -35,14 +35,16 @@ How each version finds the next box:
   after the ray's gate (the last visited ``(tn, id)``) with ``tn < best_t``
   the smallest ``(tn, id)``, by an (R, K) slab test over blocks of rays in
   lockstep.
-* :func:`query_kernel` launches the CUDA kernel.  In chunk mode it walks
-  the Accel's chunk tree (``ops/accel.py:chunk_tree``) best first, with a
-  per-ray priority queue of tree nodes keyed by ``(tn, node)``; node boxes
-  are exact unions and the slab test is monotone, so it visits the same
-  chunks in the same order as the linear pick, bit for bit (the argument is
-  in ``csrc/bvh.cu``).  A ray whose queue fills goes on with the linear
-  pick from its gate.  In super mode it picks super-chunks linearly from
-  shared memory, as the plain version does.
+* :func:`query_kernel` launches the CUDA kernel.  In both modes it walks
+  a tree over the boxes (``ops/accel.py:chunk_tree``: the chunk tree, or
+  the super tree over the super-chunk boxes) best first, with a per-ray
+  priority queue of tree nodes keyed by ``(tn, node)``; node boxes are
+  exact unions and the slab test is monotone, so it visits the same boxes
+  in the same order as the linear pick, bit for bit (the argument is in
+  ``csrc/bvh.cu``).  A ray whose queue fills goes on with the linear pick
+  from its gate.  Chunk mode sweeps a page one thread per ray; super mode
+  sweeps each page with the whole warp, 32 triangles a step, and reduces
+  to the sequential sweep's result.
 
 The public queries take the plain version for CPU tensors and the kernel
 for CUDA tensors.
@@ -63,7 +65,7 @@ BVH_MODE = "chunk"
 MODES = ("chunk", "super")
 # query_plain works on blocks of rays whose gathered pages take about this
 PLAIN_BLOCK_BYTES = 128 << 20
-# chunk mode's optional counts (query_kernel(stats=...)), in this order
+# the kernel's optional counts (query_kernel(stats=...)), in this order
 STATS = ("box_tests", "triangle_tests", "overflow_rays")
 
 
@@ -262,8 +264,8 @@ def query_kernel(accel: Accel, ray_o, ray_d, maxt, active, n_closest: int,
                  mode: str = "chunk", stats=None):
     """Launch the BVH kernel of ``csrc/bvh.cu`` on CUDA tensors.
 
-    ``stats``: None, or a zeroed (3,) int64 CUDA tensor into which chunk
-    mode adds the slab tests of tree nodes and chunks, the triangle tests
+    ``stats``: None, or a zeroed (3,) int64 CUDA tensor into which either
+    mode adds the slab tests of tree nodes and boxes, the triangle tests
     and the rays whose queue overflowed (names in :data:`STATS`)."""
     kernel = f"bvh_query_{mode}"
     if mode not in MODES:
@@ -280,10 +282,6 @@ def query_kernel(accel: Accel, ray_o, ray_d, maxt, active, n_closest: int,
                          f"{tuple(accel.pages.shape)}, {s} supers)")
     if not 0 <= n_closest <= n:
         raise ValueError(f"{kernel}: n_closest {n_closest} not in [0, {n}]")
-    smem = 4 * (7 * c + 6 * s)  # super mode stages its bounds
-    if mode == "super" and smem > _build.MAX_SHARED_BYTES:
-        raise ValueError(f"{kernel}: {c} chunks need {smem} bytes of shared "
-                         f"memory, more than {_build.MAX_SHARED_BYTES}")
     for name, t, shape in (
             ("aabb_min", accel.aabb_min, (c, 3)),
             ("aabb_max", accel.aabb_max, (c, 3)),
@@ -291,16 +289,17 @@ def query_kernel(accel: Accel, ray_o, ray_d, maxt, active, n_closest: int,
             ("sup_min", accel.sup_min, (s, 3)),
             ("sup_max", accel.sup_max, (s, 3)),
             ("tree_box", accel.tree_box, (2 * c - 1, 6)),
+            ("sup_tree_box", accel.sup_tree_box, (2 * s - 1, 6)),
             ("pages", accel.pages, (c, page_rows, 128)),
             ("ray_o", ray_o, (n, 3)), ("ray_d", ray_d, (n, 3)),
             ("maxt", maxt, (n,))):
         _build.require(kernel, name, t, f32, shape, dev)
-    _build.require(kernel, "tree_link", accel.tree_link, torch.int32,
-                   (2 * c - 1,), dev)
+    for name, t, shape in (("tree_link", accel.tree_link, (2 * c - 1,)),
+                           ("sup_tree_link", accel.sup_tree_link,
+                            (2 * s - 1,))):
+        _build.require(kernel, name, t, torch.int32, shape, dev)
     _build.require(kernel, "active", active, torch.bool, (n,), dev)
     if stats is not None:
-        if mode != "chunk":
-            raise ValueError(f"{kernel}: stats are counted in chunk mode only")
         _build.require(kernel, "stats", stats, torch.int64, (len(STATS),),
                        dev)
     lib = _build.library()
@@ -311,7 +310,8 @@ def query_kernel(accel: Accel, ray_o, ray_d, maxt, active, n_closest: int,
             accel.aabb_min.data_ptr(), accel.aabb_max.data_ptr(),
             accel.rows.data_ptr(), accel.sup_min.data_ptr(),
             accel.sup_max.data_ptr(), accel.tree_box.data_ptr(),
-            accel.tree_link.data_ptr(), accel.pages.data_ptr(), c, s,
+            accel.tree_link.data_ptr(), accel.sup_tree_box.data_ptr(),
+            accel.sup_tree_link.data_ptr(), accel.pages.data_ptr(), c, s,
             page_rows, ray_o.data_ptr(), ray_d.data_ptr(), maxt.data_ptr(),
             active.data_ptr(), n, n_closest, int(mode == "super"),
             t_out.data_ptr(), prim.data_ptr(),

@@ -3,7 +3,8 @@ package on the CPU.
 
 - ``build_accel`` builds the very tables of ``mitransient_tpu.ops.accel``
   (``np.array_equal`` on every field): same native SAH builder, same numpy;
-  the port's own chunk tree is the one built from the JAX chunk bounds.
+  the port's own trees are the ones built from the JAX chunk and
+  super-chunk bounds.
 - ``query_plain`` (the plain version of the BVH kernel) against the JAX
   package's Pallas BVH kernels in interpret mode, on ``_soup``-sized inputs
   (tests/test_accel.py:18-26; interpret mode takes seconds per query).
@@ -87,7 +88,8 @@ def test_build_accel_equals_jax(case):
     want = JA.build_accel(*soup)
     got = TA.build_accel(*soup, device="cpu")
     assert got._fields == want._fields + TA.TREE_FIELDS
-    tree = TA.chunk_tree(np.asarray(want.aabb_min), np.asarray(want.aabb_max))
+    tree = TA.accel_trees(*(np.asarray(getattr(want, f)) for f in
+                            ("aabb_min", "aabb_max", "sup_min", "sup_max")))
     for f in got._fields:
         w = tree[f] if f in tree else np.asarray(getattr(want, f))
         g = getattr(got, f).numpy()

@@ -1,21 +1,31 @@
-"""The chunk tree of the port's Accel (``ops/accel.py:chunk_tree``) and the
-best-first order in which the chunk-mode BVH kernel walks it, on the CPU.
+"""The trees of the port's Accel (``ops/accel.py:chunk_tree`` over the
+chunk boxes and over the super-chunk boxes), the best-first order in which
+the BVH kernel walks them, and the kernels' other loops, on the CPU.
 
 - Tree invariants: preorder numbering, every node a contiguous range of
-  chunk ids, leaves the chunks 0..C-1 in order, and each inner node's box
-  the exact float32 min/max of its children's.
-- The loader's tree (``build_accel_numpy``) equals the tree of the JAX
+  leaf ids, leaves the boxes 0..K-1 in order, and each inner node's box
+  the exact float32 min/max of its children's; for the chunk tree and for
+  the super tree.
+- The loader's trees (``build_accel_numpy``) equal the trees of the JAX
   package's Accel carried across by ``convert.py`` (small sphere config,
   4,512 triangles).
-- A scalar emulator of the kernel's traversal (``csrc/bvh.cu:
-  bvh_tree_kernel``: the queue of (tn, node) keys, the nearer child kept
-  out of the queue, a full queue handing the ray to the linear pick from
-  its gate) sweeps the same chunks in the same order as the linear pick of
-  ``ops/bvh.py:query_plain``, on a few hundred random rays, on hand-made
-  ties (duplicate and face-sharing boxes, equal entries), on slivers whose
-  rays overflow the kernel's 16-entry queue, and with queues small enough
-  to overflow everywhere.  Slab tests are float32 numpy in the kernel's
-  order of operations, so the comparisons are exact.
+- A scalar emulator of the kernel's traversal (``csrc/bvh.cu:BestFirst``:
+  the queue of (tn, node) keys, the nearer child kept out of the queue, a
+  full queue handing the ray to the linear pick from its gate) visits the
+  same leaves in the same order as the linear pick of
+  ``ops/bvh.py:query_plain``: chunks (chunk mode) and super-chunks whose
+  <= 8 chunks are slab-tested and swept in id order (super mode); on a few
+  hundred random rays, on hand-made ties (duplicate and face-sharing
+  boxes, equal entries), on slivers whose rays overflow the kernel's
+  16-entry queue, and with queues small enough to overflow everywhere.
+  Slab and Woop tests are float32 numpy in the kernel's order of
+  operations, so the comparisons are exact.
+- A scalar emulator of super mode's page sweep shared by the warp
+  (``csrc/bvh.cu:warp_sweep``: 32 triangles a step, the least (t bits,
+  position), the first lane of a ballot for any-hit rays) against the
+  sequential sweep, and of K2's loop (``csrc/intersect.cu:any_hit_kernel``:
+  a block lists its rays that need tests, one a thread, staged chunks)
+  against ``ray_test_soup``.
 """
 import numpy as np
 import pytest
@@ -26,6 +36,7 @@ import mitransient_tpu_torch as mt
 from mitransient_tpu_torch.convert import scene_data_from_numpy
 from mitransient_tpu_torch.ops import accel as TA
 from mitransient_tpu_torch.ops import bvh
+from mitransient_tpu_torch.ops import intersect as isect
 from mitransient_tpu_torch.ops.intersect import intersect_soup
 from test_torch_scene import jax_leaves
 from torch_cases import (
@@ -33,6 +44,8 @@ from torch_cases import (
     SPHERE_RADIUS,
     overlapping_rays,
     overlapping_soup,
+    random_rays,
+    random_soup,
     small_sphere_cbox,
     uv_sphere,
 )
@@ -83,13 +96,23 @@ def _ranges(link):
     return first, end
 
 
-@pytest.mark.parametrize("case", ["sphere", "random", "ties", "one", "two"])
+@pytest.mark.parametrize("case", ["sphere", "random", "ties", "one", "two",
+                                  "super", "super_slivers"])
 def test_tree_invariants(case):
     rng = np.random.default_rng(0)
     if case == "sphere":
         host = TA.build_accel_numpy(*_sphere_soup())
         lo, hi = host["aabb_min"], host["aabb_max"]
         assert host["tree_box"].shape == (2 * lo.shape[0] - 1, 6)
+    elif case.startswith("super"):  # the super tree over the super boxes
+        soup = (_sphere_soup(80) if case == "super"
+                else overlapping_soup(np.random.default_rng(5), 100000))
+        host = TA.build_accel_numpy(*soup)
+        lo, hi = host["sup_min"], host["sup_max"]
+        assert lo.shape[0] >= 4
+        tree = TA.chunk_tree(lo, hi)
+        for f in ("tree_box", "tree_link"):
+            np.testing.assert_array_equal(host["sup_" + f], tree[f])
     else:
         lo, hi = {"random": lambda: _random_boxes(rng, 57),
                   "ties": _tie_boxes,
@@ -120,11 +143,15 @@ def test_tree_invariants(case):
 
 
 def test_tree_from_loader_equals_tree_carried_across_from_jax():
+    """Both trees, the chunk tree and the super tree."""
     desc = small_sphere_cbox(mt)
     tsc = mt.load_dict(desc, device="cpu")
     carried = scene_data_from_numpy(jax_leaves(mitr.load_dict(desc).data),
                                     device="cpu")
     assert tsc.data.tri.v0.shape[0] == 4512 + 24
+    assert set(TA.TREE_FIELDS) <= set(TA.Accel._fields)
+    assert tsc.data.accel.sup_tree_link.shape == (
+        2 * tsc.data.accel.sup_min.shape[0] - 1,)
     for f in TA.Accel._fields:
         assert torch.equal(getattr(carried.accel, f),
                            getattr(tsc.data.accel, f)), f
@@ -357,3 +384,350 @@ def test_query_plain_matches_brute_force_on_overlapping_chunks():
     same = (p_q == p_b) & (p_q >= 0)
     assert float((p_q != p_b).float().mean()) <= 0.01 and same.sum() > 100
     assert torch.allclose(t_q[same], t_b[same], rtol=1e-3, atol=1e-4)
+
+
+# --------------------------------------------------------------------------
+# Super mode: the leaves of the super tree are super-chunks
+# --------------------------------------------------------------------------
+
+def _super_boxes(lo, hi):
+    """Super-chunk boxes over groups of SUPER_CHUNKS chunk boxes, the last
+    group padded with empty boxes, as the Accel's sup_min / sup_max."""
+    pad = (-lo.shape[0]) % TA.SUPER_CHUNKS
+    smin = np.concatenate([lo, np.full((pad, 3), 1.0, F32)])
+    smax = np.concatenate([hi, np.full((pad, 3), -1.0, F32)])
+    return (smin.reshape(-1, TA.SUPER_CHUNKS, 3).min(axis=1),
+            smax.reshape(-1, TA.SUPER_CHUNKS, 3).max(axis=1))
+
+
+def _super_sweep(chunk_tn, chunk_tf, chunk_sweep, swept):
+    """sweep(super, best_t) of super mode: the super-chunk's chunks in id
+    order, each slab-tested against the current best_t and swept when it
+    passes (appended to ``swept``), until an any-hit ray stops."""
+    c = chunk_tn.shape[0]
+
+    def sweep(sup, best_t):
+        for k in range(sup * TA.SUPER_CHUNKS,
+                       min((sup + 1) * TA.SUPER_CHUNKS, c)):
+            if chunk_tn[k] <= chunk_tf[k] and chunk_tn[k] < best_t:
+                swept.append(k)
+                best_t, stop = chunk_sweep(k, best_t)
+                if stop:
+                    return best_t, True
+        return best_t, False
+
+    return sweep
+
+
+def _grid_boxes(rng):
+    """Unit cells of a 4x4x2 grid in shuffled order, plus duplicates: super
+    boxes that overlap and chunk boxes of equal entries."""
+    cells = np.array([[x, y, z] for x in range(4) for y in range(4)
+                      for z in range(2)], F32)
+    cells = np.concatenate([cells, cells[:12]])[rng.permutation(44)]
+    return cells, cells + F32(1.0)
+
+
+@pytest.mark.parametrize("case", ["ties", "random", "overlap"])
+@pytest.mark.parametrize("queue_size", [1, 2, 16])
+def test_best_first_over_super_chunks_equals_linear_pick(case, queue_size):
+    """The emulated kernel walking the super tree visits the linear pick's
+    super-chunks in its order and sweeps the same chunks, whatever the
+    queue size; small queues do overflow.  Chunk sweeps are synthetic (a
+    hit near each chunk's entry, some below it)."""
+    rng = np.random.default_rng({"ties": 4, "random": 5, "overlap": 6}[case])
+    if case == "ties":
+        lo, hi = _grid_boxes(rng)
+    elif case == "random":
+        lo, hi = _random_boxes(rng, 120)
+    else:
+        lo = rng.uniform(-1.0, -0.8, (300, 3)).astype(F32)
+        hi = rng.uniform(0.8, 1.0, (300, 3)).astype(F32)
+    s_lo, s_hi = _super_boxes(lo, hi)
+    tree = TA.chunk_tree(s_lo, s_hi)
+    box, link = tree["tree_box"], tree["tree_link"]
+    leaf = link < 0
+    chunks = np.concatenate([lo, hi], axis=1)
+    o, d = _box_rays(rng, lo, hi, 200)
+    if case == "ties":  # axis-aligned rays: equal entries into the grid
+        d[:60] = np.array([[0, 0, 1], [1, 0, 0], [0, 1, 0]],
+                          F32)[np.arange(60) % 3]
+        o[:60] = np.where(d[:60] > 0, -1.0, o[:60]).astype(F32)
+    overflows = visits = 0
+    for i in range(o.shape[0]):
+        inv = _inv(d[i])
+        tn, tf = _slab(box, o[i], inv)
+        c_tn, c_tf = _slab(chunks, o[i], inv)
+        jitter = rng.choice(np.array([0.0, -1e-7, 1e-7, 0.5], F32),
+                            lo.shape[0])
+        hit_t = np.where(rng.random(lo.shape[0]) < 0.3, np.inf,
+                         c_tn + jitter).astype(F32)
+        best0 = F32(np.inf) if i % 2 else F32(2.5)
+        want_chunks, got_chunks = [], []
+        want, t_want = linear_order(
+            tn[leaf], tf[leaf],
+            _super_sweep(c_tn, c_tf, _synthetic_sweep(hit_t), want_chunks),
+            best0)
+        got, t_got, over = best_first_order(
+            tn, tf, link,
+            _super_sweep(c_tn, c_tf, _synthetic_sweep(hit_t), got_chunks),
+            best0, queue_size)
+        assert got == want and got_chunks == want_chunks, i
+        assert t_got == t_want, i
+        overflows += over
+        visits += len(got)
+    assert visits > o.shape[0]
+    if queue_size < 16 or case == "overlap":
+        assert overflows > 0
+
+
+@pytest.mark.parametrize("query", ["closest", "any"])
+@pytest.mark.parametrize("scene", ["sphere", "slivers"])
+def test_best_first_over_super_chunks_sweeps_query_plains_chunks(scene,
+                                                                 query):
+    """Real chunks and Woop sweeps: the emulated kernel walking the super
+    tree ends with query_plain(mode="super")'s t and prim, and sweeps the
+    chunks the linear pick over the super boxes sweeps.  On slivers a
+    4-entry queue overflows and the ray finishes with the linear pick."""
+    rng = np.random.default_rng(12)
+    n = 200
+    if scene == "sphere":
+        acc = TA.build_accel(*_sphere_soup(80), device="cpu")
+        o, d = _box_rays(rng, acc.aabb_min.numpy(), acc.aabb_max.numpy(), n)
+        maxt = np.where(rng.random(n) < 0.2, rng.uniform(0.1, 1.0, n),
+                        np.inf).astype(F32)
+        queue_size = 16
+    else:
+        acc = TA.build_accel(*overlapping_soup(np.random.default_rng(5)),
+                             device="cpu")
+        o, d, maxt, _ = overlapping_rays(np.random.default_rng(6), n)
+        queue_size = 4
+    box, link = acc.sup_tree_box.numpy(), acc.sup_tree_link.numpy()
+    leaf = link < 0
+    chunks = torch.cat([acc.aabb_min, acc.aabb_max], 1).numpy()
+    any_hit = query == "any"
+    t_p, p_p = bvh.query_plain(acc, *map(torch.from_numpy, (o, d, maxt)),
+                               torch.ones(n, dtype=torch.bool),
+                               0 if any_hit else n, "super")
+    visits = overflows = 0
+    for i in range(n):
+        inv = _inv(d[i])
+        tn, tf = _slab(box, o[i], inv)
+        c_tn, c_tf = _slab(chunks, o[i], inv)
+        best0 = min(maxt[i], F32(bvh.BIG))
+        want_chunks, got_chunks = [], []
+        sweep, _ = _woop_sweep(acc, o[i], d[i], any_hit)
+        want, _ = linear_order(tn[leaf], tf[leaf],
+                               _super_sweep(c_tn, c_tf, sweep, want_chunks),
+                               best0)
+        sweep, prim = _woop_sweep(acc, o[i], d[i], any_hit)
+        got, best_t, over = best_first_order(
+            tn, tf, link, _super_sweep(c_tn, c_tf, sweep, got_chunks), best0,
+            queue_size)
+        assert got == want and got_chunks == want_chunks, i
+        assert prim[0] == int(p_p[i]), i
+        if prim[0] >= 0:
+            assert best_t == (F32(-bvh.BIG) if any_hit else t_p[i].item()), i
+        visits += len(got_chunks)
+        overflows += over
+    assert visits > n // 2 and (p_p >= 0).sum() > n // 5
+    assert (overflows > 0) == (scene == "slivers")
+
+
+# --------------------------------------------------------------------------
+# Super mode's page sweep, shared by the warp
+# --------------------------------------------------------------------------
+
+INT_MAX = 0x7FFFFFFF
+
+
+def _woop_page(page, o, d):
+    """csrc/bvh.cu:woop of one ray against (T, 16) records, float32 numpy
+    in the kernel's order of operations -> (hit without the far limit
+    (T,), t (T,))."""
+    f = [page[:, q].astype(F32) for q in range(13)]
+    a0x, a0y, a0z, a1x, a1y, a1z, a2x, a2y, a2z, _prim, cx, cy, cz = f
+    ox, oy, oz = (F32(x) for x in o)
+    dx, dy, dz = (F32(x) for x in d)
+    rz = a2x * dx + a2y * dy + a2z * dz
+    rz_ok = np.abs(rz) > F32(1e-12)
+    sz = a2x * ox + a2y * oy + a2z * oz - cz
+    tt = -sz / np.where(rz_ok, rz, F32(1.0))
+    u = (a0x * ox + a0y * oy + a0z * oz - cx) + tt * (a0x * dx + a0y * dy
+                                                       + a0z * dz)
+    v = (a1x * ox + a1y * oy + a1z * oz - cy) + tt * (a1x * dx + a1y * dy
+                                                       + a1z * dz)
+    ok = rz_ok & (u >= 0) & (v >= 0) & (u + v <= 1) & (tt > EPS)
+    return ok, tt
+
+
+def _sequential_sweep(ok, tt, prim, t0, any_hit):
+    """sweep_page's loop: -> (t, prim, found)."""
+    bt, bp = t0, -1
+    for k in range(ok.shape[0]):
+        if ok[k] and tt[k] < bt:
+            bt, bp = tt[k], int(prim[k])
+            if any_hit:
+                return F32(-bvh.BIG), bp, True
+    return bt, bp, bp >= 0
+
+
+def _warp_sweep(ok, tt, prim, t0, any_hit):
+    """warp_sweep: lane l tests positions l, l + 32, ... against its own
+    running best (from t0); an any-hit ray takes the lowest hitting lane of
+    the first step with a hit, a closest-hit ray the least t bits, then the
+    least position among the lanes holding them.  -> (t, prim, found)."""
+    lane_t = np.full(32, t0, F32)
+    lane_k = np.full(32, INT_MAX, np.int64)
+    lane_p = np.full(32, -1, np.int64)
+    for base in range(0, ok.shape[0], 32):
+        hit = np.zeros(32, bool)
+        for lane in range(32):
+            k = base + lane
+            if k < ok.shape[0] and ok[k] and tt[k] < lane_t[lane]:
+                hit[lane] = True
+                lane_t[lane], lane_k[lane], lane_p[lane] = tt[k], k, prim[k]
+        if any_hit and hit.any():
+            return F32(-bvh.BIG), int(lane_p[np.argmax(hit)]), True
+    if any_hit:
+        return t0, -1, False
+    bits = np.where(lane_k == INT_MAX, np.uint32(0xFFFFFFFF),
+                    lane_t.view(np.uint32))
+    t_min = bits.min()
+    if t_min == 0xFFFFFFFF:
+        return t0, -1, False
+    k_min = np.where(bits == t_min, lane_k, INT_MAX).min()
+    return np.uint32(t_min).view(F32), int(lane_p[k_min % 32]), True
+
+
+@pytest.mark.parametrize("query", ["closest", "any"])
+@pytest.mark.parametrize("case", ["pages", "equal_t", "at_best_t",
+                                  "nan_maxt"])
+def test_warp_sweep_equals_sequential_sweep(case, query):
+    """On the pages of the sphere's chunks that a ray hits: as they are;
+    with copies of the nearest hit at other positions (equal t: the first
+    position must win, in the same lane or another, in the same 32-triangle
+    step or another); with best_t exactly at that t (no candidate) and just
+    above it; and with best_t NaN (no hit).  The warp's result is the
+    sequential sweep's, bit for bit, and the plain version's."""
+    acc = TA.build_accel(*_sphere_soup(), device="cpu")
+    c, rows, width = acc.pages.shape
+    pages16 = acc.pages.numpy().reshape(c, rows * width // 16, 16)
+    used = acc.rows.numpy().astype(int) * 8
+    rng = np.random.default_rng(13)
+    o, d = _box_rays(rng, acc.aabb_min.numpy(), acc.aabb_max.numpy(), 120)
+    any_hit = query == "any"
+    checked = found = 0
+    for i in range(o.shape[0]):
+        for ch in range(c):
+            page = pages16[ch, :used[ch]].copy()
+            ok, tt = _woop_page(page, o[i], d[i])
+            if not ok.any():
+                continue
+            k = int(np.argmin(np.where(ok, tt, np.inf)))
+            if case != "pages":  # copies of the nearest hit, new prim ids
+                for j in (k - 3, k + 1, k + 31, k + 32, k + 33,
+                          page.shape[0] - 1):
+                    if 0 <= j < page.shape[0] and j != k:
+                        page[j] = page[k]
+                        page[j, 9] = 100000 + j
+                ok, tt = _woop_page(page, o[i], d[i])
+            t0s = {"pages": [F32(bvh.BIG)], "equal_t": [F32(bvh.BIG)],
+                   "at_best_t": [tt[k], np.nextafter(tt[k], F32(np.inf))],
+                   "nan_maxt": [F32(np.nan)]}[case]
+            prim = page[:, 9].astype(np.int64)
+            for t0 in t0s:
+                want = _sequential_sweep(ok, tt, prim, t0, any_hit)
+                got = _warp_sweep(ok, tt, prim, t0, any_hit)
+                bt, bp, hit = bvh._sweep(
+                    torch.from_numpy(page[None]), torch.tensor([0]),
+                    torch.from_numpy(o[i:i + 1]), torch.from_numpy(d[i:i + 1]),
+                    torch.tensor([t0]), torch.tensor([-1], dtype=torch.int32),
+                    torch.tensor([any_hit]))
+                plain = (F32(bt[0]), int(bp[0]), bool(hit[0]))
+                for res in (got, plain):
+                    assert (np.asarray(res[0], F32).view(np.uint32)
+                            == np.asarray(want[0], F32).view(np.uint32)), i
+                    assert res[1:] == want[1:], (i, ch, res, want)
+                if case == "equal_t" and not any_hit:  # the first copy
+                    assert want[1] == prim[k - 3 if k >= 3 else k]
+                checked += 1
+                found += want[2]
+    assert checked > 50
+    if case == "nan_maxt":
+        assert found == 0
+    else:
+        assert found > 20
+
+
+# --------------------------------------------------------------------------
+# K2: a block's list of the rays that need tests, one a thread
+# --------------------------------------------------------------------------
+
+def _k2_loop(soup, o, d, maxt, active, block=256, chunk=512):
+    """csrc/intersect.cu:any_hit_kernel's loop, vectorised over a block's
+    threads: block b owns rays [b * block, (b + 1) * block) and lists those
+    that are active with a limit above RAY_EPS (in an order of its own:
+    here shuffled); thread t tests list entry t against the triangles,
+    staged in chunks, up to its ray's first hit.  -> (occluded (N,), tests
+    per ray (N,))."""
+    n, m = o.shape[0], soup[0].shape[0]
+    hit, tt, _u, _v = isect._moller_trumbore(o, d, *soup)
+    limit = torch.where(active, torch.clamp_max(maxt, bvh.BIG), -bvh.BIG)
+    passes = (hit & (tt < limit[:, None])).numpy()
+    opened = (limit > bvh.RAY_EPS).numpy()
+    occ = np.zeros(n, bool)
+    tests = np.zeros(n, np.int64)
+    shuffle = np.random.default_rng(0).permutation
+    for b in range(-(-n // block)):
+        own = np.arange(b * block, min((b + 1) * block, n))
+        ray = shuffle(own[opened[own]])  # thread t's ray is ray[t]
+        open_ = np.ones(ray.shape[0], bool)
+        for base in range(0, m, chunk):
+            for k in range(base, min(base + chunk, m)):
+                if not open_.any():
+                    break
+                tests[ray[open_]] += 1
+                h = open_ & passes[ray, k]
+                occ[ray[h]] = True
+                open_ &= ~h
+    return occ, tests
+
+
+@pytest.mark.parametrize("active_share", ["most", "a_third"])
+@pytest.mark.parametrize("soup_kind", ["cbox", "random3000"])
+def test_k2_loop_equals_ray_test_soup(soup_kind, active_share):
+    """K2's loop with a ragged tail (n not a multiple of the block),
+    inactive rays (most rays active, or a third as among a render's shadow
+    rays, so that a block's list ends early), NaN and negative maxt, and
+    (3000 triangles) more than one staging chunk: occlusion equals
+    ray_test_soup, and each ray takes the tests the bound counts
+    (chip_smoke.py:any_hit_tests): up to its first hit, all M when it
+    misses, none when it is inactive or its maxt leaves no room for a
+    hit."""
+    rng = np.random.default_rng(14)
+    if soup_kind == "cbox":
+        sd = mt.load_dict(mt.cornell_box(), device="cpu").data
+        soup = (sd.tri.v0, sd.tri.e1, sd.tri.e2)
+        n = 5 * 256 + 77
+    else:
+        soup = tuple(map(torch.from_numpy, random_soup(rng, 3000)))
+        n = 1300
+    o, d, maxt, act = random_rays(rng, n, tuple(a.numpy() for a in soup))
+    maxt = np.where(np.isinf(maxt), F32(1.2), maxt).astype(F32)
+    maxt[::17] = np.nan
+    maxt[5::23] = -1.0
+    if active_share == "a_third":
+        act &= rng.random(n) < 0.35
+    o, d, maxt, act = map(torch.from_numpy, (o, d, maxt, act))
+    occ, tests = _k2_loop(soup, o, d, maxt, act)
+    want = isect.ray_test_soup(*soup, o, d, maxt, act).numpy()
+    np.testing.assert_array_equal(occ, want)
+    assert 0.1 < want.mean() < 0.9
+    m = soup[0].shape[0]
+    hit, tt, _u, _v = isect._moller_trumbore(o, d, *soup)
+    first = (hit & (tt < maxt[:, None])).numpy()
+    need = np.where(first.any(1), first.argmax(1) + 1, m)
+    need = np.where(act.numpy() & (maxt.numpy() > bvh.RAY_EPS), need, 0)
+    np.testing.assert_array_equal(tests, need)
+    assert (need == 0).sum() > n // 20 and (need == m).any()

@@ -8,8 +8,9 @@ it runs with ``python -m pytest tests/test_torch_cuda.py -m cuda
 
 Tolerances: the kernels are built with ``--fmad=false`` and follow the
 plain versions' operation order, so ``prim``, ``occluded`` and ``t`` must
-be equal (for the BVH kernel: all rays of a 2^14-ray set, and on a soup
-whose rays overflow the chunk-mode queue).  The plain splat adds with
+be equal (for the BVH kernel: all rays of a 2^14-ray set, on soups whose
+rays overflow the queue in either mode, and on an Accel with more chunks
+than super mode once staged in shared memory).  The plain splat adds with
 atomics on the card (order varies), so against it the film is held to
 1e-6 of its maximum; against the plain version on the host CPU, which adds
 in lane order as K3 does, it must be bit-equal.
@@ -23,6 +24,7 @@ from mitransient_tpu_torch.film import transient_film as tf
 from mitransient_tpu_torch.kernels import launch_counts, reset_launch_counts
 from mitransient_tpu_torch.ops import bvh
 from mitransient_tpu_torch.ops import intersect as isect
+from mitransient_tpu_torch.ops import accel as TA
 from mitransient_tpu_torch.ops.accel import build_accel
 from mitransient_tpu_torch.sensors.perspective import build_camera
 from torch_cases import (
@@ -87,6 +89,39 @@ def test_ray_test_kernel_matches_plain(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["all_inactive", "ragged", "one_ray",
+                                  "three_chunks"])
+def test_ray_test_kernel_edge_cases(cuda, case):
+    """K2 bit-equal to ray_test_soup with every ray inactive, with n not a
+    multiple of the 256-ray block, with one ray, and on a 3000-triangle
+    soup (six staging chunks of 512); NaN and negative maxt among the
+    rays."""
+    rng = np.random.default_rng(8)
+    m = 3000 if case == "three_chunks" else 200
+    soup = random_soup(rng, m)
+    n = {"all_inactive": 5000, "ragged": 3 * 1024 + 511, "one_ray": 1,
+         "three_chunks": 4099}[case]
+    o, d, maxt, active = random_rays(rng, n, soup)
+    maxt = np.where(np.isinf(maxt), np.float32(1.2), maxt).astype(np.float32)
+    maxt[::17] = np.nan
+    maxt[5::23] = -1.0
+    if case == "all_inactive":
+        active[:] = False
+    if case == "one_ray":
+        active[:] = True
+    args = tuple(torch.from_numpy(a).to(cuda)
+                 for a in (*soup, o, d, maxt, active))
+    occ_k = isect.ray_test(*args)
+    occ_p = isect.ray_test_soup(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(occ_k, occ_p)
+    if case in ("ragged", "three_chunks"):
+        assert occ_k.any() and (~occ_k & args[-1]).any()
+    if case == "all_inactive":
+        assert not occ_k.any()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("two_events", [False, True])
 def test_splat_kernel_matches_plain(cuda, two_events):
     rng = np.random.default_rng(4)
@@ -140,25 +175,33 @@ def test_splat_kernel_is_bit_equal_to_cpu_plain(cuda, channels, hw, lanes,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", bvh.MODES)
 @pytest.mark.parametrize("query", ["closest", "any", "mixed"])
-def test_bvh_chunk_kernel_matches_plain_when_queues_overflow(cuda, query):
+def test_bvh_chunk_kernel_matches_plain_when_queues_overflow(cuda, query,
+                                                             mode):
     """Large random triangles whose chunk boxes all overlap, rays from
     outside: many queues fill, and those rays finish with the linear pick,
-    still equal to query_plain."""
-    acc = build_accel(*overlapping_soup(np.random.default_rng(5)), device=cuda)
+    still equal to query_plain.  Super mode's tree has 8x fewer leaves, so
+    its soup has 10x the triangles (about 70 super-chunks); the kernel's
+    triangle tests equal query_plain's."""
+    m = 20000 if mode == "chunk" else 200000
+    acc = build_accel(*overlapping_soup(np.random.default_rng(5), m),
+                      device=cuda)
     n = 4096
     rays = tuple(torch.from_numpy(a).to(cuda) for a in
                  overlapping_rays(np.random.default_rng(6), n))
-    n_closest = {"closest": n, "any": 0, "mixed": n // 2}[query]
+    n_closest = {"closest": n, "any": 0, "mixed": n // 2 + 13}[query]
     stats = torch.zeros(len(bvh.STATS), dtype=torch.int64, device=cuda)
-    t_k, p_k = bvh.query_kernel(acc, *rays, n_closest, "chunk", stats=stats)
-    t_p, p_p = bvh.query_plain(acc, *rays, n_closest, "chunk")
+    t_k, p_k = bvh.query_kernel(acc, *rays, n_closest, mode, stats=stats)
+    counts = {"slab": 0, "woop": 0, "box_once": 0}
+    t_p, p_p = bvh.query_plain(acc, *rays, n_closest, mode, counts=counts)
     torch.cuda.synchronize()
     assert torch.equal(p_k, p_p)
     assert torch.equal(t_k, t_p)
     assert (p_k >= 0).any() and (p_k < 0).any()
     box_tests, tri_tests, overflowed = stats.tolist()
     assert 0 < overflowed < n and box_tests > n and tri_tests > n
+    assert tri_tests == int(counts["woop"])
 
 
 @pytest.mark.cuda
@@ -209,18 +252,76 @@ def _sphere_rays(scene, dev, n=1 << 14, seed=5):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", bvh.MODES)
-@pytest.mark.parametrize("query", ["closest", "any", "mixed"])
+@pytest.mark.parametrize("query", ["closest", "any", "mixed",
+                                   "mixed_in_warp"])
 def test_bvh_kernel_matches_plain(cuda, mode, query):
+    """``mixed_in_warp``: n_closest inside a warp, so one warp's sweeps mix
+    closest-hit and any-hit rays."""
     scene = mt.load_dict(small_sphere_cbox(mt), device=cuda)
     acc = scene.data.accel
     assert acc is not None
     rays = _sphere_rays(scene, cuda)
     n = rays[0].shape[0]
-    n_closest = {"closest": n, "any": 0, "mixed": n // 2}[query]
+    n_closest = {"closest": n, "any": 0, "mixed": n // 2,
+                 "mixed_in_warp": n // 2 + 13}[query]
     reset_launch_counts()
     t_k, p_k = bvh.query_kernel(acc, *rays, n_closest, mode)
     assert launch_counts() == {f"bvh_query_{mode}": 1}
     t_p, p_p = bvh.query_plain(acc, *rays, n_closest, mode)
+    torch.cuda.synchronize()
+    assert torch.equal(p_k, p_p)
+    assert torch.equal(t_k, t_p)
+    assert (p_k >= 0).any() and (p_k < 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", bvh.MODES)
+def test_bvh_kernel_counts_only_the_rays_it_is_given(cuda, mode):
+    """The counters are sums over the rays: a launch on n rays (n not a
+    multiple of the 64-ray block) counts what launches on two parts of them
+    count, whose blocks hold another number of lanes past the end, so such
+    lanes count nothing; its triangle tests equal query_plain's."""
+    scene = mt.load_dict(small_sphere_cbox(mt), device=cuda)
+    acc = scene.data.accel
+    rays = _sphere_rays(scene, cuda, n=4096 + 13, seed=7)
+    n = rays[0].shape[0]
+    n_closest = n // 2 + 13
+
+    def count(lo, hi):
+        buf = torch.zeros(len(bvh.STATS), dtype=torch.int64, device=cuda)
+        part = tuple(a[lo:hi].contiguous() for a in rays)
+        bvh.query_kernel(acc, *part, min(max(n_closest - lo, 0), hi - lo),
+                         mode, stats=buf)
+        return buf.tolist()
+
+    whole = count(0, n)
+    parts = [a + b for a, b in zip(count(0, 5), count(5, n))]
+    counts = {"slab": 0, "woop": 0, "box_once": 0}
+    bvh.query_plain(acc, *rays, n_closest, mode, counts=counts)
+    assert whole == parts
+    assert whole[0] >= n and whole[1] == int(counts["woop"]) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("query", ["closest", "mixed"])
+def test_bvh_super_kernel_takes_more_chunks_than_shared_memory_held(
+        cuda, monkeypatch, query):
+    """An Accel of about 11,000 one-row chunks (60,000 random triangles cut
+    at 8 a chunk): its bounds (4 * (7 C + 6 S) bytes) exceed the 227 KB that
+    super mode once staged in shared memory, and the kernel still equals
+    query_plain, n not a multiple of the block."""
+    monkeypatch.setattr(TA, "CHUNK_TRIS", 4)
+    rng = np.random.default_rng(9)
+    soup = random_soup(rng, 60000)
+    acc = build_accel(*soup, device=cuda)
+    c, s = acc.pages.shape[0], acc.sup_min.shape[0]
+    assert 4 * (7 * c + 6 * s) > 232448
+    n = 3001
+    rays = tuple(torch.from_numpy(a).to(cuda)
+                 for a in random_rays(rng, n, soup))
+    n_closest = n if query == "closest" else n // 2 + 5
+    t_k, p_k = bvh.query_kernel(acc, *rays, n_closest, "super")
+    t_p, p_p = bvh.query_plain(acc, *rays, n_closest, "super")
     torch.cuda.synchronize()
     assert torch.equal(p_k, p_p)
     assert torch.equal(t_k, t_p)
