@@ -10,11 +10,13 @@ Phases, each of which raises on failure:
 1. Build the CUDA kernels from ``mitransient_tpu_torch/csrc`` (one nvcc per
    source, in parallel) and print ptxas' register and spill report.
 2. K1-K3 against their plain PyTorch versions at the flagship's shapes
-   (2^21 rays against the 36-triangle box; a (3, 301, 65536) film).  K2
-   must equal its plain version on every ray, on random rays and on the
-   shadow rays of one loop iteration of a flagship render, and is timed on
-   both; K1's and K2's bounds count the tests and the ray bytes of the
-   active rays only.  K3's
+   (2^21 rays against the 36-triangle box; a (3, 301, 65536) film).  K1
+   and K2 must equal their plain versions on every ray (K1's ``t`` bit for
+   bit), on random rays and on the rays of one loop iteration of a
+   flagship render (K1 its closest-hit rays, K2 its shadow rays), and are
+   timed on both, each with the active share of the rays; their bounds
+   count the tests and the ray bytes of the active rays only.  K1's design
+   steps (``K1_STEPS``) are timed in turns on both shapes.  K3's
    film must be bit-equal to the plain version run on a copy on the host
    CPU (sequential adds), on random events and on the events of the same
    loop iteration, and is timed on both; its bound on each counts the film
@@ -37,7 +39,10 @@ Phases, each of which raises on failure:
 7. The BVH kernel (Woop) in each mode against K1's brute force
    (Moller-Trumbore) on all 2^21 rays: the share of rays whose ``prim``
    differs (rounding at triangle edges) must be at most
-   ``K1_MISMATCH_SHARE``.
+   ``K1_MISMATCH_SHARE``.  Then the K1 / BVH crossover: K1 and the BVH
+   kernel in both modes timed on 2^21 box rays in the box with a UV
+   sphere of 512-8192 triangles (``CROSSOVER``), one line per count, under
+   the same agreement rule.
 8. ``cbox_mesh`` rendered in chunk mode, then in super mode, both at spp
    1024: the BVH kernel launches twice per loop iteration (closest hit and
    shadow rays), K1/K2 never, the physics checks pass; each mode's rays/s
@@ -67,15 +72,22 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP = dict(spp=1024, seed=0)  # cornell_box(): 256x256, 300 bins, depth 8
 N_RAYS = 1 << 21  # the flagship's lanes: 65536 pixels x 32 lanes per pixel
 SPLAT_LANES, SPLAT_BINS = 32, 300  # film (3, 301, 65536), two event sets
-MAX_RAY_MISMATCHES = 2  # of N_RAYS for K1, of BVH_SUBSET for BVH (K2: 0)
-# the loop iteration of a flagship render whose K2 shadow rays and K3
-# events are captured
+MAX_RAY_MISMATCHES = 2  # of BVH_SUBSET for BVH (K1-K3: 0)
+# the loop iteration of a flagship render whose K1 closest-hit rays, K2
+# shadow rays and K3 events are captured
 FLAGSHIP_EVENTS = dict(spp=64, seed=2, iteration=8)
 TIMING_REPS = 20
 MESH = dict(spp=1024, seed=0)  # cbox_mesh: 256x256, 300 bins, depth 8
 PROFILE_SPP = 64  # the profiled render: the profiler slows the host
 BVH_SUBSET = 1 << 16  # rays of the kernel-against-plain comparison
 K1_MISMATCH_SHARE = 1e-4  # BVH kernel (Woop) against K1 (Moller-Trumbore)
+# K1's design steps (csrc/intersect.cu:mitr_closest_hit's variant argument)
+K1_STEPS = {0: "A: packed records", 1: "B: A + the block's list",
+            2: "C: B, 2 rays a thread", 3: "C: B, 4 rays a thread",
+            4: "D: B, loop unrolled by 4", 5: "D: C with 2 rays, unrolled by 4"}
+# the K1 / BVH crossover: UV spheres (rings, segments) of 512-8192
+# triangles in place of the box's small cube
+CROSSOVER = ((9, 32), (17, 32), (17, 64), (33, 64), (33, 128))
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and FP32 (non-tensor) ops/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -138,7 +150,8 @@ def check_kernels(mt, cases, dev):
     from mitransient_tpu_torch.ops import intersect as isect
 
     scene = mt.load_dict(mt.cornell_box(), device=dev)
-    soup = (scene.data.tri.v0, scene.data.tri.e1, scene.data.tri.e2)
+    tri = scene.data.tri
+    soup, table = (tri.v0, tri.e1, tri.e2), tri.table
     m = soup[0].shape[0]
     rng = np.random.default_rng(0)
     o, d, maxt, active = _rays(cases, scene, rng, N_RAYS, dev)
@@ -146,9 +159,9 @@ def check_kernels(mt, cases, dev):
     maxt_sh = torch.from_numpy(
         rng.uniform(0.05, 3.0, N_RAYS).astype(np.float32)).to(dev)
     rows = []
-    events, shadow = flagship_iteration(mt, dev)
+    events, flagship_rays = flagship_iteration(mt, dev)
 
-    def report_rays(name, bad, rays, allowed=MAX_RAY_MISMATCHES):
+    def report_rays(name, bad, rays, allowed=0):
         o, d, extra, active = rays
         idx = torch.nonzero(bad).flatten().tolist()
         for i in idx[:10]:
@@ -160,49 +173,64 @@ def check_kernels(mt, cases, dev):
         if len(idx) > allowed:
             raise AssertionError(f"{name}: {len(idx)} rays differ")
 
-    # K1 closest hit
-    t_k, prim_k = isect.closest_hit(*soup, o, d, maxt, active)
-    t_p, prim_p, _, _ = isect.intersect_soup(*soup, o, d, maxt, active)
-    torch.cuda.synchronize()
-    both = (prim_k == prim_p) & (prim_k >= 0)
-    t_bad = both & ~torch.isclose(t_k, t_p, rtol=1e-6, atol=0.0)
-    report_rays("K1 closest_hit", (prim_k != prim_p) | t_bad,
-                (o, d, maxt, active))
-    k1_err = float((t_k - t_p)[both].abs().max())
-    print(f"K1: {int((prim_k >= 0).sum())} hits, max |dt| {k1_err}")
-    n_active = int(active.sum())
+    # K1 closest hit, bit-equal (prim equal, t equal bit for bit; 0 rays
+    # may differ) on random rays and on a flagship iteration's closest-hit
+    # rays
+    k1 = {}
+    for name, rays in (("random", (o, d, maxt, active)),
+                       ("flagship", flagship_rays["closest_hit"])):
+        t_k, prim_k = isect.closest_hit(*soup, *rays, table=table)
+        t_p, prim_p, _, _ = isect.intersect_soup(*soup, *rays)
+        torch.cuda.synchronize()
+        report_rays(f"K1 closest_hit on {name} rays",
+                    (prim_k != prim_p) | (t_k != t_p), rays)
+        n_rays, n_active = rays[0].shape[0], int(rays[3].sum())
+        bound = _bound(ray_bytes(n_rays, n_active, 8) + m * 36,
+                       n_active * m * MT_OPS)
+        hit = prim_k >= 0
+        k1[name] = dict(
+            max_abs_err=float((t_k - t_p)[hit].abs().max()) if hit.any()
+            else 0.0,
+            bound=bound, active_share=n_active / n_rays,
+            ms=_time_ms(lambda: isect.closest_hit(*soup, *rays, table=table)),
+            plain_ms=_time_ms(lambda: isect.intersect_soup(*soup, *rays)))
+        print(f"K1 on {name} rays: {int(hit.sum())} hits of {n_active} "
+              f"active of {n_rays} (active share {n_active / n_rays:.4f}) -> "
+              f"bound {bound[0]:.4f} ms ({bound[1]}); kernel "
+              f"{k1[name]['ms']:.4f} ms, plain {k1[name]['plain_ms']:.4f} ms")
+    k1_steps(isect, soup, table, {"random": (o, d, maxt, active),
+                                  "flagship": flagship_rays["closest_hit"]})
+    rnd, flag = k1["random"], k1["flagship"]
     rows.append(dict(
-        **dict(zip(("bound_ms", "bound_by"), _bound(
-            ray_bytes(N_RAYS, n_active, 8) + m * 36,
-            n_active * m * MT_OPS))),
+        bound_ms=rnd["bound"][0], bound_by=rnd["bound"][1],
         library_ms=None,
         name="closest_hit", route="cuda",
         source="mitransient_tpu_torch/csrc/intersect.cu",
         replaces="mitransient_tpu/ops/intersect_pallas.py:44",
-        max_abs_err=k1_err,
-        ms=_time_ms(lambda: isect.closest_hit(*soup, o, d, maxt, active)),
-        plain_ms=_time_ms(lambda: isect.intersect_soup(*soup, o, d, maxt,
-                                                       active))))
+        max_abs_err=max(rnd["max_abs_err"], flag["max_abs_err"]),
+        ms=rnd["ms"], plain_ms=rnd["plain_ms"],
+        flagship_ms=flag["ms"], flagship_plain_ms=flag["plain_ms"],
+        flagship_bound_ms=flag["bound"][0], flagship_bound_by=flag["bound"][1],
+        flagship_active_share=flag["active_share"]))
 
     # K2 any hit, bit-equal on random rays and on a flagship iteration's
     # shadow rays (0 rays may differ)
     k2 = {}
-    for name, (v0, e1, e2, *rays) in (("random", (*soup, o, d, maxt_sh,
-                                                  active)),
-                                      ("flagship", shadow)):
-        occ_k = isect.ray_test(v0, e1, e2, *rays)
-        occ_p = isect.ray_test_soup(v0, e1, e2, *rays)
+    for name, rays in (("random", (o, d, maxt_sh, active)),
+                       ("flagship", flagship_rays["ray_test"])):
+        occ_k = isect.ray_test(*soup, *rays, table=table)
+        occ_p = isect.ray_test_soup(*soup, *rays)
         torch.cuda.synchronize()
-        report_rays(f"K2 ray_test on {name} rays", occ_k != occ_p, rays, 0)
+        report_rays(f"K2 ray_test on {name} rays", occ_k != occ_p, rays)
         n_rays, n_active = rays[0].shape[0], int(rays[3].sum())
-        tests = any_hit_tests(isect, (v0, e1, e2), *rays)
-        bound = _bound(ray_bytes(n_rays, n_active, 1) + v0.shape[0] * 36,
+        tests = any_hit_tests(isect, soup, *rays)
+        bound = _bound(ray_bytes(n_rays, n_active, 1) + m * 36,
                        tests * MT_OPS)
         k2[name] = dict(
             max_abs_err=float((occ_k.float() - occ_p.float()).abs().max()),
-            bound=bound,
-            ms=_time_ms(lambda: isect.ray_test(v0, e1, e2, *rays)),
-            plain_ms=_time_ms(lambda: isect.ray_test_soup(v0, e1, e2, *rays)))
+            bound=bound, active_share=n_active / n_rays,
+            ms=_time_ms(lambda: isect.ray_test(*soup, *rays, table=table)),
+            plain_ms=_time_ms(lambda: isect.ray_test_soup(*soup, *rays)))
         print(f"K2 on {name} rays: {int(occ_k.sum())} occluded of {n_active} "
               f"active of {n_rays} (active share {n_active / n_rays:.4f}); "
               f"{tests / max(n_active, 1):.2f} tests per active ray -> bound "
@@ -219,7 +247,7 @@ def check_kernels(mt, cases, dev):
         ms=rnd["ms"], plain_ms=rnd["plain_ms"],
         flagship_ms=flag["ms"], flagship_plain_ms=flag["plain_ms"],
         flagship_bound_ms=flag["bound"][0], flagship_bound_by=flag["bound"][1],
-        flagship_active_share=float(shadow[6].float().mean())))
+        flagship_active_share=flag["active_share"]))
 
     # K3 splat, two event sets into a (3, 301, 65536) film: random events
     # and one loop iteration's events of a flagship render
@@ -280,16 +308,17 @@ def any_hit_tests(isect, soup, o, d, maxt, active):
 def flagship_iteration(mt, dev):
     """What FLAGSHIP_EVENTS' loop iteration of a flagship render (at its
     spp and seed) hands the kernels, copied as their wrappers receive them:
-    the two event sets K3 splats (bins_a, vals_a, bins_b, vals_b) and the
-    shadow rays K2 tests (v0, e1, e2, o, d, maxt, active)."""
+    the two event sets K3 splats (bins_a, vals_a, bins_b, vals_b), and the
+    closest-hit rays K1 and the shadow rays K2 test, each as (o, d, maxt,
+    active) under the kernel's name."""
     import torch
 
     from mitransient_tpu_torch.film import transient_film as tf
     from mitransient_tpu_torch.ops import intersect as isect
 
     it = FLAGSHIP_EVENTS["iteration"]
-    calls = {"splat": 0, "ray_test": 0}
-    kept = {}
+    calls = {"splat": 0, "closest_hit": 0, "ray_test": 0}
+    kept, rays = {}, {}
     splat, soup_kernel = tf.splat_accumulate, isect._soup_kernel
 
     def capture_splat(film, *events, spp):
@@ -298,12 +327,11 @@ def flagship_iteration(mt, dev):
         calls["splat"] += 1
         splat(film, *events, spp=spp)
 
-    def capture_soup(kernel, *args):
-        if kernel == "ray_test":
-            if calls["ray_test"] == it:
-                kept["shadow"] = [a.clone() for a in args]
-            calls["ray_test"] += 1
-        return soup_kernel(kernel, *args)
+    def capture_soup(kernel, table, m, *args):
+        if calls[kernel] == it:
+            rays[kernel] = tuple(a.clone() for a in args)
+        calls[kernel] += 1
+        return soup_kernel(kernel, table, m, *args)
 
     scene = mt.load_dict(mt.cornell_box(), device=dev)
     tf.splat_accumulate, isect._soup_kernel = capture_splat, capture_soup
@@ -313,10 +341,39 @@ def flagship_iteration(mt, dev):
     finally:
         tf.splat_accumulate, isect._soup_kernel = splat, soup_kernel
     torch.cuda.synchronize()
-    if len(kept) != 2 or len(kept["events"]) != 4:
+    if len(kept.get("events", ())) != 4 or len(rays) != 2:
         raise AssertionError(f"the flagship render made {calls}, too few "
                              f"to capture iteration {it}")
-    return kept["events"], kept["shadow"]
+    return kept["events"], rays
+
+
+def k1_steps(isect, soup, table, shapes):
+    """K1's design steps (``csrc/intersect.cu:mitr_closest_hit``'s
+    variants), each bit-equal to the plain version on each shape, timed in
+    turns (the steps in order, then in reverse)."""
+    import torch
+
+    default = isect.K1_VARIANT
+    times = {(v, name): [] for v in K1_STEPS for name in shapes}
+    try:
+        for order in (list(K1_STEPS), list(K1_STEPS)[::-1]):
+            for v in order:
+                isect.K1_VARIANT = v
+                for name, rays in shapes.items():
+                    t_k, p_k = isect.closest_hit(*soup, *rays, table=table)
+                    t_p, p_p, _, _ = isect.intersect_soup(*soup, *rays)
+                    torch.cuda.synchronize()
+                    if not (torch.equal(p_k, p_p) and torch.equal(t_k, t_p)):
+                        raise AssertionError(f"K1 step {K1_STEPS[v]} differs "
+                                             f"from its plain version")
+                    times[v, name].append(_time_ms(
+                        lambda: isect.closest_hit(*soup, *rays, table=table)))
+    finally:
+        isect.K1_VARIANT = default
+    for v, label in K1_STEPS.items():
+        print(f"K1 step {v} ({label}): " + "; ".join(
+            f"{name} rays " + ", ".join(f"{t:.4f}" for t in times[v, name])
+            + " ms" for name in shapes))
 
 
 def check_splat(tf, events, hw, dev):
@@ -531,7 +588,8 @@ def check_bvh(mt, cases, dev, scene):
           f"per ray -> {bound[0]:.4f} ms ({bound[1]})")
 
     # Moller-Trumbore over the whole soup (K1), for the cross-check below
-    t_1, p_1 = isect.closest_hit(sd.tri.v0, sd.tri.e1, sd.tri.e2, *rays)
+    t_1, p_1 = isect.closest_hit(sd.tri.v0, sd.tri.e1, sd.tri.e2, *rays,
+                                 table=sd.tri.table)
     rows = []
     for mode in bvh.MODES:
         err = 0.0
@@ -594,6 +652,52 @@ def check_bvh(mt, cases, dev, scene):
               f"rays, plain {rows[-1]['plain_ms']:.4f} ms at 2^16 rays, "
               f"bound {bound[0]:.4f} ms ({bound[1]})")
     return rows
+
+
+def crossover(mt, cases, dev):
+    """K1 against the BVH kernel in both modes on 2^21 box rays, in the box
+    with a UV sphere of each size in CROSSOVER for its small cube: one line
+    per triangle count.  Where the loader builds no Accel (at most
+    ACCEL_MIN_TRIS triangles), one is built directly.  The BVH's hits must
+    agree with K1's as in check_bvh."""
+    import numpy as np
+
+    from mitransient_tpu_torch.ops import accel as TA
+    from mitransient_tpu_torch.ops import bvh
+    from mitransient_tpu_torch.ops import intersect as isect
+
+    if TA.ACCEL_MIN_TRIS != 4096:
+        raise AssertionError(f"ACCEL_MIN_TRIS is {TA.ACCEL_MIN_TRIS}, the "
+                             "JAX loader's is 4096")
+    for rings, segments in CROSSOVER:
+        desc = cases.with_sphere(mt.cornell_box(), rings, segments)
+        scene = mt.load_dict(desc, device=dev)
+        sd, tri = scene.data, scene.data.tri
+        acc, built = sd.accel, "loader"
+        if acc is None:
+            acc, built = TA.build_accel(*(a.cpu().numpy() for a in (
+                tri.v0, tri.e1, tri.e2)), device=dev), "direct"
+        rays = _rays(cases, scene, np.random.default_rng(3), N_RAYS, dev)
+        soup = (tri.v0, tri.e1, tri.e2)
+        _t1, p_1 = isect.closest_hit(*soup, *rays, table=tri.table)
+        ms = {"K1": _time_ms(lambda: isect.closest_hit(*soup, *rays,
+                                                       table=tri.table))}
+        share = {}
+        for mode in bvh.MODES:
+            _tb, p_b = bvh.query_kernel(acc, *rays, N_RAYS, mode)
+            share[mode] = float((p_b != p_1).float().mean())
+            if not share[mode] <= K1_MISMATCH_SHARE:
+                raise AssertionError(f"crossover: the BVH kernel ({mode}) "
+                                     "disagrees with K1")
+            ms[mode] = _time_ms(lambda: bvh.query_kernel(acc, *rays, N_RAYS,
+                                                         mode))
+        m = tri.v0.shape[0]
+        print(f"crossover {m} triangles ({built} accel, "
+              f"{acc.pages.shape[0]} chunks) on {N_RAYS} rays: K1 "
+              f"{ms['K1']:.4f} ms, bvh chunk {ms['chunk']:.4f} ms, bvh super "
+              f"{ms['super']:.4f} ms; prim differs from K1 on "
+              + ", ".join(f"{share[k]:.3e} ({k})" for k in bvh.MODES)
+              + f"; fastest {min(ms, key=ms.get)}")
 
 
 def tree_stats(bvh, acc, rays, n_closest, mode):
@@ -740,6 +844,7 @@ def main() -> int:
     render_golden(mt, cases, dev)
     mesh = build_mesh(mt, cases, dev)
     rows += check_bvh(mt, cases, dev, mesh)
+    crossover(mt, cases, dev)
     counts.update(render_mesh(mt, cases, dev, mesh))
     profile_mesh(mt, mesh)
     render_small_sphere(mt, cases, dev)

@@ -3,20 +3,22 @@
 The renderer's counterpart of carrying weights across: the JAX package's
 ``SceneData``, flattened by path into numpy arrays (``"tri.v0"``,
 ``"bsdf.reflectance"``, ...), becomes the port's :class:`SceneData`, so
-that both packages can trace the very same scene.  The accel's trees over
-the chunk and super-chunk boxes (``ops/accel.py:TREE_FIELDS``) are the
-port's own: they are rebuilt from those bounds here and left out of the
-flattened leaves.
+that both packages can trace the very same scene.  The tables the port
+derives (``scene/scene.py:DERIVED_FIELDS``: the kernels' triangle table,
+the accel's trees over the chunk and super-chunk boxes) are its own: they
+are rebuilt here and left out of the flattened leaves.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .ops.accel import TREE_FIELDS, Accel, accel_trees
+from .ops.accel import Accel, accel_trees
+from .ops.intersect import tri_table
 from .scene.schema import resolve_device
 from .scene.scene import (
     BSDF_DIFFUSE,
+    DERIVED_FIELDS,
     EM_AREA,
     BSDFParams,
     EmitterParams,
@@ -35,8 +37,8 @@ def scene_data_from_numpy(leaves: dict[str, np.ndarray],
     ``{"record.field": array}``.
 
     Every field of the port's records must be present (the ``accel`` and
-    ``geom`` records may be left out; the accel's trees are built from its
-    bounds, not read).  Media leaves (``medium.*``) are
+    ``geom`` records may be left out; the derived tables are built, not
+    read).  Media leaves (``medium.*``) are
     ignored when no triangle has an interior medium.  A leaf the port cannot
     render - textures, another BSDF or emitter kind, media - raises
     ``NotImplementedError``.
@@ -60,12 +62,14 @@ def scene_data_from_numpy(leaves: dict[str, np.ndarray],
     def record(name):
         cls = _RECORDS[name]
         host = {f: np.asarray(leaves[f"{name}.{f}"]) for f in cls._fields
-                if name != "accel" or f not in TREE_FIELDS}
+                if f not in DERIVED_FIELDS.get(name, ())}
         if name == "accel":
             host.update(accel_trees(host["aabb_min"], host["aabb_max"],
                                     host["sup_min"], host["sup_max"]))
-        return cls(**{f: torch.tensor(a, device=device)
-                      for f, a in host.items()})
+        rec = {f: torch.tensor(a, device=device) for f, a in host.items()}
+        if name == "tri":
+            rec["table"] = tri_table(rec["v0"], rec["e1"], rec["e2"])
+        return cls(**rec)
 
     def optional(name):
         has = any(k.startswith(name + ".") for k in leaves)
@@ -78,13 +82,13 @@ def scene_data_from_numpy(leaves: dict[str, np.ndarray],
 
 def scene_data_to_numpy(sd: SceneData) -> dict[str, np.ndarray]:
     """Flatten the port's SceneData by path into host numpy arrays: the
-    leaves of the JAX package's SceneData (no trees)."""
+    leaves of the JAX package's SceneData (no derived tables)."""
     out = {}
     for name in SceneData._fields:
         rec = getattr(sd, name)
         if rec is None:
             continue
         for f in rec._fields:
-            if name != "accel" or f not in TREE_FIELDS:
+            if f not in DERIVED_FIELDS.get(name, ()):
                 out[f"{name}.{f}"] = getattr(rec, f).cpu().numpy()
     return out

@@ -25,6 +25,9 @@ from . import bvh
 
 TRI_CHUNK = 32
 RAY_EPS = 1e-4
+TABLE_WIDTH = 12  # floats of one packed triangle record (tri_table)
+# K1's design step (csrc/intersect.cu:mitr_closest_hit), timed by chip_smoke
+K1_VARIANT = 2
 
 
 def _moller_trumbore(o, d, v0, e1, e2):
@@ -98,10 +101,11 @@ def ray_test_soup(v0, e1, e2, ray_o, ray_d, maxt, active):
 
 
 def closest_hit(v0, e1, e2, ray_o, ray_d, maxt, active, accel=None,
-                bvh_mode=bvh.BVH_MODE):
+                bvh_mode=bvh.BVH_MODE, table=None):
     """Closest hit returning (t (N,) f32, prim (N,) int32): the plain
     version for CPU tensors; for CUDA tensors the BVH kernel in
-    ``bvh_mode`` when ``accel`` is given, else kernel K1."""
+    ``bvh_mode`` when ``accel`` is given, else kernel K1 on ``table``, the
+    soup's :func:`tri_table` (a scene keeps it as ``Triangles.table``)."""
     if ray_o.device.type == "cpu":
         t, prim, _u, _v = intersect_soup(v0, e1, e2, ray_o, ray_d, maxt,
                                          active)
@@ -109,39 +113,48 @@ def closest_hit(v0, e1, e2, ray_o, ray_d, maxt, active, accel=None,
     if accel is not None:
         return bvh.closest_hit_bvh(accel, ray_o, ray_d, maxt, active,
                                    bvh_mode)
-    return _soup_kernel("closest_hit", v0, e1, e2, ray_o, ray_d, maxt, active)
+    return _soup_kernel("closest_hit", table, v0.shape[0], ray_o, ray_d,
+                        maxt, active)
 
 
 def ray_test(v0, e1, e2, ray_o, ray_d, maxt, active, accel=None,
-             bvh_mode=bvh.BVH_MODE):
+             bvh_mode=bvh.BVH_MODE, table=None):
     """Occlusion (N,) bool: the plain version for CPU tensors; for CUDA
     tensors the BVH kernel in ``bvh_mode`` when ``accel`` is given, else
-    kernel K2."""
+    kernel K2 on ``table`` (as for :func:`closest_hit`)."""
     if ray_o.device.type == "cpu":
         return ray_test_soup(v0, e1, e2, ray_o, ray_d, maxt, active)
     if accel is not None:
         return bvh.ray_test_bvh(accel, ray_o, ray_d, maxt, active, bvh_mode)
-    return _soup_kernel("ray_test", v0, e1, e2, ray_o, ray_d, maxt, active)
+    return _soup_kernel("ray_test", table, v0.shape[0], ray_o, ray_d, maxt,
+                        active)
 
 
 def tri_table(v0, e1, e2) -> torch.Tensor:
-    """(9, M) f32 rows v0xyz, e1xyz, e2xyz: the kernels' triangle layout."""
-    return torch.cat([v0.T, e1.T, e2.T]).contiguous()
+    """(M, 12) f32 packed 48-byte records (v0x v0y v0z e1x | e1y e1z e2x e2y
+    | e2z 0 0 0): the kernels' triangle layout, three 16-byte loads a
+    triangle.  Built once per scene (``Triangles.table``), not per launch."""
+    pad = v0.new_zeros((v0.shape[0], TABLE_WIDTH - 9))
+    return torch.cat([v0, e1, e2, pad], dim=1).contiguous()
 
 
-def _soup_kernel(kernel, v0, e1, e2, ray_o, ray_d, maxt, active):
+def _soup_kernel(kernel, table, m, ray_o, ray_d, maxt, active):
     dev = ray_o.device
     if dev.type != "cuda":
         raise ValueError(f"{kernel}: rays on {dev}; expected cpu or cuda")
-    n, m = ray_o.shape[0], v0.shape[0]
+    if table is None:
+        raise ValueError(f"{kernel}: pass table=tri_table(v0, e1, e2) (a "
+                         "scene's Triangles.table), built once per scene")
+    n = ray_o.shape[0]
     f32 = torch.float32
-    for name, t, shape in (("v0", v0, (m, 3)), ("e1", e1, (m, 3)),
-                           ("e2", e2, (m, 3)), ("ray_o", ray_o, (n, 3)),
-                           ("ray_d", ray_d, (n, 3)), ("maxt", maxt, (n,))):
+    for name, t, shape in (("table", table, (m, TABLE_WIDTH)),
+                           ("ray_o", ray_o, (n, 3)), ("ray_d", ray_d, (n, 3)),
+                           ("maxt", maxt, (n,))):
         _build.require(kernel, name, t, f32, shape, dev)
     _build.require(kernel, "active", active, torch.bool, (n,), dev)
+    if table.data_ptr() % 16:
+        raise ValueError(f"{kernel}: table must be 16-byte aligned")
     lib = _build.library()
-    table = tri_table(v0, e1, e2)
     with torch.cuda.device(dev):
         stream = _build.stream_of(dev)
         if kernel == "closest_hit":
@@ -150,7 +163,7 @@ def _soup_kernel(kernel, v0, e1, e2, ray_o, ray_d, maxt, active):
             err = lib.mitr_closest_hit(
                 table.data_ptr(), m, ray_o.data_ptr(), ray_d.data_ptr(),
                 maxt.data_ptr(), active.data_ptr(), n, t.data_ptr(),
-                prim.data_ptr(), stream)
+                prim.data_ptr(), K1_VARIANT, stream)
             out = (t, prim)
         else:
             occ = torch.empty((n,), dtype=torch.bool, device=dev)

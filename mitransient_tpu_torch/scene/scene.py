@@ -11,7 +11,8 @@ The tables keep every leaf of the JAX package's ``SceneData`` except the
 media (ROADMAP item 15), including those the diffuse/area slice does not
 read (conductor IORs, delta-emitter frames, geometry deltas), so that
 ``convert.py`` carries a JAX scene across whole and later slices add code,
-not table changes.
+not table changes.  The port adds tables derived from those leaves
+(:data:`DERIVED_FIELDS`).
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ from ..core.frame import Frame
 from ..core.math import dot, safe_div
 from ..core.records import DirectionSample, Ray, SurfaceInteraction
 from ..ops.bvh import BVH_MODE
-from ..ops.accel import Accel
+from ..ops.accel import TREE_FIELDS, Accel
 from ..ops.intersect import closest_hit as _closest_hit_q
 from ..ops.intersect import ray_test as _ray_test_q
 
@@ -42,6 +43,12 @@ EM_ANGULAR_AREA = 2
 EM_POINT = 3
 
 
+# fields of each record that the port derives from its other fields (or,
+# for the accel's trees, from its bounds); convert.py rebuilds them and
+# leaves them out of the JAX package's leaves
+DERIVED_FIELDS = {"tri": ("table",), "accel": TREE_FIELDS}
+
+
 class Triangles(NamedTuple):
     v0: torch.Tensor  # (M, 3)
     e1: torch.Tensor  # (M, 3) v1 - v0
@@ -55,6 +62,9 @@ class Triangles(NamedTuple):
     bsdf_id: torch.Tensor  # (M,) int32
     emitter_id: torch.Tensor  # (M,) int32, -1 = none
     medium_id: torch.Tensor  # (M,) int32 interior medium, -1 = vacuum
+    # the ray kernels' layout of v0, e1, e2 (ops/intersect.py:tri_table),
+    # built once per scene; the port's own, not a leaf of the JAX package
+    table: torch.Tensor  # (M, 12) f32
 
 
 class BSDFParams(NamedTuple):
@@ -126,7 +136,8 @@ def ray_intersect(sd: SceneData, ray: Ray, active: torch.Tensor,
     ``bvh_mode`` is the traversal mode of scenes with an accel."""
     t, prim = _closest_hit_q(
         sd.tri.v0, sd.tri.e1, sd.tri.e2, ray.o.detach(), ray.d.detach(),
-        ray.maxt.detach(), active, accel=sd.accel, bvh_mode=bvh_mode)
+        ray.maxt.detach(), active, accel=sd.accel, bvh_mode=bvh_mode,
+        table=sd.tri.table)
     return _si_from_t_prim(sd, ray, t, prim)
 
 
@@ -187,7 +198,7 @@ def ray_test(sd: SceneData, o: torch.Tensor, d_unit: torch.Tensor,
     maxt = dist * (1.0 - 1e-3)
     return _ray_test_q(sd.tri.v0, sd.tri.e1, sd.tri.e2, o.detach(),
                        d_unit.detach(), maxt.detach(), active, accel=sd.accel,
-                       bvh_mode=bvh_mode)
+                       bvh_mode=bvh_mode, table=sd.tri.table)
 
 
 # --------------------------------------------------------------------------

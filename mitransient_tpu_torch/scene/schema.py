@@ -25,6 +25,7 @@ import torch
 from ..core.spectrum import Variant, variant
 from ..core.transform import from_spec
 from ..ops.accel import ACCEL_MIN_TRIS, build_accel
+from ..ops.intersect import tri_table
 from .scene import (
     BSDF_DIFFUSE,
     EM_AREA,
@@ -378,6 +379,7 @@ class Scene:
                 bsdf_id=per_tri([s.bsdf_key for s in self.shapes]),
                 emitter_id=per_tri(em_of_shape),
                 medium_id=per_tri([-1] * len(self.shapes)),
+                table=tri_table(*map(torch.from_numpy, (v0, e1, e2))).numpy(),
             ),
             "bsdf": BSDFParams(
                 kind=np.array([b.kind for b in self._bsdfs], np.int32),

@@ -8,7 +8,8 @@ it runs with ``python -m pytest tests/test_torch_cuda.py -m cuda
 
 Tolerances: the kernels are built with ``--fmad=false`` and follow the
 plain versions' operation order, so ``prim``, ``occluded`` and ``t`` must
-be equal (for the BVH kernel: all rays of a 2^14-ray set, on soups whose
+be equal (K1 also at the edges: inactive rays, NaN and negative maxt,
+ragged n, several staging chunks, duplicated triangles) (for the BVH kernel: all rays of a 2^14-ray set, on soups whose
 rays overflow the queue in either mode, and on an Accel with more chunks
 than super mode once staged in shared memory).  The plain splat adds with
 atomics on the card (order varies), so against it the film is held to
@@ -20,6 +21,7 @@ import pytest
 import torch
 
 import mitransient_tpu_torch as mt
+from mitransient_tpu_torch.convert import scene_data_from_numpy, scene_data_to_numpy
 from mitransient_tpu_torch.film import transient_film as tf
 from mitransient_tpu_torch.kernels import launch_counts, reset_launch_counts
 from mitransient_tpu_torch.ops import bvh
@@ -68,7 +70,8 @@ def _rays(dev, soup, n=20000, seed=2):
 def test_closest_hit_kernel_matches_plain(cuda):
     for name, soup in _soups(cuda):
         o, d, maxt, active = _rays(cuda, soup)
-        t_k, prim_k = isect.closest_hit(*soup, o, d, maxt, active)
+        t_k, prim_k = isect.closest_hit(*soup, o, d, maxt, active,
+                                        table=isect.tri_table(*soup))
         t_p, prim_p, _, _ = isect.intersect_soup(*soup, o, d, maxt, active)
         torch.cuda.synchronize()
         assert torch.equal(prim_k, prim_p), name
@@ -81,7 +84,8 @@ def test_ray_test_kernel_matches_plain(cuda):
     for name, soup in _soups(cuda):
         o, d, maxt, active = _rays(cuda, soup, seed=3)
         maxt = torch.where(torch.isinf(maxt), 1.0, maxt)
-        occ_k = isect.ray_test(*soup, o, d, maxt, active)
+        occ_k = isect.ray_test(*soup, o, d, maxt, active,
+                               table=isect.tri_table(*soup))
         occ_p = isect.ray_test_soup(*soup, o, d, maxt, active)
         torch.cuda.synchronize()
         assert torch.equal(occ_k, occ_p), name
@@ -111,7 +115,7 @@ def test_ray_test_kernel_edge_cases(cuda, case):
         active[:] = True
     args = tuple(torch.from_numpy(a).to(cuda)
                  for a in (*soup, o, d, maxt, active))
-    occ_k = isect.ray_test(*args)
+    occ_k = isect.ray_test(*args, table=isect.tri_table(*args[:3]))
     occ_p = isect.ray_test_soup(*args)
     torch.cuda.synchronize()
     assert torch.equal(occ_k, occ_p)
@@ -119,6 +123,67 @@ def test_ray_test_kernel_edge_cases(cuda, case):
         assert occ_k.any() and (~occ_k & args[-1]).any()
     if case == "all_inactive":
         assert not occ_k.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["all_inactive", "ragged", "one_ray",
+                                  "three_chunks", "ties"])
+def test_closest_hit_kernel_edge_cases(cuda, case):
+    """K1 equal to intersect_soup (``t`` bit for bit) with every ray
+    inactive, with n not a multiple of a block's rays, with one ray, on a
+    3000-triangle soup (six staging chunks of 512), and on a soup of
+    duplicated triangles (every tie must keep the lower index); NaN and
+    negative maxt among the rays, and rays aimed at the tied pair."""
+    rng = np.random.default_rng(9)
+    m = 3000 if case == "three_chunks" else 200
+    soup = random_soup(rng, m)
+    if case == "ties":  # triangle k + 100 repeats triangle k
+        soup = tuple(np.concatenate([a[:100], a[:100]]) for a in soup)
+    n = {"all_inactive": 5000, "ragged": 5 * 1024 + 511, "one_ray": 1,
+         "three_chunks": 4099, "ties": 3000}[case]
+    o, d, maxt, active = random_rays(rng, n, soup)
+    maxt[::17] = np.nan
+    maxt[5::23] = -1.0
+    if case == "all_inactive":
+        active[:] = False
+    if case == "one_ray":
+        active[:] = True
+        maxt[:] = np.inf
+    args = tuple(torch.from_numpy(a).to(cuda)
+                 for a in (*soup, o, d, maxt, active))
+    t_k, prim_k = isect.closest_hit(*args, table=isect.tri_table(*args[:3]))
+    t_p, prim_p, _, _ = isect.intersect_soup(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(prim_k, prim_p)
+    assert torch.equal(t_k, t_p)
+    if case == "all_inactive":
+        assert (prim_k < 0).all() and torch.isinf(t_k).all()
+    elif case == "ties":
+        assert (prim_k >= 0).any() and not (prim_k >= 100).any()
+    elif case != "one_ray":
+        assert (prim_k >= 0).any() and (prim_k < 0).any()
+
+
+@pytest.mark.cuda
+def test_soup_kernels_take_the_scene_table(cuda):
+    """The triangle table a scene keeps for the kernels equals tri_table of
+    its soup, for a scene loaded on the card and for one carried across by
+    convert.py; the kernels raise without it and on a table of another
+    soup."""
+    desc = mt.cornell_box()
+    loaded = mt.load_dict(desc, device=cuda).data.tri
+    carried = scene_data_from_numpy(scene_data_to_numpy(
+        mt.load_dict(desc, device="cpu").data), device=cuda).tri
+    for tri in (loaded, carried):
+        assert tri.table.device.type == "cuda"
+        assert torch.equal(tri.table, isect.tri_table(tri.v0, tri.e1, tri.e2))
+    soup = (loaded.v0, loaded.e1, loaded.e2)
+    o, d, maxt, active = _rays(cuda, soup, n=64)
+    for fn in (isect.closest_hit, isect.ray_test):
+        with pytest.raises(ValueError, match="tri_table"):
+            fn(*soup, o, d, maxt, active)
+        with pytest.raises(ValueError, match="shape"):
+            fn(*soup, o, d, maxt, active, table=loaded.table[:-1])
 
 
 @pytest.mark.cuda
@@ -207,15 +272,21 @@ def test_bvh_chunk_kernel_matches_plain_when_queues_overflow(cuda, query,
 @pytest.mark.cuda
 def test_kernels_check_their_arguments(cuda):
     soup = next(_soups(cuda))[1]
+    table = isect.tri_table(*soup)
     o, d, maxt, active = _rays(cuda, soup, n=64)
     with pytest.raises(TypeError):
-        isect.closest_hit(*soup, o.double(), d, maxt, active)
+        isect.closest_hit(*soup, o.double(), d, maxt, active, table=table)
     with pytest.raises(ValueError):
-        isect.ray_test(*soup, o[:, :2], d, maxt, active)
+        isect.ray_test(*soup, o[:, :2], d, maxt, active, table=table)
     with pytest.raises(ValueError):
-        isect.closest_hit(*soup, o.T.contiguous().T, d, maxt, active)
+        isect.closest_hit(*soup, o.T.contiguous().T, d, maxt, active,
+                          table=table)
     with pytest.raises(ValueError):
-        isect.closest_hit(*soup, o, d.cpu(), maxt, active)
+        isect.closest_hit(*soup, o, d.cpu(), maxt, active, table=table)
+    shifted = table.new_zeros(table.numel() + 1)[1:].view(table.shape)
+    shifted.copy_(table)  # contiguous, 4 bytes past a 16-byte boundary
+    with pytest.raises(ValueError, match="aligned"):
+        isect.closest_hit(*soup, o, d, maxt, active, table=shifted)
 
 
 @pytest.mark.cuda
@@ -339,7 +410,8 @@ def test_bvh_kernel_agrees_with_k1(cuda):
     rays = _sphere_rays(scene, cuda, seed=6)
     t_b, p_b = isect.closest_hit(sd.tri.v0, sd.tri.e1, sd.tri.e2, *rays,
                                  accel=sd.accel)
-    t_1, p_1 = isect.closest_hit(sd.tri.v0, sd.tri.e1, sd.tri.e2, *rays)
+    t_1, p_1 = isect.closest_hit(sd.tri.v0, sd.tri.e1, sd.tri.e2, *rays,
+                                 table=sd.tri.table)
     torch.cuda.synchronize()
     assert float((p_b != p_1).float().mean()) <= 1e-4
     both = (p_b == p_1) & (p_b >= 0)

@@ -139,7 +139,11 @@ def test_wrappers_take_the_plain_path_on_cpu():
 
 
 def test_tri_table_layout():
+    """Packed 48-byte records: v0, e1, e2, then three zeros."""
     soup = [torch.from_numpy(a) for a in _soup("random200")]
     table = tx.tri_table(*soup)
-    assert table.shape == (9, 200) and table.is_contiguous()
-    assert torch.equal(table[3:6].T, soup[1])
+    assert table.shape == (200, tx.TABLE_WIDTH) and table.is_contiguous()
+    assert table.dtype == torch.float32
+    for k, a in enumerate(soup):
+        assert torch.equal(table[:, 3 * k:3 * k + 3], a)
+    assert not table[:, 9:].any()
