@@ -84,7 +84,10 @@ K1_MISMATCH_SHARE = 1e-4  # BVH kernel (Woop) against K1 (Moller-Trumbore)
 # K1's design steps (csrc/intersect.cu:mitr_closest_hit's variant argument)
 K1_STEPS = {0: "A: packed records", 1: "B: A + the block's list",
             2: "C: B, 2 rays a thread", 3: "C: B, 4 rays a thread",
-            4: "D: B, loop unrolled by 4", 5: "D: C with 2 rays, unrolled by 4"}
+            4: "D: B, loop unrolled by 4", 5: "D: C with 2 rays, unrolled by 4",
+            6: "B, det replaced by 1 where |det| <= 1e-12",
+            7: "B, reciprocal without nvcc's range check",
+            8: "C with 2 rays, reciprocal without the range check"}
 # the K1 / BVH crossover: UV spheres (rings, segments) of 512-8192
 # triangles in place of the box's small cube
 CROSSOVER = ((9, 32), (17, 32), (17, 64), (33, 64), (33, 128))
@@ -374,6 +377,34 @@ def k1_steps(isect, soup, table, shapes):
         print(f"K1 step {v} ({label}): " + "; ".join(
             f"{name} rays " + ", ".join(f"{t:.4f}" for t in times[v, name])
             + " ms" for name in shapes))
+    # the card's SM clock and power while K1 runs back to back for about
+    # two seconds on random rays (nvidia-smi every 100 ms)
+    rays = shapes["random"]
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, text=True)
+    try:
+        time.sleep(0.5)
+        t0 = time.perf_counter()
+        launches = 0
+        while time.perf_counter() - t0 < 2.0:
+            for _ in range(200):
+                isect.closest_hit(*soup, *rays, table=table)
+            torch.cuda.synchronize()
+            launches += 200
+        wall = time.perf_counter() - t0
+    finally:
+        smi.terminate()
+        out = smi.communicate()[0]
+    samples = [tuple(float(x) for x in line.split(",")) for line in
+               out.splitlines() if line.count(",") == 1]
+    clocks = sorted(c for c, _ in samples)
+    power = sorted(p for _, p in samples)
+    print(f"K1 back to back: {launches} launches, {wall / launches * 1e3:.4f}"
+          f" ms each; SM clock {clocks[0]:.0f}-{clocks[-1]:.0f} MHz (median "
+          f"{statistics.median(clocks):.0f}), power {power[0]:.1f}-"
+          f"{power[-1]:.1f} W over {len(samples)} samples")
 
 
 def check_splat(tf, events, hw, dev):

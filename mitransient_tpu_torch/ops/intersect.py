@@ -7,7 +7,10 @@ Counterpart of ``mitransient_tpu/ops/intersect.py`` (the contract) and
 plain version (:func:`intersect_soup`, :func:`ray_test_soup`), with or
 without an acceleration structure, as the JAX package does on the CPU; a
 CUDA tensor launches the BVH kernel of ``ops/bvh.py`` when the scene has
-an accel, else the kernel of ``csrc/intersect.cu``, or raises.
+an accel, else the kernel of ``csrc/intersect.cu``, or raises.  The soup
+kernels read the triangles as packed records (:func:`tri_table`), which a
+scene builds once (``Triangles.table``) and the caller passes as
+``table``.
 
 The plain versions run Moller-Trumbore for all rays against chunks of
 ``TRI_CHUNK`` triangles at once, with each cross and dot product written

@@ -21,6 +21,7 @@ from mitransient_tpu.scene.scene import KindsStatic
 from mitransient_tpu.sensors.perspective import build_camera as j_build_camera
 from mitransient_tpu_torch.convert import scene_data_from_numpy, scene_data_to_numpy
 from mitransient_tpu_torch.core.records import Ray
+from mitransient_tpu_torch.ops import intersect as tx
 from mitransient_tpu_torch.scene import scene as tscene
 from mitransient_tpu_torch.sensors.perspective import build_camera
 from torch_cases import camera_rays, random_rays, small_cbox
@@ -86,6 +87,18 @@ def test_scene_data_from_numpy_round_trips(both_scenes):
     for k in leaves:
         np.testing.assert_allclose(carried[k], leaves[k], rtol=0, atol=1e-7,
                                    err_msg=k)
+
+
+def test_triangle_table_of_loaded_and_carried_scenes(both_scenes):
+    """The kernels' triangle table (``Triangles.table``) is built with the
+    scene, by the loader and by convert.py for a JAX scene carried across,
+    and is no leaf of the JAX package's scene."""
+    jsc, tsc = both_scenes
+    carried = scene_data_from_numpy(jax_leaves(jsc.data), device="cpu")
+    for tri in (tsc.data.tri, carried.tri):
+        assert torch.equal(tri.table, tx.tri_table(tri.v0, tri.e1, tri.e2))
+    assert "tri.table" not in scene_data_to_numpy(tsc.data)
+    assert "tri.table" not in jax_leaves(jsc.data)
 
 
 def test_scene_data_from_numpy_refuses_what_is_not_ported():
