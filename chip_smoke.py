@@ -76,7 +76,8 @@ MAX_RAY_MISMATCHES = 2  # of BVH_SUBSET for BVH (K1-K3: 0)
 # the loop iteration of a flagship render whose K1 closest-hit rays, K2
 # shadow rays and K3 events are captured
 FLAGSHIP_EVENTS = dict(spp=64, seed=2, iteration=8)
-TIMING_REPS = 20
+TIMING_REPS = 20  # calls back to back in one timed batch
+TIMING_BATCHES = 5
 MESH = dict(spp=1024, seed=0)  # cbox_mesh: 256x256, 300 bins, depth 8
 PROFILE_SPP = 64  # the profiled render: the profiler slows the host
 BVH_SUBSET = 1 << 16  # rays of the kernel-against-plain comparison
@@ -87,7 +88,10 @@ K1_STEPS = {0: "A: packed records", 1: "B: A + the block's list",
             4: "D: B, loop unrolled by 4", 5: "D: C with 2 rays, unrolled by 4",
             6: "B, det replaced by 1 where |det| <= 1e-12",
             7: "B, reciprocal without nvcc's range check",
-            8: "C with 2 rays, reciprocal without the range check"}
+            8: "C with 2 rays, reciprocal without the range check",
+            9: "C with 4 rays, reciprocal without the range check",
+            10: "D with 1 ray, reciprocal without the range check",
+            11: "the first port's kernel"}
 # the K1 / BVH crossover: UV spheres (rings, segments) of 512-8192
 # triangles in place of the box's small cube
 CROSSOVER = ((9, 32), (17, 32), (17, 64), (33, 64), (33, 128))
@@ -105,21 +109,26 @@ def _run(cmd):
     return (res.stdout + res.stderr).strip()
 
 
-def _time_ms(fn, reps=TIMING_REPS, warmup=3):
-    """Median milliseconds of ``fn`` on the card, by CUDA events."""
+def _time_ms(fn, reps=TIMING_REPS, warmup=3, batches=TIMING_BATCHES):
+    """Milliseconds of one call of ``fn`` on the card: the median over
+    ``batches`` of the mean of ``reps`` calls made back to back between two
+    CUDA events, so that the host's work for a launch overlaps the card's
+    work for the one before, as in a render's loop."""
     import torch
 
     for _ in range(warmup):
         fn()
     times = []
-    for _ in range(reps):
+    for _ in range(batches):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
         a.record()
-        fn()
+        for _ in range(reps):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / reps)
     return statistics.median(times)
 
 
@@ -358,19 +367,23 @@ def k1_steps(isect, soup, table, shapes):
 
     default = isect.K1_VARIANT
     times = {(v, name): [] for v in K1_STEPS for name in shapes}
+    m = soup[0].shape[0]
+    rows = table.new_zeros(table.shape)  # the first port's (9, m) rows, then zeros
+    rows.view(-1)[:9 * m] = torch.cat([a.T for a in soup]).reshape(-1)
     try:
         for order in (list(K1_STEPS), list(K1_STEPS)[::-1]):
             for v in order:
                 isect.K1_VARIANT = v
+                tab = rows if v == 11 else table
                 for name, rays in shapes.items():
-                    t_k, p_k = isect.closest_hit(*soup, *rays, table=table)
+                    t_k, p_k = isect.closest_hit(*soup, *rays, table=tab)
                     t_p, p_p, _, _ = isect.intersect_soup(*soup, *rays)
                     torch.cuda.synchronize()
                     if not (torch.equal(p_k, p_p) and torch.equal(t_k, t_p)):
                         raise AssertionError(f"K1 step {K1_STEPS[v]} differs "
                                              f"from its plain version")
                     times[v, name].append(_time_ms(
-                        lambda: isect.closest_hit(*soup, *rays, table=table)))
+                        lambda: isect.closest_hit(*soup, *rays, table=tab)))
     finally:
         isect.K1_VARIANT = default
     for v, label in K1_STEPS.items():
@@ -676,7 +689,7 @@ def check_bvh(mt, cases, dev, scene):
             max_abs_err=err,
             ms=_time_ms(lambda: bvh.query_kernel(acc, *rays, N_RAYS, mode)),
             plain_ms=_time_ms(lambda: bvh.query_plain(acc, *sub, n, mode),
-                              reps=3, warmup=1),
+                              reps=1, warmup=1, batches=3),
             plain_rays=n, bound_ms=bound[0], bound_by=bound[1],
             library_ms=None, per_ray=stats))
         print(f"bvh_query_{mode}: kernel {rows[-1]['ms']:.4f} ms at 2^21 "
@@ -712,7 +725,8 @@ def crossover(mt, cases, dev):
         soup = (tri.v0, tri.e1, tri.e2)
         _t1, p_1 = isect.closest_hit(*soup, *rays, table=tri.table)
         ms = {"K1": _time_ms(lambda: isect.closest_hit(*soup, *rays,
-                                                       table=tri.table))}
+                                                       table=tri.table),
+                             reps=5, warmup=1, batches=3)}
         share = {}
         for mode in bvh.MODES:
             _tb, p_b = bvh.query_kernel(acc, *rays, N_RAYS, mode)
@@ -721,7 +735,8 @@ def crossover(mt, cases, dev):
                 raise AssertionError(f"crossover: the BVH kernel ({mode}) "
                                      "disagrees with K1")
             ms[mode] = _time_ms(lambda: bvh.query_kernel(acc, *rays, N_RAYS,
-                                                         mode))
+                                                         mode),
+                                reps=5, warmup=1, batches=3)
         m = tri.v0.shape[0]
         print(f"crossover {m} triangles ({built} accel, "
               f"{acc.pages.shape[0]} chunks) on {N_RAYS} rays: K1 "
