@@ -41,7 +41,7 @@ Phases, each of which raises on failure:
    differs (rounding at triangle edges) must be at most
    ``K1_MISMATCH_SHARE``.  Then the K1 / BVH crossover: K1 and the BVH
    kernel in both modes timed on 2^21 box rays in the box with a UV
-   sphere of 512-8192 triangles (``CROSSOVER``), one line per count, under
+   sphere of 64-8192 triangles (``CROSSOVER``), one line per count, under
    the same agreement rule.
 8. ``cbox_mesh`` rendered in chunk mode, then in super mode, both at spp
    1024: the BVH kernel launches twice per loop iteration (closest hit and
@@ -92,9 +92,10 @@ K1_STEPS = {0: "A: packed records", 1: "B: A + the block's list",
             9: "C with 4 rays, reciprocal without the range check",
             10: "D with 1 ray, reciprocal without the range check",
             11: "the first port's kernel"}
-# the K1 / BVH crossover: UV spheres (rings, segments) of 512-8192
+# the K1 / BVH crossover: UV spheres (rings, segments) of 64-8192
 # triangles in place of the box's small cube
-CROSSOVER = ((9, 32), (17, 32), (17, 64), (33, 64), (33, 128))
+CROSSOVER = ((3, 16), (5, 16), (9, 16), (9, 32), (17, 32), (17, 64),
+             (33, 64), (33, 128))
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and FP32 (non-tensor) ops/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
