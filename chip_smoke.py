@@ -15,8 +15,7 @@ Phases, each of which raises on failure:
    bit), on random rays and on the rays of one loop iteration of a
    flagship render (K1 its closest-hit rays, K2 its shadow rays), and are
    timed on both, each with the active share of the rays; their bounds
-   count the tests and the ray bytes of the active rays only.  K1's design
-   steps (``K1_STEPS``) are timed in turns on both shapes.  K3's
+   count the tests and the ray bytes of the active rays only.  K3's
    film must be bit-equal to the plain version run on a copy on the host
    CPU (sequential adds), on random events and on the events of the same
    loop iteration, and is timed on both; its bound on each counts the film
@@ -82,16 +81,6 @@ MESH = dict(spp=1024, seed=0)  # cbox_mesh: 256x256, 300 bins, depth 8
 PROFILE_SPP = 64  # the profiled render: the profiler slows the host
 BVH_SUBSET = 1 << 16  # rays of the kernel-against-plain comparison
 K1_MISMATCH_SHARE = 1e-4  # BVH kernel (Woop) against K1 (Moller-Trumbore)
-# K1's design steps (csrc/intersect.cu:mitr_closest_hit's variant argument)
-K1_STEPS = {0: "A: packed records", 1: "B: A + the block's list",
-            2: "C: B, 2 rays a thread", 3: "C: B, 4 rays a thread",
-            4: "D: B, loop unrolled by 4", 5: "D: C with 2 rays, unrolled by 4",
-            6: "B, det replaced by 1 where |det| <= 1e-12",
-            7: "B, reciprocal without nvcc's range check",
-            8: "C with 2 rays, reciprocal without the range check",
-            9: "C with 4 rays, reciprocal without the range check",
-            10: "D with 1 ray, reciprocal without the range check",
-            11: "the first port's kernel"}
 # the K1 / BVH crossover: UV spheres (rings, segments) of 64-8192
 # triangles in place of the box's small cube
 CROSSOVER = ((3, 16), (5, 16), (9, 16), (9, 32), (17, 32), (17, 64),
@@ -211,8 +200,6 @@ def check_kernels(mt, cases, dev):
               f"active of {n_rays} (active share {n_active / n_rays:.4f}) -> "
               f"bound {bound[0]:.4f} ms ({bound[1]}); kernel "
               f"{k1[name]['ms']:.4f} ms, plain {k1[name]['plain_ms']:.4f} ms")
-    k1_steps(isect, soup, table, {"random": (o, d, maxt, active),
-                                  "flagship": flagship_rays["closest_hit"]})
     rnd, flag = k1["random"], k1["flagship"]
     rows.append(dict(
         bound_ms=rnd["bound"][0], bound_by=rnd["bound"][1],
@@ -332,6 +319,7 @@ def flagship_iteration(mt, dev):
     it = FLAGSHIP_EVENTS["iteration"]
     calls = {"splat": 0, "closest_hit": 0, "ray_test": 0}
     kept, rays = {}, {}
+    active = {"closest_hit": 0, "ray_test": 0}  # summed over the render
     splat, soup_kernel = tf.splat_accumulate, isect._soup_kernel
 
     def capture_splat(film, *events, spp):
@@ -344,6 +332,7 @@ def flagship_iteration(mt, dev):
         if calls[kernel] == it:
             rays[kernel] = tuple(a.clone() for a in args)
         calls[kernel] += 1
+        active[kernel] = active[kernel] + args[3].sum()
         return soup_kernel(kernel, table, m, *args)
 
     scene = mt.load_dict(mt.cornell_box(), device=dev)
@@ -357,68 +346,13 @@ def flagship_iteration(mt, dev):
     if len(kept.get("events", ())) != 4 or len(rays) != 2:
         raise AssertionError(f"the flagship render made {calls}, too few "
                              f"to capture iteration {it}")
+    for kernel, n_active in active.items():
+        n = calls[kernel] * rays[kernel][0].shape[0]  # a fixed lane count
+        print(f"flagship render (spp {FLAGSHIP_EVENTS['spp']}, seed "
+              f"{FLAGSHIP_EVENTS['seed']}): {kernel} rays active "
+              f"{int(n_active)} of {n} over {calls[kernel]} launches "
+              f"(share {int(n_active) / n:.4f})")
     return kept["events"], rays
-
-
-def k1_steps(isect, soup, table, shapes):
-    """K1's design steps (``csrc/intersect.cu:mitr_closest_hit``'s
-    variants), each bit-equal to the plain version on each shape, timed in
-    turns (the steps in order, then in reverse)."""
-    import torch
-
-    default = isect.K1_VARIANT
-    times = {(v, name): [] for v in K1_STEPS for name in shapes}
-    m = soup[0].shape[0]
-    rows = table.new_zeros(table.shape)  # the first port's (9, m) rows, then zeros
-    rows.view(-1)[:9 * m] = torch.cat([a.T for a in soup]).reshape(-1)
-    try:
-        for order in (list(K1_STEPS), list(K1_STEPS)[::-1]):
-            for v in order:
-                isect.K1_VARIANT = v
-                tab = rows if v == 11 else table
-                for name, rays in shapes.items():
-                    t_k, p_k = isect.closest_hit(*soup, *rays, table=tab)
-                    t_p, p_p, _, _ = isect.intersect_soup(*soup, *rays)
-                    torch.cuda.synchronize()
-                    if not (torch.equal(p_k, p_p) and torch.equal(t_k, t_p)):
-                        raise AssertionError(f"K1 step {K1_STEPS[v]} differs "
-                                             f"from its plain version")
-                    times[v, name].append(_time_ms(
-                        lambda: isect.closest_hit(*soup, *rays, table=tab)))
-    finally:
-        isect.K1_VARIANT = default
-    for v, label in K1_STEPS.items():
-        print(f"K1 step {v} ({label}): " + "; ".join(
-            f"{name} rays " + ", ".join(f"{t:.4f}" for t in times[v, name])
-            + " ms" for name in shapes))
-    # the card's SM clock and power while K1 runs back to back for about
-    # two seconds on random rays (nvidia-smi every 100 ms)
-    rays = shapes["random"]
-    smi = subprocess.Popen(
-        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
-         "--format=csv,noheader,nounits", "-lms", "100"],
-        stdout=subprocess.PIPE, text=True)
-    try:
-        time.sleep(0.5)
-        t0 = time.perf_counter()
-        launches = 0
-        while time.perf_counter() - t0 < 2.0:
-            for _ in range(200):
-                isect.closest_hit(*soup, *rays, table=table)
-            torch.cuda.synchronize()
-            launches += 200
-        wall = time.perf_counter() - t0
-    finally:
-        smi.terminate()
-        out = smi.communicate()[0]
-    samples = [tuple(float(x) for x in line.split(",")) for line in
-               out.splitlines() if line.count(",") == 1]
-    clocks = sorted(c for c, _ in samples)
-    power = sorted(p for _, p in samples)
-    print(f"K1 back to back: {launches} launches, {wall / launches * 1e3:.4f}"
-          f" ms each; SM clock {clocks[0]:.0f}-{clocks[-1]:.0f} MHz (median "
-          f"{statistics.median(clocks):.0f}), power {power[0]:.1f}-"
-          f"{power[-1]:.1f} W over {len(samples)} samples")
 
 
 def check_splat(tf, events, hw, dev):

@@ -44,7 +44,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points of csrc/*.cu: name -> argtypes (all return int cudaError_t)
 _SIGNATURES = {
-    "mitr_closest_hit": (_P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _P),
+    "mitr_closest_hit": (_P, _I, _P, _P, _P, _P, _I, _P, _P, _P),
     "mitr_ray_test": (_P, _I, _P, _P, _P, _P, _I, _P, _P),
     "mitr_splat_accumulate": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
     "mitr_bvh_query": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

@@ -29,8 +29,6 @@ from . import bvh
 TRI_CHUNK = 32
 RAY_EPS = 1e-4
 TABLE_WIDTH = 12  # floats of one packed triangle record (tri_table)
-# K1's design step (csrc/intersect.cu:mitr_closest_hit), timed by chip_smoke
-K1_VARIANT = 2
 
 
 def _moller_trumbore(o, d, v0, e1, e2):
@@ -166,7 +164,7 @@ def _soup_kernel(kernel, table, m, ray_o, ray_d, maxt, active):
             err = lib.mitr_closest_hit(
                 table.data_ptr(), m, ray_o.data_ptr(), ray_d.data_ptr(),
                 maxt.data_ptr(), active.data_ptr(), n, t.data_ptr(),
-                prim.data_ptr(), K1_VARIANT, stream)
+                prim.data_ptr(), stream)
             out = (t, prim)
         else:
             occ = torch.empty((n,), dtype=torch.bool, device=dev)

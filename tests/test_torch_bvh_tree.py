@@ -26,8 +26,8 @@ the BVH kernel walks them, and the kernels' other loops, on the CPU.
   sequential sweep, of K2's loop (``csrc/intersect.cu:any_hit_kernel``: a
   block lists its rays that need tests, one a thread, staged chunks)
   against ``ray_test_soup``, and of K1's (``closest_hit_kernel``: the
-  block's list, ``K1_RAYS`` rays a thread, staged chunks, a strict '<' per
-  ray) against ``intersect_soup``.
+  block's list, one ray a thread, staged chunks, a strict '<' per ray)
+  against ``intersect_soup``.
 """
 import numpy as np
 import pytest
@@ -56,7 +56,6 @@ torch.set_num_threads(1)
 
 F32 = np.float32
 EPS = F32(bvh.RAY_EPS)
-K1_RAYS = 2  # rays a thread of csrc/intersect.cu:closest_hit_kernel
 
 
 def _sphere_soup(rings=48):
@@ -737,18 +736,17 @@ def test_k2_loop_equals_ray_test_soup(soup_kind, active_share):
 
 
 # --------------------------------------------------------------------------
-# K1: a block's list of the rays that need tests, K1_RAYS a thread
+# K1: a block's list of the rays that need tests, one a thread
 # --------------------------------------------------------------------------
 
-def _k1_loop(soup, o, d, maxt, active, rays=K1_RAYS, block=256, chunk=512):
+def _k1_loop(soup, o, d, maxt, active, block=256, chunk=512):
     """csrc/intersect.cu:closest_hit_kernel's loop, vectorised over a
-    block's threads: block b owns ``rays * block`` consecutive rays and
+    block's threads: block b owns rays [b * block, (b + 1) * block) and
     lists those that are active with a limit above RAY_EPS (in an order of
-    its own: here shuffled), answering the others as misses; thread t takes
-    list entries t * rays + j (j < rays) and tests each staged triangle, in
-    index order and chunk by chunk, against its rays in turn, keeping a hit
-    strictly nearer than the ray's best.  -> (t (N,), prim (N,), tests per
-    ray (N,))."""
+    its own: here shuffled), answering the others as misses; thread t tests
+    list entry t against each staged triangle, in index order and chunk by
+    chunk, keeping a hit strictly nearer than its best.  -> (t (N,), prim
+    (N,), tests per ray (N,))."""
     n, m = o.shape[0], soup[0].shape[0]
     hit, tt, _u, _v = isect._moller_trumbore(o, d, *soup)
     hit, tt = hit.numpy(), tt.numpy()
@@ -757,22 +755,16 @@ def _k1_loop(soup, o, d, maxt, active, rays=K1_RAYS, block=256, chunk=512):
     best_i = np.full(n, -1, np.int32)
     tests = np.zeros(n, np.int64)
     opened = best_t > EPS  # NaN is not
-    per_block = rays * block
     shuffle = np.random.default_rng(0).permutation
-    for b in range(-(-n // per_block)):
-        own = np.arange(b * per_block, min((b + 1) * per_block, n))
-        listed = shuffle(own[opened[own]])
-        slots = np.full(per_block, -1)
-        slots[:listed.shape[0]] = listed
-        slots = slots.reshape(block, rays)  # thread t's ray j: slots[t, j]
+    for b in range(-(-n // block)):
+        own = np.arange(b * block, min((b + 1) * block, n))
+        ray = shuffle(own[opened[own]])  # thread t's ray is ray[t]
         for base in range(0, m, chunk):
             for k in range(base, min(base + chunk, m)):
-                for j in range(rays):
-                    ray = slots[:, j][slots[:, j] >= 0]
-                    tests[ray] += 1
-                    take = ray[hit[ray, k] & (tt[ray, k] < best_t[ray])]
-                    best_t[take] = tt[take, k]
-                    best_i[take] = k
+                tests[ray] += 1
+                take = ray[hit[ray, k] & (tt[ray, k] < best_t[ray])]
+                best_t[take] = tt[take, k]
+                best_i[take] = k
     t = np.where(best_i >= 0, best_t, F32(np.inf)).astype(F32)
     return t, best_i, tests
 
@@ -780,7 +772,7 @@ def _k1_loop(soup, o, d, maxt, active, rays=K1_RAYS, block=256, chunk=512):
 @pytest.mark.parametrize("active_share", ["most", "a_third"])
 @pytest.mark.parametrize("soup_kind", ["cbox", "random3000"])
 def test_k1_loop_equals_intersect_soup(soup_kind, active_share):
-    """K1's loop with a ragged tail (n not a multiple of a block's rays),
+    """K1's loop with a ragged tail (n not a multiple of the block),
     inactive rays (most rays active, or a third), NaN and negative maxt,
     coplanar ties (the soup's last ``dup`` triangles repeat its first ones;
     a fifth of the rays aim at triangle 0) and (3000 triangles) more than
@@ -790,7 +782,7 @@ def test_k1_loop_equals_intersect_soup(soup_kind, active_share):
     rng = np.random.default_rng(15)
     if soup_kind == "cbox":
         sd = mt.load_dict(mt.cornell_box(), device="cpu").data
-        dup, n = 1, 5 * 2 * 256 + 77
+        dup, n = 1, 5 * 256 + 77
         soup = tuple(torch.cat([a, a[:dup]]) for a in (sd.tri.v0, sd.tri.e1,
                                                        sd.tri.e2))
     else:
