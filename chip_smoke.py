@@ -52,7 +52,9 @@ Phases, each of which raises on failure:
     on the card against the port on the host CPU, under test_golden's rule
     with no element out.
 
-It prints, as its last three lines, the card's name and power limit, one
+Kernel times (``_time_ms``) are means of launches made back to back, so
+that the wrapper's host work overlaps the card's as in a render.  It
+prints, as its last three lines, the card's name and power limit, one
 JSON object with each kernel's launches, error, times and bound, and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, it exits with an error.  Nothing here
@@ -163,16 +165,16 @@ def check_kernels(mt, cases, dev):
     rows = []
     events, flagship_rays = flagship_iteration(mt, dev)
 
-    def report_rays(name, bad, rays, allowed=0):
+    def report_rays(name, bad, rays):
         o, d, extra, active = rays
         idx = torch.nonzero(bad).flatten().tolist()
         for i in idx[:10]:
             print(f"  {name} mismatch ray {i}: o={o[i].tolist()} "
                   f"d={d[i].tolist()} maxt={extra[i].item()} "
                   f"active={bool(active[i])}")
-        print(f"{name}: {len(idx)} of {bad.numel()} rays differ "
-              f"(at most {allowed} allowed)")
-        if len(idx) > allowed:
+        print(f"{name}: {len(idx)} of {bad.numel()} rays differ (none "
+              "allowed)")
+        if idx:
             raise AssertionError(f"{name}: {len(idx)} rays differ")
 
     # K1 closest hit, bit-equal (prim equal, t equal bit for bit; 0 rays
