@@ -51,12 +51,31 @@ Phases, each of which raises on failure:
 10. The small sphere config (``small_cbox`` with a 4,512-triangle sphere)
     on the card against the port on the host CPU, under test_golden's rule
     with no element out.
+11. The threefry sample streams: ``draw_bounce_block`` at (2^21, 6) and
+    ``Sampler.eval_2d`` at 2^21 lanes on the card, each bit-equal to the
+    same draw on the host CPU, timed, and their time per multi-pass
+    flagship render (32 passes of 8 bounce blocks and one jitter draw).
+12. The flagship through the multi-pass accumulator (``regenerate=False``,
+    spp 1024: 32 passes of spp 32 at 2^21 lanes): each of K1-K3 launches
+    once per bounce of every pass, the physics checks pass; peak memory and
+    the rays/s of a second render (seed 1).
+13. The ``cbox_rgb_multipass`` and ``phasor`` golden configs on the card
+    against their goldens.
+14. Multi-pass renders on the card against the port on the host CPU: the
+    small sphere config (through the BVH kernel) and a small config with
+    ``camera_unwarp``, the gaussian temporal filter, the gaussian rfilter
+    and a crop window; test_golden's rule, no element out.
+15. Checkpoint/resume on the card: a render resumed from a pass's state,
+    written and read back by ``save_film_state`` / ``load_film_state``, is
+    bit for bit the uninterrupted render.
 
 Kernel times (``_time_ms``) are means of launches made back to back, so
 that the wrapper's host work overlaps the card's as in a render.  It
 prints, as its last three lines, the card's name and power limit, one
-JSON object with each kernel's launches, error, times and bound, and
-``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
+JSON object with each kernel's launches (in the regen flagship or
+``cbox_mesh`` render; K1-K3 also in the multi-pass flagship render,
+``multipass_launches``), error, times and bound, and ``{"ok": true,
+"device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, it exits with an error.  Nothing here
 imports jax.
 """
@@ -80,6 +99,7 @@ FLAGSHIP_EVENTS = dict(spp=64, seed=2, iteration=8)
 TIMING_REPS = 20  # calls back to back in one timed batch
 TIMING_BATCHES = 5
 MESH = dict(spp=1024, seed=0)  # cbox_mesh: 256x256, 300 bins, depth 8
+MULTIPASS_PASSES = 32  # the multi-pass flagship: 1024 spp, 32 a pass
 PROFILE_SPP = 64  # the profiled render: the profiler slows the host
 BVH_SUBSET = 1 << 16  # rays of the kernel-against-plain comparison
 K1_MISMATCH_SHARE = 1e-4  # BVH kernel (Woop) against K1 (Moller-Trumbore)
@@ -791,6 +811,182 @@ def render_small_sphere(mt, cases, dev):
             raise AssertionError(f"small sphere {k}: card and CPU disagree")
 
 
+def check_threefry(dev):
+    """Phase 11: the threefry draws of a multi-pass flagship pass on the
+    card, bit-equal to the host CPU's, and their time per render."""
+    import torch
+
+    from mitransient_tpu_torch.core import rng
+
+    key = rng.Sampler(0, N_RAYS, stream=5).key
+    draws = {
+        "draw_bounce_block (2^21, 6)":
+            lambda d: rng.draw_bounce_block(key, 3, N_RAYS, 6, d),
+        "Sampler.eval_2d (2^21 lanes)":
+            lambda d: rng.Sampler(7, N_RAYS, 2, device=d).eval_2d(0),
+    }
+    ms = {}
+    for name, draw in draws.items():
+        got, want = draw(dev).cpu(), draw("cpu")
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"threefry {name}: the card's draw differs "
+                                 "from the CPU's")
+        ms[name] = _time_ms(lambda: draw(dev), reps=5, warmup=1, batches=3)
+        print(f"threefry {name}: bit-equal to the CPU; {ms[name]:.4f} ms a "
+              "draw on the card")
+    block, jitter = ms.values()
+    passes, depth = MULTIPASS_PASSES, 8
+    per_render = passes * (depth * block + jitter)
+    print(f"threefry per multi-pass flagship render ({passes} passes x "
+          f"({depth} bounce blocks + 1 jitter draw)): {per_render:.1f} ms")
+    return per_render
+
+
+def render_multipass_flagship(mt, cases, dev, threefry_ms):
+    """Phase 12: the flagship through the multi-pass accumulator; returns
+    the launch counts of its first render."""
+    import torch
+
+    from mitransient_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    scene = mt.load_dict(mt.cornell_box(), device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    s, t, stats = mt.render(scene, return_stats=True, regenerate=False,
+                            **FLAGSHIP)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    n = stats["loop_iters"]
+    print(f"multi-pass flagship render 1 (seed 0): {wall:.3f} s, launches "
+          f"{counts}, bounces {n} (spp {stats['spp']}), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if n != MULTIPASS_PASSES * 8:
+        raise AssertionError(f"the multi-pass flagship ran {n} bounces")
+    for name in ("closest_hit", "ray_test", "splat_accumulate"):
+        if counts.get(name, 0) != n:
+            raise AssertionError(f"{name} launched {counts.get(name, 0)} "
+                                 f"times in {n} bounces")
+    s, t = s.cpu().numpy(), t.cpu().numpy()
+    fails = cases.physics_checks(s, t)
+    prof = t.sum(axis=(0, 1, 3))
+    print(f"  first arrival bin {prof.nonzero()[0][0]}, transient/steady "
+          f"{t.sum() / s.sum():.6f}, left wall {s[128, 6]}, right wall "
+          f"{s[128, 249]}")
+    if fails:
+        raise AssertionError(f"multi-pass flagship physics checks: {fails}")
+    t0 = time.perf_counter()
+    _s, _t, stats2 = mt.render(scene, return_stats=True, regenerate=False,
+                               spp=FLAGSHIP["spp"], seed=1)
+    torch.cuda.synchronize()
+    wall2 = time.perf_counter() - t0
+    rays = int(stats2["rays"])
+    print(f"multi-pass flagship render 2 (seed 1): {wall2:.3f} s, {rays} "
+          f"rays -> {rays / wall2 / 1e6:.2f} M rays/s; threefry "
+          f"{threefry_ms / 1e3:.3f} s of it ({threefry_ms / 1e3 / wall2:.3f})")
+    return counts
+
+
+def render_multipass_goldens(mt, cases, dev):
+    """Phase 13: cbox_rgb_multipass and phasor on the card against their
+    goldens, under test_golden's rule with no element out."""
+    import copy
+
+    import numpy as np
+
+    phasor = mt.cornell_box()
+    phasor["integrator"]["max_depth"] = 4
+    phasor["sensor"]["film"] = {
+        "type": "phasor_hdr_film", "width": 8, "height": 8,
+        "temporal_bins": 400, "bin_width_opl": 0.02, "start_opl": 3.5,
+        "wl_mean": 0.5, "wl_sigma": 0.5}
+    for name, desc, variant, kw in (
+            ("cbox_rgb_multipass", cases.small_cbox(mt), "rgb",
+             dict(regenerate=False)),
+            ("phasor", phasor, "mono", {})):
+        mt.set_variant(variant)
+        try:
+            s, t = mt.render(mt.load_dict(copy.deepcopy(desc), device=dev),
+                             spp=8, seed=0, **kw)
+        finally:
+            mt.set_variant("rgb")
+        golden = np.load(os.path.join(ROOT, "tests", "goldens",
+                                      f"{name}.npz"))
+        for key, got in (("steady", s), ("transient", t)):
+            m = cases.golden_mismatch(got.cpu().numpy(), golden[key])
+            print(f"{name} {key} vs golden: {m}")
+            if not (m["shape_ok"] and m["n_bad"] == 0):
+                raise AssertionError(f"{name} {key} disagrees with its golden")
+
+
+def multipass_card_against_cpu(mt, cases, dev):
+    """Phase 14: multi-pass renders on the card against the CPU: the small
+    sphere config (the BVH kernel twice a bounce, K1/K2 never) and one with
+    camera_unwarp, both gaussian filters and a crop window."""
+    import copy
+
+    from mitransient_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from mitransient_tpu_torch.ops import bvh
+
+    filters = cases.small_cbox(mt)
+    filters["integrator"].update(camera_unwarp=True, temporal_filter="gaussian",
+                                 gaussian_stddev=1.5)
+    filters["sensor"]["film"].update(
+        rfilter={"type": "gaussian", "stddev": 0.6}, crop_offset_x=3,
+        crop_offset_y=2, crop_width=10, crop_height=12)
+    for name, desc in (("small sphere", cases.small_sphere_cbox(mt)),
+                       ("unwarp + gaussian filters + crop", filters)):
+        out = []
+        for d in (dev, "cpu"):
+            reset_launch_counts()
+            s, t, stats = mt.render(mt.load_dict(copy.deepcopy(desc), device=d),
+                                    spp=4, seed=0, return_stats=True)
+            out.append((s.cpu().numpy(), t.cpu().numpy()))
+            if d == dev:
+                counts, n = launch_counts(), stats["loop_iters"]
+        passes = n // desc["integrator"]["max_depth"]
+        # the gaussian temporal filter splats by index_add_, not K3;
+        # camera_unwarp adds a closest-hit query a pass
+        want = ({f"bvh_query_{bvh.BVH_MODE}": 2 * n, "splat_accumulate": n}
+                if name == "small sphere" else
+                {"closest_hit": n + passes, "ray_test": n})
+        print(f"multi-pass {name} on the card: launches {counts}")
+        if counts != want:
+            raise AssertionError(f"multi-pass {name}: launches {counts}, "
+                                 f"expected {want}")
+        for k, got, ref in zip(("steady", "transient"), out[0], out[1]):
+            m = cases.golden_mismatch(got, ref)
+            print(f"multi-pass {name} {k}, card against CPU: {m}")
+            if not (m["shape_ok"] and m["n_bad"] == 0):
+                raise AssertionError(f"multi-pass {name} {k}: card and CPU "
+                                     "disagree")
+
+
+def check_resume(mt, cases, dev):
+    """Phase 15: a render resumed on the card from its second pass's state
+    (through save_film_state / load_film_state) is bit for bit the
+    uninterrupted render."""
+    import io
+
+    import torch
+
+    scene = mt.load_dict(cases.small_cbox(mt), device=dev)
+    kw = dict(spp=12, seed=4, max_lanes=4 * 256, regenerate=False)
+    states = []
+    s0, t0 = mt.render(scene, checkpoint_callback=states.append, **kw)
+    buf = io.BytesIO()
+    mt.save_film_state(buf, states[1])
+    buf.seek(0)
+    s1, t1 = mt.render(scene, film_state=mt.load_film_state(buf), **kw)
+    same = torch.equal(s0, s1) and torch.equal(t0, t1)
+    print(f"resume on the card from pass {states[1][1]} of {len(states)}: "
+          f"bit-identical {same}")
+    if not same:
+        raise AssertionError("the resumed render differs from the "
+                             "uninterrupted one")
+
+
 def main() -> int:
     import torch
 
@@ -831,8 +1027,15 @@ def main() -> int:
     counts.update(render_mesh(mt, cases, dev, mesh))
     profile_mesh(mt, mesh)
     render_small_sphere(mt, cases, dev)
+    threefry_ms = check_threefry(dev)
+    multipass = render_multipass_flagship(mt, cases, dev, threefry_ms)
+    render_multipass_goldens(mt, cases, dev)
+    multipass_card_against_cpu(mt, cases, dev)
+    check_resume(mt, cases, dev)
     for r in rows:
         r["launches"] = counts[r["name"]]
+        if r["name"] in ("closest_hit", "ray_test", "splat_accumulate"):
+            r["multipass_launches"] = multipass[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi.splitlines()[0])

@@ -5,15 +5,19 @@ written by hand for NVIDIA Hopper.  It keeps the JAX package's module
 layout and function names; the JAX package is the reference it is tested
 against.  This package imports torch and numpy, never jax.
 
-Today it renders the transient path tracer's regen path: scenes of
-rectangles, cubes and triangle meshes with diffuse BSDFs and area
-emitters, seen through a perspective sensor into a transient film; above
-4096 triangles through a chunked acceleration structure.  Scenes load onto
-the card unless the caller asks for ``device="cpu"``.  On a CUDA device
-the ray queries and the film splat run in the kernels of ``csrc/``; on the
+Today it renders the transient path tracer (``transient_path`` and
+``path``) through both of the JAX package's primal branches: the
+path-regeneration loop and the multi-pass accumulator, with its threefry
+sample streams, crop windows, ``camera_unwarp``, the gaussian temporal
+and spatial filters and checkpoint/resume.  Scenes are rectangles, cubes
+and triangle meshes with diffuse BSDFs and area emitters, seen through a
+perspective sensor into a transient film or a phasor film; above 4096
+triangles through a chunked acceleration structure.  Scenes load onto the
+card unless the caller asks for ``device="cpu"``.  On a CUDA device the
+ray queries and the film splat run in the kernels of ``csrc/``; on the
 CPU they run their plain PyTorch versions.
 """
 from .core.spectrum import set_variant, variant  # noqa: F401
-from .render import render  # noqa: F401
+from .render import load_film_state, render, save_film_state  # noqa: F401
 from .scene.schema import Scene, load_dict  # noqa: F401
 from .utils import cornell_box, speed_of_light  # noqa: F401

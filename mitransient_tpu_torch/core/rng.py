@@ -1,0 +1,117 @@
+"""Counter-based, stateless sample streams (counterpart of
+``mitransient_tpu/core/rng.py``).
+
+Every random number is a pure function ``u = U(seed, dimension, lane)``,
+drawn bit for bit as ``jax.random`` draws it with the threefry2x32 PRNG
+and ``jax_threefry_partitionable`` on:
+
+* ``key(seed)`` is the word pair ``(0, seed)``;
+* ``fold_in(k, d)`` is ``threefry2x32(k, (0, d))``, both output words the
+  new key;
+* ``uniform(k, shape)`` hashes each flat row-major index ``i`` of
+  ``shape`` as the counter ``(i >> 32, i & 0xFFFFFFFF)``, XORs the two
+  output words and keeps their top 23 bits as the mantissa of a float32
+  in [1, 2), minus 1.
+
+Keys are pairs of Python ints, derived on the host; only the draws run on
+the device.  PyTorch has no uint32 shifts on the CPU, so the 32-bit words
+of a draw are held in int64 and masked to 32 bits, as the regen loop's PCG
+hash is (``integrators/path_regen.py``).  On the card a draw is a chain of
+about 150 eager int64 operations.
+"""
+from __future__ import annotations
+
+import torch
+
+_M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_KS_PARITY = 0x1BD11BDA
+BOUNCE_STREAM_TAG = 0x42000000  # disambiguates bounce blocks from scalar dims
+
+
+def _rotl(x, r: int):
+    return ((x << r) & _M32) | (x >> (32 - r))
+
+
+def threefry2x32(k0: int, k1: int, x0, x1):
+    """Threefry-2x32 (20 rounds) of the counter words ``(x0, x1)`` under the
+    key ``(k0, k1)``.  The words are Python ints or int64 tensors holding
+    values in [0, 2^32); returns the two output words in the same form."""
+    ks = (k0, k1, k0 ^ k1 ^ _KS_PARITY)
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + (ks[(i + 2) % 3] + i + 1)) & _M32
+    return x0, x1
+
+
+def make_key(seed: int) -> tuple[int, int]:
+    """``jax.random.key(jnp.uint32(seed))``."""
+    return 0, int(seed) & _M32
+
+
+def fold_in(key: tuple[int, int], data: int) -> tuple[int, int]:
+    """``jax.random.fold_in(key, jnp.uint32(data))``."""
+    return threefry2x32(key[0], key[1], 0, int(data) & _M32)
+
+
+def uniform(key: tuple[int, int], shape, device="cpu") -> torch.Tensor:
+    """``jax.random.uniform(key, shape)``: float32 in [0, 1)."""
+    shape = tuple(shape)
+    numel = 1
+    for s in shape:
+        numel *= s
+    i = torch.arange(numel, dtype=torch.int64, device=device)
+    a, b = threefry2x32(key[0], key[1], i >> 32, i & _M32)
+    bits = (((a ^ b) >> 9) | 0x3F800000).to(torch.int32)
+    u = bits.view(torch.float32) - 1.0
+    return torch.clamp_min(u, 0.0).reshape(shape)
+
+
+class Sampler:
+    """Per-wavefront independent sampler over ``n`` lanes on ``device``.
+
+    ``next_1d()`` returns ``(n,)`` float32 in [0, 1), ``next_2d()`` returns
+    ``(n, 2)``; the only state is the dimension counter.  ``stream``
+    separates passes and sensors; ``seed`` is the user seed."""
+
+    def __init__(self, seed: int, n: int, stream: int = 0, device="cpu"):
+        self.key = fold_in(make_key(seed), stream)
+        self.n = n
+        self.dim = 0
+        self.device = device
+
+    def next_1d(self) -> torch.Tensor:
+        u = self.eval_1d(self.dim)
+        self.dim += 1
+        return u
+
+    def next_2d(self) -> torch.Tensor:
+        u = self.eval_2d(self.dim)
+        self.dim += 2
+        return u
+
+    def eval_1d(self, dim: int) -> torch.Tensor:
+        return uniform(fold_in(self.key, dim), (self.n,), self.device)
+
+    def eval_2d(self, dim: int) -> torch.Tensor:
+        return torch.stack([self.eval_1d(dim), self.eval_1d(dim + 1)], dim=-1)
+
+    def fork(self, stream: int) -> "Sampler":
+        s = Sampler.__new__(Sampler)
+        s.key = fold_in(self.key, stream)
+        s.n = self.n
+        s.dim = 0
+        s.device = self.device
+        return s
+
+
+def draw_bounce_block(key: tuple[int, int], it: int, n: int, dims: int,
+                      device="cpu") -> torch.Tensor:
+    """One uniform draw of all of a bounce's sampler dimensions, ``(n,
+    dims)``; deterministic in ``(key, it)``."""
+    return uniform(fold_in(key, BOUNCE_STREAM_TAG + it), (n, dims), device)

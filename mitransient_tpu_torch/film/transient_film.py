@@ -1,21 +1,32 @@
 """Transient film: time-binned radiance accumulation, with kernel K3.
 
-Counterpart of ``mitransient_tpu/film/transient_film.py`` (box temporal
-filter) and of the splat kernel ``ops/splat_pallas.py``.
+Counterpart of ``mitransient_tpu/film/transient_film.py`` and of the splat
+kernel ``ops/splat_pallas.py``.
 
-* The spatial filter is a box, so the pixel of every lane is fixed: lanes
-  are spp-major (lane = s*HW + p) and a splat is a per-pixel histogram over
-  time only.
+* The transient film's spatial filter is a box, so the pixel of every lane
+  is fixed: lanes are spp-major (lane = s*HW + p) and a splat is a
+  per-pixel histogram over time only.
 * The transient buffer is ``(C, T + 1, HW)``: bin T is the overflow slot
   for out-of-range samples, which ``develop`` drops.  The JAX package pads
   T and HW further for its Pallas tiles; the port has no such padding.
+  With a crop window HW is the window's pixel count.
 * OPL -> bin: ``bin = floor((distance - start_opl) / bin_width_opl)``.
 * :func:`splat_accumulate` adds one or two event sets into the film in
   place: the plain :func:`_scatter_layout` for CPU tensors, the kernel of
   ``csrc/splat.cu`` for CUDA tensors.
+* ``temporal_filter='gaussian'`` spreads each event over a +-3 sigma window
+  of bins with normalized Gaussian weights (:func:`_splat_gaussian`); like
+  the JAX package, which takes its XLA scatter for it on every backend, it
+  adds through a plain ``index_add_``.
+* The steady image accumulates the per-lane total L once per pass as a
+  dense spp-axis reduction (:func:`splat_steady`), or under a gaussian
+  spatial filter (:func:`splat_steady_gaussian`).
+* ``*_any`` dispatch on the film kind: the transient histogram here, the
+  phasor film of ``film/phasor_film.py``.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -32,8 +43,11 @@ class TransientFilmState(NamedTuple):
     n_invalid: torch.Tensor  # () f32 - splats with a non-finite value
 
 
-def film_init(cfg: FilmConfig, channels: int, device="cpu") -> TransientFilmState:
-    hw = cfg.width * cfg.height
+def film_init(cfg: FilmConfig, channels: int, scan_pixels: int | None = None,
+              device="cpu") -> TransientFilmState:
+    """A zeroed film of ``scan_pixels`` pixels (a crop window's), by default
+    the whole film's."""
+    hw = scan_pixels if scan_pixels is not None else cfg.width * cfg.height
     f32 = torch.float32
     return TransientFilmState(
         steady=torch.zeros((hw, channels), dtype=f32, device=device),
@@ -71,11 +85,14 @@ def splat_transient_pair(
     """Accumulate one bounce's transient contributions (emitter hit + NEE
     in one call).  Lanes are spp-major; ``spp`` is the lane rows per pixel.
     The film tensor is updated in place and returned in the new state."""
-    if temporal_filter == "gaussian":
-        raise NotImplementedError(
-            "the gaussian temporal filter is not ported yet (ROADMAP item 10)")
     if cfg.warn_negative or cfg.warn_invalid:
         state = _count_suspect(state, cfg, val_a, val_b, active)
+    if temporal_filter == "gaussian":
+        for dist, val in ((dist_a, val_a), (dist_b, val_b)):
+            if dist is not None:
+                _splat_gaussian(state.transient, cfg, dist, val, active,
+                                gaussian_stddev)
+        return state
     bins_a, _ = time_bin(cfg, dist_a)
     va = torch.where(active[:, None], val_a, 0.0)
     bins_b = vb = None
@@ -86,13 +103,59 @@ def splat_transient_pair(
     return state
 
 
+def _splat_gaussian(film, cfg: FilmConfig, distance, value, active,
+                    sigma) -> None:
+    """Add one event set into ``film`` (C, T + 1, HW) in place, each event
+    spread over the bins within ``ceil(3 sigma)`` of its own with
+    normalized Gaussian weights; bins outside the film go to the overflow
+    bin T.  A plain ``index_add_``: on the CPU it adds in index order, on
+    the card by atomics, so there this film is not bit-reproducible."""
+    value = torch.where(active[:, None], value, 0.0)
+    radius = max(1, int(math.ceil(3.0 * sigma)))
+    pos = (distance - cfg.start_opl) / cfg.bin_width_opl
+    offs = torch.arange(-radius, radius + 1, dtype=torch.float32,
+                        device=film.device)
+    b = torch.floor(pos)[:, None] + offs[None, :]
+    w = torch.exp(-0.5 * ((b + 0.5 - pos[:, None]) / sigma) ** 2)
+    w = w / torch.clamp_min(w.sum(dim=-1, keepdim=True), 1e-20)
+    ok = (b >= 0) & (b < cfg.temporal_bins)
+    bins = torch.where(ok, b, float(cfg.temporal_bins)).to(torch.int64)
+    n, k = bins.shape
+    pix = (torch.arange(n, device=film.device)
+           % film.shape[-1])[:, None].expand(n, k)
+    vals = value[:, None, :] * w[:, :, None]  # (N, K, C)
+    _scatter_cells(film, pix.reshape(-1), bins.reshape(-1),
+                   vals.reshape(n * k, -1))
+
+
 def splat_pair_any(state, cfg: FilmConfig, spp, dist_a, val_a, dist_b, val_b,
                    active, temporal_filter="", gaussian_stddev=2.0):
-    """Film-kind dispatch; only the transient histogram film is ported
-    (the phasor film is ROADMAP item 12 and is refused at load)."""
+    """Film-kind dispatch: the phasor film or the transient histogram."""
+    if cfg.kind == "phasor_hdr_film":
+        from .phasor_film import splat_phasor_pair
+
+        return splat_phasor_pair(state, cfg, spp, dist_a, val_a, dist_b,
+                                 val_b, active)
     return splat_transient_pair(state, cfg, spp, dist_a, val_a, dist_b,
                                 val_b, active, temporal_filter,
                                 gaussian_stddev)
+
+
+def film_init_any(cfg: FilmConfig, channels: int,
+                  scan_pixels: int | None = None, device="cpu"):
+    if cfg.kind == "phasor_hdr_film":
+        from .phasor_film import phasor_film_init
+
+        return phasor_film_init(cfg, channels, device=device)
+    return film_init(cfg, channels, scan_pixels, device=device)
+
+
+def develop_any(state, cfg: FilmConfig, shape_hw=None):
+    if cfg.kind == "phasor_hdr_film":
+        from .phasor_film import develop_phasor
+
+        return develop_phasor(state, cfg)
+    return develop(state, cfg, shape_hw)
 
 
 def _count_suspect(state: TransientFilmState, cfg: FilmConfig,
@@ -121,9 +184,15 @@ def _scatter_layout(film: torch.Tensor, hw: int, bins: torch.Tensor,
     On the CPU ``index_add_`` on a 1-D view adds in index order, so every
     film cell sums its lanes in lane order, like the kernel.  On the card
     it uses atomics, whose order varies from run to run."""
-    C, t_pad, _ = film.shape
-    n = bins.shape[0]
-    pix = torch.arange(n, device=bins.device) % hw
+    pix = torch.arange(bins.shape[0], device=bins.device) % hw
+    _scatter_cells(film, pix, bins, vals)
+
+
+def _scatter_cells(film: torch.Tensor, pix: torch.Tensor, bins: torch.Tensor,
+                   vals: torch.Tensor) -> None:
+    """``film[c, bins[i], pix[i]] += vals[i, c]`` in place, in the order of
+    i, then c; bins outside the film dropped."""
+    C, t_pad, hw = film.shape
     keep = (bins >= 0) & (bins < t_pad)
     # offset inside one channel; a dropped lane adds 0.0 to cell 0
     cell = torch.where(keep, bins.to(torch.int64) * hw + pix, 0)
@@ -183,10 +252,63 @@ def check_pixel_slab(channels: int, t_pad: int) -> None:
             "bytes of shared memory")
 
 
-def develop(state: TransientFilmState, cfg: FilmConfig):
+def splat_steady(state, spp: int, value: torch.Tensor, weight: torch.Tensor):
+    """Add a pass's per-lane radiance ``value`` (N, C), spp-major, with
+    filter weights ``weight`` (N,) (box: 1) into the steady image: a dense
+    reduction over the spp axis."""
+    hw = state.steady.shape[0]
+    v = (value * weight[:, None]).reshape(spp, hw, -1).sum(dim=0)
+    w = weight.reshape(spp, hw).sum(dim=0)
+    return state._replace(steady=state.steady + v,
+                          steady_weight=state.steady_weight + w)
+
+
+def splat_steady_gaussian(state, h: int, w: int, spp: int,
+                          value: torch.Tensor, weight: torch.Tensor,
+                          jitter: torch.Tensor, stddev: float = 0.5):
+    """Steady-image accumulation under a truncated gaussian spatial filter
+    (Mitsuba's ``gaussian`` rfilter: exp(-x^2/2s^2) - exp(-r^2/2s^2), radius
+    r = 4s).  ``jitter`` (N, 2) is each lane's position inside its pixel.
+    For each integer pixel offset the pass's weighted contributions are
+    reduced over the spp axis, then added into the image shifted by that
+    offset."""
+    radius = max(1, int(math.ceil(4.0 * stddev)))
+    C = value.shape[-1]
+    v = (value * weight[:, None]).reshape(spp, h, w, C)
+    wg = weight.reshape(spp, h, w)
+    jx = jitter[:, 0].reshape(spp, h, w)
+    jy = jitter[:, 1].reshape(spp, h, w)
+    cut = math.exp(-(radius * radius) / (2.0 * stddev * stddev))
+    two_s2 = 2.0 * stddev * stddev
+    acc = torch.zeros((h, w, C), dtype=torch.float32, device=value.device)
+    wacc = torch.zeros((h, w), dtype=torch.float32, device=value.device)
+    for dy in range(-radius, radius + 1):
+        for dx in range(-radius, radius + 1):
+            # from the sample (px + jx) to the centre of pixel px + dx
+            ox = (dx + 0.5) - jx
+            oy = (dy + 0.5) - jy
+            fx = torch.clamp_min(torch.exp(-ox * ox / two_s2) - cut, 0.0)
+            fy = torch.clamp_min(torch.exp(-oy * oy / two_s2) - cut, 0.0)
+            f = fx * fy
+            contrib = (v * f[..., None]).sum(dim=0)  # (h, w, C)
+            wsum = (wg * f).sum(dim=0)
+            ys = slice(max(dy, 0), h + min(dy, 0))
+            yd = slice(max(-dy, 0), h + min(-dy, 0))
+            xs = slice(max(dx, 0), w + min(dx, 0))
+            xd = slice(max(-dx, 0), w + min(-dx, 0))
+            acc[ys, xs] += contrib[yd, xd]
+            wacc[ys, xs] += wsum[yd, xd]
+    return state._replace(steady=state.steady + acc.reshape(h * w, C),
+                          steady_weight=state.steady_weight
+                          + wacc.reshape(h * w))
+
+
+def develop(state: TransientFilmState, cfg: FilmConfig,
+            shape_hw: tuple[int, int] | None = None):
     """Returns (steady (H, W, C), transient (H, W, T, C)): weight-normalized
-    steady; the transient was scaled at splat time."""
-    h, w = cfg.height, cfg.width
+    steady; the transient was scaled at splat time.  ``shape_hw`` is the
+    film's data size (a crop window's), by default the whole film's."""
+    h, w = shape_hw if shape_hw is not None else (cfg.height, cfg.width)
     C = state.steady.shape[-1]
     wgt = torch.where(state.steady_weight == 0.0, 1.0, state.steady_weight)
     steady = (state.steady / wgt[:, None]).reshape(h, w, C)

@@ -1,29 +1,50 @@
 """Top-level render orchestration (counterpart of
-``mitransient_tpu/render.py``, regen branch).
+``mitransient_tpu/render.py``, its regen and multi-pass branches).
 
-The port renders through the path-regeneration loop
-(``integrators/path_regen.py``) only.  A call that the JAX package would
-send down its multi-pass accumulator, its NLOS renderer or a
-differentiable renderer raises ``NotImplementedError`` naming the ROADMAP
-item that will port it.  The render runs on the device of
+A render takes one of two branches, chosen as the JAX package chooses:
+
+* the path-regeneration loop (``integrators/path_regen.py``), one pass
+  over the whole spp budget, for plain ``transient_path`` renders of at
+  least 8 spp with a box filter, no crop and no ``camera_unwarp``;
+* the multi-pass accumulator otherwise: the spp budget is split into
+  passes of at most ``max_lanes`` lanes, each an independently seeded
+  threefry stream (``Sampler(seed, n, stream=pass)``) traced by
+  ``integrators/path.py``, accumulated into one film.
+
+A call the JAX package would send to its NLOS renderer or a differentiable
+renderer is refused at load.  The render runs on the device of
 ``scene.data``.
 """
 from __future__ import annotations
 
 import logging
 
-from .film.transient_film import develop, film_init
+import numpy as np
+import torch
+
+from .core.rng import Sampler
+from .film.transient_film import (
+    TransientFilmState,
+    develop_any,
+    film_init_any,
+    splat_steady,
+    splat_steady_gaussian,
+)
+from .film.phasor_film import PhasorFilmState
+from .integrators.path import sample_primal
 from .integrators.path_regen import sample_primal_regen
 from .ops.bvh import BVH_MODE, MODES
 from .scene.scene import primal_sd
 from .scene.schema import Scene
-from .sensors.perspective import build_camera
+from .sensors.perspective import build_camera, sample_rays
 
-# Lane budget: lanes = pixels * lanes_per_pixel.  2^21 lanes * ~60 f32 of
-# live state is about 0.5 GB.
+# Lane budget: lanes = pixels * lanes per pixel (regen) or pixels * spp a
+# pass (multi-pass).  2^21 lanes * ~60 f32 of live state is about 0.5 GB.
 DEFAULT_MAX_LANES = 1 << 21
 
 _log = logging.getLogger("mitransient_tpu_torch")
+_FILM_STATES = {cls.__name__: cls for cls in (TransientFilmState,
+                                               PhasorFilmState)}
 
 
 def _regen_render(sd, cam, film, seed, *, film_cfg, icfg, spp_total,
@@ -44,10 +65,31 @@ def _regen_render(sd, cam, film, seed, *, film_cfg, icfg, spp_total,
     return film, n_rays, iters, loop_iters
 
 
-def _refuse_multipass(why: str):
-    raise NotImplementedError(
-        f"{why}: this render needs the multi-pass accumulator, which is not "
-        "ported yet (ROADMAP item 10)")
+def _perspective_pass(sd, cam, film, seed, pass_idx, inv_total_spp, *,
+                      film_cfg, icfg, width, height, spp_chunk, bvh_mode):
+    """One pass of ``spp_chunk`` samples a pixel over the data window
+    (``width`` x ``height``); returns (film, n_rays)."""
+    n = width * height * spp_chunk
+    dev = cam.origin.device
+    sampler = Sampler(seed, n, stream=pass_idx, device=dev)
+    # width/height are the data (crop) dims; the uv mapping uses the full
+    # sensor
+    ray, pix, ray_weight = sample_rays(
+        cam, sampler, width, height, spp_chunk,
+        crop_offset=(film_cfg.crop_offset_x, film_cfg.crop_offset_y),
+        full_size=(film_cfg.width, film_cfg.height))
+    film, L, _valid, n_rays = sample_primal(
+        sd, sampler, ray, pix, ray_weight, film, film_cfg, icfg,
+        sample_scale=inv_total_spp, spp=spp_chunk,
+        bvh_mode=bvh_mode)
+    if film_cfg.rfilter == "gaussian":
+        # the camera jitter again: sampler dims 0-1 of this pass's stream
+        film = splat_steady_gaussian(film, height, width, spp_chunk, L,
+                                     ray_weight, sampler.eval_2d(0),
+                                     stddev=film_cfg.rfilter_stddev)
+    else:
+        film = splat_steady(film, spp_chunk, L, ray_weight)
+    return film, n_rays
 
 
 def render(
@@ -64,13 +106,25 @@ def render(
     bvh_mode: str = BVH_MODE,
 ):
     """Render ``(steady (H, W, C), transient (H, W, T, C))`` for the
-    scene's sensor, on the scene's device.
+    scene's sensor, on the scene's device; a phasor film gives ``(steady,
+    phasors (H, W, F, 2))``.  With a crop window H and W are the window's.
 
-    With ``return_stats`` a third value holds ``rays`` (int64 count of
-    closest-hit lanes plus NEE shadow rays), ``spp``, ``iters`` (the
-    iterations the JAX loop runs) and ``loop_iters`` (iterations this loop
-    ran, one launch of each kernel apiece).  As in the JAX regen branch,
-    ``checkpoint_callback`` is not called: the render is one pass.
+    With ``return_stats`` a third value holds ``rays`` (an int64 count of
+    closest-hit lanes plus NEE shadow rays), ``spp`` and ``loop_iters``
+    (bounces this call ran, one launch of each per-bounce kernel apiece;
+    ``camera_unwarp`` adds one closest-hit launch a pass); the regen branch
+    adds ``iters``, the iterations the JAX loop runs.
+
+    Checkpoint/resume (multi-pass branch): ``checkpoint_callback(state)``
+    is called after every pass with ``(film, passes done, rays so far)``,
+    the film as host numpy copies; pass such a state back as
+    ``film_state=`` to go on with the remaining passes.  Pass splitting is
+    deterministic in (seed, spp, max_lanes), so the resumed render is bit
+    for bit the uninterrupted one.  A resumed state is moved onto the
+    scene's device.  :func:`save_film_state` / :func:`load_film_state`
+    write and read it; the port's film has no padding, so these files are
+    the port's own, not the JAX package's.
+
     ``bvh_mode`` (``"chunk"`` or ``"super"``) is the BVH kernel's traversal
     mode in scenes with an accel (``ops/bvh.py``).
     """
@@ -78,8 +132,13 @@ def render(
     icfg = scene.integrator
     film_cfg = cfg.film
     spp = spp if spp is not None else cfg.spp
-    hw = film_cfg.data_width * film_cfg.data_height
+    dw, dh = film_cfg.data_width, film_cfg.data_height
+    hw = dw * dh
+    C = scene.variant.color_channels
+    dev = scene.device
 
+    if bvh_mode not in MODES:
+        raise ValueError(f"bvh_mode {bvh_mode!r}: expected one of {MODES}")
     if regenerate is None:
         regenerate = (
             icfg.kind == "transient_path"
@@ -90,40 +149,81 @@ def render(
             and not film_cfg.is_cropped
             and spp >= 8
         )
-    if bvh_mode not in MODES:
-        raise ValueError(f"bvh_mode {bvh_mode!r}: expected one of {MODES}")
-    if film_state is not None:  # resuming implies the multi-pass accumulator
-        _refuse_multipass("film_state")
-    if not regenerate:
-        _refuse_multipass(
-            f"spp={spp}, camera_unwarp={icfg.camera_unwarp}, "
-            f"temporal_filter={icfg.temporal_filter!r}, "
-            f"rfilter={film_cfg.rfilter!r}, cropped={film_cfg.is_cropped}, "
-            f"regenerate={regenerate}")
-
-    dev = scene.device
-    lanes_per_pixel = max(1, min(spp, max_lanes // max(hw, 1)))
+    if film_state is not None:
+        regenerate = False  # resuming implies the multi-pass accumulator
     cam = build_camera(cfg, device=dev)
-    film = film_init(film_cfg, scene.variant.color_channels, device=dev)
-    film, n_rays, iters, loop_iters = _regen_render(
-        primal_sd(scene.data), cam, film, seed,
-        film_cfg=film_cfg, icfg=icfg, spp_total=spp,
-        lanes_per_pixel=lanes_per_pixel, bvh_mode=bvh_mode)
-    if progress_callback is not None:
-        progress_callback(1.0)
-    steady, transient = develop(film, film_cfg)
-    extra = surface_sample_validation(film, film_cfg)
+    sd = primal_sd(scene.data)
+    if regenerate:
+        lanes_per_pixel = max(1, min(spp, max_lanes // max(hw, 1)))
+        film = film_init_any(film_cfg, C, device=dev)
+        film, n_rays, iters, loop_iters = _regen_render(
+            sd, cam, film, seed, film_cfg=film_cfg, icfg=icfg,
+            spp_total=spp, lanes_per_pixel=lanes_per_pixel,
+            bvh_mode=bvh_mode)
+        if progress_callback is not None:
+            progress_callback(1.0)
+        stats = {"rays": n_rays, "spp": spp, "iters": iters,
+                 "loop_iters": loop_iters}
+    else:
+        film, n_rays, spp, loop_iters = _multipass_render(
+            sd, cam, seed, spp, film_cfg=film_cfg, icfg=icfg, channels=C,
+            max_lanes=max_lanes, film_state=film_state,
+            progress_callback=progress_callback,
+            checkpoint_callback=checkpoint_callback, bvh_mode=bvh_mode)
+        stats = {"rays": n_rays, "spp": spp, "loop_iters": loop_iters}
+    steady, transient = develop_any(film, film_cfg, shape_hw=(dh, dw))
+    stats.update(surface_sample_validation(film, film_cfg))
     if return_stats:
-        return steady, transient, {"rays": n_rays, "spp": spp,
-                                   "iters": iters, "loop_iters": loop_iters,
-                                   **extra}
+        return steady, transient, stats
     return steady, transient
+
+
+def _multipass_render(sd, cam, seed, spp, *, film_cfg, icfg, channels,
+                      max_lanes, film_state, progress_callback,
+                      checkpoint_callback, bvh_mode):
+    """The multi-pass branch -> (film, rays, total spp, bounces run)."""
+    dw, dh = film_cfg.data_width, film_cfg.data_height
+    hw = dw * dh
+    dev = cam.origin.device
+    spp_chunk = max(1, min(spp, max_lanes // max(hw, 1)))
+    n_passes = (spp + spp_chunk - 1) // spp_chunk
+    spp_chunk = (spp + n_passes - 1) // n_passes  # even-ish split
+    total_spp = spp_chunk * n_passes
+
+    if film_state is not None:
+        film, done_passes, total_rays = film_state
+        # a copy: the film's transient is updated in place
+        film = type(film)(*(torch.as_tensor(a).to(dev, copy=True)
+                            for a in film))
+        if film.steady.shape[-1] != channels:
+            raise ValueError("film_state does not match this scene/variant")
+    else:
+        film = film_init_any(film_cfg, channels,
+                             scan_pixels=hw if film_cfg.is_cropped else None,
+                             device=dev)
+        done_passes, total_rays = 0, 0
+    for p in range(done_passes, n_passes):
+        film, n_rays = _perspective_pass(
+            sd, cam, film, seed, p, 1.0 / total_spp, film_cfg=film_cfg,
+            icfg=icfg, width=dw, height=dh, spp_chunk=spp_chunk,
+            bvh_mode=bvh_mode)
+        total_rays = total_rays + n_rays
+        if progress_callback is not None:
+            progress_callback((p + 1) / n_passes)
+        if checkpoint_callback is not None:
+            checkpoint_callback((
+                type(film)(*(a.detach().cpu().numpy().copy() for a in film)),
+                p + 1, int(total_rays)))
+    loop_iters = (n_passes - done_passes) * icfg.max_depth
+    return film, total_rays, total_spp, loop_iters
 
 
 def surface_sample_validation(film, film_cfg) -> dict:
     """Host-side half of the opt-in splat validation: read the counters
     accumulated by ``splat_transient_pair`` and log one warning per render."""
     if not (film_cfg.warn_negative or film_cfg.warn_invalid):
+        return {}
+    if not hasattr(film, "n_negative"):  # the phasor film has no counters
         return {}
     neg = float(film.n_negative)
     inv = float(film.n_invalid)
@@ -135,3 +235,22 @@ def surface_sample_validation(film, film_cfg) -> dict:
                      "(warn_invalid)", int(inv))
     return {"n_negative": neg, "n_invalid": inv}
 
+
+def save_film_state(path, state) -> None:
+    """Write a ``checkpoint_callback`` state to ``path`` (a numpy archive;
+    a file name or a binary file object)."""
+    film, done_passes, total_rays = state
+    arrays = {f"film_{i}": np.asarray(torch.as_tensor(a).cpu())
+              for i, a in enumerate(film)}
+    np.savez(path, film_type=type(film).__name__, done_passes=done_passes,
+             total_rays=int(total_rays), **arrays)
+
+
+def load_film_state(path):
+    """Read a state written by :func:`save_film_state`: (film with CPU
+    tensors, passes done, rays so far)."""
+    with np.load(path) as z:
+        cls = _FILM_STATES[str(z["film_type"])]
+        film = cls(*(torch.from_numpy(z[f"film_{i}"])
+                     for i in range(len(cls._fields))))
+        return film, int(z["done_passes"]), int(z["total_rays"])

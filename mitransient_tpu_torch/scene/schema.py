@@ -5,9 +5,12 @@ Counterpart of ``mitransient_tpu/scene/schema.py`` for the plugin set of
 the transient Cornell box and of large meshes: ``rectangle``, ``cube``,
 ``obj``, ``ply`` and in-memory ``mesh`` shapes, ``diffuse`` BSDFs (top
 level, nested or by ``ref``), ``area`` emitters, the ``perspective``
-sensor with a ``transient_hdr_film`` and the ``transient_path``
-integrator.  Every other plugin raises ``NotImplementedError`` naming the
-ROADMAP item that will port it.
+sensor with a ``transient_hdr_film`` or a ``phasor_hdr_film``, and the
+``transient_path`` and ``path`` integrators.  Every other plugin the JAX
+package accepts raises ``NotImplementedError`` naming the ROADMAP item
+that will port it; what the JAX loader refuses (other sensor types such as
+``thinlens`` and ``irradiancemeter``, unknown scene entries) raises its
+``ValueError``.
 
 The tables are built on the host with numpy exactly as the JAX loader
 builds them, then each one is moved to ``device`` once.  Above
@@ -49,11 +52,11 @@ _BSDF_TYPES = (
 _ROADMAP_ITEM = {
     # scene entries the JAX package accepts and the port does not yet
     "bsdf": "11", "angulararea": "11", "projector": "11", "point": "11",
-    "spot": "11", "thinlens": "11", "texture": "11", "homogeneous": "15", "heterogeneous": "15",
+    "spot": "11", "texture": "11", "homogeneous": "15", "heterogeneous": "15",
     "transient_nlos_path": "13", "nlos_capture_meter": "13",
-    "irradiancemeter": "13", "transient_prbvolpath": "15", "path": "10",
-    "phasor_hdr_film": "12",
+    "transient_prbvolpath": "15",
 }
+_FILM_KINDS = ("transient_hdr_film", "phasor_hdr_film")
 
 
 def _not_ported(what: str, key: str) -> NotImplementedError:
@@ -103,16 +106,20 @@ def parse_color(spec: Any, channels: int) -> np.ndarray:
 # --------------------------------------------------------------------------
 
 class FilmConfig(NamedTuple):
-    kind: str = "transient_hdr_film"
+    kind: str = "transient_hdr_film"  # or "phasor_hdr_film"
     width: int = 256
     height: int = 256
     temporal_bins: int = 2048  # default of transient_hdr_film.py:116
     start_opl: float = 0.0
     bin_width_opl: float = 0.003
+    # phasor_hdr_film: the tracked band's mean and width in OPL units
+    wl_mean: float = 100.0
+    wl_sigma: float = 1000.0
     # opt-in sample validation: count negative / non-finite splat values
     warn_negative: bool = False
     warn_invalid: bool = False
     rfilter: str = "box"  # "box" | "gaussian" (steady image only)
+    rfilter_stddev: float = 0.5
     crop_offset_x: int = 0
     crop_offset_y: int = 0
     crop_width: int = 0  # 0 = full width
@@ -158,25 +165,33 @@ MAX_DEPTH_CAP = 32  # static bound substituted for max_depth = -1 (infinity)
 
 def _parse_film(d: dict) -> FilmConfig:
     kind = d.get("type", "transient_hdr_film")
-    if kind != "transient_hdr_film":
+    if kind not in _FILM_KINDS:
         raise _not_ported(f"film {kind!r}", kind)
     rf = d.get("rfilter", "box")
     fc = FilmConfig(
         kind=kind,
         width=int(d.get("width", 256)),
         height=int(d.get("height", 256)),
-        temporal_bins=int(d.get("temporal_bins", 2048)),
+        temporal_bins=int(d.get("temporal_bins", 4096 if kind == "phasor_hdr_film"
+                                else 2048)),
         start_opl=float(d.get("start_opl", 0.0)),
         bin_width_opl=float(d.get("bin_width_opl", 0.003)),
+        wl_mean=float(d.get("wl_mean", 100.0)),
+        wl_sigma=float(d.get("wl_sigma", 1000.0)),
         warn_negative=bool(d.get("warn_negative", False)),
         warn_invalid=bool(d.get("warn_invalid", False)),
         rfilter=str((rf or {}).get("type", "box") if isinstance(rf, dict)
                     else rf).lower(),
+        rfilter_stddev=float((rf or {}).get("stddev", 0.5)
+                             if isinstance(rf, dict) else 0.5),
         crop_offset_x=int(d.get("crop_offset_x", 0)),
         crop_offset_y=int(d.get("crop_offset_y", 0)),
         crop_width=int(d.get("crop_width", 0)),
         crop_height=int(d.get("crop_height", 0)),
     )
+    if fc.kind == "phasor_hdr_film" and fc.is_cropped:
+        raise ValueError("phasor_hdr_film does not support cropped films "
+                         "(phasor_hdr_film.py:147-152)")
     if fc.is_cropped:
         if (fc.crop_offset_x < 0 or fc.crop_offset_y < 0
                 or fc.crop_offset_x + fc.data_width > fc.width
@@ -312,7 +327,7 @@ class Scene:
                         shape.emitter_key = em_idx
                     elif ct in _ROADMAP_ITEM:
                         raise _not_ported(f"{ct!r} (in {key!r})", ct)
-                    elif ct == "perspective":
+                    elif ct in ("perspective", "irradiancemeter"):
                         sensor_dicts.append(cv)
                 if bsdf_idx is None:
                     bsdf_idx = add_bsdf(f"{key}.__default", {"type": "diffuse"})
@@ -320,14 +335,17 @@ class Scene:
                 self.shapes.append(shape)
             elif t in _ROADMAP_ITEM:
                 raise _not_ported(f"scene entry {key!r} of type {t!r}", t)
-            elif t == "perspective":
+            elif t in ("perspective", "thinlens"):
                 sensor_dicts.append(val)
-            elif t == "transient_path":
+            elif t in ("transient_path", "path"):
                 self.integrator = _parse_integrator(val)
             else:
                 raise ValueError(f"unknown scene entry {key!r} of type {t!r}")
 
         for sdict in sensor_dicts:
+            film = _parse_film(sdict.get("film", {}))
+            if sdict.get("type") != "perspective":
+                raise ValueError(f"unsupported sensor type {sdict.get('type')!r}")
             sampler = sdict.get("sampler", {})
             self.sensors.append(SensorConfig(
                 kind="perspective",
@@ -337,7 +355,7 @@ class Scene:
                 near_clip=float(sdict.get("near_clip", 1e-2)),
                 spp=int(sampler.get("sample_count", 4)),
                 seed=int(sampler.get("seed", 0)),
-                film=_parse_film(sdict.get("film", {})),
+                film=film,
             ))
         if not self.sensors:
             raise ValueError("scene has no sensor")

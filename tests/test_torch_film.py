@@ -118,14 +118,61 @@ def test_plain_splat_is_in_place_and_on_cpu():
                             None, None, spp=2)
 
 
-def test_gaussian_temporal_filter_is_refused():
-    _, tcfg = _cfgs()
+@pytest.mark.parametrize("sigma", [0.3, 2.0])
+def test_gaussian_temporal_filter_matches_jax(sigma):
+    """The gaussian temporal filter against the JAX
+    package's ``_splat_gaussian`` (its XLA scatter on every backend), both
+    event sets, windows reaching past both ends of the film (rtol 1e-5:
+    the weights go through exp, whose ulps differ between the two)."""
+    jcfg, tcfg = _cfgs()
     da, va, act = _events(5)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        tf.splat_transient_pair(tf.film_init(tcfg, C), tcfg, LANES,
-                                torch.from_numpy(da), torch.from_numpy(va),
-                                None, None, torch.from_numpy(act),
-                                temporal_filter="gaussian")
+    db, vb, _ = _events(6)
+    args = (da, va, db, vb, act)
+    jst = jf.splat_transient_pair(jf.film_init(jcfg, C), jcfg, LANES,
+                                  *map(jnp.asarray, args),
+                                  temporal_filter="gaussian",
+                                  gaussian_stddev=sigma)
+    tst = tf.splat_transient_pair(tf.film_init(tcfg, C), tcfg, LANES,
+                                  *map(torch.from_numpy, args),
+                                  temporal_filter="gaussian",
+                                  gaussian_stddev=sigma)
+    want = np.asarray(jst.transient)[:, :T + 1, :W * H]
+    # the nan and inf distances of _events put nan into overflow bins
+    np.testing.assert_allclose(tst.transient.numpy(), want, rtol=1e-5,
+                               atol=1e-6 * float(np.nanmax(np.abs(want))))
+    assert float(tst.transient[:, :T].sum()) > 0
+    assert float(tst.transient[:, T].nansum()) > 0  # the overflow bin
+
+
+def test_splat_steady_and_develop_crop_match_jax():
+    """The dense spp reduction of the steady image, the gaussian rfilter's
+    shifted adds, a crop window's film (scan_pixels) and develop's
+    shape_hw.  rtol 1e-5 (exp, and the order of the spp sums)."""
+    jcfg, tcfg = _cfgs(crop_width=4, crop_height=3, crop_offset_x=1)
+    h, w, spp = 3, 4, LANES
+    rng = np.random.default_rng(8)
+    value = rng.random((spp * h * w, C)).astype(np.float32)
+    weight = rng.random(spp * h * w).astype(np.float32)
+    jitter = rng.random((spp * h * w, 2)).astype(np.float32)
+    jst = jf.film_init(jcfg, C, scan_pixels=h * w)
+    tst = tf.film_init(tcfg, C, scan_pixels=h * w)
+    assert tuple(tst.transient.shape) == (C, T + 1, h * w)
+    jst = jf.splat_steady(jst, spp, jnp.asarray(value), jnp.asarray(weight))
+    tst = tf.splat_steady(tst, spp, torch.from_numpy(value),
+                          torch.from_numpy(weight))
+    jst = jf.splat_steady_gaussian(jst, h, w, spp, jnp.asarray(value),
+                                   jnp.asarray(weight), jnp.asarray(jitter),
+                                   stddev=0.6)
+    tst = tf.splat_steady_gaussian(tst, h, w, spp, torch.from_numpy(value),
+                                   torch.from_numpy(weight),
+                                   torch.from_numpy(jitter), stddev=0.6)
+    for f in ("steady", "steady_weight"):
+        np.testing.assert_allclose(getattr(tst, f).numpy(),
+                                   np.asarray(getattr(jst, f)), rtol=1e-5)
+    (js, jt), (ts, tt) = (jf.develop(jst, jcfg, shape_hw=(h, w)),
+                          tf.develop(tst, tcfg, shape_hw=(h, w)))
+    assert ts.shape == (h, w, C) and tt.shape == (h, w, T, C)
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-5)
 
 
 def test_splat_tile_fits_shared_memory():

@@ -33,7 +33,7 @@ def test_public_api():
     import mitransient_tpu_torch as mt
 
     for name in ("load_dict", "cornell_box", "render", "set_variant",
-                 "variant"):
+                 "variant", "save_film_state", "load_film_state"):
         assert callable(getattr(mt, name)), name
 
 

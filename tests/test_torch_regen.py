@@ -119,14 +119,22 @@ def test_output_does_not_depend_on_the_live_check_period(monkeypatch):
     assert np.array_equal(s1, s8) and np.array_equal(t1, t8)
 
 
-def test_multipass_renders_are_refused():
-    scene = mt.load_dict(small_cbox(mt), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        mt.render(scene, spp=4)  # below 8 spp the JAX package goes multi-pass
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        mt.render(scene, spp=8, regenerate=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        mt.render(scene, spp=8, film_state=object())
+def test_renders_take_the_branch_the_jax_package_takes():
+    """Below 8 spp, with regenerate=False and on resume the render goes
+    through the multi-pass accumulator (no ``iters`` in its stats, one
+    pass of max_depth bounces here), at 8 spp and more through the regen
+    loop; tests/test_torch_path.py holds the multi-pass renders to JAX."""
+    scene = mt.load_dict(small_cbox(mt, 8, 8, 60, 4), device="cpu")
+    states = []
+    for kw in (dict(spp=4, checkpoint_callback=states.append),
+               dict(spp=8, regenerate=False)):
+        _s, _t, stats = mt.render(scene, return_stats=True, **kw)
+        assert "iters" not in stats and stats["loop_iters"] == 4, kw
+    _s, _t, stats = mt.render(scene, spp=4, film_state=states[0],
+                              return_stats=True)
+    assert "iters" not in stats and stats["loop_iters"] == 0
+    _s, _t, stats = mt.render(scene, spp=8, return_stats=True)
+    assert "iters" in stats
 
 
 def test_unknown_bvh_mode_is_refused():

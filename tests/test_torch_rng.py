@@ -1,12 +1,17 @@
-"""The port's stateless PCG hash is bit-equal to the JAX package's
-(integrators/path_regen.py:45-57).  Tolerance: none, integers and the
-float32 conversion must be identical."""
+"""The port's random streams are bit-equal to the JAX package's: the
+stateless PCG hash of the regen loop (integrators/path_regen.py:45-57) and
+the threefry streams of core/rng.py (``Sampler``, ``draw_bounce_block``,
+drawn by ``jax.random`` with ``jax_threefry_partitionable`` on).
+Tolerance: none, integers and the float32 conversion must be identical."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from mitransient_tpu.core import rng as jrng
 from mitransient_tpu.integrators import path_regen as jreg
+from mitransient_tpu_torch.core import rng as trng
 from mitransient_tpu_torch.integrators import path_regen as treg
 
 torch.set_num_threads(1)
@@ -61,3 +66,68 @@ def test_hash_uniform_scalar_seed_and_dim(seed):
             jnp.uint32(dim)))
         got = treg.hash_uniform(seed, torch.from_numpy(sid), dim)
         np.testing.assert_array_equal(got.numpy(), want)
+
+
+SEEDS = [0, 5, 2**32 - 1]
+LANES = (1, 3, 1000, 4099)  # lane counts that are not powers of two (but 1)
+
+
+def _same_bits(got: torch.Tensor, want):
+    want = np.asarray(want)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  want.view(np.uint32))
+
+
+def test_threefry_known_answer():
+    """Threefry-2x32, 20 rounds, against the Random123 known-answer
+    vectors; Python ints and int64 tensors give the same words."""
+    m = 0xFFFFFFFF
+    for key, ctr, want in (((0, 0), (0, 0), (0x6B200159, 0x99BA4EFE)),
+                           ((m, m), (m, m), (0x1CB996FC, 0xBB002BE7)),
+                           ((0x13198A2E, 0x03707344), (0x243F6A88, 0x85A308D3),
+                            (0xC4923A9C, 0x483DF7A0))):
+        assert trng.threefry2x32(*key, *ctr) == want
+        a, b = trng.threefry2x32(*key, torch.tensor([ctr[0]]),
+                                 torch.tensor([ctr[1]]))
+        assert (int(a[0]), int(b[0])) == want
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("stream", range(4))
+def test_sampler_bit_equal(seed, stream):
+    """Keys, eval_1d / eval_2d at dims 0-7, the next_* counter and fork."""
+    for n in LANES:
+        js = jrng.Sampler(jnp.uint32(seed), n, stream=jnp.uint32(stream))
+        ts = trng.Sampler(seed, n, stream)
+        assert ts.key == tuple(int(k) for k in jax.random.key_data(js.key))
+        for dim in range(8):
+            _same_bits(ts.eval_1d(dim), js.eval_1d(dim))
+        for dim in range(7):
+            _same_bits(ts.eval_2d(dim), js.eval_2d(dim))
+        for step in ("2d", "1d", "2d", "1d", "1d"):
+            if step == "2d":
+                _same_bits(ts.next_2d(), js.next_2d())
+            else:
+                _same_bits(ts.next_1d(), js.next_1d())
+        assert ts.dim == js.dim == 7
+        _same_bits(ts.fork(stream + 9).eval_2d(3),
+                   js.fork(stream + 9).eval_2d(3))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("it", range(8))
+def test_draw_bounce_block_bit_equal(seed, it):
+    """The bounce block of bounce ``it`` at the integrator's 6 dims and at
+    1-8 dims, keyed by a pass's sampler."""
+    js = jrng.Sampler(jnp.uint32(seed), 1, stream=jnp.uint32(it % 4))
+    ts = trng.Sampler(seed, 1, it % 4)
+    for n, dims in ((1000, 6), (4099, 6), (3, 8), (777, 1)):
+        _same_bits(trng.draw_bounce_block(ts.key, it, n, dims),
+                   jrng.draw_bounce_block(js.key, it, n, dims))
+
+
+def test_uniform_is_in_the_unit_interval():
+    u = trng.uniform(trng.fold_in(trng.make_key(3), 1), (1 << 16,))
+    assert float(u.min()) >= 0.0 and float(u.max()) < 1.0
+    assert abs(float(u.mean()) - 0.5) < 0.01

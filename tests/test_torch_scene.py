@@ -8,6 +8,8 @@ that XLA may contract into FMAs on the CPU while PyTorch rounds each one,
 so their floats agree to rtol 1e-5 / atol 1e-6, and their discrete
 outputs (hit or miss, triangle, emitter, validity) exactly.
 """
+import copy
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -145,7 +147,7 @@ def test_configs_match_jax():
     lambda d: d["white"].update(type="conductor"),
     lambda d: d.update(extra={"type": "point", "intensity": 1.0}),
     lambda d: d.update(laser={"type": "projector"}),
-    lambda d: d["sensor"]["film"].update(type="phasor_hdr_film"),
+    lambda d: d["integrator"].update(type="transient_prbvolpath"),
     lambda d: d["integrator"].update(type="transient_nlos_path"),
     lambda d: d["small-box"].update(medium={"type": "homogeneous"}),
     lambda d: d["white"]["reflectance"].update(type="bitmap"),
@@ -155,6 +157,41 @@ def test_unported_plugins_raise(change):
     change(desc)
     with pytest.raises(NotImplementedError, match="ROADMAP item"):
         mt.load_dict(desc, device="cpu")
+
+
+@pytest.mark.parametrize("change", [
+    lambda d: d["sensor"].update(type="thinlens"),
+    lambda d: d["sensor"].update(type="irradiancemeter"),
+    lambda d: d["small-box"].update(meter={"type": "irradiancemeter"}),
+], ids=["thinlens", "irradiancemeter", "irradiancemeter_in_a_shape"])
+def test_sensors_the_reference_lacks_raise_value_error(change):
+    """Sensor types that neither package will have raise ValueError in both
+    loaders, with the same message."""
+    desc = mt.cornell_box()
+    change(desc)
+    msgs = []
+    for pkg, kw in ((mitr, {}), (mt, {"device": "cpu"})):
+        with pytest.raises(ValueError) as err:
+            pkg.load_dict(copy.deepcopy(desc), **kw)
+        msgs.append(str(err.value))
+    assert msgs[0] == msgs[1]
+
+
+@pytest.mark.parametrize("film", [
+    {"type": "phasor_hdr_film", "width": 8, "height": 6, "wl_mean": 0.5},
+    {"type": "transient_hdr_film", "rfilter": {"type": "gaussian",
+                                               "stddev": 0.7},
+     "crop_offset_x": 4, "crop_width": 9},
+], ids=["phasor", "gaussian_rfilter_crop"])
+def test_film_configs_match_jax(film):
+    desc = mitr.cornell_box()
+    desc["sensor"]["film"] = film
+    desc["integrator"]["type"] = "path"
+    jsc, tsc = mitr.load_dict(desc), mt.load_dict(desc, device="cpu")
+    assert tsc.integrator.kind == jsc.integrator.kind == "path"
+    tcfg, jcfg = tsc.sensors[0].film, jsc.sensors[0].film
+    for f in tcfg._fields:
+        assert getattr(tcfg, f) == getattr(jcfg, f), f
 
 
 def test_load_dict_defaults_to_the_card():
