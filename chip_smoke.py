@@ -68,13 +68,36 @@ Phases, each of which raises on failure:
 15. Checkpoint/resume on the card: a render resumed from a pass's state,
     written and read back by ``save_film_state`` / ``load_film_state``, is
     bit for bit the uninterrupted render.
+16. The NLOS single capture at full width: ``nlos_scene`` at a 32x32 scan
+    (300 bins of 0.02, depth 4, laser and hidden-geometry sampling, the
+    laser focused at wall pixel (16, 16)), spp 2048 = 2^21 lanes in one
+    pass.  K1, K2 and K3 each launch once a bounce (the capture's
+    constants add one K1 and one K2 launch on one ray each), K3 splats one
+    event set; finite, non-negative, first arrival in bins 90-115.  Wall
+    time, rays/s and peak memory of a second render (seed 1); the
+    threefry's share (its standalone draw time over that wall); K3 on one
+    bounce's events against its plain version, bound and ``index_add_``;
+    then a render at spp 25,000 (13 passes) and its rays/s.
+17. The ``nlos_single`` golden config on the card against its golden.
+18. Every configuration of ``torch_cases.NLOS_CASES`` (plain NEE, HG with
+    RR, account_first_and_last_bounces, filter_depth, several passes, a
+    1x1 confocal capture, ``scan_confocal`` at 4x4, the exhaustive capture
+    at 4x4 x 2x2 lasers with laser_chunk 3, the capture through a
+    perspective sensor, the cbox with a point light through the regen loop
+    and the multi-pass accumulator) on the card against the port on the
+    host CPU, test_golden's rule with no element out; K3 launches once a
+    bounce on the card.
+19. Full scans: ``scan_confocal`` at 32x32, spp 2048, and the exhaustive
+    capture at a 32x32 scan x 8x8 lasers, spp 512 (2^19 lanes, 2 laser
+    chunks of 32): rays/s and peak memory of each.
 
 Kernel times (``_time_ms``) are means of launches made back to back, so
 that the wrapper's host work overlaps the card's as in a render.  It
 prints, as its last three lines, the card's name and power limit, one
 JSON object with each kernel's launches (in the regen flagship or
 ``cbox_mesh`` render; K1-K3 also in the multi-pass flagship render,
-``multipass_launches``), error, times and bound, and ``{"ok": true,
+``multipass_launches``, and in the NLOS single capture,
+``nlos_launches``), error, times and bound, and ``{"ok": true,
 "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, it exits with an error.  Nothing here
 imports jax.
@@ -100,6 +123,13 @@ TIMING_REPS = 20  # calls back to back in one timed batch
 TIMING_BATCHES = 5
 MESH = dict(spp=1024, seed=0)  # cbox_mesh: 256x256, 300 bins, depth 8
 MULTIPASS_PASSES = 32  # the multi-pass flagship: 1024 spp, 32 a pass
+NLOS_SCAN = 32  # the NLOS captures' scan: 32 x 32 wall pixels, 300 bins
+NLOS = dict(spp=2048, seed=0)  # 2^21 lanes, one pass of depth 4
+NLOS_SPP_LONG = 25000  # the reference's single-capture budget (13 passes)
+NLOS_EVENTS_BOUNCE = 1  # the bounce whose K3 events are captured
+NLOS_FIRST_BINS = (90, 115)  # wall -> target -> wall (tests/test_nlos.py)
+CONFOCAL_SPP = 2048  # scan_confocal at 32 x 32 (BASELINE.md:98)
+EXHAUSTIVE = dict(spp=512, lasers=8)  # 32 x 32 scan x 8 x 8 lasers
 PROFILE_SPP = 64  # the profiled render: the profiler slows the host
 BVH_SUBSET = 1 << 16  # rays of the kernel-against-plain comparison
 K1_MISMATCH_SHARE = 1e-4  # BVH kernel (Woop) against K1 (Moller-Trumbore)
@@ -377,50 +407,51 @@ def flagship_iteration(mt, dev):
     return kept["events"], rays
 
 
-def check_splat(tf, events, hw, dev):
-    """K3 on two event sets into a zeroed (3, 301, hw) film: the film must
-    be bit-equal to the plain version run on the host CPU (which adds in
-    lane order).  -> the largest |film difference|, the kernel's, the plain
-    version's (on the card, where index_add_ uses atomics) and one
-    index_add_'s ms, and the bound on these events (``splat_bound``)."""
+def check_splat(tf, events, hw, dev, t_pad=SPLAT_BINS + 1):
+    """K3 on one or two event sets (bins, vals, ...) into a zeroed (C,
+    t_pad, hw) film: the film must be bit-equal to the plain version run on
+    the host CPU (which adds in lane order).  -> the largest |film
+    difference|, the kernel's, the plain version's (on the card, where
+    index_add_ uses atomics) and one index_add_'s ms, and the bound on
+    these events (``splat_bound``)."""
     import torch
 
-    ba, va, bb, vb = events
-    lanes = ba.shape[0] // hw
-    film_k = torch.zeros((3, SPLAT_BINS + 1, hw), device=dev)
+    sets = list(zip(events[0::2], events[1::2]))
+    C = sets[0][1].shape[1]
+    lanes = sets[0][0].shape[0] // hw
+    flat = [a for ev in sets for a in ev] + [None] * (4 - 2 * len(sets))
+    film_k = torch.zeros((C, t_pad, hw), device=dev)
     film_c = torch.zeros(film_k.shape)
-    tf.splat_accumulate(film_k, ba, va, bb, vb, spp=lanes)
-    for b, v in ((ba, va), (bb, vb)):
+    tf.splat_accumulate(film_k, *flat, spp=lanes)
+    for b, v in sets:
         tf._scatter_layout(film_c, hw, b.cpu(), v.cpu())
     err = float((film_k.cpu() - film_c).abs().max())
     if not torch.equal(film_k.cpu(), film_c):
         raise AssertionError(f"K3 is not bit-equal to its plain version "
                              f"(max |dfilm| {err})")
-    sectors, bound = splat_bound(events, hw)
+    sectors, bound = splat_bound(events, hw, t_pad)
     film_p = torch.zeros_like(film_k)
 
     def plain():
-        tf._scatter_layout(film_p, hw, ba, va)
-        tf._scatter_layout(film_p, hw, bb, vb)
+        for b, v in sets:
+            tf._scatter_layout(film_p, hw, b, v)
 
-    # the library call: one index_add_ of both event sets into the flat
+    # the library call: one index_add_ of the event sets into the flat
     # film, with the flat cell indices made beforehand
-    n_ev = ba.shape[0]
-    pix = torch.arange(n_ev, device=dev) % hw
-    ch = torch.arange(3, device=dev)[:, None] * ((SPLAT_BINS + 1) * hw)
+    pix = torch.arange(sets[0][0].shape[0], device=dev) % hw
+    ch = torch.arange(C, device=dev)[:, None] * (t_pad * hw)
     cells = torch.cat([(ch + b.long()[None] * hw + pix[None]).reshape(-1)
-                       for b in (ba, bb)])
-    vals = torch.cat([v.T.reshape(-1) for v in (va, vb)])
+                       for b, _ in sets])
+    vals = torch.cat([v.T.reshape(-1) for _, v in sets])
     film_l = film_p.view(-1)
     return dict(
         max_abs_err=err, sectors=sectors, bound=bound,
-        ms=_time_ms(lambda: tf.splat_accumulate(film_k, ba, va, bb, vb,
-                                                spp=lanes)),
+        ms=_time_ms(lambda: tf.splat_accumulate(film_k, *flat, spp=lanes)),
         plain_ms=_time_ms(plain),
         library_ms=_time_ms(lambda: film_l.index_add_(0, cells, vals)))
 
 
-def splat_bound(events, hw):
+def splat_bound(events, hw, t_pad=SPLAT_BINS + 1):
     """K3's least work on these events: the film's 32-byte sectors (8
     pixels of one (channel, bin) row) that a nonzero event with a bin in
     the film lands in, read once and written once, plus every event read
@@ -428,7 +459,6 @@ def splat_bound(events, hw):
     bound_by))."""
     import torch
 
-    t_pad = SPLAT_BINS + 1
     keys, adds, event_bytes = [], 0, 0
     for b, v in zip(events[0::2], events[1::2]):
         pix = torch.arange(b.shape[0], device=b.device) % hw
@@ -987,6 +1017,218 @@ def check_resume(mt, cases, dev):
                              "uninterrupted one")
 
 
+def _nlos_physics(name, s, t, first_bins=None):
+    """Finite, non-negative, some energy and, where given, the first
+    arrival in ``first_bins``."""
+    import numpy as np
+
+    prof = t.reshape(-1, t.shape[-2], t.shape[-1]).sum(axis=(0, 2))
+    nz = np.nonzero(prof)[0]
+    first = int(nz[0]) if nz.size else None
+    print(f"{name}: steady {s.shape}, transient {t.shape}, sum "
+          f"{float(t.sum()):.6g}, first arrival bin {first}")
+    if not (np.all(np.isfinite(s)) and np.all(np.isfinite(t))):
+        raise AssertionError(f"{name}: non-finite values")
+    if t.min() < 0 or s.min() < 0 or first is None:
+        raise AssertionError(f"{name}: negative values or no energy")
+    if first_bins and not first_bins[0] <= first <= first_bins[1]:
+        raise AssertionError(f"{name}: first arrival bin {first} not in "
+                             f"{first_bins}")
+
+
+def render_nlos_single(mt, cases, dev):
+    """Phase 16: the NLOS single capture at full width; returns its launch
+    counts and K3's numbers on one bounce's events."""
+    import torch
+
+    from mitransient_tpu_torch.core import rng
+    from mitransient_tpu_torch.film import transient_film as tf
+    from mitransient_tpu_torch.integrators import nlos_path
+    from mitransient_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from mitransient_tpu_torch.ops import intersect as isect
+
+    scene = mt.load_dict(cases.nlos_scene(sx=NLOS_SCAN, sy=NLOS_SCAN),
+                         device=dev)
+    mt.nlos.focus_emitter_at_relay_wall_pixel([NLOS_SCAN / 2] * 2, scene)
+    reset_launch_counts()
+    nlos_path.prepare_nlos(scene, scene.sensors[0])
+    prep = launch_counts()
+    print(f"NLOS prepare_nlos: launches {prep}")
+
+    # what the kernels get in bounce NLOS_EVENTS_BOUNCE: K3's events, K1's
+    # closest-hit and K2's vertex -> wall rays (the lane-sized launches)
+    lanes = NLOS["spp"] * NLOS_SCAN ** 2
+    calls = {"splat": 0, "closest_hit": 0, "ray_test": 0}
+    kept = {}
+    splat, soup_kernel = tf.splat_accumulate, isect._soup_kernel
+
+    def capture(film, *events, spp):
+        if calls["splat"] == NLOS_EVENTS_BOUNCE:
+            kept["events"] = [e.clone() for e in events if e is not None]
+        calls["splat"] += 1
+        splat(film, *events, spp=spp)
+
+    def capture_soup(kernel, table, m, *args):
+        if args[0].shape[0] == lanes:
+            if calls[kernel] == NLOS_EVENTS_BOUNCE:
+                kept[kernel] = tuple(a.clone() for a in args)
+            calls[kernel] += 1
+        return soup_kernel(kernel, table, m, *args)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    tf.splat_accumulate, isect._soup_kernel = capture, capture_soup
+    try:
+        s, t, stats = mt.render(scene, return_stats=True, **NLOS)
+        torch.cuda.synchronize()
+    finally:
+        tf.splat_accumulate, isect._soup_kernel = splat, soup_kernel
+    counts = launch_counts()
+    n = stats["loop_iters"]
+    print(f"NLOS single {NLOS_SCAN}x{NLOS_SCAN} spp {NLOS['spp']} render 1 "
+          f"(seed 0): launches {counts} in {n} bounces, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    want = {k: n + prep.get(k, 0) for k in ("closest_hit", "ray_test",
+                                            "splat_accumulate")}
+    if n != 4 or counts != want or len(kept) != 3 or len(kept["events"]) != 2:
+        raise AssertionError(f"NLOS single: launches {counts}, expected "
+                             f"{want} (one event set a splat)")
+    _nlos_physics("NLOS single", s.cpu().numpy(), t.cpu().numpy(),
+                  NLOS_FIRST_BINS)
+
+    t0 = time.perf_counter()
+    _s, _t, stats2 = mt.render(scene, return_stats=True, spp=NLOS["spp"],
+                               seed=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rays = int(stats2["rays"])
+    key = rng.Sampler(1, lanes).key
+    draw_ms = _time_ms(lambda: rng.draw_bounce_block(
+        key, 2, lanes, nlos_path.NLOS_DIMS_PER_BOUNCE, dev), reps=5,
+        warmup=1, batches=3)
+    share = n * draw_ms / 1e3 / wall
+    print(f"NLOS single render 2 (seed 1): {wall:.4f} s, {rays} rays -> "
+          f"{rays / wall / 1e6:.2f} M rays/s; threefry ({lanes}, 10) "
+          f"{draw_ms:.4f} ms a bounce, {n} bounces = {share:.3f} of the wall")
+
+    hw = NLOS_SCAN ** 2
+    k3 = check_splat(tf, kept["events"], hw, dev, t_pad=301)
+    print(f"K3 on NLOS bounce {NLOS_EVENTS_BOUNCE}'s events ({lanes} lanes, "
+          f"{hw} pixels, one event set): bit-equal to the plain version on "
+          f"the CPU; kernel {k3['ms']:.4f} ms, plain {k3['plain_ms']:.4f} "
+          f"ms, index_add_ {k3['library_ms']:.4f} ms; {k3['sectors']} film "
+          f"sectors touched -> bound {k3['bound'][0]:.4f} ms "
+          f"({k3['bound'][1]})")
+    tri = scene.data.tri
+    soup, table = (tri.v0, tri.e1, tri.e2), tri.table
+    ray_ms = {}
+    for kernel, query in (("closest_hit", isect.closest_hit),
+                          ("ray_test", isect.ray_test)):
+        rays_k = kept[kernel]
+        ray_ms[kernel] = _time_ms(lambda: query(*soup, *rays_k, table=table))
+        print(f"{kernel} on NLOS bounce {NLOS_EVENTS_BOUNCE}'s rays "
+              f"({int(rays_k[3].sum())} active of {lanes}, "
+              f"{soup[0].shape[0]} triangles): {ray_ms[kernel]:.4f} ms")
+    kern = n * (ray_ms["closest_hit"] + ray_ms["ray_test"] + k3["ms"]) / 1e3
+    print(f"NLOS single render 2 split ({wall:.4f} s): threefry "
+          f"{n * draw_ms / 1e3:.4f} s, K1-K3 {kern:.4f} s (bounce "
+          f"{NLOS_EVENTS_BOUNCE}'s times x {n}), the rest (eager bounce "
+          f"code, prepare, develop) {wall - n * draw_ms / 1e3 - kern:.4f} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _s, t3, stats3 = mt.render(scene, return_stats=True, spp=NLOS_SPP_LONG,
+                               seed=2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rays = int(stats3["rays"])
+    print(f"NLOS single spp {NLOS_SPP_LONG} (seed 2, {stats3['spp']} spp in "
+          f"{stats3['loop_iters'] // 4} passes): {wall:.4f} s, {rays} rays -> "
+          f"{rays / wall / 1e6:.2f} M rays/s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    _nlos_physics(f"NLOS single spp {NLOS_SPP_LONG}", _s.cpu().numpy(),
+                  t3.cpu().numpy(), NLOS_FIRST_BINS)
+    return counts, dict(k3, ray_ms=ray_ms)
+
+
+def render_nlos_golden(mt, cases, dev):
+    """Phase 17: the nlos_single golden config on the card."""
+    import numpy as np
+
+    scene = mt.load_dict(cases.nlos_scene(sx=4, sy=4, bins=200), device=dev)
+    s, t = mt.render(scene, spp=16, seed=0)
+    golden = np.load(os.path.join(ROOT, "tests", "goldens", "nlos_single.npz"))
+    for key, got in (("steady", s), ("transient", t)):
+        m = cases.golden_mismatch(got.cpu().numpy(), golden[key])
+        print(f"nlos_single {key} vs golden: {m}")
+        if not (m["shape_ok"] and m["n_bad"] == 0):
+            raise AssertionError(f"nlos_single {key} disagrees with its golden")
+
+
+def nlos_card_against_cpu(mt, cases, dev):
+    """Phase 18: the NLOS configurations on the card against the CPU."""
+    from mitransient_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    for name in cases.NLOS_CASES:
+        out = []
+        for d in (dev, "cpu"):
+            desc, run = cases.nlos_case(mt, name)
+            reset_launch_counts()
+            s, t, stats = run(mt.load_dict(desc, device=d))
+            out.append((s.cpu().numpy(), t.cpu().numpy(), int(stats["rays"])))
+            if d == dev:
+                counts, n = launch_counts(), stats["loop_iters"]
+        print(f"NLOS {name} on the card: launches {counts}, {n} bounces, rays "
+              f"{out[0][2]} (CPU {out[1][2]})")
+        if (counts.get("splat_accumulate") != n
+                or min(counts.get(k, 0) for k in ("closest_hit",
+                                                  "ray_test")) < n):
+            raise AssertionError(f"NLOS {name}: launches {counts} in {n} "
+                                 "bounces")
+        if abs(out[0][2] - out[1][2]) > 1e-3 * out[1][2]:
+            raise AssertionError(f"NLOS {name}: ray counts differ")
+        for k, got, ref in zip(("steady", "transient"), out[0], out[1]):
+            m = cases.golden_mismatch(got, ref)
+            print(f"NLOS {name} {k}, card against CPU: {m}")
+            if not (m["shape_ok"] and m["n_bad"] == 0):
+                raise AssertionError(f"NLOS {name} {k}: card and CPU "
+                                     "disagree")
+
+
+def render_nlos_scans(mt, cases, dev):
+    """Phase 19: the full confocal scan and the exhaustive capture."""
+    import torch
+
+    from mitransient_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    conf = cases.nlos_confocal(cases.nlos_scene(sx=1, sy=1), NLOS_SCAN,
+                               NLOS_SCAN)
+    exh = cases.nlos_exhaustive(cases.nlos_scene(sx=NLOS_SCAN, sy=NLOS_SCAN),
+                                EXHAUSTIVE["lasers"], EXHAUSTIVE["lasers"])
+    for name, desc, run in (
+            (f"scan_confocal {NLOS_SCAN}x{NLOS_SCAN} spp {CONFOCAL_SPP}", conf,
+             lambda sc: mt.nlos.scan_confocal(sc, spp=CONFOCAL_SPP, seed=0,
+                                              return_stats=True)),
+            (f"exhaustive {NLOS_SCAN}x{NLOS_SCAN} x {EXHAUSTIVE['lasers']}x"
+             f"{EXHAUSTIVE['lasers']} lasers spp {EXHAUSTIVE['spp']}", exh,
+             lambda sc: mt.render(sc, spp=EXHAUSTIVE["spp"], seed=0,
+                                  return_stats=True))):
+        scene = mt.load_dict(desc, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        s, t, stats = run(scene)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rays = int(stats["rays"])
+        print(f"NLOS {name}: {wall:.4f} s, {rays} rays -> "
+              f"{rays / wall / 1e6:.2f} M rays/s; launches {launch_counts()} "
+              f"in {stats['loop_iters']} bounces; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        _nlos_physics(f"NLOS {name}", s.cpu().numpy(), t.cpu().numpy())
+
+
 def main() -> int:
     import torch
 
@@ -1032,10 +1274,23 @@ def main() -> int:
     render_multipass_goldens(mt, cases, dev)
     multipass_card_against_cpu(mt, cases, dev)
     check_resume(mt, cases, dev)
+    nlos, k3 = render_nlos_single(mt, cases, dev)
+    render_nlos_golden(mt, cases, dev)
+    nlos_card_against_cpu(mt, cases, dev)
+    render_nlos_scans(mt, cases, dev)
     for r in rows:
         r["launches"] = counts[r["name"]]
         if r["name"] in ("closest_hit", "ray_test", "splat_accumulate"):
             r["multipass_launches"] = multipass[r["name"]]
+            r["nlos_launches"] = nlos[r["name"]]
+        if r["name"] in k3["ray_ms"]:
+            r["nlos_rays_ms"] = k3["ray_ms"][r["name"]]
+        if r["name"] == "splat_accumulate":
+            r.update(nlos_events_ms=k3["ms"], nlos_events_plain_ms=k3["plain_ms"],
+                     nlos_events_library_ms=k3["library_ms"],
+                     nlos_events_bound_ms=k3["bound"][0],
+                     nlos_events_bound_by=k3["bound"][1],
+                     nlos_events_sectors=k3["sectors"])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi.splitlines()[0])

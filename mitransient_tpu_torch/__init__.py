@@ -9,15 +9,25 @@ Today it renders the transient path tracer (``transient_path`` and
 ``path``) through both of the JAX package's primal branches: the
 path-regeneration loop and the multi-pass accumulator, with its threefry
 sample streams, crop windows, ``camera_unwarp``, the gaussian temporal
-and spatial filters and checkpoint/resume.  Scenes are rectangles, cubes
-and triangle meshes with diffuse BSDFs and area emitters, seen through a
-perspective sensor into a transient film or a phasor film; above 4096
-triangles through a chunked acceleration structure.  Scenes load onto the
-card unless the caller asks for ``device="cpu"``.  On a CUDA device the
-ray queries and the film splat run in the kernels of ``csrc/``; on the
+and spatial filters and checkpoint/resume; and NLOS captures
+(``transient_nlos_path``: single, confocal and exhaustive, with laser and
+hidden-geometry sampling; ``nlos`` holds the laser-focus helpers and
+``scan_confocal``).  Scenes are rectangles, cubes and triangle meshes with
+diffuse BSDFs, area, projector and point emitters, seen through a
+perspective sensor or an NLOS capture meter into a transient film or a
+phasor film; above 4096 triangles through a chunked acceleration
+structure.  :func:`render_aovs` gives first-hit AOVs.  Scenes load onto
+the card unless the caller asks for ``device="cpu"``.  On a CUDA device
+the ray queries and the film splat run in the kernels of ``csrc/``; on the
 CPU they run their plain PyTorch versions.
 """
+from . import nlos  # noqa: F401
 from .core.spectrum import set_variant, variant  # noqa: F401
-from .render import load_film_state, render, save_film_state  # noqa: F401
+from .render import (  # noqa: F401
+    load_film_state,
+    render,
+    render_aovs,
+    save_film_state,
+)
 from .scene.schema import Scene, load_dict  # noqa: F401
 from .utils import cornell_box, speed_of_light  # noqa: F401

@@ -6,13 +6,16 @@ The renderer's counterpart of carrying weights across: the JAX package's
 that both packages can trace the very same scene.  The tables the port
 derives (``scene/scene.py:DERIVED_FIELDS``: the kernels' triangle table,
 the accel's trees over the chunk and super-chunk boxes) are its own: they
-are rebuilt here and left out of the flattened leaves.
+are rebuilt here and left out of the flattened leaves.  The NLOS
+integrator's constants (``NLOSContext``, ``ExhaustiveLaser``) cross the
+same way (:func:`nlos_context_from_numpy`).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .integrators.nlos_path import ExhaustiveLaser, NLOSContext
 from .ops.accel import Accel, accel_trees
 from .ops.intersect import tri_table
 from .scene.schema import resolve_device
@@ -20,11 +23,14 @@ from .scene.scene import (
     BSDF_DIFFUSE,
     DERIVED_FIELDS,
     EM_AREA,
+    EM_POINT,
+    EM_PROJECTOR,
     BSDFParams,
     EmitterParams,
     GeomParams,
     SceneData,
     Triangles,
+    emitter_kinds,
 )
 
 _RECORDS = {"tri": Triangles, "bsdf": BSDFParams, "emitter": EmitterParams,
@@ -56,8 +62,10 @@ def scene_data_from_numpy(leaves: dict[str, np.ndarray],
             np.asarray(leaves["bsdf.two_sided"])):
         raise NotImplementedError(
             "only one-sided diffuse BSDFs are ported (ROADMAP item 11)")
-    if np.any(np.asarray(leaves["emitter.kind"]) != EM_AREA):
-        raise NotImplementedError("only area emitters are ported (ROADMAP item 11)")
+    kinds = emitter_kinds(np.asarray(leaves["emitter.kind"]))
+    if not set(kinds) <= {EM_AREA, EM_PROJECTOR, EM_POINT}:
+        raise NotImplementedError("only area, projector and point emitters "
+                                  "are ported (ROADMAP item 11)")
 
     def record(name):
         cls = _RECORDS[name]
@@ -77,7 +85,20 @@ def scene_data_from_numpy(leaves: dict[str, np.ndarray],
 
     return SceneData(tri=record("tri"), bsdf=record("bsdf"),
                      emitter=record("emitter"), accel=optional("accel"),
-                     geom=optional("geom"))
+                     geom=optional("geom"), emitter_kinds=kinds)
+
+
+def nlos_context_from_numpy(fields: dict[str, np.ndarray], device="cuda"):
+    """The JAX package's ``NLOSContext`` or ``ExhaustiveLaser``, flattened
+    to ``{field: array}``, as the port's record of the same name on
+    ``device`` (which record: the one whose fields these are)."""
+    device = resolve_device(device)
+    for cls in (NLOSContext, ExhaustiveLaser):
+        if set(fields) == set(cls._fields):
+            return cls(**{f: torch.tensor(np.asarray(fields[f]), device=device)
+                          for f in cls._fields})
+    raise ValueError(f"not the fields of an NLOSContext or an "
+                     f"ExhaustiveLaser: {sorted(fields)}")
 
 
 def scene_data_to_numpy(sd: SceneData) -> dict[str, np.ndarray]:
@@ -86,7 +107,7 @@ def scene_data_to_numpy(sd: SceneData) -> dict[str, np.ndarray]:
     out = {}
     for name in SceneData._fields:
         rec = getattr(sd, name)
-        if rec is None:
+        if rec is None or name == "emitter_kinds":
             continue
         for f in rec._fields:
             if f not in DERIVED_FIELDS.get(name, ()):

@@ -13,7 +13,9 @@ kernel ``ops/splat_pallas.py``.
 * OPL -> bin: ``bin = floor((distance - start_opl) / bin_width_opl)``.
 * :func:`splat_accumulate` adds one or two event sets into the film in
   place: the plain :func:`_scatter_layout` for CPU tensors, the kernel of
-  ``csrc/splat.cu`` for CUDA tensors.
+  ``csrc/splat.cu`` for CUDA tensors.  :func:`splat_transient_flat` splats
+  into a film whose pixel axis is any flat layout of slots (the exhaustive
+  NLOS capture's laser x scan-pixel slots).
 * ``temporal_filter='gaussian'`` spreads each event over a +-3 sigma window
   of bins with normalized Gaussian weights (:func:`_splat_gaussian`); like
   the JAX package, which takes its XLA scatter for it on every backend, it
@@ -100,6 +102,26 @@ def splat_transient_pair(
         bins_b, _ = time_bin(cfg, dist_b)
         vb = torch.where(active[:, None], val_b, 0.0)
     splat_accumulate(state.transient, bins_a, va, bins_b, vb, spp=spp)
+    return state
+
+
+def splat_transient_flat(
+    state: TransientFilmState,
+    cfg: FilmConfig,
+    spp: int,
+    dist: torch.Tensor,  # (N,) OPL, N = spp * slots, spp-major
+    val: torch.Tensor,  # (N, C) scaled values
+    active: torch.Tensor,  # (N,) bool
+) -> TransientFilmState:
+    """Splat one event set into a film whose pixel axis is a flat layout of
+    ``slots = state.transient.shape[-1]`` slots, through K3: the exhaustive
+    NLOS capture, where slot = laser * scan_pixels + scan_pixel.  The
+    steady image is not touched."""
+    if cfg.warn_negative or cfg.warn_invalid:
+        state = _count_suspect(state, cfg, val, None, active)
+    bins, _ = time_bin(cfg, dist)
+    v = torch.where(active[:, None], val, 0.0)
+    splat_accumulate(state.transient, bins, v, None, None, spp=spp)
     return state
 
 

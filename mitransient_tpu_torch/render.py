@@ -11,9 +11,10 @@ A render takes one of two branches, chosen as the JAX package chooses:
   threefry stream (``Sampler(seed, n, stream=pass)``) traced by
   ``integrators/path.py``, accumulated into one film.
 
-A call the JAX package would send to its NLOS renderer or a differentiable
-renderer is refused at load.  The render runs on the device of
-``scene.data``.
+A scene with an ``nlos_capture_meter`` or the ``transient_nlos_path``
+integrator goes to the NLOS renderer (``integrators/nlos_path.py``), as in
+the JAX package.  :func:`render_aovs` gives first-hit AOVs of a perspective
+sensor.  The render runs on the device of ``scene.data``.
 """
 from __future__ import annotations
 
@@ -127,9 +128,20 @@ def render(
 
     ``bvh_mode`` (``"chunk"`` or ``"super"``) is the BVH kernel's traversal
     mode in scenes with an accel (``ops/bvh.py``).
+
+    An NLOS scene renders through ``integrators/nlos_path.py:render_nlos``
+    (``regenerate``, ``film_state`` and ``checkpoint_callback`` are not
+    used there, as in the JAX package).
     """
     cfg = scene.sensors[sensor]
     icfg = scene.integrator
+    if cfg.kind == "nlos_capture_meter" or icfg.kind == "transient_nlos_path":
+        from .integrators.nlos_path import render_nlos
+
+        return render_nlos(scene, spp=spp, seed=seed, sensor=sensor,
+                           max_lanes=max_lanes,
+                           progress_callback=progress_callback,
+                           return_stats=return_stats, bvh_mode=bvh_mode)
     film_cfg = cfg.film
     spp = spp if spp is not None else cfg.spp
     dw, dh = film_cfg.data_width, film_cfg.data_height
@@ -254,3 +266,38 @@ def load_film_state(path):
         film = cls(*(torch.from_numpy(z[f"film_{i}"])
                      for i in range(len(cls._fields))))
         return film, int(z["done_passes"]), int(z["total_rays"])
+
+
+def render_aovs(scene: Scene, spp: int = 16, seed: int = 0, sensor: int = 0,
+                aovs=("albedo", "sh_normal", "depth", "position", "alpha"),
+                bvh_mode: str = BVH_MODE):
+    """First-hit arbitrary output variables of the steady image (the
+    reference film's AOV channels, transient_hdr_film.py:176-190): per-pixel
+    means over ``spp`` jittered camera rays (threefry stream 0) of the hit
+    albedo, shading normal, depth, world position and coverage.  Returns
+    {name: (H, W, k) tensor} on the scene's device."""
+    from .bsdf import api as bsdf_api
+    from .scene.scene import ray_intersect
+
+    cfg = scene.sensors[sensor]
+    if cfg.kind == "nlos_capture_meter":
+        raise ValueError("AOVs apply to perspective sensors")
+    w, h = cfg.film.width, cfg.film.height
+    n = w * h * spp
+    cam = build_camera(cfg, device=scene.device)
+    ray, _pix, _w = sample_rays(cam, Sampler(seed, n, device=scene.device),
+                                w, h, spp)
+    sd = primal_sd(scene.data)
+    si = ray_intersect(sd, ray, torch.ones((n,), dtype=torch.bool,
+                                           device=scene.device), bvh_mode)
+    valid = si.valid[:, None]
+    lb = bsdf_api.gather_lane_bsdf(sd.bsdf, si.bsdf_id)
+    out = {
+        "albedo": torch.where(valid, lb.reflectance, 0.0),
+        "sh_normal": torch.where(valid, si.frame.n, 0.0),
+        "depth": torch.where(valid, si.t[:, None], 0.0),
+        "position": torch.where(valid, si.p, 0.0),
+        "alpha": valid.to(torch.float32),
+    }
+    return {k: v.reshape(spp, h * w, -1).mean(dim=0).reshape(h, w, -1)
+            for k, v in out.items() if k in aovs}

@@ -2,10 +2,14 @@
 
 Counterpart of ``mitransient_tpu/scene/scene.py`` for the slice the port
 runs today: triangle soups, with the chunked acceleration structure of
-``ops/accel.py`` above 4096 triangles, diffuse BSDFs and area emitters.  Everything the device touches lives in
-:class:`SceneData`, a NamedTuple of flat tensors on one device.  Row
+``ops/accel.py`` above 4096 triangles, diffuse BSDFs, area emitters and the
+delta emitters (projector and point).  Everything the device touches lives
+in :class:`SceneData`, a NamedTuple of flat tensors on one device.  Row
 lookups are plain ``index_select`` gathers; the JAX package's one-hot
 matmuls (``ops/gather.py``) were a TPU workaround and give the same values.
+The emitter queries compute only the branches of the emitter kinds the
+scene holds (``SceneData.emitter_kinds``, the JAX package's static
+``KindsStatic``).
 
 The tables keep every leaf of the JAX package's ``SceneData`` except the
 media (ROADMAP item 15), including those the diffuse/area slice does not
@@ -118,6 +122,27 @@ class SceneData(NamedTuple):
     # triangles (ops/accel.py); None for small scenes
     accel: Accel | None = None
     geom: GeomParams | None = None
+    # the emitter kind codes present, known on the host; () = unknown, and
+    # the emitter queries then compute every kind's branch
+    emitter_kinds: tuple[int, ...] = ()
+
+
+def emitter_kinds(kind) -> tuple[int, ...]:
+    """The sorted distinct codes of an emitter kind table (host array or
+    tensor)."""
+    return tuple(sorted({int(k) for k in kind.tolist()}))
+
+
+def _has(sd: SceneData, code: int) -> bool:
+    return not sd.emitter_kinds or code in sd.emitter_kinds
+
+
+def _has_delta(sd: SceneData) -> bool:
+    return _has(sd, EM_PROJECTOR) or _has(sd, EM_POINT)
+
+
+def is_delta_kind(kind: torch.Tensor) -> torch.Tensor:
+    return (kind == EM_PROJECTOR) | (kind == EM_POINT)
 
 
 def primal_sd(sd: SceneData) -> SceneData:
@@ -202,7 +227,7 @@ def ray_test(sd: SceneData, o: torch.Tensor, d_unit: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
-# Emitters (area emitters only; the loader refuses other kinds)
+# Emitters
 # --------------------------------------------------------------------------
 
 def _sample_emitter_triangle(sd: SceneData, em_idx: torch.Tensor,
@@ -217,7 +242,10 @@ def _sample_emitter_triangle(sd: SceneData, em_idx: torch.Tensor,
     in_seg = (k >= start[:, None]) & (k < end[:, None])
     below = in_seg & (u[:, None] > em.em_tri_cdf[None, :])
     slot = start + below.sum(dim=1, dtype=torch.int32)
-    slot = torch.minimum(torch.maximum(slot, start), end - 1)
+    # a delta emitter's empty segment gives slot start - 1: clamp it into
+    # the table (its point is discarded)
+    slot = torch.clamp_min(torch.minimum(torch.maximum(slot, start), end - 1),
+                           0)
     cdf_prev = torch.cat([em.em_tri_cdf.new_zeros(1), em.em_tri_cdf[:-1]])
     cdf_lo = torch.where(slot > start, cdf_prev.index_select(0, slot), 0.0)
     pmf = torch.clamp_min(em.em_tri_cdf.index_select(0, slot) - cdf_lo, 1e-30)
@@ -251,7 +279,8 @@ def sample_emitter_direction(
 
     Returns (DirectionSample, em_weight (N, C)).  ``em_weight`` = emitter
     radiance / pdf with visibility applied; pdf includes the uniform 1/E
-    emitter-selection probability.
+    emitter-selection probability.  A delta emitter (projector, point)
+    gives its position with pdf 1 and ``delta`` set.
     """
     em = sd.emitter
     E = em.kind.shape[0]
@@ -265,23 +294,43 @@ def sample_emitter_direction(
             delta=torch.zeros((n,), dtype=torch.bool, device=dev),
             emitter_id=torch.full((n,), -1, dtype=torch.int32, device=dev))
         return ds, torch.zeros((n, em.radiance.shape[-1]), device=dev)
+    has_delta = _has_delta(sd)
+    has_shape = _has(sd, EM_AREA)
 
     u_sel = sample2[:, 0]
     em_idx = torch.clamp_max((u_sel * E).to(torch.int32), E - 1)
     u0 = torch.clamp(u_sel * E - em_idx.to(torch.float32), 0.0, 1.0 - 1e-7)
     sel_pdf = 1.0 / E
-
-    u0b, slot = _sample_emitter_triangle(sd, em_idx, u0)
-    p, n_em = _uniform_triangle_point(sd, slot, u0b, sample2[:, 1])
-    area = torch.clamp_min(em.area.index_select(0, em_idx), 1e-30)
+    if has_delta:
+        is_delta = is_delta_kind(em.kind.index_select(0, em_idx))
+        p_delta = em.position.index_select(0, em_idx)
+        n_delta = -em.direction.index_select(0, em_idx)
+    else:
+        is_delta = torch.zeros((n,), dtype=torch.bool, device=dev)
+    if has_shape:
+        u0b, slot = _sample_emitter_triangle(sd, em_idx, u0)
+        p, n_em = _uniform_triangle_point(sd, slot, u0b, sample2[:, 1])
+        area = torch.clamp_min(em.area.index_select(0, em_idx), 1e-30)
+        if has_delta:
+            p = torch.where(is_delta[:, None], p_delta, p)
+            n_em = torch.where(is_delta[:, None], n_delta, n_em)
+    else:
+        p, n_em = p_delta, n_delta
 
     d_vec = p - ref_p
     dist = torch.sqrt(torch.clamp_min(dot(d_vec, d_vec), 1e-20))
     d = d_vec / dist[:, None]
     cos_em = dot(n_em, -d)
-    # solid-angle pdf at ref of an area emitter: dist^2 / (cos * A)
-    pdf = safe_div(dist * dist, torch.clamp_min(cos_em, 0.0) * area) * sel_pdf
-    spec = emitter_eval_direction(sd, em_idx, cos_em)
+    # solid-angle pdf at ref: dist^2 / (cos * A) for an area emitter, 1 for
+    # a delta emitter
+    if has_shape:
+        pdf = safe_div(dist * dist, torch.clamp_min(cos_em, 0.0) * area)
+        if has_delta:
+            pdf = torch.where(is_delta, 1.0, pdf)
+        pdf = pdf * sel_pdf
+    else:
+        pdf = torch.full((n,), sel_pdf, dtype=torch.float32, device=dev)
+    spec = emitter_eval_direction(sd, em_idx, p, n_em, d, dist, cos_em)
 
     valid = active & (pdf > 0.0) & (torch.abs(spec).sum(dim=-1) > 0.0)
     if test_visibility:
@@ -293,32 +342,65 @@ def sample_emitter_direction(
     ds = DirectionSample(
         p=p, n=n_em, d=d, dist=dist,
         pdf=torch.where(valid, pdf, 0.0),
-        delta=torch.zeros((n,), dtype=torch.bool, device=dev),
+        delta=is_delta,
         emitter_id=torch.where(valid, em_idx, -1),
     )
     return ds, weight
 
 
 def emitter_eval_direction(sd: SceneData, em_idx: torch.Tensor,
+                           p: torch.Tensor, n_em: torch.Tensor,
+                           d: torch.Tensor, dist: torch.Tensor,
                            cos_em: torch.Tensor) -> torch.Tensor:
-    """Radiance leaving an area emitter toward the reference point: its
-    constant radiance from the front side, 0 from the back."""
-    rad = sd.emitter.radiance.index_select(0, em_idx)
-    return torch.where((cos_em > 0.0)[:, None], rad, 0.0)
+    """Radiance leaving emitter point ``p`` toward a reference point that
+    sees it along ``d`` at ``dist``: an area emitter's constant radiance
+    from its front side (``cos_em > 0``); a projector's irradiance / dist^2
+    inside its frustum; a point's intensity / dist^2.  (N, C).  ``p`` and
+    ``n_em`` are unused by these kinds; they keep the JAX signature."""
+    em = sd.emitter
+    rad = em.radiance.index_select(0, em_idx)
+    branches = []  # (kind code, value)
+    if _has(sd, EM_AREA):
+        branches.append((EM_AREA, torch.where((cos_em > 0.0)[:, None], rad,
+                                              0.0)))
+    if _has_delta(sd):
+        inv_d2 = (1.0 / torch.clamp_min(dist * dist, 1e-20))[:, None]
+    if _has(sd, EM_PROJECTOR):
+        # the frame of the projector, seen from it toward the point
+        v = -d
+        z = dot(v, em.direction.index_select(0, em_idx))
+        x = dot(v, em.frame_s.index_select(0, em_idx))
+        y = dot(v, em.frame_t.index_select(0, em_idx))
+        zt = z * em.tan_half_fov.index_select(0, em_idx)
+        inside = (z > 0) & (torch.abs(x) <= zt) & (torch.abs(y) <= zt)
+        branches.append((EM_PROJECTOR,
+                         torch.where(inside[:, None], rad, 0.0) * inv_d2))
+    if _has(sd, EM_POINT):
+        branches.append((EM_POINT, rad * inv_d2))
+    if len(branches) == 1:
+        return branches[0][1]
+    kind = em.kind.index_select(0, em_idx)
+    val = torch.zeros_like(rad)
+    for code, v_k in branches:
+        val = torch.where((kind == code)[:, None], v_k, val)
+    return val
 
 
 def pdf_emitter_direction(sd: SceneData, ref_p: torch.Tensor,
                           si: SurfaceInteraction) -> torch.Tensor:
     """Solid-angle pdf of NEE having sampled the direction that hit ``si``
-    (for MIS at emitter hits).  Zero for non-emitter hits and back faces."""
+    (for MIS at emitter hits).  Zero for non-emitter hits, back faces and
+    delta emitters."""
     E = sd.emitter.kind.shape[0]
-    if E == 0:
+    if E == 0 or not _has(sd, EM_AREA):
         return torch.zeros(ref_p.shape[:-1], dtype=torch.float32,
                            device=ref_p.device)
     em = si.emitter_id
+    em_c = torch.clamp_min(em, 0)
     has_em = em >= 0
-    area = torch.clamp_min(
-        sd.emitter.area.index_select(0, torch.clamp_min(em, 0)), 1e-30)
+    if _has_delta(sd):
+        has_em = has_em & (sd.emitter.kind.index_select(0, em_c) == EM_AREA)
+    area = torch.clamp_min(sd.emitter.area.index_select(0, em_c), 1e-30)
     d_vec = si.p - ref_p
     dist2 = dot(d_vec, d_vec)
     dist = torch.sqrt(torch.clamp_min(dist2, 1e-20))
@@ -330,13 +412,19 @@ def pdf_emitter_direction(sd: SceneData, ref_p: torch.Tensor,
 
 def emitter_eval_hit(sd: SceneData, si: SurfaceInteraction,
                      ray_d: torch.Tensor) -> torch.Tensor:
-    """Radiance emitted at a surface hit toward the viewer.  (N, C)."""
+    """Radiance emitted at a surface hit toward the viewer.  (N, C); zero
+    for a delta emitter, which no ray hits."""
     E = sd.emitter.kind.shape[0]
     n = si.t.shape[0]
     if E == 0:
         return torch.zeros((n, sd.bsdf.reflectance.shape[-1]),
                            dtype=torch.float32, device=si.t.device)
     em = si.emitter_id
+    em_c = torch.clamp_min(em, 0)
     cos_em = dot(si.n, -ray_d)
-    val = emitter_eval_direction(sd, torch.clamp_min(em, 0), cos_em)
-    return torch.where((em >= 0)[:, None], val, 0.0)
+    val = emitter_eval_direction(sd, em_c, si.p, si.n, ray_d,
+                                 torch.ones_like(cos_em), cos_em)
+    has_em = em >= 0
+    if _has_delta(sd):
+        has_em = has_em & ~is_delta_kind(sd.emitter.kind.index_select(0, em_c))
+    return torch.where(has_em[:, None], val, 0.0)

@@ -2,11 +2,14 @@
 :class:`SceneData` on one device.
 
 Counterpart of ``mitransient_tpu/scene/schema.py`` for the plugin set of
-the transient Cornell box and of large meshes: ``rectangle``, ``cube``,
-``obj``, ``ply`` and in-memory ``mesh`` shapes, ``diffuse`` BSDFs (top
-level, nested or by ``ref``), ``area`` emitters, the ``perspective``
-sensor with a ``transient_hdr_film`` or a ``phasor_hdr_film``, and the
-``transient_path`` and ``path`` integrators.  Every other plugin the JAX
+the transient Cornell box, of large meshes and of NLOS captures:
+``rectangle``, ``cube``, ``obj``, ``ply`` and in-memory ``mesh`` shapes,
+``diffuse`` BSDFs (top level, nested or by ``ref``), ``area`` emitters and
+the delta emitters ``projector``, ``point`` and ``spot`` (loaded as a
+point), the ``perspective`` sensor and the ``nlos_capture_meter`` nested in
+a shape, with a ``transient_hdr_film`` or a ``phasor_hdr_film``, and the
+``transient_path``, ``path`` and ``transient_nlos_path`` integrators.
+Every other plugin the JAX
 package accepts raises ``NotImplementedError`` naming the ROADMAP item
 that will port it; what the JAX loader refuses (other sensor types such as
 ``thinlens`` and ``irradiancemeter``, unknown scene entries) raises its
@@ -22,21 +25,26 @@ from __future__ import annotations
 
 from typing import Any, NamedTuple
 
+import logging
+
 import numpy as np
 import torch
 
 from ..core.spectrum import Variant, variant
-from ..core.transform import from_spec
+from ..core.transform import Transform4, from_spec
 from ..ops.accel import ACCEL_MIN_TRIS, build_accel
 from ..ops.intersect import tri_table
 from .scene import (
     BSDF_DIFFUSE,
     EM_AREA,
+    EM_POINT,
+    EM_PROJECTOR,
     BSDFParams,
     EmitterParams,
     GeomParams,
     SceneData,
     Triangles,
+    emitter_kinds,
 )
 from .shapes import SHAPE_REGISTRY, Shape
 
@@ -51,12 +59,12 @@ _BSDF_TYPES = (
 )
 _ROADMAP_ITEM = {
     # scene entries the JAX package accepts and the port does not yet
-    "bsdf": "11", "angulararea": "11", "projector": "11", "point": "11",
-    "spot": "11", "texture": "11", "homogeneous": "15", "heterogeneous": "15",
-    "transient_nlos_path": "13", "nlos_capture_meter": "13",
-    "transient_prbvolpath": "15",
+    "bsdf": "11", "angulararea": "11", "texture": "11",
+    "homogeneous": "15", "heterogeneous": "15", "transient_prbvolpath": "15",
 }
 _FILM_KINDS = ("transient_hdr_film", "phasor_hdr_film")
+_INTEGRATORS = ("transient_path", "path", "transient_nlos_path")
+_log = logging.getLogger("mitransient_tpu_torch")
 
 
 def _not_ported(what: str, key: str) -> NotImplementedError:
@@ -112,6 +120,11 @@ class FilmConfig(NamedTuple):
     temporal_bins: int = 2048  # default of transient_hdr_film.py:116
     start_opl: float = 0.0
     bin_width_opl: float = 0.003
+    # exhaustive NLOS capture: a (laser_scan_height x laser_scan_width)
+    # illumination grid per scan pixel
+    exhaustive_scan: bool = False
+    laser_scan_width: int = 0
+    laser_scan_height: int = 0
     # phasor_hdr_film: the tracked band's mean and width in OPL units
     wl_mean: float = 100.0
     wl_sigma: float = 1000.0
@@ -147,10 +160,23 @@ class IntegratorConfig(NamedTuple):
     discard_direct_light: bool = False
     temporal_filter: str = ""
     gaussian_stddev: float = 2.0
+    # transient_nlos_path (the reference's transientnlospath.py:201-249)
+    capture_type: str = "single"  # single | confocal | exhaustive
+    filter_depth: int = -1
+    filter_bounces: int = -1
+    discard_direct_paths: bool = False
+    nlos_laser_sampling: bool = False
+    nlos_hidden_geometry_sampling: bool = False
+    nlos_hidden_geometry_sampling_do_rroulette: bool = False
+    nlos_hidden_geometry_sampling_includes_relay_wall: bool = True
+    account_first_and_last_bounces: bool = True
+    # the exhaustive capture's illumination grid
+    force_equal_illumination_scanning: bool = True
+    illumination_scan_fov: float = 20.0
 
 
 class SensorConfig(NamedTuple):
-    kind: str  # 'perspective'
+    kind: str  # 'perspective' | 'nlos_capture_meter'
     to_world: Any  # Transform4 (host)
     fov: float
     fov_axis: str
@@ -158,6 +184,25 @@ class SensorConfig(NamedTuple):
     spp: int
     seed: int
     film: FilmConfig
+    # nlos_capture_meter: the sensor's origin, the shape (relay wall) it is
+    # nested in, and in confocal mode the scan grid behind a 1x1 film
+    sensor_origin: Any = None  # (3,) float64
+    shape_index: int = -1
+    original_film_width: int | None = None
+    original_film_height: int | None = None
+
+    @property
+    def is_confocal(self) -> bool:
+        return (self.original_film_width is not None
+                and self.original_film_height is not None)
+
+    @property
+    def scan_size(self):
+        """(width, height) of the scan grid: the film's, or in confocal
+        mode the original film's."""
+        if self.is_confocal:
+            return (self.original_film_width, self.original_film_height)
+        return (self.film.width, self.film.height)
 
 
 MAX_DEPTH_CAP = 32  # static bound substituted for max_depth = -1 (infinity)
@@ -176,6 +221,9 @@ def _parse_film(d: dict) -> FilmConfig:
                                 else 2048)),
         start_opl=float(d.get("start_opl", 0.0)),
         bin_width_opl=float(d.get("bin_width_opl", 0.003)),
+        exhaustive_scan=bool(d.get("exhaustive_scan", False)),
+        laser_scan_width=int(d.get("laser_scan_width", 0)),
+        laser_scan_height=int(d.get("laser_scan_height", 0)),
         wl_mean=float(d.get("wl_mean", 100.0)),
         wl_sigma=float(d.get("wl_sigma", 1000.0)),
         warn_negative=bool(d.get("warn_negative", False)),
@@ -204,6 +252,19 @@ def _parse_integrator(d: dict) -> IntegratorConfig:
     md = int(d.get("max_depth", 6))
     if md < 0:
         md = MAX_DEPTH_CAP
+    # filter_bounces is an alias: filter_depth = filter_bounces + 1; setting
+    # both is an error (transientnlospath.py:204-215)
+    filter_depth = int(d.get("filter_depth", -1))
+    filter_bounces = int(d.get("filter_bounces", -1))
+    if filter_depth != -1 and filter_bounces != -1:
+        raise ValueError("Only use one of filter_depth or filter_bounces "
+                         "(transientnlospath.py:207-208)")
+    if filter_bounces != -1:
+        filter_depth = filter_bounces + 1
+    if filter_depth != -1 and filter_depth >= md:
+        _log.warning("You have set filter_depth >= max_depth. "
+                     "This will cause the final image to be all zero. "
+                     "(transientnlospath.py:212-216)")
     return IntegratorConfig(
         kind=d.get("type", "transient_path"),
         max_depth=md,
@@ -212,6 +273,22 @@ def _parse_integrator(d: dict) -> IntegratorConfig:
         discard_direct_light=bool(d.get("discard_direct_light", False)),
         temporal_filter=d.get("temporal_filter", ""),
         gaussian_stddev=float(d.get("gaussian_stddev", 2.0)),
+        capture_type=str(d.get("capture_type", "single")).lower(),
+        filter_depth=filter_depth,
+        filter_bounces=filter_bounces,
+        discard_direct_paths=bool(d.get("discard_direct_paths", False)),
+        nlos_laser_sampling=bool(d.get("nlos_laser_sampling", False)),
+        nlos_hidden_geometry_sampling=bool(
+            d.get("nlos_hidden_geometry_sampling", False)),
+        nlos_hidden_geometry_sampling_do_rroulette=bool(
+            d.get("nlos_hidden_geometry_sampling_do_rroulette", False)),
+        nlos_hidden_geometry_sampling_includes_relay_wall=bool(
+            d.get("nlos_hidden_geometry_sampling_includes_relay_wall", True)),
+        account_first_and_last_bounces=bool(
+            d.get("account_first_and_last_bounces", True)),
+        force_equal_illumination_scanning=bool(
+            d.get("force_equal_illumination_scanning", True)),
+        illumination_scan_fov=float(d.get("illumination_scan_fov", 20.0)),
     )
 
 
@@ -250,7 +327,11 @@ class _EmitterEntry(NamedTuple):
 
 class Scene:
     """Loaded scene: host-side object model + :class:`SceneData` on
-    ``device``; relative mesh file names resolve against ``base_dir``."""
+    ``device``; relative mesh file names resolve against ``base_dir``.
+
+    NLOS bookkeeping: ``laser_target``, ``laser_bounce_opl`` and
+    ``laser_focused`` record the laser focus set by ``nlos.py``'s helpers,
+    which aim a delta emitter through :meth:`replace_emitter_transform`."""
 
     def __init__(self, desc: dict, device="cuda", base_dir: str = "."):
         self.variant: Variant = variant()
@@ -259,10 +340,11 @@ class Scene:
         self.integrator = IntegratorConfig()
         self.sensors: list[SensorConfig] = []
         self.shapes: list[Shape] = []
+        self._shape_keys: list[str] = []
         self._bsdfs: list[_BSDFEntry] = []
         self._bsdf_index: dict[str, int] = {}
         self._emitters: list[_EmitterEntry] = []
-        sensor_dicts: list[dict] = []
+        sensor_dicts: list[tuple[dict, int]] = []  # (dict, enclosing shape)
 
         def add_bsdf(key: str, d: dict) -> int:
             if d.get("type") == "ref":
@@ -327,39 +409,102 @@ class Scene:
                         shape.emitter_key = em_idx
                     elif ct in _ROADMAP_ITEM:
                         raise _not_ported(f"{ct!r} (in {key!r})", ct)
-                    elif ct in ("perspective", "irradiancemeter"):
-                        sensor_dicts.append(cv)
+                    elif ct in ("nlos_capture_meter", "perspective",
+                                "irradiancemeter"):
+                        sensor_dicts.append((cv, shape_idx))
                 if bsdf_idx is None:
                     bsdf_idx = add_bsdf(f"{key}.__default", {"type": "diffuse"})
                 shape.bsdf_key = bsdf_idx
                 self.shapes.append(shape)
+                self._shape_keys.append(key)
+            elif t in ("projector", "point", "spot"):
+                # a spot loads as a point light; irradiance or intensity is
+                # the table's radiance
+                rad_key = "irradiance" if t == "projector" else "intensity"
+                self._emitters.append(_EmitterEntry(
+                    key=key,
+                    kind=EM_PROJECTOR if t == "projector" else EM_POINT,
+                    radiance=parse_color(val.get(rad_key, 1.0), C),
+                    to_world=from_spec(val.get("to_world")),
+                    fov=float(val.get("fov", 45.0)),
+                    cutoff_angle=float(val.get("cutoff_angle", 20.0)),
+                    beam_width=float(val.get("beam_width", 15.0)),
+                    shape_index=-1,
+                ))
             elif t in _ROADMAP_ITEM:
                 raise _not_ported(f"scene entry {key!r} of type {t!r}", t)
             elif t in ("perspective", "thinlens"):
-                sensor_dicts.append(val)
-            elif t in ("transient_path", "path"):
+                sensor_dicts.append((val, -1))
+            elif t in _INTEGRATORS:
                 self.integrator = _parse_integrator(val)
             else:
                 raise ValueError(f"unknown scene entry {key!r} of type {t!r}")
 
-        for sdict in sensor_dicts:
+        for sdict, shape_idx in sensor_dicts:
+            st = sdict.get("type")
             film = _parse_film(sdict.get("film", {}))
-            if sdict.get("type") != "perspective":
-                raise ValueError(f"unsupported sensor type {sdict.get('type')!r}")
             sampler = sdict.get("sampler", {})
-            self.sensors.append(SensorConfig(
-                kind="perspective",
-                to_world=from_spec(sdict.get("to_world")),
-                fov=float(sdict.get("fov", 45.0)),
-                fov_axis=sdict.get("fov_axis", "x"),
-                near_clip=float(sdict.get("near_clip", 1e-2)),
-                spp=int(sampler.get("sample_count", 4)),
-                seed=int(sampler.get("seed", 0)),
-                film=film,
-            ))
+            if st == "perspective":
+                self.sensors.append(SensorConfig(
+                    kind="perspective",
+                    to_world=from_spec(sdict.get("to_world")),
+                    fov=float(sdict.get("fov", 45.0)),
+                    fov_axis=sdict.get("fov_axis", "x"),
+                    near_clip=float(sdict.get("near_clip", 1e-2)),
+                    spp=int(sampler.get("sample_count", 4)),
+                    seed=int(sampler.get("seed", 0)),
+                    film=film,
+                ))
+            elif st == "nlos_capture_meter":
+                self.sensors.append(SensorConfig(
+                    kind="nlos_capture_meter",
+                    to_world=Transform4(),
+                    fov=0.0,
+                    fov_axis="x",
+                    near_clip=0.0,
+                    spp=int(sampler.get("sample_count", 4)),
+                    seed=int(sampler.get("seed", 0)),
+                    film=film,
+                    sensor_origin=np.asarray(
+                        sdict.get("sensor_origin", [0, 0, 0]), np.float64),
+                    shape_index=shape_idx,
+                    original_film_width=sdict.get("original_film_width"),
+                    original_film_height=sdict.get("original_film_height"),
+                ))
+            else:
+                raise ValueError(f"unsupported sensor type {st!r}")
         if not self.sensors:
             raise ValueError("scene has no sensor")
+        self.laser_target = np.zeros(3)
+        self.laser_bounce_opl = 0.0
+        self.laser_focused = False
         self.data = self._compile()
+
+    def emitter_index(self, key_or_idx) -> int:
+        """Index of the emitter whose key is, or starts with, ``key_or_idx``
+        (an int passes through)."""
+        if isinstance(key_or_idx, int):
+            return key_or_idx
+        for i, e in enumerate(self._emitters):
+            if e.key == key_or_idx or e.key.startswith(str(key_or_idx)):
+                return i
+        raise KeyError(key_or_idx)
+
+    def shape_index(self, key: str) -> int:
+        return self._shape_keys.index(key)
+
+    def replace_emitter_transform(self, em_idx: int, t: Transform4) -> None:
+        """Give emitter ``em_idx`` the transform ``t``: its host entry and
+        its rows of the device table (position, direction, frame), written
+        in place."""
+        self._emitters[em_idx] = self._emitters[em_idx]._replace(to_world=t)
+        R = t.m[:3, :3]
+        em = self.data.emitter
+        for table, value in ((em.position, t.translation),
+                             (em.direction, R @ np.array([0, 0, 1.0])),
+                             (em.frame_s, R @ np.array([1.0, 0, 0])),
+                             (em.frame_t, R @ np.array([0, 1.0, 0]))):
+            table[em_idx] = torch.from_numpy(value.astype(np.float32))
 
     def _compile(self) -> SceneData:
         C = self.variant.color_channels
@@ -425,7 +570,8 @@ class Scene:
         accel = None
         if count > ACCEL_MIN_TRIS:
             accel = build_accel(v0, e1, e2, device=self.device)
-        return SceneData(**{k: dev(v) for k, v in host.items()}, accel=accel)
+        return SceneData(**{k: dev(v) for k, v in host.items()}, accel=accel,
+                         emitter_kinds=emitter_kinds(host["emitter"].kind))
 
     def _emitter_table(self, C, v0, e1, e2, ng, area, shape_id):
         E = len(self._emitters)
@@ -451,6 +597,8 @@ class Scene:
             em_thf[i] = np.tan(np.deg2rad(e.fov) / 2.0)
             em_cb[i] = np.cos(np.deg2rad(e.beam_width))
             em_cc[i] = np.cos(np.deg2rad(e.cutoff_angle))
+            if e.shape_index < 0:  # a delta emitter has no triangles
+                continue
             start, cnt = self.shape_tri_ranges[e.shape_index]
             areas = area[start:start + cnt]
             total = float(np.sum(areas))

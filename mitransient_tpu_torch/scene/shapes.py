@@ -73,6 +73,15 @@ class Rectangle(Shape):
         faces = np.array([[0, 1, 2], [0, 2, 3]], np.int32)
         return self._bake(verts, faces, uvs)
 
+    def position_from_uv(self, uv: np.ndarray) -> np.ndarray:
+        """Exact uv -> world point map (the NLOS sensor's scan grid),
+        float64."""
+        uv = np.asarray(uv, np.float64)
+        local = np.stack(
+            [2.0 * uv[..., 0] - 1.0, 2.0 * uv[..., 1] - 1.0,
+             np.zeros_like(uv[..., 0])], axis=-1)
+        return self.to_world.apply_point(local)
+
 
 class Cube(Shape):
     shape_type = "cube"

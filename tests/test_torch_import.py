@@ -33,8 +33,13 @@ def test_public_api():
     import mitransient_tpu_torch as mt
 
     for name in ("load_dict", "cornell_box", "render", "set_variant",
-                 "variant", "save_film_state", "load_film_state"):
+                 "variant", "save_film_state", "load_film_state",
+                 "render_aovs"):
         assert callable(getattr(mt, name)), name
+    for name in ("focus_emitter_at_relay_wall_3dpoint",
+                 "focus_emitter_at_relay_wall_uv",
+                 "focus_emitter_at_relay_wall_pixel", "scan_confocal"):
+        assert callable(getattr(mt.nlos, name)), name
 
 
 def test_kernel_loader_needs_nvcc(monkeypatch):

@@ -145,10 +145,10 @@ def test_configs_match_jax():
 
 @pytest.mark.parametrize("change", [
     lambda d: d["white"].update(type="conductor"),
-    lambda d: d.update(extra={"type": "point", "intensity": 1.0}),
-    lambda d: d.update(laser={"type": "projector"}),
+    lambda d: d["light"]["emitter"].update(type="angulararea"),
+    lambda d: d["white"].update(type="roughconductor"),
     lambda d: d["integrator"].update(type="transient_prbvolpath"),
-    lambda d: d["integrator"].update(type="transient_nlos_path"),
+    lambda d: d["white"]["reflectance"].update(type="checkerboard"),
     lambda d: d["small-box"].update(medium={"type": "homogeneous"}),
     lambda d: d["white"]["reflectance"].update(type="bitmap"),
 ])

@@ -200,3 +200,177 @@ def overlapping_rays(rng: np.random.Generator, n: int):
     d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
     maxt = np.where(rng.random(n) < 0.2, 2.5, np.inf).astype(np.float32)
     return o.astype(np.float32), d, maxt, rng.random(n) >= 0.1
+
+
+def nlos_scene(sx=4, sy=4, laser_sampling=True, hg_sampling=True,
+               account=False, bins=300, spp=64):
+    """The NLOS scene of tests/test_nlos.py:15-65 (a copy without jax): a
+    [-1, 1]^2 relay wall at z = 0 with an ``nlos_capture_meter`` of sx x sy
+    pixels, a 0.5-wide hidden rectangle at z = 1 facing it, and a projector
+    laser beside the sensor origin; depth 4, bins of 0.02 from OPL 0."""
+    return {
+        "type": "scene",
+        "integrator": {
+            "type": "transient_nlos_path",
+            "max_depth": 4,
+            "filter_depth": -1,
+            "nlos_laser_sampling": laser_sampling,
+            "nlos_hidden_geometry_sampling": hg_sampling,
+            "nlos_hidden_geometry_sampling_do_rroulette": False,
+            "nlos_hidden_geometry_sampling_includes_relay_wall": False,
+            "account_first_and_last_bounces": account,
+            "temporal_filter": "box",
+        },
+        "hidden-target": {
+            "type": "rectangle",
+            "to_world": {
+                "translate": [0.0, 0.0, 1.0],
+                "rotate": {"axis": [0, 1, 0], "angle": 180},
+                "scale": 0.5,
+            },
+            "bsdf": {"type": "diffuse", "reflectance": {"type": "rgb", "value": [1.0, 1.0, 1.0]}},
+        },
+        "laser": {
+            "type": "projector",
+            "to_world": {"translate": [-0.5, 0.0, 0.25]},
+            "irradiance": {"type": "rgb", "value": [1.0, 1.0, 1.0]},
+            "fov": 0.2,
+        },
+        "relay_wall": {
+            "type": "rectangle",
+            "bsdf": {"type": "diffuse", "reflectance": {"type": "rgb", "value": [1.0, 1.0, 1.0]}},
+            "nlos_sensor": {
+                "type": "nlos_capture_meter",
+                "sampler": {"type": "independent", "sample_count": spp,
+                            "seed": 0},
+                "sensor_origin": [-0.5, 0.0, 0.25],
+                "film": {
+                    "type": "transient_hdr_film",
+                    "width": sx,
+                    "height": sy,
+                    "temporal_bins": bins,
+                    "bin_width_opl": 0.02,
+                    "start_opl": 0.0,
+                },
+            },
+        },
+    }
+
+
+def nlos_exhaustive(desc: dict, lw: int, lh: int) -> dict:
+    """``desc`` (an nlos_scene) as an exhaustive capture with a lw x lh
+    laser grid, in place."""
+    desc["integrator"]["capture_type"] = "exhaustive"
+    desc["relay_wall"]["nlos_sensor"]["film"].update(
+        exhaustive_scan=True, laser_scan_width=lw, laser_scan_height=lh)
+    return desc
+
+
+def nlos_confocal(desc: dict, w: int, h: int) -> dict:
+    """``desc`` (an nlos_scene of a 1x1 film) as a confocal capture over a
+    w x h scan grid, in place."""
+    desc["relay_wall"]["nlos_sensor"].update(original_film_width=w,
+                                             original_film_height=h)
+    return desc
+
+
+def nlos_perspective(desc: dict) -> dict:
+    """``desc`` (an nlos_scene) seen through a perspective sensor at the
+    sensor origin, aimed at the wall's centre, with the capture meter's
+    film and sampler, in place."""
+    sens = desc["relay_wall"].pop("nlos_sensor")
+    desc["sensor"] = {
+        "type": "perspective", "fov": 30.0,
+        "to_world": {"look_at": {"origin": [-0.5, 0.0, 0.25],
+                                 "target": [0.0, 0.0, 0.0], "up": [0, 1, 0]}},
+        "sampler": sens["sampler"], "film": sens["film"]}
+    return desc
+
+
+# the NLOS configurations held card against CPU (chip_smoke.py) and port
+# against the JAX package (tests/test_torch_nlos.py)
+NLOS_CASES = ("plain_nee", "hg_rr", "account", "filter_depth", "multipass",
+              "confocal", "scan_confocal", "exhaustive", "perspective",
+              "point_regen", "point_multipass")
+POINT_LIGHT = {"type": "point", "to_world": {"translate": [0.1, 0.8, 0.2]},
+               "intensity": {"type": "rgb", "value": [3.0, 2.5, 1.5]}}
+
+
+def nlos_case(pkg, name: str):
+    """Configuration ``name`` of NLOS_CASES for the package ``pkg`` (the
+    port or the JAX package, which share their entry points) -> (scene
+    dict, run(scene) -> (steady, transient, stats)).  Each renders in under
+    a second on the CPU.
+
+    plain_nee: a point laser, NEE toward it, hidden-geometry sampling;
+    hg_rr: HG mixed with BSDF sampling by RR, rr_depth 1; account:
+    account_first_and_last_bounces; filter_depth: filter_depth 3 with
+    discard_direct_paths; multipass: 5 passes (max_lanes 80); confocal: a
+    1x1 film over a 4x4 scan; scan_confocal: ``nlos.scan_confocal`` over
+    4x4; exhaustive: 4x4 scan x 2x2 lasers, laser_chunk 3 (two chunks, two
+    padded rows); perspective: the capture through a perspective sensor;
+    point_regen / point_multipass: the 8x8 cbox with a point light for its
+    area light, through the regen loop (spp 8) and the multi-pass
+    accumulator (spp 4)."""
+    import importlib
+
+    def focused(pixel, **kw):
+        def run(scene):
+            pkg.nlos.focus_emitter_at_relay_wall_pixel(pixel, scene)
+            return pkg.render(scene, return_stats=True, **kw)
+        return run
+
+    d = nlos_scene()
+    run = focused([2.0, 2.0], spp=16, seed=0)
+    if name == "plain_nee":
+        d = nlos_scene(laser_sampling=False)
+        d["laser"] = {"type": "point",
+                      "to_world": {"translate": [-0.5, 0.0, 0.25]},
+                      "intensity": {"type": "rgb", "value": [1.0, 2.0, 3.0]}}
+
+        def run(scene):
+            return pkg.render(scene, spp=16, seed=1, return_stats=True)
+    elif name == "hg_rr":
+        d["integrator"].update(nlos_hidden_geometry_sampling_do_rroulette=True,
+                               rr_depth=1)
+        run = focused([1.0, 2.0], spp=16, seed=2)
+    elif name == "account":
+        d = nlos_scene(account=True)
+    elif name == "filter_depth":
+        d["integrator"].update(filter_depth=3, discard_direct_paths=True)
+    elif name == "multipass":
+        run = focused([3.0, 1.0], spp=20, seed=4, max_lanes=4 * 16)
+    elif name == "confocal":
+        d = nlos_confocal(nlos_scene(sx=1, sy=1), 4, 4)
+        run = focused([2.0, 2.0], spp=32, seed=0)
+    elif name == "scan_confocal":
+        d = nlos_confocal(nlos_scene(sx=1, sy=1), 4, 4)
+
+        def run(scene):
+            return pkg.nlos.scan_confocal(scene, spp=8, seed=0,
+                                          return_stats=True)
+    elif name == "exhaustive":
+        d = nlos_exhaustive(nlos_scene(), 2, 2)
+        mod = importlib.import_module(pkg.__name__ + ".integrators.nlos_path")
+
+        def run(scene):
+            return mod.render_nlos_exhaustive(scene, 8, seed=0, laser_chunk=3,
+                                              return_stats=True)
+    elif name == "perspective":
+        d = nlos_perspective(d)
+
+        def run(scene):
+            pkg.nlos.focus_emitter_at_relay_wall_3dpoint([0.1, 0.05, 0.0],
+                                                         scene)
+            return pkg.render(scene, spp=16, seed=0, return_stats=True)
+    elif name in ("point_regen", "point_multipass"):
+        d = small_cbox(pkg, 8, 8, 100, 4)
+        del d["light"]["emitter"]
+        d["bulb"] = dict(POINT_LIGHT)
+        spp = 8 if name == "point_regen" else 4
+
+        def run(scene):
+            return pkg.render(scene, spp=spp, seed=3, return_stats=True)
+    elif name not in ("account", "filter_depth"):
+        raise KeyError(name)
+    return d, run
