@@ -73,23 +73,34 @@ Phases, each of which raises on failure:
     laser focused at wall pixel (16, 16)), spp 2048 = 2^21 lanes in one
     pass.  K1, K2 and K3 each launch once a bounce (the capture's
     constants add one K1 and one K2 launch on one ray each), K3 splats one
-    event set; finite, non-negative, first arrival in bins 90-115.  Wall
-    time, rays/s and peak memory of a second render (seed 1); the
-    threefry's share (its standalone draw time over that wall); K3 on one
-    bounce's events against its plain version, bound and ``index_add_``;
-    then a render at spp 25,000 (13 passes) and its rays/s.
+    event set; finite, non-negative, first arrival in bins 90-115.  The
+    inputs K1, K2 and K3 get in bounce 1 (2^21 closest-hit rays, 2^21
+    vertex -> wall rays, one event set) are held against the plain
+    versions as in phase 2, each timed with its bound (K3 also against
+    ``index_add_``).  Wall time, rays/s and peak memory of a second,
+    uninstrumented render (seed 1); the threefry's share (its standalone
+    draw time over that wall); then a render at spp 25,000 (13 passes)
+    and its rays/s.
 17. The ``nlos_single`` golden config on the card against its golden.
 18. Every configuration of ``torch_cases.NLOS_CASES`` (plain NEE, HG with
     RR, account_first_and_last_bounces, filter_depth, several passes, a
     1x1 confocal capture, ``scan_confocal`` at 4x4, the exhaustive capture
     at 4x4 x 2x2 lasers with laser_chunk 3, the capture through a
     perspective sensor, the cbox with a point light through the regen loop
-    and the multi-pass accumulator) on the card against the port on the
-    host CPU, test_golden's rule with no element out; K3 launches once a
-    bounce on the card.
+    and the multi-pass accumulator, and a single and an exhaustive capture
+    with a 4,512-triangle sphere among the hidden geometry, whose accel
+    sends every ray query to the BVH kernel) on the card against the port
+    on the host CPU, test_golden's rule with no element out; K3 launches
+    once a bounce on the card, and K1 and K2 (the BVH kernel twice, with
+    an accel) at least once.
 19. Full scans: ``scan_confocal`` at 32x32, spp 2048, and the exhaustive
     capture at a 32x32 scan x 8x8 lasers, spp 512 (2^19 lanes, 2 laser
-    chunks of 32): rays/s and peak memory of each.
+    chunks of 32), each rendered twice.  The exhaustive capture's first
+    render keeps what K1, K2 and K3 get in bounce 1 (2^19 closest-hit
+    rays, one K2 launch of 32 x 2^19 = 2^24 vertex -> wall rays, one
+    event set into a (3, 301, 32768) film of laser x pixel slots), held
+    against the plain versions as in phase 16; the second render's rays/s
+    and peak memory.
 
 Kernel times (``_time_ms``) are means of launches made back to back, so
 that the wrapper's host work overlaps the card's as in a render.  It
@@ -97,13 +108,15 @@ prints, as its last three lines, the card's name and power limit, one
 JSON object with each kernel's launches (in the regen flagship or
 ``cbox_mesh`` render; K1-K3 also in the multi-pass flagship render,
 ``multipass_launches``, and in the NLOS single capture,
-``nlos_launches``), error, times and bound, and ``{"ok": true,
+``nlos_launches``), error, times and bound (K1-K3 also on the inputs of
+phases 16 and 19, keys ``nlos_*`` and ``exhaustive_*``), and ``{"ok": true,
 "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, it exits with an error.  Nothing here
 imports jax.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -215,40 +228,22 @@ def check_kernels(mt, cases, dev):
     rows = []
     events, flagship_rays = flagship_iteration(mt, dev)
 
-    def report_rays(name, bad, rays):
-        o, d, extra, active = rays
-        idx = torch.nonzero(bad).flatten().tolist()
-        for i in idx[:10]:
-            print(f"  {name} mismatch ray {i}: o={o[i].tolist()} "
-                  f"d={d[i].tolist()} maxt={extra[i].item()} "
-                  f"active={bool(active[i])}")
-        print(f"{name}: {len(idx)} of {bad.numel()} rays differ (none "
-              "allowed)")
-        if idx:
-            raise AssertionError(f"{name}: {len(idx)} rays differ")
-
     # K1 closest hit, bit-equal (prim equal, t equal bit for bit; 0 rays
     # may differ) on random rays and on a flagship iteration's closest-hit
     # rays
     k1 = {}
     for name, rays in (("random", (o, d, maxt, active)),
                        ("flagship", flagship_rays["closest_hit"])):
-        t_k, prim_k = isect.closest_hit(*soup, *rays, table=table)
-        t_p, prim_p, _, _ = isect.intersect_soup(*soup, *rays)
-        torch.cuda.synchronize()
-        report_rays(f"K1 closest_hit on {name} rays",
-                    (prim_k != prim_p) | (t_k != t_p), rays)
+        err, hits = hold_soup_rays(isect, soup, table, "closest_hit", rays,
+                                   f"K1 closest_hit on {name} rays")
         n_rays, n_active = rays[0].shape[0], int(rays[3].sum())
         bound = _bound(ray_bytes(n_rays, n_active, 8) + m * 36,
                        n_active * m * MT_OPS)
-        hit = prim_k >= 0
         k1[name] = dict(
-            max_abs_err=float((t_k - t_p)[hit].abs().max()) if hit.any()
-            else 0.0,
-            bound=bound, active_share=n_active / n_rays,
+            max_abs_err=err, bound=bound, active_share=n_active / n_rays,
             ms=_time_ms(lambda: isect.closest_hit(*soup, *rays, table=table)),
             plain_ms=_time_ms(lambda: isect.intersect_soup(*soup, *rays)))
-        print(f"K1 on {name} rays: {int(hit.sum())} hits of {n_active} "
+        print(f"K1 on {name} rays: {hits} hits of {n_active} "
               f"active of {n_rays} (active share {n_active / n_rays:.4f}) -> "
               f"bound {bound[0]:.4f} ms ({bound[1]}); kernel "
               f"{k1[name]['ms']:.4f} ms, plain {k1[name]['plain_ms']:.4f} ms")
@@ -270,20 +265,17 @@ def check_kernels(mt, cases, dev):
     k2 = {}
     for name, rays in (("random", (o, d, maxt_sh, active)),
                        ("flagship", flagship_rays["ray_test"])):
-        occ_k = isect.ray_test(*soup, *rays, table=table)
-        occ_p = isect.ray_test_soup(*soup, *rays)
-        torch.cuda.synchronize()
-        report_rays(f"K2 ray_test on {name} rays", occ_k != occ_p, rays)
+        err, occluded = hold_soup_rays(isect, soup, table, "ray_test", rays,
+                                       f"K2 ray_test on {name} rays")
         n_rays, n_active = rays[0].shape[0], int(rays[3].sum())
         tests = any_hit_tests(isect, soup, *rays)
         bound = _bound(ray_bytes(n_rays, n_active, 1) + m * 36,
                        tests * MT_OPS)
         k2[name] = dict(
-            max_abs_err=float((occ_k.float() - occ_p.float()).abs().max()),
-            bound=bound, active_share=n_active / n_rays,
+            max_abs_err=err, bound=bound, active_share=n_active / n_rays,
             ms=_time_ms(lambda: isect.ray_test(*soup, *rays, table=table)),
             plain_ms=_time_ms(lambda: isect.ray_test_soup(*soup, *rays)))
-        print(f"K2 on {name} rays: {int(occ_k.sum())} occluded of {n_active} "
+        print(f"K2 on {name} rays: {occluded} occluded of {n_active} "
               f"active of {n_rays} (active share {n_active / n_rays:.4f}); "
               f"{tests / max(n_active, 1):.2f} tests per active ray -> bound "
               f"{bound[0]:.4f} ms ({bound[1]}); kernel {k2[name]['ms']:.4f} "
@@ -341,6 +333,42 @@ def ray_bytes(n_rays, n_active, out_bytes):
     """The bytes a soup query must move: every ray's active flag and
     result, and the o, d and maxt (28 bytes) of the active rays only."""
     return n_rays * (1 + out_bytes) + n_active * (12 + 12 + 4)
+
+
+def hold_soup_rays(isect, soup, table, kernel, rays, label):
+    """K1 (``kernel`` "closest_hit") or K2 ("ray_test") on ``rays`` (o, d,
+    maxt, active) against its plain version on the same card: K1's prim
+    equal and t bit for bit, K2's answer equal, on every ray (none may
+    differ; the first ten that do are printed).  -> (the largest |error|:
+    of t over K1's hits, of the 0/1 answer for K2; K1's hits or K2's
+    occluded rays)."""
+    import torch
+
+    if kernel == "closest_hit":
+        t_k, prim_k = isect.closest_hit(*soup, *rays, table=table)
+        t_p, prim_p, _, _ = isect.intersect_soup(*soup, *rays)
+        bad = (prim_k != prim_p) | (t_k != t_p)
+        hit = prim_k >= 0
+        err = float((t_k - t_p)[hit].abs().max()) if hit.any() else 0.0
+        count = int(hit.sum())
+    else:
+        occ_k = isect.ray_test(*soup, *rays, table=table)
+        occ_p = isect.ray_test_soup(*soup, *rays)
+        bad = occ_k != occ_p
+        err = float((occ_k.float() - occ_p.float()).abs().max())
+        count = int(occ_k.sum())
+    torch.cuda.synchronize()
+    o, d, maxt, active = rays
+    idx = torch.nonzero(bad).flatten().tolist()
+    for i in idx[:10]:
+        print(f"  {label} mismatch ray {i}: o={o[i].tolist()} "
+              f"d={d[i].tolist()} maxt={maxt[i].item()} "
+              f"active={bool(active[i])}")
+    print(f"{label}: {len(idx)} of {bad.numel()} rays differ (none "
+          "allowed)")
+    if idx:
+        raise AssertionError(f"{label}: {len(idx)} rays differ")
+    return err, count
 
 
 def any_hit_tests(isect, soup, o, d, maxt, active):
@@ -1036,16 +1064,96 @@ def _nlos_physics(name, s, t, first_bins=None):
                              f"{first_bins}")
 
 
+@contextlib.contextmanager
+def capture_bounce(sizes, bounce=NLOS_EVENTS_BOUNCE):
+    """While open, keep copies of what the kernels get in bounce ``bounce``
+    of the renders run: K3's event sets under "events" (the ``bounce``-th
+    splat), and under a soup kernel's name ("closest_hit", "ray_test") the
+    (o, d, maxt, active) of its ``bounce``-th launch on ``sizes[kernel]``
+    rays (a wavefront's launches; the few-ray launches of a capture's
+    constants do not count).  Yields the dict it fills."""
+    from mitransient_tpu_torch.film import transient_film as tf
+    from mitransient_tpu_torch.ops import intersect as isect
+
+    calls = {"splat": 0, **{k: 0 for k in sizes}}
+    kept = {}
+    splat, soup_kernel = tf.splat_accumulate, isect._soup_kernel
+
+    def capture(film, *events, spp):
+        if calls["splat"] == bounce:
+            kept["events"] = [e.clone() for e in events if e is not None]
+        calls["splat"] += 1
+        splat(film, *events, spp=spp)
+
+    def capture_soup(kernel, table, m, *args):
+        if args[0].shape[0] == sizes.get(kernel):
+            if calls[kernel] == bounce:
+                kept[kernel] = tuple(a.clone() for a in args)
+            calls[kernel] += 1
+        return soup_kernel(kernel, table, m, *args)
+
+    tf.splat_accumulate, isect._soup_kernel = capture, capture_soup
+    try:
+        yield kept
+    finally:
+        tf.splat_accumulate, isect._soup_kernel = splat, soup_kernel
+
+
+def hold_captured(scene, kept, label, dev, hw):
+    """K1, K2 and K3 on a render's captured inputs (``capture_bounce``)
+    against their plain versions, bit for bit: K1 and K2 against the plain
+    soup queries on the card, K3 against its plain version on the host CPU
+    (``check_splat``, into a (C, 301, hw) film).  Each timed, with its
+    bound.  -> {kernel name: {max_abs_err, ms, plain_ms, bound, ...}}."""
+    from mitransient_tpu_torch.film import transient_film as tf
+    from mitransient_tpu_torch.ops import intersect as isect
+
+    tri = scene.data.tri
+    soup, table = (tri.v0, tri.e1, tri.e2), tri.table
+    m = soup[0].shape[0]
+    out = {}
+    for kernel in ("closest_hit", "ray_test"):
+        rays = kept[kernel]
+        err, count = hold_soup_rays(isect, soup, table, kernel, rays,
+                                    f"{kernel} on {label} rays")
+        n_rays, n_active = rays[0].shape[0], int(rays[3].sum())
+        if kernel == "closest_hit":
+            query, plain = isect.closest_hit, isect.intersect_soup
+            bound = _bound(ray_bytes(n_rays, n_active, 8) + m * 36,
+                           n_active * m * MT_OPS)
+        else:
+            query, plain = isect.ray_test, isect.ray_test_soup
+            bound = _bound(ray_bytes(n_rays, n_active, 1) + m * 36,
+                           any_hit_tests(isect, soup, *rays) * MT_OPS)
+        out[kernel] = dict(
+            max_abs_err=err, bound=bound,
+            ms=_time_ms(lambda: query(*soup, *rays, table=table)),
+            plain_ms=_time_ms(lambda: plain(*soup, *rays), reps=3, warmup=1,
+                              batches=3))
+        r = out[kernel]
+        print(f"{kernel} on {label} rays ({n_active} active of {n_rays}, "
+              f"{count} {'hits' if kernel == 'closest_hit' else 'occluded'}, "
+              f"{m} triangles): kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+    k3 = check_splat(tf, kept["events"], hw, dev, t_pad=301)
+    print(f"splat_accumulate on {label} events "
+          f"({kept['events'][0].shape[0]} lanes, {hw} slots, one event "
+          f"set): bit-equal to the plain version on the CPU; kernel "
+          f"{k3['ms']:.4f} ms, plain {k3['plain_ms']:.4f} ms, index_add_ "
+          f"{k3['library_ms']:.4f} ms; {k3['sectors']} film sectors touched "
+          f"-> bound {k3['bound'][0]:.4f} ms ({k3['bound'][1]})")
+    out["splat_accumulate"] = k3
+    return out
+
+
 def render_nlos_single(mt, cases, dev):
     """Phase 16: the NLOS single capture at full width; returns its launch
-    counts and K3's numbers on one bounce's events."""
+    counts and K1-K3 on one bounce's inputs (``hold_captured``)."""
     import torch
 
     from mitransient_tpu_torch.core import rng
-    from mitransient_tpu_torch.film import transient_film as tf
     from mitransient_tpu_torch.integrators import nlos_path
     from mitransient_tpu_torch.kernels import launch_counts, reset_launch_counts
-    from mitransient_tpu_torch.ops import intersect as isect
 
     scene = mt.load_dict(cases.nlos_scene(sx=NLOS_SCAN, sy=NLOS_SCAN),
                          device=dev)
@@ -1055,39 +1163,19 @@ def render_nlos_single(mt, cases, dev):
     prep = launch_counts()
     print(f"NLOS prepare_nlos: launches {prep}")
 
-    # what the kernels get in bounce NLOS_EVENTS_BOUNCE: K3's events, K1's
-    # closest-hit and K2's vertex -> wall rays (the lane-sized launches)
+    # render 1 keeps what the kernels get in bounce NLOS_EVENTS_BOUNCE:
+    # K3's events, K1's closest-hit and K2's vertex -> wall rays
     lanes = NLOS["spp"] * NLOS_SCAN ** 2
-    calls = {"splat": 0, "closest_hit": 0, "ray_test": 0}
-    kept = {}
-    splat, soup_kernel = tf.splat_accumulate, isect._soup_kernel
-
-    def capture(film, *events, spp):
-        if calls["splat"] == NLOS_EVENTS_BOUNCE:
-            kept["events"] = [e.clone() for e in events if e is not None]
-        calls["splat"] += 1
-        splat(film, *events, spp=spp)
-
-    def capture_soup(kernel, table, m, *args):
-        if args[0].shape[0] == lanes:
-            if calls[kernel] == NLOS_EVENTS_BOUNCE:
-                kept[kernel] = tuple(a.clone() for a in args)
-            calls[kernel] += 1
-        return soup_kernel(kernel, table, m, *args)
-
-    torch.cuda.reset_peak_memory_stats()
+    hw = NLOS_SCAN ** 2
     reset_launch_counts()
-    tf.splat_accumulate, isect._soup_kernel = capture, capture_soup
-    try:
+    with capture_bounce({"closest_hit": lanes, "ray_test": lanes}) as kept:
         s, t, stats = mt.render(scene, return_stats=True, **NLOS)
         torch.cuda.synchronize()
-    finally:
-        tf.splat_accumulate, isect._soup_kernel = splat, soup_kernel
     counts = launch_counts()
     n = stats["loop_iters"]
     print(f"NLOS single {NLOS_SCAN}x{NLOS_SCAN} spp {NLOS['spp']} render 1 "
-          f"(seed 0): launches {counts} in {n} bounces, peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+          f"(seed 0, its kernel inputs captured): launches {counts} in {n} "
+          "bounces")
     want = {k: n + prep.get(k, 0) for k in ("closest_hit", "ray_test",
                                             "splat_accumulate")}
     if n != 4 or counts != want or len(kept) != 3 or len(kept["events"]) != 2:
@@ -1095,12 +1183,19 @@ def render_nlos_single(mt, cases, dev):
                              f"{want} (one event set a splat)")
     _nlos_physics("NLOS single", s.cpu().numpy(), t.cpu().numpy(),
                   NLOS_FIRST_BINS)
+    held = hold_captured(scene, kept, f"NLOS bounce {NLOS_EVENTS_BOUNCE}'s",
+                         dev, hw)
+    del s, t, kept
 
+    # render 2, uninstrumented: wall, rays/s, peak memory
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     _s, _t, stats2 = mt.render(scene, return_stats=True, spp=NLOS["spp"],
                                seed=1)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
     rays = int(stats2["rays"])
     key = rng.Sampler(1, lanes).key
     draw_ms = _time_ms(lambda: rng.draw_bounce_block(
@@ -1108,28 +1203,10 @@ def render_nlos_single(mt, cases, dev):
         warmup=1, batches=3)
     share = n * draw_ms / 1e3 / wall
     print(f"NLOS single render 2 (seed 1): {wall:.4f} s, {rays} rays -> "
-          f"{rays / wall / 1e6:.2f} M rays/s; threefry ({lanes}, 10) "
-          f"{draw_ms:.4f} ms a bounce, {n} bounces = {share:.3f} of the wall")
-
-    hw = NLOS_SCAN ** 2
-    k3 = check_splat(tf, kept["events"], hw, dev, t_pad=301)
-    print(f"K3 on NLOS bounce {NLOS_EVENTS_BOUNCE}'s events ({lanes} lanes, "
-          f"{hw} pixels, one event set): bit-equal to the plain version on "
-          f"the CPU; kernel {k3['ms']:.4f} ms, plain {k3['plain_ms']:.4f} "
-          f"ms, index_add_ {k3['library_ms']:.4f} ms; {k3['sectors']} film "
-          f"sectors touched -> bound {k3['bound'][0]:.4f} ms "
-          f"({k3['bound'][1]})")
-    tri = scene.data.tri
-    soup, table = (tri.v0, tri.e1, tri.e2), tri.table
-    ray_ms = {}
-    for kernel, query in (("closest_hit", isect.closest_hit),
-                          ("ray_test", isect.ray_test)):
-        rays_k = kept[kernel]
-        ray_ms[kernel] = _time_ms(lambda: query(*soup, *rays_k, table=table))
-        print(f"{kernel} on NLOS bounce {NLOS_EVENTS_BOUNCE}'s rays "
-              f"({int(rays_k[3].sum())} active of {lanes}, "
-              f"{soup[0].shape[0]} triangles): {ray_ms[kernel]:.4f} ms")
-    kern = n * (ray_ms["closest_hit"] + ray_ms["ray_test"] + k3["ms"]) / 1e3
+          f"{rays / wall / 1e6:.2f} M rays/s, peak memory {peak:.2f} GiB; "
+          f"threefry ({lanes}, 10) {draw_ms:.4f} ms a bounce, {n} bounces = "
+          f"{share:.3f} of the wall")
+    kern = n * sum(held[k]["ms"] for k in held) / 1e3
     print(f"NLOS single render 2 split ({wall:.4f} s): threefry "
           f"{n * draw_ms / 1e3:.4f} s, K1-K3 {kern:.4f} s (bounce "
           f"{NLOS_EVENTS_BOUNCE}'s times x {n}), the rest (eager bounce "
@@ -1148,7 +1225,7 @@ def render_nlos_single(mt, cases, dev):
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     _nlos_physics(f"NLOS single spp {NLOS_SPP_LONG}", _s.cpu().numpy(),
                   t3.cpu().numpy(), NLOS_FIRST_BINS)
-    return counts, dict(k3, ray_ms=ray_ms)
+    return counts, held
 
 
 def render_nlos_golden(mt, cases, dev):
@@ -1168,23 +1245,33 @@ def render_nlos_golden(mt, cases, dev):
 def nlos_card_against_cpu(mt, cases, dev):
     """Phase 18: the NLOS configurations on the card against the CPU."""
     from mitransient_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from mitransient_tpu_torch.ops import bvh
 
     for name in cases.NLOS_CASES:
         out = []
         for d in (dev, "cpu"):
             desc, run = cases.nlos_case(mt, name)
             reset_launch_counts()
-            s, t, stats = run(mt.load_dict(desc, device=d))
+            scene = mt.load_dict(desc, device=d)
+            s, t, stats = run(scene)
             out.append((s.cpu().numpy(), t.cpu().numpy(), int(stats["rays"])))
             if d == dev:
                 counts, n = launch_counts(), stats["loop_iters"]
+                accel = scene.data.accel is not None
         print(f"NLOS {name} on the card: launches {counts}, {n} bounces, rays "
               f"{out[0][2]} (CPU {out[1][2]})")
-        if (counts.get("splat_accumulate") != n
-                or min(counts.get(k, 0) for k in ("closest_hit",
-                                                  "ray_test")) < n):
+        # a scene with an accel sends its closest-hit and shadow queries
+        # (and the capture's one-ray queries) to the BVH kernel, never to
+        # K1 or K2
+        if accel:
+            rays_ok = (counts.get(f"bvh_query_{bvh.BVH_MODE}", 0) >= 2 * n
+                       and not {"closest_hit", "ray_test"} & set(counts))
+        else:
+            rays_ok = min(counts.get(k, 0) for k in ("closest_hit",
+                                                     "ray_test")) >= n
+        if counts.get("splat_accumulate") != n or not rays_ok:
             raise AssertionError(f"NLOS {name}: launches {counts} in {n} "
-                                 "bounces")
+                                 f"bounces (accel {accel})")
         if abs(out[0][2] - out[1][2]) > 1e-3 * out[1][2]:
             raise AssertionError(f"NLOS {name}: ray counts differ")
         for k, got, ref in zip(("steady", "transient"), out[0], out[1]):
@@ -1196,37 +1283,66 @@ def nlos_card_against_cpu(mt, cases, dev):
 
 
 def render_nlos_scans(mt, cases, dev):
-    """Phase 19: the full confocal scan and the exhaustive capture."""
+    """Phase 19: the full confocal scan and the exhaustive capture, each
+    rendered twice: render 1 (seed 0) warms up, passes the physics checks
+    and, for the exhaustive capture, keeps one bounce's kernel inputs,
+    which ``hold_captured`` holds against the plain versions (K2 on all
+    Lc * lanes vertex -> wall rays, K3 into the Lc * hw slot film); render
+    2 (seed 1) gives the wall time, rays/s and peak memory.  -> the
+    exhaustive capture's ``hold_captured``."""
     import torch
 
+    from mitransient_tpu_torch.integrators import nlos_path
     from mitransient_tpu_torch.kernels import launch_counts, reset_launch_counts
 
     conf = cases.nlos_confocal(cases.nlos_scene(sx=1, sy=1), NLOS_SCAN,
                                NLOS_SCAN)
     exh = cases.nlos_exhaustive(cases.nlos_scene(sx=NLOS_SCAN, sy=NLOS_SCAN),
                                 EXHAUSTIVE["lasers"], EXHAUSTIVE["lasers"])
+    hw = NLOS_SCAN ** 2
+    lanes = EXHAUSTIVE["spp"] * hw  # one pass
+    # render_nlos_exhaustive's laser chunk: 32 of the 64 lasers
+    lc = min(EXHAUSTIVE["lasers"] ** 2, nlos_path.LANE_LASER_PAIRS // lanes)
+    held = None
     for name, desc, run in (
             (f"scan_confocal {NLOS_SCAN}x{NLOS_SCAN} spp {CONFOCAL_SPP}", conf,
-             lambda sc: mt.nlos.scan_confocal(sc, spp=CONFOCAL_SPP, seed=0,
-                                              return_stats=True)),
+             lambda sc, seed: mt.nlos.scan_confocal(
+                 sc, spp=CONFOCAL_SPP, seed=seed, return_stats=True)),
             (f"exhaustive {NLOS_SCAN}x{NLOS_SCAN} x {EXHAUSTIVE['lasers']}x"
              f"{EXHAUSTIVE['lasers']} lasers spp {EXHAUSTIVE['spp']}", exh,
-             lambda sc: mt.render(sc, spp=EXHAUSTIVE["spp"], seed=0,
-                                  return_stats=True))):
+             lambda sc, seed: mt.render(sc, spp=EXHAUSTIVE["spp"], seed=seed,
+                                        return_stats=True))):
         scene = mt.load_dict(desc, device=dev)
+        exhaustive = name.startswith("exhaustive")
+        reset_launch_counts()
+        sizes = {"closest_hit": lanes, "ray_test": lc * lanes}
+        with (capture_bounce(sizes) if exhaustive
+              else contextlib.nullcontext({})) as kept:
+            s, t, stats = run(scene, 0)
+            torch.cuda.synchronize()
+        print(f"NLOS {name} render 1 (seed 0): launches {launch_counts()} in "
+              f"{stats['loop_iters']} bounces")
+        _nlos_physics(f"NLOS {name}", s.cpu().numpy(), t.cpu().numpy())
+        del s, t
+        if exhaustive:
+            if len(kept) != 3 or len(kept["events"]) != 2:
+                raise AssertionError(f"NLOS {name}: captured {sorted(kept)}, "
+                                     f"expected K1 rays of {lanes}, K2 rays "
+                                     f"of {lc * lanes} and one event set")
+            held = hold_captured(scene, kept, f"exhaustive bounce "
+                                 f"{NLOS_EVENTS_BOUNCE}'s", dev, lc * hw)
+            del kept
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        reset_launch_counts()
         t0 = time.perf_counter()
-        s, t, stats = run(scene)
+        s, t, stats = run(scene, 1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         rays = int(stats["rays"])
-        print(f"NLOS {name}: {wall:.4f} s, {rays} rays -> "
-              f"{rays / wall / 1e6:.2f} M rays/s; launches {launch_counts()} "
-              f"in {stats['loop_iters']} bounces; peak memory "
+        print(f"NLOS {name} render 2 (seed 1): {wall:.4f} s, {rays} rays -> "
+              f"{rays / wall / 1e6:.2f} M rays/s; peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        _nlos_physics(f"NLOS {name}", s.cpu().numpy(), t.cpu().numpy())
+    return held
 
 
 def main() -> int:
@@ -1274,23 +1390,29 @@ def main() -> int:
     render_multipass_goldens(mt, cases, dev)
     multipass_card_against_cpu(mt, cases, dev)
     check_resume(mt, cases, dev)
-    nlos, k3 = render_nlos_single(mt, cases, dev)
+    nlos, nlos_held = render_nlos_single(mt, cases, dev)
     render_nlos_golden(mt, cases, dev)
     nlos_card_against_cpu(mt, cases, dev)
-    render_nlos_scans(mt, cases, dev)
+    exhaustive_held = render_nlos_scans(mt, cases, dev)
     for r in rows:
         r["launches"] = counts[r["name"]]
-        if r["name"] in ("closest_hit", "ray_test", "splat_accumulate"):
-            r["multipass_launches"] = multipass[r["name"]]
-            r["nlos_launches"] = nlos[r["name"]]
-        if r["name"] in k3["ray_ms"]:
-            r["nlos_rays_ms"] = k3["ray_ms"][r["name"]]
-        if r["name"] == "splat_accumulate":
-            r.update(nlos_events_ms=k3["ms"], nlos_events_plain_ms=k3["plain_ms"],
-                     nlos_events_library_ms=k3["library_ms"],
-                     nlos_events_bound_ms=k3["bound"][0],
-                     nlos_events_bound_by=k3["bound"][1],
-                     nlos_events_sectors=k3["sectors"])
+        if r["name"] not in nlos_held:
+            continue
+        r["multipass_launches"] = multipass[r["name"]]
+        r["nlos_launches"] = nlos[r["name"]]
+        # K1-K3 on the NLOS single capture's and the exhaustive capture's
+        # inputs (prefixes nlos_, exhaustive_): their error joins the row's
+        for prefix, held in (("nlos", nlos_held), ("exhaustive",
+                                                   exhaustive_held)):
+            h = held[r["name"]]
+            r["max_abs_err"] = max(r["max_abs_err"], h["max_abs_err"])
+            r.update({f"{prefix}_ms": h["ms"],
+                      f"{prefix}_plain_ms": h["plain_ms"],
+                      f"{prefix}_bound_ms": h["bound"][0],
+                      f"{prefix}_bound_by": h["bound"][1]})
+            if "library_ms" in h:
+                r.update({f"{prefix}_library_ms": h["library_ms"],
+                          f"{prefix}_sectors": h["sectors"]})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi.splitlines()[0])

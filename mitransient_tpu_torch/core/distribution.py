@@ -25,6 +25,14 @@ class DiscreteDistribution(NamedTuple):
         pmf = w / torch.clamp_min(total, 1e-30)
         return DiscreteDistribution(pmf, torch.cumsum(pmf, 0), total)
 
+    @staticmethod
+    def from_cdf(cdf: torch.Tensor,
+                 total: torch.Tensor) -> "DiscreteDistribution":
+        """The distribution of an inclusive CDF made elsewhere (the NLOS
+        hidden-geometry table), each pmf entry the step of the CDF to it."""
+        pmf = cdf - torch.cat([cdf.new_zeros(1), cdf[:-1]])
+        return DiscreteDistribution(pmf, cdf, total)
+
     @property
     def n(self) -> int:
         return self.pmf.shape[0]

@@ -28,6 +28,7 @@ kernel ``ops/splat_pallas.py``.
 """
 from __future__ import annotations
 
+import logging
 import math
 from typing import NamedTuple
 
@@ -323,6 +324,25 @@ def splat_steady_gaussian(state, h: int, w: int, spp: int,
     return state._replace(steady=state.steady + acc.reshape(h * w, C),
                           steady_weight=state.steady_weight
                           + wacc.reshape(h * w))
+
+
+def surface_sample_validation(film, film_cfg) -> dict:
+    """Host-side half of the opt-in splat validation: read the counters
+    accumulated by ``splat_transient_pair`` and log one warning per render."""
+    if not (film_cfg.warn_negative or film_cfg.warn_invalid):
+        return {}
+    if not hasattr(film, "n_negative"):  # the phasor film has no counters
+        return {}
+    neg = float(film.n_negative)
+    inv = float(film.n_invalid)
+    log = logging.getLogger("mitransient_tpu_torch")
+    if neg > 0:
+        log.warning("Negative sample values: %d splats below -1e-5 "
+                    "(warn_negative)", int(neg))
+    if inv > 0:
+        log.warning("Invalid sample values: %d non-finite splats "
+                    "(warn_invalid)", int(inv))
+    return {"n_negative": neg, "n_invalid": inv}
 
 
 def develop(state: TransientFilmState, cfg: FilmConfig,

@@ -27,9 +27,10 @@ HG/BSDF choice 2, hidden point 4-5, BSDF lobe 6 and direction 7-8, Russian
 roulette 9.  Each pass draws ``Sampler(seed, n, stream=pass)``.
 
 The JAX package counts rays in float32; this module counts them in int64.
-Its hidden-point pick is ``torch.searchsorted`` on the area CDF where the
-JAX package compares each lane with every CDF entry; both return the count
-of entries below ``u``, since the CDF never decreases.
+Its hidden-point pick is ``DiscreteDistribution.sample_reuse`` (a
+``torch.searchsorted``) on the area CDF where the JAX package compares each
+lane with every CDF entry; both return the count of entries below ``u``,
+since the CDF never decreases.
 """
 from __future__ import annotations
 
@@ -39,6 +40,7 @@ import numpy as np
 import torch
 
 from ..bsdf import api as bsdf_api
+from ..core.distribution import DiscreteDistribution
 from ..core.frame import Frame
 from ..core.math import dot, mis_weight, normalize
 from ..core.records import Ray
@@ -50,17 +52,16 @@ from ..film.transient_film import (
     splat_steady,
     splat_transient_flat,
     splat_transient_pair,
+    surface_sample_validation,
 )
 from ..ops.bvh import BVH_MODE
 from ..ops.intersect import closest_hit
-from ..render import DEFAULT_MAX_LANES, surface_sample_validation
 from ..scene.scene import (
     EM_POINT,
     EM_PROJECTOR,
     SceneData,
     emitter_eval_direction,
     emitter_eval_hit,
-    emitter_kinds,
     pdf_emitter_direction,
     primal_sd,
     ray_intersect,
@@ -68,20 +69,17 @@ from ..scene.scene import (
 )
 from ..scene.schema import FilmConfig, IntegratorConfig, Scene, SensorConfig
 from ..scene.shapes import Rectangle
+from . import DEFAULT_MAX_LANES
 
 NLOS_DIMS_PER_BOUNCE = 10
 LANE_LASER_PAIRS = 1 << 24  # the exhaustive capture's (laser, lane) budget
 _DELTA = (EM_PROJECTOR, EM_POINT)
 
 
-def _kinds(sd: SceneData) -> tuple[int, ...]:
-    return sd.emitter_kinds or emitter_kinds(sd.emitter.kind)
-
-
 def can_skip_le(sd: SceneData) -> bool:
     """True when every emitter is delta (projector or point), so that the
     emitter-hit term is identically zero and its film event can go."""
-    kinds = _kinds(sd)
+    kinds = sd.emitter_kinds
     return bool(kinds) and all(k in _DELTA for k in kinds)
 
 
@@ -292,13 +290,8 @@ def sample_nlos_rays(ctx: NLOSContext, spp: int, hw: int):
 def _sample_hidden_point(sd: SceneData, ctx: NLOSContext, u0, u1):
     """Area-proportional point on the hidden geometry
     (transientnlospath.py:385-430) -> (p, its normal, pdf = 1/area)."""
-    cdf = ctx.hg_tri_cdf
-    slot = torch.clamp_max(torch.searchsorted(cdf, u0.contiguous()),
-                           cdf.shape[0] - 1)
-    cdf_prev = torch.cat([cdf.new_zeros(1), cdf[:-1]])
-    lo = cdf_prev.index_select(0, slot)
-    pmf = torch.clamp_min(cdf.index_select(0, slot) - lo, 1e-30)
-    u0b = torch.clamp((u0 - lo) / pmf, 0.0, 1.0 - 1e-7)
+    hg = DiscreteDistribution.from_cdf(ctx.hg_tri_cdf, ctx.hg_total_area)
+    slot, u0b, _pmf = hg.sample_reuse(u0)
     tri = ctx.hg_tri_idx.index_select(0, slot)
     su = torch.sqrt(torch.clamp_min(u0b, 0.0))
     b1 = 1.0 - su
@@ -306,7 +299,7 @@ def _sample_hidden_point(sd: SceneData, ctx: NLOSContext, u0, u1):
     t = sd.tri
     p = (t.v0.index_select(0, tri) + t.e1.index_select(0, tri) * b1[:, None]
          + t.e2.index_select(0, tri) * b2[:, None])
-    pdf_area = 1.0 / torch.clamp_min(ctx.hg_total_area, 1e-30)
+    pdf_area = 1.0 / torch.clamp_min(hg.total, 1e-30)
     return p, t.ng.index_select(0, tri), pdf_area
 
 
@@ -587,7 +580,7 @@ def prepare_exhaustive_lasers(scene: Scene, targets: np.ndarray,
     to_wall = targets - epos
     dist_ew = np.linalg.norm(to_wall, axis=-1)
     d_ew = to_wall / np.maximum(dist_ew, 1e-12)[:, None]
-    if _kinds(sd)[0] not in _DELTA:
+    if sd.emitter_kinds[0] not in _DELTA:
         raise NotImplementedError(
             "fused exhaustive capture requires a delta (projector/point) "
             "laser emitter")

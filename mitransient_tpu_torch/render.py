@@ -18,8 +18,6 @@ sensor.  The render runs on the device of ``scene.data``.
 """
 from __future__ import annotations
 
-import logging
-
 import numpy as np
 import torch
 
@@ -30,8 +28,10 @@ from .film.transient_film import (
     film_init_any,
     splat_steady,
     splat_steady_gaussian,
+    surface_sample_validation,
 )
 from .film.phasor_film import PhasorFilmState
+from .integrators import DEFAULT_MAX_LANES
 from .integrators.path import sample_primal
 from .integrators.path_regen import sample_primal_regen
 from .ops.bvh import BVH_MODE, MODES
@@ -39,11 +39,6 @@ from .scene.scene import primal_sd
 from .scene.schema import Scene
 from .sensors.perspective import build_camera, sample_rays
 
-# Lane budget: lanes = pixels * lanes per pixel (regen) or pixels * spp a
-# pass (multi-pass).  2^21 lanes * ~60 f32 of live state is about 0.5 GB.
-DEFAULT_MAX_LANES = 1 << 21
-
-_log = logging.getLogger("mitransient_tpu_torch")
 _FILM_STATES = {cls.__name__: cls for cls in (TransientFilmState,
                                                PhasorFilmState)}
 
@@ -228,24 +223,6 @@ def _multipass_render(sd, cam, seed, spp, *, film_cfg, icfg, channels,
                 p + 1, int(total_rays)))
     loop_iters = (n_passes - done_passes) * icfg.max_depth
     return film, total_rays, total_spp, loop_iters
-
-
-def surface_sample_validation(film, film_cfg) -> dict:
-    """Host-side half of the opt-in splat validation: read the counters
-    accumulated by ``splat_transient_pair`` and log one warning per render."""
-    if not (film_cfg.warn_negative or film_cfg.warn_invalid):
-        return {}
-    if not hasattr(film, "n_negative"):  # the phasor film has no counters
-        return {}
-    neg = float(film.n_negative)
-    inv = float(film.n_invalid)
-    if neg > 0:
-        _log.warning("Negative sample values: %d splats below -1e-5 "
-                     "(warn_negative)", int(neg))
-    if inv > 0:
-        _log.warning("Invalid sample values: %d non-finite splats "
-                     "(warn_invalid)", int(inv))
-    return {"n_negative": neg, "n_invalid": inv}
 
 
 def save_film_state(path, state) -> None:

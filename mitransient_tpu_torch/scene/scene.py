@@ -118,13 +118,13 @@ class SceneData(NamedTuple):
     tri: Triangles
     bsdf: BSDFParams
     emitter: EmitterParams
+    # the sorted emitter kind codes present (:func:`emitter_kinds` of
+    # ``emitter.kind``), known on the host
+    emitter_kinds: tuple[int, ...]
     # chunked acceleration structure for scenes above ACCEL_MIN_TRIS
     # triangles (ops/accel.py); None for small scenes
     accel: Accel | None = None
     geom: GeomParams | None = None
-    # the emitter kind codes present, known on the host; () = unknown, and
-    # the emitter queries then compute every kind's branch
-    emitter_kinds: tuple[int, ...] = ()
 
 
 def emitter_kinds(kind) -> tuple[int, ...]:
@@ -134,7 +134,7 @@ def emitter_kinds(kind) -> tuple[int, ...]:
 
 
 def _has(sd: SceneData, code: int) -> bool:
-    return not sd.emitter_kinds or code in sd.emitter_kinds
+    return code in sd.emitter_kinds
 
 
 def _has_delta(sd: SceneData) -> bool:

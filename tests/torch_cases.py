@@ -287,11 +287,22 @@ def nlos_perspective(desc: dict) -> dict:
     return desc
 
 
+def nlos_hidden_mesh(desc: dict) -> dict:
+    """``desc`` (an nlos_scene) with a 48 x 48 UV sphere (4,512 triangles,
+    r 0.2) between the wall and the hidden rectangle, so that the scene has
+    4,516 triangles and the loader builds an accel, in place."""
+    verts, faces = uv_sphere(48, 48, 0.2, (0.25, 0.15, 0.7))
+    desc["hidden-sphere"] = {"type": "mesh", "vertices": verts,
+                             "faces": faces}
+    return desc
+
+
 # the NLOS configurations held card against CPU (chip_smoke.py) and port
 # against the JAX package (tests/test_torch_nlos.py)
 NLOS_CASES = ("plain_nee", "hg_rr", "account", "filter_depth", "multipass",
               "confocal", "scan_confocal", "exhaustive", "perspective",
-              "point_regen", "point_multipass")
+              "point_regen", "point_multipass", "mesh_single",
+              "mesh_exhaustive")
 POINT_LIGHT = {"type": "point", "to_world": {"translate": [0.1, 0.8, 0.2]},
                "intensity": {"type": "rgb", "value": [3.0, 2.5, 1.5]}}
 
@@ -311,7 +322,10 @@ def nlos_case(pkg, name: str):
     padded rows); perspective: the capture through a perspective sensor;
     point_regen / point_multipass: the 8x8 cbox with a point light for its
     area light, through the regen loop (spp 8) and the multi-pass
-    accumulator (spp 4)."""
+    accumulator (spp 4); mesh_single / mesh_exhaustive: the single capture
+    and the exhaustive capture (4x4 scan x 2x2 lasers, one chunk) of
+    ``nlos_hidden_mesh``, whose accel sends every query of the card to the
+    BVH kernel."""
     import importlib
 
     def focused(pixel, **kw):
@@ -371,6 +385,14 @@ def nlos_case(pkg, name: str):
 
         def run(scene):
             return pkg.render(scene, spp=spp, seed=3, return_stats=True)
+    elif name == "mesh_single":
+        d = nlos_hidden_mesh(d)
+        run = focused([1.0, 2.0], spp=16, seed=5)
+    elif name == "mesh_exhaustive":
+        d = nlos_exhaustive(nlos_hidden_mesh(d), 2, 2)
+
+        def run(scene):
+            return pkg.render(scene, spp=8, seed=6, return_stats=True)
     elif name not in ("account", "filter_depth"):
         raise KeyError(name)
     return d, run
