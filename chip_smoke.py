@@ -101,15 +101,43 @@ Phases, each of which raises on failure:
     event set into a (3, 301, 32768) film of laser x pixel slots), held
     against the plain versions as in phase 16; the second render's rays/s
     and peak memory.
+20. The materials flagship at full width: ``materials_cbox`` (the flagship
+    cbox, 256x256, 300 bins, depth 8, spp 1024, with a gold GGX large box
+    and a glass small box) through the regen loop.  K1, K2 and K3 each
+    launch once per loop iteration and the physics checks pass; the
+    inputs K1, K2 and K3 get in loop iteration 8 (closest-hit rays,
+    refracted ones inside the glass among them, shadow rays, two event
+    sets) are held against the plain versions as in phase 2, each timed
+    with its bound (K3 also against ``index_add_``).  The lobe code of
+    one iteration (the BSDF gather, ``eval_pdf`` and ``sample`` on the
+    iteration's 2^21 hits) is timed for this scene and for the diffuse
+    flagship on the same rays.  Rays/s and peak memory of a second render
+    (seed 1), then the rays/s of the same scene through the multi-pass
+    accumulator (``regenerate=False``).
+21. The angulararea example at its canonical size: ``room`` at 200x200,
+    200 bins, spp 256, with the example's area and angulararea lights.
+    Each render is finite and non-negative, the angulararea light puts
+    more of the floor's energy under it than the area light; the rays/s
+    of a second render of each.
+22. Every ``torch_cases.MATERIAL_CASES`` configuration (each lobe, the
+    two-sided, mask and blendbsdf wrappers, a checkerboard floor, a
+    checkerboard bump map and normal map, the angulararea room, an
+    emissive rough gold 4,512-triangle sphere through the BVH kernel and
+    the emitter-triangle search, an NLOS capture with a rough relay wall,
+    the materials flagship at 12x12), regen and multi-pass, on the card
+    against the port on the host CPU: test_golden's rule, no element out;
+    K3 launches once a loop iteration or bounce, and K1 and K2 (the BVH
+    kernel twice, with an accel) at least once.
 
 Kernel times (``_time_ms``) are means of launches made back to back, so
 that the wrapper's host work overlaps the card's as in a render.  It
 prints, as its last three lines, the card's name and power limit, one
 JSON object with each kernel's launches (in the regen flagship or
 ``cbox_mesh`` render; K1-K3 also in the multi-pass flagship render,
-``multipass_launches``, and in the NLOS single capture,
-``nlos_launches``), error, times and bound (K1-K3 also on the inputs of
-phases 16 and 19, keys ``nlos_*`` and ``exhaustive_*``), and ``{"ok": true,
+``multipass_launches``, in the NLOS single capture, ``nlos_launches``,
+and in the materials flagship, ``materials_launches``), error, times and
+bound (K1-K3 also on the inputs of phases 16, 19 and 20, keys ``nlos_*``,
+``exhaustive_*`` and ``materials_*``), and ``{"ok": true,
 "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, it exits with an error.  Nothing here
 imports jax.
@@ -143,6 +171,8 @@ NLOS_EVENTS_BOUNCE = 1  # the bounce whose K3 events are captured
 NLOS_FIRST_BINS = (90, 115)  # wall -> target -> wall (tests/test_nlos.py)
 CONFOCAL_SPP = 2048  # scan_confocal at 32 x 32 (BASELINE.md:98)
 EXHAUSTIVE = dict(spp=512, lasers=8)  # 32 x 32 scan x 8 x 8 lasers
+MATERIALS_EVENTS_ITERATION = 8  # the materials flagship's held iteration
+ROOM = dict(res=200, bins=200, spp=256)  # the angulararea example's size
 PROFILE_SPP = 64  # the profiled render: the profiler slows the host
 BVH_SUBSET = 1 << 16  # rays of the kernel-against-plain comparison
 K1_MISMATCH_SHARE = 1e-4  # BVH kernel (Woop) against K1 (Moller-Trumbore)
@@ -1045,7 +1075,7 @@ def check_resume(mt, cases, dev):
                              "uninterrupted one")
 
 
-def _nlos_physics(name, s, t, first_bins=None):
+def _check_energy(name, s, t, first_bins=None):
     """Finite, non-negative, some energy and, where given, the first
     arrival in ``first_bins``."""
     import numpy as np
@@ -1137,8 +1167,8 @@ def hold_captured(scene, kept, label, dev, hw):
               f"{r['plain_ms']:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
     k3 = check_splat(tf, kept["events"], hw, dev, t_pad=301)
     print(f"splat_accumulate on {label} events "
-          f"({kept['events'][0].shape[0]} lanes, {hw} slots, one event "
-          f"set): bit-equal to the plain version on the CPU; kernel "
+          f"({kept['events'][0].shape[0]} lanes, {hw} slots, "
+          f"{len(kept['events']) // 2} event sets): bit-equal to the plain version on the CPU; kernel "
           f"{k3['ms']:.4f} ms, plain {k3['plain_ms']:.4f} ms, index_add_ "
           f"{k3['library_ms']:.4f} ms; {k3['sectors']} film sectors touched "
           f"-> bound {k3['bound'][0]:.4f} ms ({k3['bound'][1]})")
@@ -1181,7 +1211,7 @@ def render_nlos_single(mt, cases, dev):
     if n != 4 or counts != want or len(kept) != 3 or len(kept["events"]) != 2:
         raise AssertionError(f"NLOS single: launches {counts}, expected "
                              f"{want} (one event set a splat)")
-    _nlos_physics("NLOS single", s.cpu().numpy(), t.cpu().numpy(),
+    _check_energy("NLOS single", s.cpu().numpy(), t.cpu().numpy(),
                   NLOS_FIRST_BINS)
     held = hold_captured(scene, kept, f"NLOS bounce {NLOS_EVENTS_BOUNCE}'s",
                          dev, hw)
@@ -1223,7 +1253,7 @@ def render_nlos_single(mt, cases, dev):
           f"{stats3['loop_iters'] // 4} passes): {wall:.4f} s, {rays} rays -> "
           f"{rays / wall / 1e6:.2f} M rays/s, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    _nlos_physics(f"NLOS single spp {NLOS_SPP_LONG}", _s.cpu().numpy(),
+    _check_energy(f"NLOS single spp {NLOS_SPP_LONG}", _s.cpu().numpy(),
                   t3.cpu().numpy(), NLOS_FIRST_BINS)
     return counts, held
 
@@ -1242,10 +1272,26 @@ def render_nlos_golden(mt, cases, dev):
             raise AssertionError(f"nlos_single {key} disagrees with its golden")
 
 
+def check_launches(label, counts, n, accel):
+    """K3 once in each of the ``n`` loop iterations or bounces, and the
+    ray queries at least once each: K1 and K2, or with an ``accel`` the
+    BVH kernel twice (closest hit and shadow rays) and K1 and K2 never."""
+    from mitransient_tpu_torch.ops import bvh
+
+    if accel:
+        rays_ok = (counts.get(f"bvh_query_{bvh.BVH_MODE}", 0) >= 2 * n
+                   and not {"closest_hit", "ray_test"} & set(counts))
+    else:
+        rays_ok = min(counts.get(k, 0) for k in ("closest_hit",
+                                                 "ray_test")) >= n
+    if counts.get("splat_accumulate") != n or not rays_ok:
+        raise AssertionError(f"{label}: launches {counts} in {n} loop "
+                             f"iterations or bounces (accel {accel})")
+
+
 def nlos_card_against_cpu(mt, cases, dev):
     """Phase 18: the NLOS configurations on the card against the CPU."""
     from mitransient_tpu_torch.kernels import launch_counts, reset_launch_counts
-    from mitransient_tpu_torch.ops import bvh
 
     for name in cases.NLOS_CASES:
         out = []
@@ -1260,18 +1306,7 @@ def nlos_card_against_cpu(mt, cases, dev):
                 accel = scene.data.accel is not None
         print(f"NLOS {name} on the card: launches {counts}, {n} bounces, rays "
               f"{out[0][2]} (CPU {out[1][2]})")
-        # a scene with an accel sends its closest-hit and shadow queries
-        # (and the capture's one-ray queries) to the BVH kernel, never to
-        # K1 or K2
-        if accel:
-            rays_ok = (counts.get(f"bvh_query_{bvh.BVH_MODE}", 0) >= 2 * n
-                       and not {"closest_hit", "ray_test"} & set(counts))
-        else:
-            rays_ok = min(counts.get(k, 0) for k in ("closest_hit",
-                                                     "ray_test")) >= n
-        if counts.get("splat_accumulate") != n or not rays_ok:
-            raise AssertionError(f"NLOS {name}: launches {counts} in {n} "
-                                 f"bounces (accel {accel})")
+        check_launches(f"NLOS {name}", counts, n, accel)
         if abs(out[0][2] - out[1][2]) > 1e-3 * out[1][2]:
             raise AssertionError(f"NLOS {name}: ray counts differ")
         for k, got, ref in zip(("steady", "transient"), out[0], out[1]):
@@ -1322,7 +1357,7 @@ def render_nlos_scans(mt, cases, dev):
             torch.cuda.synchronize()
         print(f"NLOS {name} render 1 (seed 0): launches {launch_counts()} in "
               f"{stats['loop_iters']} bounces")
-        _nlos_physics(f"NLOS {name}", s.cpu().numpy(), t.cpu().numpy())
+        _check_energy(f"NLOS {name}", s.cpu().numpy(), t.cpu().numpy())
         del s, t
         if exhaustive:
             if len(kept) != 3 or len(kept["events"]) != 2:
@@ -1343,6 +1378,177 @@ def render_nlos_scans(mt, cases, dev):
               f"{rays / wall / 1e6:.2f} M rays/s; peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return held
+
+
+def lobe_ms(mt, scene, rays):
+    """Milliseconds of one loop iteration's lobe code on ``scene``: the BSDF
+    gather, ``eval_pdf`` toward the ceiling light's centre and ``sample``,
+    on the hits of the closest-hit ``rays`` (o, d, maxt, active)."""
+    import torch
+
+    from mitransient_tpu_torch.bsdf import api as bsdf_api
+    from mitransient_tpu_torch.core.records import Ray
+    from mitransient_tpu_torch.scene.scene import primal_sd, ray_intersect
+
+    sd = primal_sd(scene.data)
+    si = ray_intersect(sd, Ray(*rays[:3]), rays[3])
+    gen = torch.Generator(device=rays[0].device).manual_seed(0)
+    n = si.t.shape[0]
+    u1 = torch.rand(n, generator=gen, device=rays[0].device)
+    u2 = torch.rand((n, 2), generator=gen, device=rays[0].device)
+    light = torch.tensor([0.0, 0.99, 0.01], device=rays[0].device)
+    wo = si.frame.to_local(torch.nn.functional.normalize(light - si.p,
+                                                         dim=-1))
+
+    def lobes():
+        lb = bsdf_api.gather_lane_bsdf(sd.bsdf, si.bsdf_id, si.uv,
+                                       sd.bsdf_kinds)
+        bsdf_api.eval_pdf(lb, si.wi, wo, si.valid)
+        bsdf_api.sample(lb, si.wi, u1, u2, si.valid)
+
+    return _time_ms(lobes, reps=5, warmup=1, batches=3)
+
+
+def render_materials_flagship(mt, cases, dev):
+    """Phase 20: the materials flagship at full width; returns its launch
+    counts and K1-K3 on one loop iteration's inputs (``hold_captured``)."""
+    import torch
+
+    from mitransient_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    scene = mt.load_dict(cases.materials_cbox(mt), device=dev)
+    print(f"materials flagship: BSDF kinds {scene.data.bsdf_kinds}")
+    it = MATERIALS_EVENTS_ITERATION
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with capture_bounce({"closest_hit": N_RAYS, "ray_test": N_RAYS},
+                        bounce=it) as kept:
+        s, t, stats = mt.render(scene, return_stats=True, **FLAGSHIP)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    n = stats["loop_iters"]
+    print(f"materials flagship render 1 (seed 0, iteration {it}'s kernel "
+          f"inputs captured): {wall:.3f} s, launches {counts}, loop "
+          f"iterations {n}")
+    for name in ("closest_hit", "ray_test", "splat_accumulate"):
+        if counts.get(name, 0) != n or n == 0:
+            raise AssertionError(f"materials flagship: {name} launched "
+                                 f"{counts.get(name, 0)} times in {n} loop "
+                                 "iterations")
+    if len(kept) != 3 or len(kept["events"]) != 4:
+        raise AssertionError(f"materials flagship: captured {sorted(kept)}")
+    s, t = s.cpu().numpy(), t.cpu().numpy()
+    prof = t.sum(axis=(0, 1, 3))
+    h, w = s.shape[0] // 256, s.shape[1] // 256  # pixels a 256th
+    print(f"  first arrival bin {prof.nonzero()[0][0]}, transient/steady "
+          f"{t.sum() / s.sum():.6f}, left wall {s[128 * h, 6 * w]}, right "
+          f"wall {s[128 * h, 249 * w]}, glass box {s[180 * h, 150 * w]}, "
+          f"gold box {s[128 * h, 90 * w]}")
+    fails = cases.physics_checks(s, t)
+    if fails:
+        raise AssertionError(f"materials flagship physics checks: {fails}")
+    del s, t
+    held = hold_captured(scene, kept, f"materials iteration {it}'s", dev,
+                         256 * 256)
+    rays = kept["closest_hit"]
+    lobes = lobe_ms(mt, scene, rays)
+    diffuse = lobe_ms(mt, mt.load_dict(mt.cornell_box(), device=dev), rays)
+    del kept
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _s, _t, stats2 = mt.render(scene, return_stats=True, spp=FLAGSHIP["spp"],
+                               seed=1)
+    torch.cuda.synchronize()
+    wall2 = time.perf_counter() - t0
+    n2, n_rays = stats2["loop_iters"], int(stats2["rays"])
+    print(f"materials flagship render 2 (seed 1): {wall2:.3f} s, {n_rays} "
+          f"rays, {n2} loop iterations -> {n_rays / wall2 / 1e6:.2f} M "
+          f"rays/s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    per_it = wall2 / n2 * 1e3
+    kern = sum(held[k]["ms"] for k in held)
+    print(f"materials flagship iteration: {per_it:.3f} ms (render 2's wall "
+          f"over its iterations); lobe code (gather, eval_pdf, sample on "
+          f"2^21 hits) {lobes:.3f} ms = {lobes / per_it:.3f} of it (the "
+          f"diffuse flagship's lobe code on the same rays {diffuse:.3f} ms); "
+          f"K1-K3 on iteration {it}'s inputs {kern:.3f} ms = "
+          f"{kern / per_it:.3f}")
+    del _s, _t
+    t0 = time.perf_counter()
+    _s, _t, stats3 = mt.render(scene, return_stats=True, regenerate=False,
+                               **FLAGSHIP)
+    torch.cuda.synchronize()
+    wall3 = time.perf_counter() - t0
+    n_rays = int(stats3["rays"])
+    print(f"materials flagship multi-pass (regenerate=False, seed 0): "
+          f"{wall3:.3f} s, {n_rays} rays -> {n_rays / wall3 / 1e6:.2f} M "
+          f"rays/s")
+    _check_energy("materials flagship multi-pass", _s.cpu().numpy(),
+                  _t.cpu().numpy())
+    return counts, held
+
+
+def render_angulararea(mt, cases, dev):
+    """Phase 21: the angulararea example at its canonical size."""
+    import torch
+
+    share = {}
+    for kind, em in cases.ROOM_EMITTERS.items():
+        scene = mt.load_dict(cases.room(dict(em), ROOM["res"], ROOM["bins"]),
+                             device=dev)
+        s, t = mt.render(scene, spp=ROOM["spp"], seed=0)
+        s, t = s.cpu().numpy(), t.cpu().numpy()
+        _check_energy(f"room with the {kind} light", s, t)
+        share[kind] = cases.room_spot_share(s)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _s, _t, stats = mt.render(scene, spp=ROOM["spp"], seed=1,
+                                  return_stats=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rays = int(stats["rays"])
+        print(f"room {ROOM['res']}x{ROOM['res']} x {ROOM['bins']} bins, spp "
+              f"{ROOM['spp']}, {kind} light: floor energy under the light "
+              f"{share[kind]:.4f}; render 2 (seed 1) {wall:.3f} s, "
+              f"{stats['loop_iters']} loop iterations, {rays} rays -> "
+              f"{rays / wall / 1e6:.2f} M rays/s")
+    if not share["angulararea"] > share["area"]:
+        raise AssertionError(f"the angulararea light does not concentrate "
+                             f"the floor's energy: {share}")
+
+
+def materials_card_against_cpu(mt, cases, dev):
+    """Phase 22: the material configurations on the card against the CPU,
+    regen and multi-pass."""
+    from mitransient_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    for name in cases.MATERIAL_CASES:
+        for multipass in (False, True):
+            label = f"{name} {'multi-pass' if multipass else 'regen'}"
+            out = []
+            for d in (dev, "cpu"):
+                desc, run = cases.material_case(mt, name)
+                reset_launch_counts()
+                scene = mt.load_dict(desc, device=d)
+                s, t, stats = run(scene, multipass)
+                out.append((s.cpu().numpy(), t.cpu().numpy(),
+                            int(stats["rays"])))
+                if d == dev:
+                    counts, n = launch_counts(), stats["loop_iters"]
+                    accel = scene.data.accel is not None
+            print(f"{label} on the card: launches {counts}, {n} loop "
+                  f"iterations or bounces, rays {out[0][2]} (CPU {out[1][2]})")
+            check_launches(label, counts, n, accel)
+            for k, got, ref in zip(("steady", "transient"), out[0], out[1]):
+                m = cases.golden_mismatch(got, ref)
+                print(f"{label} {k}, card against CPU: {m}")
+                if not (m["shape_ok"] and m["n_bad"] == 0):
+                    raise AssertionError(f"{label} {k}: card and CPU "
+                                         "disagree")
 
 
 def main() -> int:
@@ -1394,16 +1600,22 @@ def main() -> int:
     render_nlos_golden(mt, cases, dev)
     nlos_card_against_cpu(mt, cases, dev)
     exhaustive_held = render_nlos_scans(mt, cases, dev)
+    materials, materials_held = render_materials_flagship(mt, cases, dev)
+    render_angulararea(mt, cases, dev)
+    materials_card_against_cpu(mt, cases, dev)
     for r in rows:
         r["launches"] = counts[r["name"]]
         if r["name"] not in nlos_held:
             continue
         r["multipass_launches"] = multipass[r["name"]]
         r["nlos_launches"] = nlos[r["name"]]
-        # K1-K3 on the NLOS single capture's and the exhaustive capture's
-        # inputs (prefixes nlos_, exhaustive_): their error joins the row's
+        r["materials_launches"] = materials[r["name"]]
+        # K1-K3 on the NLOS single capture's, the exhaustive capture's and
+        # the materials flagship's inputs (prefixes nlos_, exhaustive_,
+        # materials_): their error joins the row's
         for prefix, held in (("nlos", nlos_held), ("exhaustive",
-                                                   exhaustive_held)):
+                                                   exhaustive_held),
+                             ("materials", materials_held)):
             h = held[r["name"]]
             r["max_abs_err"] = max(r["max_abs_err"], h["max_abs_err"])
             r.update({f"{prefix}_ms": h["ms"],

@@ -12,14 +12,19 @@ sample streams, crop windows, ``camera_unwarp``, the gaussian temporal
 and spatial filters and checkpoint/resume; and NLOS captures
 (``transient_nlos_path``: single, confocal and exhaustive, with laser and
 hidden-geometry sampling; ``nlos`` holds the laser-focus helpers and
-``scan_confocal``).  Scenes are rectangles, cubes and triangle meshes with
-diffuse BSDFs, area, projector and point emitters, seen through a
-perspective sensor or an NLOS capture meter into a transient film or a
-phasor film; above 4096 triangles through a chunked acceleration
-structure.  :func:`render_aovs` gives first-hit AOVs.  Scenes load onto
-the card unless the caller asks for ``device="cpu"``.  On a CUDA device
-the ray queries and the film splat run in the kernels of ``csrc/``; on the
-CPU they run their plain PyTorch versions.
+``scan_confocal``).  Scenes are rectangles, cubes and triangle meshes
+with every BSDF of the JAX package (diffuse, conductor and mirror,
+anisotropic rough conductor, plastic and rough plastic, dielectric and
+thin dielectric, null; the two-sided, mask and blend wrappers; bitmap
+and checkerboard textures; bump and normal maps), area, angulararea,
+projector and point emitters, seen through a perspective sensor or an
+NLOS capture meter into a transient film or a phasor film; above 4096
+triangles through a chunked acceleration structure.  Scenes come from a
+dict (:func:`load_dict`) or a Mitsuba XML file (:func:`load_file`); media
+are refused (ROADMAP item 15).  :func:`render_aovs` gives first-hit AOVs.
+Scenes load onto the card unless the caller asks for ``device="cpu"``.
+On a CUDA device the ray queries and the film splat run in the kernels of
+``csrc/``; on the CPU they run their plain PyTorch versions.
 """
 from . import nlos  # noqa: F401
 from .core.spectrum import set_variant, variant  # noqa: F401
@@ -30,4 +35,5 @@ from .render import (  # noqa: F401
     save_film_state,
 )
 from .scene.schema import Scene, load_dict  # noqa: F401
+from .scene.xml_loader import load_file  # noqa: F401
 from .utils import cornell_box, speed_of_light  # noqa: F401

@@ -5,8 +5,9 @@ The renderer's counterpart of carrying weights across: the JAX package's
 ``"bsdf.reflectance"``, ...), becomes the port's :class:`SceneData`, so
 that both packages can trace the very same scene.  The tables the port
 derives (``scene/scene.py:DERIVED_FIELDS``: the kernels' triangle table,
-the accel's trees over the chunk and super-chunk boxes) are its own: they
-are rebuilt here and left out of the flattened leaves.  The NLOS
+the emitter-triangle search keys, the accel's trees over the chunk and
+super-chunk boxes) and the static kind sets are its own: they are rebuilt
+here and left out of the flattened leaves.  The NLOS
 integrator's constants (``NLOSContext``, ``ExhaustiveLaser``) cross the
 same way (:func:`nlos_context_from_numpy`).
 """
@@ -20,16 +21,14 @@ from .ops.accel import Accel, accel_trees
 from .ops.intersect import tri_table
 from .scene.schema import resolve_device
 from .scene.scene import (
-    BSDF_DIFFUSE,
     DERIVED_FIELDS,
-    EM_AREA,
-    EM_POINT,
-    EM_PROJECTOR,
     BSDFParams,
     EmitterParams,
     GeomParams,
     SceneData,
     Triangles,
+    bsdf_kinds,
+    em_tri_key_table,
     emitter_kinds,
 )
 
@@ -42,38 +41,34 @@ def scene_data_from_numpy(leaves: dict[str, np.ndarray],
     """Build the port's SceneData on ``device`` from
     ``{"record.field": array}``.
 
-    Every field of the port's records must be present (the ``accel`` and
-    ``geom`` records may be left out; the derived tables are built, not
-    read).  Media leaves (``medium.*``) are
-    ignored when no triangle has an interior medium.  A leaf the port cannot
-    render - textures, another BSDF or emitter kind, media - raises
-    ``NotImplementedError``.
+    Every field of the port's records must be present, but for the BSDF
+    table's texture and bump-map columns, which a scene without them
+    leaves out (the ``accel`` and ``geom`` records may be left out; the
+    derived tables are built, not read).  Media leaves (``medium.*``) are
+    ignored when no triangle has an interior medium; a scene with media
+    raises ``NotImplementedError``.
     """
     device = resolve_device(device)
-    extra = set(leaves) - {f"{r}.{f}" for r, cls in _RECORDS.items()
-                           for f in cls._fields}
     if np.any(np.asarray(leaves["tri.medium_id"]) >= 0):
         raise NotImplementedError("participating media (ROADMAP item 15)")
+    extra = set(leaves) - {f"{r}.{f}" for r, cls in _RECORDS.items()
+                           for f in cls._fields}
     extra = {k for k in extra if not k.startswith("medium.")}
     if extra:
-        raise NotImplementedError(
-            f"scene leaves not ported yet (ROADMAP item 11): {sorted(extra)}")
-    if np.any(np.asarray(leaves["bsdf.kind"]) != BSDF_DIFFUSE) or np.any(
-            np.asarray(leaves["bsdf.two_sided"])):
-        raise NotImplementedError(
-            "only one-sided diffuse BSDFs are ported (ROADMAP item 11)")
-    kinds = emitter_kinds(np.asarray(leaves["emitter.kind"]))
-    if not set(kinds) <= {EM_AREA, EM_PROJECTOR, EM_POINT}:
-        raise NotImplementedError("only area, projector and point emitters "
-                                  "are ported (ROADMAP item 11)")
+        raise ValueError(f"not leaves of a scene: {sorted(extra)}")
 
     def record(name):
         cls = _RECORDS[name]
+        derived = DERIVED_FIELDS.get(name, ())
         host = {f: np.asarray(leaves[f"{name}.{f}"]) for f in cls._fields
-                if f not in DERIVED_FIELDS.get(name, ())}
+                if f not in derived and (f"{name}.{f}" in leaves
+                                         or f not in cls._field_defaults)}
         if name == "accel":
             host.update(accel_trees(host["aabb_min"], host["aabb_max"],
                                     host["sup_min"], host["sup_max"]))
+        if name == "emitter":
+            host["em_tri_key"] = em_tri_key_table(host["tri_count"],
+                                                  host["em_tri_cdf"])
         rec = {f: torch.tensor(a, device=device) for f, a in host.items()}
         if name == "tri":
             rec["table"] = tri_table(rec["v0"], rec["e1"], rec["e2"])
@@ -85,7 +80,10 @@ def scene_data_from_numpy(leaves: dict[str, np.ndarray],
 
     return SceneData(tri=record("tri"), bsdf=record("bsdf"),
                      emitter=record("emitter"), accel=optional("accel"),
-                     geom=optional("geom"), emitter_kinds=kinds)
+                     geom=optional("geom"),
+                     emitter_kinds=emitter_kinds(leaves["emitter.kind"]),
+                     bsdf_kinds=bsdf_kinds(leaves["bsdf.kind"],
+                                           leaves["bsdf.two_sided"]))
 
 
 def nlos_context_from_numpy(fields: dict[str, np.ndarray], device="cuda"):
@@ -107,9 +105,10 @@ def scene_data_to_numpy(sd: SceneData) -> dict[str, np.ndarray]:
     out = {}
     for name in SceneData._fields:
         rec = getattr(sd, name)
-        if rec is None or name == "emitter_kinds":
+        if rec is None or name in ("emitter_kinds", "bsdf_kinds"):
             continue
         for f in rec._fields:
-            if f not in DERIVED_FIELDS.get(name, ()):
-                out[f"{name}.{f}"] = getattr(rec, f).cpu().numpy()
+            v = getattr(rec, f)
+            if v is not None and f not in DERIVED_FIELDS.get(name, ()):
+                out[f"{name}.{f}"] = v.cpu().numpy()
     return out

@@ -6,7 +6,7 @@ import math
 
 import torch
 
-from .math import safe_sqrt
+from .math import cos_sin, safe_sqrt
 
 INV_PI = 1.0 / math.pi
 
@@ -27,7 +27,8 @@ def square_to_uniform_disk_concentric(sample: torch.Tensor) -> torch.Tensor:
     )
     phi = torch.where(is_zero, 0.0, phi)
     r = torch.where(is_zero, 0.0, r)
-    return torch.stack([r * torch.cos(phi), r * torch.sin(phi)], dim=-1)
+    c, s = cos_sin(phi)
+    return torch.stack([r * c, r * s], dim=-1)
 
 
 def square_to_cosine_hemisphere(sample: torch.Tensor) -> torch.Tensor:

@@ -34,6 +34,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..core.math import divide
 from ..kernels import _build
 from ..scene.schema import FilmConfig
 
@@ -67,7 +68,7 @@ def time_bin(cfg: FilmConfig, distance: torch.Tensor):
 
     The mask is applied to the float before the cast: casting inf or nan
     to int32 is unspecified."""
-    pos = (distance - cfg.start_opl) / cfg.bin_width_opl
+    pos = divide(distance - cfg.start_opl, cfg.bin_width_opl)
     ok = (pos >= 0.0) & (pos < cfg.temporal_bins)
     b = torch.where(ok, torch.floor(pos), float(cfg.temporal_bins))
     return b.to(torch.int32), ok
@@ -135,11 +136,11 @@ def _splat_gaussian(film, cfg: FilmConfig, distance, value, active,
     the card by atomics, so there this film is not bit-reproducible."""
     value = torch.where(active[:, None], value, 0.0)
     radius = max(1, int(math.ceil(3.0 * sigma)))
-    pos = (distance - cfg.start_opl) / cfg.bin_width_opl
+    pos = divide(distance - cfg.start_opl, cfg.bin_width_opl)
     offs = torch.arange(-radius, radius + 1, dtype=torch.float32,
                         device=film.device)
     b = torch.floor(pos)[:, None] + offs[None, :]
-    w = torch.exp(-0.5 * ((b + 0.5 - pos[:, None]) / sigma) ** 2)
+    w = torch.exp(-0.5 * divide(b + 0.5 - pos[:, None], sigma) ** 2)
     w = w / torch.clamp_min(w.sum(dim=-1, keepdim=True), 1e-20)
     ok = (b >= 0) & (b < cfg.temporal_bins)
     bins = torch.where(ok, b, float(cfg.temporal_bins)).to(torch.int64)

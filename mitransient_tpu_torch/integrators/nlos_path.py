@@ -42,7 +42,7 @@ import torch
 from ..bsdf import api as bsdf_api
 from ..core.distribution import DiscreteDistribution
 from ..core.frame import Frame
-from ..core.math import dot, mis_weight, normalize
+from ..core.math import dot, mis_weight, normalize, sqrt
 from ..core.records import Ray
 from ..core.rng import Sampler, draw_bounce_block
 from ..film.transient_film import (
@@ -293,7 +293,7 @@ def _sample_hidden_point(sd: SceneData, ctx: NLOSContext, u0, u1):
     hg = DiscreteDistribution.from_cdf(ctx.hg_tri_cdf, ctx.hg_total_area)
     slot, u0b, _pmf = hg.sample_reuse(u0)
     tri = ctx.hg_tri_idx.index_select(0, slot)
-    su = torch.sqrt(torch.clamp_min(u0b, 0.0))
+    su = sqrt(torch.clamp_min(u0b, 0.0))
     b1 = 1.0 - su
     b2 = u1 * su
     t = sd.tri
@@ -321,7 +321,7 @@ def _laser_nee(sd, ctx, icfg, si, lb, beta, distance, eta, it, active_e,
     confocal scan).  -> (Lr (N, C), splat distance (N,))."""
     src = lanes if lanes is not None else ctx
     d1v = src.laser_target - si.p
-    dist1 = torch.sqrt(torch.clamp_min(dot(d1v, d1v), 1e-20))
+    dist1 = sqrt(torch.clamp_min(dot(d1v, d1v), 1e-20))
     d1 = d1v / dist1[:, None]
     occ1 = ray_test(sd, si.p + d1 * 1e-4, d1, dist1 - 2e-4, active_e,
                     bvh_mode)
@@ -338,7 +338,8 @@ def _laser_nee(sd, ctx, icfg, si, lb, beta, distance, eta, it, active_e,
     dist_after1 = distance + torch.where(active_e, dist1, 0.0) * eta
 
     # wall point -> laser: one row for the wavefront or one a lane
-    lb2 = bsdf_api.gather_lane_bsdf(sd.bsdf, src.wall_bsdf_id.reshape(-1))
+    lb2 = bsdf_api.gather_lane_bsdf(sd.bsdf, src.wall_bsdf_id.reshape(-1),
+                                    src.wall_uv.reshape(-1, 2), sd.bsdf_kinds)
     wframe = Frame.from_normal(src.wall_n_sh.reshape(-1, 3))
     wi2 = wframe.to_local(-d1)
     wo2 = wframe.to_local(src.wall_d2.reshape(-1, 3))
@@ -358,7 +359,7 @@ def _plain_nee(sd, ctx, icfg, si, lb, beta, distance, eta, it, active_e,
     em = sd.emitter
     epos, edir = em.position[0], em.direction[0]
     d2v = epos - si.p
-    dist2 = torch.sqrt(torch.clamp_min(dot(d2v, d2v), 1e-20))
+    dist2 = sqrt(torch.clamp_min(dot(d2v, d2v), 1e-20))
     d2 = d2v / dist2[:, None]
     occ = ray_test(sd, si.p + d2 * 1e-4, d2, dist2 - 2e-4, active_e, bvh_mode)
     active_e = active_e & ~occ
@@ -385,7 +386,7 @@ def _continue(sd, ctx, icfg, si, lb, ub, it, active_next, beta, eta):
         # dim 3 is unused, like the reference's discarded next_1d (:814)
         p_hg, n_hg, pdf_a = _sample_hidden_point(sd, ctx, ub[:, 4], ub[:, 5])
         dvh = p_hg - si.p
-        dist_h = torch.sqrt(torch.clamp_min(dot(dvh, dvh), 1e-20))
+        dist_h = sqrt(torch.clamp_min(dot(dvh, dvh), 1e-20))
         dh = dvh / dist_h[:, None]
         cos_g = dot(n_hg, -dh)
         hg_ok = (active_next & do_hg & (dot(si.n, dh) > 1e-7)
@@ -477,7 +478,8 @@ def sample_nlos_primal(
         hit = active & si.valid
         if account or it > 0:  # the sensor->wall segment (:751-752)
             distance = distance + torch.where(hit, si.t, 0.0) * eta
-        lb = bsdf_api.gather_lane_bsdf(sd.bsdf, si.bsdf_id)
+        lb = bsdf_api.gather_lane_bsdf(sd.bsdf, si.bsdf_id, si.uv,
+                                       sd.bsdf_kinds)
 
         if not skip_le:
             pdf_em_hit = torch.where(prev_delta, 0.0,
@@ -611,7 +613,7 @@ def _laser_nee_all(sd, lasers: ExhaustiveLaser, icfg, si, lb, beta, distance,
     Lc = lasers.laser_target.shape[0]
     C = beta.shape[-1]
     d1v = lasers.laser_target[:, None, :] - si.p[None]  # (Lc, N, 3)
-    dist1 = torch.sqrt(torch.clamp_min(dot(d1v, d1v), 1e-20))
+    dist1 = sqrt(torch.clamp_min(dot(d1v, d1v), 1e-20))
     d1 = d1v / dist1[..., None]
     act = active_e[None].expand(Lc, n)
     occ1 = ray_test(sd, (si.p[None] + d1 * 1e-4).reshape(Lc * n, 3),
@@ -620,8 +622,8 @@ def _laser_nee_all(sd, lasers: ExhaustiveLaser, icfg, si, lb, beta, distance,
     act = act & ~occ1 & lasers.wall_clear[:, None]
 
     vframe = Frame(si.frame.s[None], si.frame.t[None], si.frame.n[None])
-    lb_b = bsdf_api.LaneBSDF(kind=lb.kind.repeat(Lc),
-                             reflectance=lb.reflectance.repeat(Lc, 1))
+    lb_b = bsdf_api.map_lanes(
+        lb, lambda a: a.repeat((Lc,) + (1,) * (a.dim() - 1)))
     f1, _ = bsdf_api.eval_pdf(lb_b, si.wi.repeat(Lc, 1),
                               vframe.to_local(d1).reshape(Lc * n, 3),
                               act.reshape(Lc * n))
@@ -639,10 +641,9 @@ def _laser_nee_all(sd, lasers: ExhaustiveLaser, icfg, si, lb, beta, distance,
                 wframe.n[:, None]).to_local(-d1)  # (Lc, N, 3)
     wo2 = wframe.to_local(lasers.wall_d2)  # (Lc, 3)
     act = _depth_gate(icfg, it + 2, act)
-    lb2 = bsdf_api.gather_lane_bsdf(sd.bsdf, lasers.wall_bsdf_id)
-    lb2_b = bsdf_api.LaneBSDF(
-        kind=lb2.kind.repeat_interleave(n),
-        reflectance=lb2.reflectance.repeat_interleave(n, dim=0))
+    lb2 = bsdf_api.gather_lane_bsdf(sd.bsdf, lasers.wall_bsdf_id,
+                                    lasers.wall_uv, sd.bsdf_kinds)
+    lb2_b = bsdf_api.map_lanes(lb2, lambda a: a.repeat_interleave(n, dim=0))
     f2, _ = bsdf_api.eval_pdf(lb2_b, wi2.reshape(Lc * n, 3),
                               wo2.repeat_interleave(n, dim=0),
                               act.reshape(Lc * n))
@@ -708,7 +709,8 @@ def sample_nlos_exhaustive_primal(
         hit = active & si.valid
         if account or it > 0:
             distance = distance + torch.where(hit, si.t, 0.0) * eta
-        lb = bsdf_api.gather_lane_bsdf(sd.bsdf, si.bsdf_id)
+        lb = bsdf_api.gather_lane_bsdf(sd.bsdf, si.bsdf_id, si.uv,
+                                       sd.bsdf_kinds)
         active_next = active & si.valid
         if it + 1 >= icfg.max_depth:
             active_next = torch.zeros_like(active)

@@ -127,7 +127,8 @@ def _bounce(sd, key, it, n, st: PathState, film_cfg, icfg, spp, splat_w,
     si = ray_intersect(sd, Ray.make(st.o, st.d), active, bvh_mode)
     hit = active & si.valid
     distance = st.distance + torch.where(hit, si.t, 0.0) * st.eta
-    lb = bsdf_api.gather_lane_bsdf(sd.bsdf, si.bsdf_id)
+    lb = bsdf_api.gather_lane_bsdf(sd.bsdf, si.bsdf_id, si.uv,
+                                   sd.bsdf_kinds)
 
     # ---- direct emission (BSDF-sampled MIS)
     pdf_em_hit = pdf_emitter_direction(sd, st.prev_p, si)

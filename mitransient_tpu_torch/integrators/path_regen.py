@@ -33,7 +33,7 @@ from __future__ import annotations
 import torch
 
 from ..bsdf import api as bsdf_api
-from ..core.math import mis_weight, normalize
+from ..core.math import divide, mis_weight, normalize
 from ..core.records import Ray
 from ..film.transient_film import TransientFilmState, splat_pair_any
 from ..ops.bvh import BVH_MODE
@@ -109,8 +109,8 @@ def sample_primal_regen(
     def gen_ray(sample_idx):
         """Camera ray for each lane's sample ``sample_idx`` (dims 0-1)."""
         sid = sample_idx * hw + pix
-        u = (px + hash_uniform(seed, sid, 0)) / width
-        v = (py + hash_uniform(seed, sid, 1)) / height
+        u = divide(px + hash_uniform(seed, sid, 0), width)
+        v = divide(py + hash_uniform(seed, sid, 1), height)
         d_cam = torch.stack(
             [(1.0 - 2.0 * u) * cam.tan_half[0],
              (1.0 - 2.0 * v) * cam.tan_half[1],
@@ -158,7 +158,8 @@ def sample_primal_regen(
         hit = active & si.valid
         distance_hit = distance + torch.where(hit, si.t, 0.0) * eta
 
-        lb = bsdf_api.gather_lane_bsdf(sd.bsdf, si.bsdf_id)
+        lb = bsdf_api.gather_lane_bsdf(sd.bsdf, si.bsdf_id, si.uv,
+                                       sd.bsdf_kinds)
         pdf_em_hit = pdf_emitter_direction(sd, prev_p, si)
         pdf_em_hit = torch.where(prev_delta, 0.0, pdf_em_hit)
         mis = mis_weight(prev_pdf, pdf_em_hit)

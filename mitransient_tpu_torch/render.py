@@ -268,7 +268,8 @@ def render_aovs(scene: Scene, spp: int = 16, seed: int = 0, sensor: int = 0,
     si = ray_intersect(sd, ray, torch.ones((n,), dtype=torch.bool,
                                            device=scene.device), bvh_mode)
     valid = si.valid[:, None]
-    lb = bsdf_api.gather_lane_bsdf(sd.bsdf, si.bsdf_id)
+    lb = bsdf_api.gather_lane_bsdf(sd.bsdf, si.bsdf_id, si.uv,
+                                   sd.bsdf_kinds)
     out = {
         "albedo": torch.where(valid, lb.reflectance, 0.0),
         "sh_normal": torch.where(valid, si.frame.n, 0.0),

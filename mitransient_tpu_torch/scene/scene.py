@@ -1,31 +1,32 @@
 """Loaded scene tables and device-side scene queries.
 
-Counterpart of ``mitransient_tpu/scene/scene.py`` for the slice the port
-runs today: triangle soups, with the chunked acceleration structure of
-``ops/accel.py`` above 4096 triangles, diffuse BSDFs, area emitters and the
-delta emitters (projector and point).  Everything the device touches lives
-in :class:`SceneData`, a NamedTuple of flat tensors on one device.  Row
-lookups are plain ``index_select`` gathers; the JAX package's one-hot
-matmuls (``ops/gather.py``) were a TPU workaround and give the same values.
-The emitter queries compute only the branches of the emitter kinds the
-scene holds (``SceneData.emitter_kinds``, the JAX package's static
-``KindsStatic``).
+Counterpart of ``mitransient_tpu/scene/scene.py``: triangle soups, with
+the chunked acceleration structure of ``ops/accel.py`` above 4096
+triangles, the BSDF table with its texture and bump-map atlases, and the
+area, angulararea, projector and point emitters.  Everything the device
+touches lives in :class:`SceneData`, a NamedTuple of flat tensors on one
+device.  Row lookups are plain ``index_select`` gathers; the JAX package's
+one-hot matmuls (``ops/gather.py``) were a TPU workaround and give the
+same values.  The emitter queries compute only the branches of the emitter
+kinds the scene holds (``SceneData.emitter_kinds``), and the BSDF code only
+the lobes of the BSDF kinds it holds (``SceneData.bsdf_kinds``): the JAX
+package's static ``KindsStatic``.
 
 The tables keep every leaf of the JAX package's ``SceneData`` except the
-media (ROADMAP item 15), including those the diffuse/area slice does not
-read (conductor IORs, delta-emitter frames, geometry deltas), so that
-``convert.py`` carries a JAX scene across whole and later slices add code,
-not table changes.  The port adds tables derived from those leaves
+media (ROADMAP item 15), including those no primal render reads
+(geometry deltas), so that ``convert.py`` carries a JAX scene across
+whole.  The port adds tables derived from those leaves
 (:data:`DERIVED_FIELDS`).
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..core.frame import Frame
-from ..core.math import dot, safe_div
+from ..core.math import cross, divide, dot, normalize, safe_div, sqrt
 from ..core.records import DirectionSample, Ray, SurfaceInteraction
 from ..ops.bvh import BVH_MODE
 from ..ops.accel import TREE_FIELDS, Accel
@@ -50,7 +51,30 @@ EM_POINT = 3
 # fields of each record that the port derives from its other fields (or,
 # for the accel's trees, from its bounds); convert.py rebuilds them and
 # leaves them out of the JAX package's leaves
-DERIVED_FIELDS = {"tri": ("table",), "accel": TREE_FIELDS}
+DERIVED_FIELDS = {"tri": ("table",), "emitter": ("em_tri_key",),
+                  "accel": TREE_FIELDS}
+
+ALL_BSDF_KINDS = (BSDF_DIFFUSE, BSDF_CONDUCTOR, BSDF_ROUGH_CONDUCTOR,
+                  BSDF_DIELECTRIC, BSDF_NULL, BSDF_ROUGH_PLASTIC)
+
+
+class BSDFKinds(NamedTuple):
+    """What the BSDF table holds, known on the host: the sorted kind codes
+    and whether any row is two-sided.  The lobes of absent kinds and the
+    two-sided flip are not computed.  The default stands for any table."""
+
+    kinds: tuple = ALL_BSDF_KINDS
+    any_two_sided: bool = True
+
+    def has(self, code: int) -> bool:
+        return code in self.kinds
+
+
+def bsdf_kinds(kind, two_sided) -> BSDFKinds:
+    """The :class:`BSDFKinds` of a BSDF table's ``kind`` and ``two_sided``
+    columns (host arrays or tensors)."""
+    return BSDFKinds(tuple(sorted({int(k) for k in kind.tolist()})),
+                     bool(np.any(np.asarray(two_sided.tolist(), bool))))
 
 
 class Triangles(NamedTuple):
@@ -74,12 +98,27 @@ class Triangles(NamedTuple):
 class BSDFParams(NamedTuple):
     kind: torch.Tensor  # (B,) int32
     two_sided: torch.Tensor  # (B,) bool
-    reflectance: torch.Tensor  # (B, C) diffuse albedo
-    eta_re: torch.Tensor  # (B, C)
-    eta_im: torch.Tensor  # (B, C)
-    alpha: torch.Tensor  # (B,)
-    eta_ratio: torch.Tensor  # (B,)
-    alpha_v: torch.Tensor  # (B,)
+    reflectance: torch.Tensor  # (B, C) diffuse albedo / specular tint
+    eta_re: torch.Tensor  # (B, C) conductor IOR (real)
+    eta_im: torch.Tensor  # (B, C) conductor IOR (imaginary)
+    alpha: torch.Tensor  # (B,) GGX roughness along the tangent
+    eta_ratio: torch.Tensor  # (B,) dielectric int_ior / ext_ior
+    alpha_v: torch.Tensor  # (B,) GGX roughness along the bitangent
+    # textured reflectance: one padded atlas of every texture of the scene,
+    # read by a bilinear 4-tap lookup at (tex_id, uv); None without textures
+    tex_id: torch.Tensor | None = None  # (B,) int32, -1 = untextured
+    tex_hw: torch.Tensor | None = None  # (B, 2) f32 (height, width)
+    tex_uv: torch.Tensor | None = None  # (B, 4) f32 (su, sv, ou, ov)
+    textures: torch.Tensor | None = None  # (NT, TH, TW, C) f32
+    # shading-normal perturbation (bumpmap / normalmap wrappers): a
+    # 3-channel atlas of (height, dh/dx, dh/dy) in texel units for a bump
+    # map, or the tangent-space normal for a normal map
+    bump_id: torch.Tensor | None = None  # (B,) int32, -1 = unperturbed
+    bump_hw: torch.Tensor | None = None  # (B, 2) f32
+    bump_uv: torch.Tensor | None = None  # (B, 4) f32
+    bump_scale: torch.Tensor | None = None  # (B,) f32
+    bump_kind: torch.Tensor | None = None  # (B,) int32 1 = bump, 2 = normal
+    bump_textures: torch.Tensor | None = None  # (NB, TH, TW, 3) f32
 
 
 class EmitterParams(NamedTuple):
@@ -102,6 +141,10 @@ class EmitterParams(NamedTuple):
     em_tri_e2: torch.Tensor  # (K, 3)
     em_tri_ng: torch.Tensor  # (K, 3)
     em_tri_shape: torch.Tensor  # (K,) int32
+    # the port's own: (owning emitter << 32) + the float bits of
+    # em_tri_cdf, which increases along the table, so that one
+    # searchsorted finds a slot within its emitter's segment
+    em_tri_key: torch.Tensor  # (K,) int64
 
 
 class GeomParams(NamedTuple):
@@ -121,6 +164,8 @@ class SceneData(NamedTuple):
     # the sorted emitter kind codes present (:func:`emitter_kinds` of
     # ``emitter.kind``), known on the host
     emitter_kinds: tuple[int, ...]
+    # the BSDF kinds present and two-sidedness (:func:`bsdf_kinds`)
+    bsdf_kinds: BSDFKinds
     # chunked acceleration structure for scenes above ACCEL_MIN_TRIS
     # triangles (ops/accel.py); None for small scenes
     accel: Accel | None = None
@@ -139,6 +184,22 @@ def _has(sd: SceneData, code: int) -> bool:
 
 def _has_delta(sd: SceneData) -> bool:
     return _has(sd, EM_PROJECTOR) or _has(sd, EM_POINT)
+
+
+def _has_shape(sd: SceneData) -> bool:
+    return _has(sd, EM_AREA) or _has(sd, EM_ANGULAR_AREA)
+
+
+def em_tri_key_table(tri_count: np.ndarray, cdf: np.ndarray) -> np.ndarray:
+    """``EmitterParams.em_tri_key`` of an emitter table's ``tri_count``
+    (E,) and ``em_tri_cdf`` (K,): each slot's owning emitter in the high
+    32 bits and its CDF's float bits (non-negative, so ordered as the
+    floats are) in the low ones."""
+    owner = np.zeros(cdf.shape[0], np.int64)
+    seg = np.repeat(np.arange(tri_count.shape[0]), tri_count)
+    owner[:seg.shape[0]] = seg
+    bits = np.ascontiguousarray(cdf, np.float32).view(np.int32)
+    return (owner << 32) + bits.astype(np.int64)
 
 
 def is_delta_kind(kind: torch.Tensor) -> torch.Tensor:
@@ -192,9 +253,15 @@ def _si_from_t_prim(sd: SceneData, ray: Ray, t, prim) -> SurfaceInteraction:
     inv = safe_div(1.0, denom)
     u = (d11 * d20 - d01 * d21) * inv
     v = (d00 * d21 - d01 * d20) * inv
-    uv = row(tri.uv0) + row(tri.uv_e1) * u[:, None] + row(tri.uv_e2) * v[:, None]
-    # Flat shading: the shading normal is the geometric normal.
-    frame = Frame.from_normal(ng)
+    uv_e1, uv_e2 = row(tri.uv_e1), row(tri.uv_e2)
+    uv = row(tri.uv0) + uv_e1 * u[:, None] + uv_e2 * v[:, None]
+    # Flat shading: the shading normal is the geometric normal, unless a
+    # bump or normal map perturbs it.
+    n_sh = ng
+    if sd.bsdf.bump_textures is not None:
+        n_sh = _perturbed_normal(sd.bsdf, row(tri.bsdf_id), ng, uv, e1, e2,
+                                 uv_e1, uv_e2)
+    frame = Frame.from_normal(n_sh)
     wi = frame.to_local(-ray.d)
 
     def ids(table):
@@ -215,6 +282,89 @@ def _si_from_t_prim(sd: SceneData, ray: Ray, t, prim) -> SurfaceInteraction:
     )
 
 
+def atlas_lookup(atlas: torch.Tensor, tid: torch.Tensor, h: torch.Tensor,
+                 w: torch.Tensor, tuv: torch.Tensor,
+                 uv: torch.Tensor) -> torch.Tensor:
+    """Bilinear 4-tap lookup with repeat wrapping in slot ``tid`` (N,) of a
+    padded (NT, TH, TW, C) atlas, whose texture there is ``h`` x ``w``
+    ((N,) f32, at least 1), at ``uv`` (N, 2) mapped by ``tuv`` (N, 4) =
+    (su, sv, ou, ov).  Texel centres lie at (i + 0.5) / w.  -> (N, C)."""
+    u = uv[:, 0] * tuv[:, 0] + tuv[:, 2]
+    v = uv[:, 1] * tuv[:, 1] + tuv[:, 3]
+    u = u - torch.floor(u)
+    v = v - torch.floor(v)
+    x = u * w - 0.5
+    y = v * h - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = (x - x0)[:, None]
+    fy = (y - y0)[:, None]
+    nt, th, tw, C = atlas.shape
+    flat = atlas.reshape(nt * th * tw, C)
+    base = torch.clamp_min(tid, 0).to(torch.int64) * th
+
+    def tap(xi, yi):
+        # floor modulo (jnp.mod): the to_uv offsets give negative texels
+        xi = torch.remainder(xi, w).to(torch.int64)
+        yi = torch.remainder(yi, h).to(torch.int64)
+        return flat.index_select(0, (base + yi) * tw + xi)
+
+    c00 = tap(x0, y0)
+    c10 = tap(x0 + 1.0, y0)
+    c01 = tap(x0, y0 + 1.0)
+    c11 = tap(x0 + 1.0, y0 + 1.0)
+    return ((c00 * (1.0 - fx) + c10 * fx) * (1.0 - fy)
+            + (c01 * (1.0 - fx) + c11 * fx) * fy)
+
+
+def _perturbed_normal(bp: BSDFParams, bsdf_id, ng, uv, e1, e2, uv_e1, uv_e2):
+    """Bump- or normal-mapped shading normal (Mitsuba bumpmap.cpp /
+    normalmap.cpp).  The tangents dp/du, dp/dv come from inverting the hit
+    triangle's 2x2 uv-edge system; the height gradients were taken on the
+    host in texel units, so one bilinear lookup gives them."""
+    idx = torch.clamp_min(bsdf_id, 0)
+
+    def col(a):
+        return a.index_select(0, idx)
+
+    bid = col(bp.bump_id)
+    hw = col(bp.bump_hw)
+    h = torch.clamp_min(hw[:, 0], 1.0)
+    w = torch.clamp_min(hw[:, 1], 1.0)
+    tuv = col(bp.bump_uv)
+    val = atlas_lookup(bp.bump_textures, bid, h, w, tuv, uv)
+
+    # uv-edge system -> world-space tangents
+    u1, v1 = uv_e1[:, 0], uv_e1[:, 1]
+    u2, v2 = uv_e2[:, 0], uv_e2[:, 1]
+    det = u1 * v2 - v1 * u2
+    ok_uv = torch.abs(det) > 1e-12
+    inv = safe_div(1.0, det)[:, None]
+    dp_du = (v2[:, None] * e1 - v1[:, None] * e2) * inv
+    dp_dv = (u1[:, None] * e2 - u2[:, None] * e1) * inv
+    # project the tangents into the surface plane (flat shading: n == ng)
+    t_u = dp_du - ng * dot(ng, dp_du)[:, None]
+    t_v = dp_dv - ng * dot(ng, dp_dv)[:, None]
+    ok_uv = ok_uv & (dot(t_u, t_u) > 1e-16) & (dot(t_v, t_v) > 1e-16)
+
+    # bump map: chain the texel-unit gradients through the uv transform and
+    # the resolution to dh/du, dh/dv, then tilt the tangents
+    scale = col(bp.bump_scale)
+    dh_du = val[:, 1] * w * tuv[:, 0] * scale
+    dh_dv = val[:, 2] * h * tuv[:, 1] * scale
+    n_bump = cross(t_u + ng * dh_du[:, None], t_v + ng * dh_dv[:, None])
+    # normal map: the tangent-space normal in an orthonormal (t_u, b, ng)
+    tang = normalize(t_u)
+    bitang = cross(ng, tang)
+    n_nm = tang * val[:, 0:1] + bitang * val[:, 1:2] + ng * val[:, 2:3]
+    n_new = torch.where((col(bp.bump_kind) == 2)[:, None], n_nm, n_bump)
+    nn = dot(n_new, n_new)
+    # orient with the geometric normal; fall back to ng where degenerate
+    n_new = normalize(torch.where((nn > 1e-16)[:, None], n_new, ng))
+    n_new = n_new * torch.where(dot(n_new, ng) < 0.0, -1.0, 1.0)[:, None]
+    return torch.where(((bid >= 0) & ok_uv)[:, None], n_new, ng)
+
+
 def ray_test(sd: SceneData, o: torch.Tensor, d_unit: torch.Tensor,
              dist: torch.Tensor, active: torch.Tensor,
              bvh_mode: str = BVH_MODE) -> torch.Tensor:
@@ -233,17 +383,19 @@ def ray_test(sd: SceneData, o: torch.Tensor, d_unit: torch.Tensor,
 def _sample_emitter_triangle(sd: SceneData, em_idx: torch.Tensor,
                              u: torch.Tensor):
     """Pick a triangle of emitter ``em_idx`` area-proportionally via the
-    per-emitter CDF segment; returns (rescaled u, emitter-triangle slot)."""
+    per-emitter CDF segment; returns (rescaled u, emitter-triangle slot).
+
+    A binary search over ``em_tri_key``: the slot is the first of the
+    segment whose CDF is not below ``u``, the slot that the JAX package's
+    compare-and-count picks (the count of segment entries below ``u``)."""
     em = sd.emitter
     start = em.tri_start.index_select(0, em_idx)
     end = start + em.tri_count.index_select(0, em_idx)
-    k = torch.arange(em.em_tri_cdf.shape[0], dtype=torch.int32,
-                     device=u.device)[None, :]
-    in_seg = (k >= start[:, None]) & (k < end[:, None])
-    below = in_seg & (u[:, None] > em.em_tri_cdf[None, :])
-    slot = start + below.sum(dim=1, dtype=torch.int32)
-    # a delta emitter's empty segment gives slot start - 1: clamp it into
-    # the table (its point is discarded)
+    key = (em_idx.to(torch.int64) << 32) + u.contiguous().view(
+        torch.int32).to(torch.int64)
+    slot = torch.searchsorted(em.em_tri_key, key).to(torch.int32)
+    # a delta emitter's empty segment gives end - 1 = start - 1: clamp it
+    # into the table (its point is discarded)
     slot = torch.clamp_min(torch.minimum(torch.maximum(slot, start), end - 1),
                            0)
     cdf_prev = torch.cat([em.em_tri_cdf.new_zeros(1), em.em_tri_cdf[:-1]])
@@ -257,7 +409,7 @@ def _uniform_triangle_point(sd: SceneData, slot: torch.Tensor,
                             u1: torch.Tensor, u2: torch.Tensor):
     """Uniform barycentric sample of emitter-triangle ``slot``, gathered
     from the compact per-emitter table."""
-    su = torch.sqrt(torch.clamp_min(u1, 0.0))
+    su = sqrt(torch.clamp_min(u1, 0.0))
     b1 = 1.0 - su
     b2 = u2 * su
     em = sd.emitter
@@ -280,7 +432,8 @@ def sample_emitter_direction(
     Returns (DirectionSample, em_weight (N, C)).  ``em_weight`` = emitter
     radiance / pdf with visibility applied; pdf includes the uniform 1/E
     emitter-selection probability.  A delta emitter (projector, point)
-    gives its position with pdf 1 and ``delta`` set.
+    gives its position with pdf 1 and ``delta`` set; an angulararea
+    emitter is sampled as an area emitter.
     """
     em = sd.emitter
     E = em.kind.shape[0]
@@ -295,7 +448,7 @@ def sample_emitter_direction(
             emitter_id=torch.full((n,), -1, dtype=torch.int32, device=dev))
         return ds, torch.zeros((n, em.radiance.shape[-1]), device=dev)
     has_delta = _has_delta(sd)
-    has_shape = _has(sd, EM_AREA)
+    has_shape = _has_shape(sd)
 
     u_sel = sample2[:, 0]
     em_idx = torch.clamp_max((u_sel * E).to(torch.int32), E - 1)
@@ -318,7 +471,7 @@ def sample_emitter_direction(
         p, n_em = p_delta, n_delta
 
     d_vec = p - ref_p
-    dist = torch.sqrt(torch.clamp_min(dot(d_vec, d_vec), 1e-20))
+    dist = sqrt(torch.clamp_min(dot(d_vec, d_vec), 1e-20))
     d = d_vec / dist[:, None]
     cos_em = dot(n_em, -d)
     # solid-angle pdf at ref: dist^2 / (cos * A) for an area emitter, 1 for
@@ -354,15 +507,24 @@ def emitter_eval_direction(sd: SceneData, em_idx: torch.Tensor,
                            cos_em: torch.Tensor) -> torch.Tensor:
     """Radiance leaving emitter point ``p`` toward a reference point that
     sees it along ``d`` at ``dist``: an area emitter's constant radiance
-    from its front side (``cos_em > 0``); a projector's irradiance / dist^2
-    inside its frustum; a point's intensity / dist^2.  (N, C).  ``p`` and
-    ``n_em`` are unused by these kinds; they keep the JAX signature."""
+    from its front side (``cos_em > 0``); an angulararea emitter's, times
+    a falloff that is 1 within the beam width and falls linearly to 0 at
+    the cutoff angle; a projector's irradiance / dist^2 inside its
+    frustum; a point's intensity / dist^2.  (N, C).  ``p`` and ``n_em``
+    are unused by these kinds; they keep the JAX signature."""
     em = sd.emitter
     rad = em.radiance.index_select(0, em_idx)
+    front = (cos_em > 0.0)[:, None]
     branches = []  # (kind code, value)
     if _has(sd, EM_AREA):
-        branches.append((EM_AREA, torch.where((cos_em > 0.0)[:, None], rad,
-                                              0.0)))
+        branches.append((EM_AREA, torch.where(front, rad, 0.0)))
+    if _has(sd, EM_ANGULAR_AREA):
+        cb = em.cos_beam.index_select(0, em_idx)
+        cc = em.cos_cutoff.index_select(0, em_idx)
+        t_lin = safe_div(cos_em - cc, torch.clamp_min(cb - cc, 1e-9))
+        falloff = torch.clamp(t_lin, 0.0, 1.0)
+        branches.append((EM_ANGULAR_AREA,
+                         torch.where(front, rad * falloff[:, None], 0.0)))
     if _has_delta(sd):
         inv_d2 = (1.0 / torch.clamp_min(dist * dist, 1e-20))[:, None]
     if _has(sd, EM_PROJECTOR):
@@ -392,21 +554,21 @@ def pdf_emitter_direction(sd: SceneData, ref_p: torch.Tensor,
     (for MIS at emitter hits).  Zero for non-emitter hits, back faces and
     delta emitters."""
     E = sd.emitter.kind.shape[0]
-    if E == 0 or not _has(sd, EM_AREA):
+    if E == 0 or not _has_shape(sd):
         return torch.zeros(ref_p.shape[:-1], dtype=torch.float32,
                            device=ref_p.device)
     em = si.emitter_id
     em_c = torch.clamp_min(em, 0)
     has_em = em >= 0
     if _has_delta(sd):
-        has_em = has_em & (sd.emitter.kind.index_select(0, em_c) == EM_AREA)
+        has_em = has_em & ~is_delta_kind(sd.emitter.kind.index_select(0, em_c))
     area = torch.clamp_min(sd.emitter.area.index_select(0, em_c), 1e-30)
     d_vec = si.p - ref_p
     dist2 = dot(d_vec, d_vec)
-    dist = torch.sqrt(torch.clamp_min(dist2, 1e-20))
+    dist = sqrt(torch.clamp_min(dist2, 1e-20))
     d = d_vec / dist[:, None]
     cos_em = dot(si.n, -d)
-    pdf = safe_div(dist2, torch.clamp_min(cos_em, 0.0) * area) / E
+    pdf = divide(safe_div(dist2, torch.clamp_min(cos_em, 0.0) * area), E)
     return torch.where(has_em & (cos_em > 0.0), pdf, 0.0)
 
 

@@ -1,31 +1,39 @@
 """Scene description: dict schema -> loaded :class:`Scene` with its
 :class:`SceneData` on one device.
 
-Counterpart of ``mitransient_tpu/scene/schema.py`` for the plugin set of
-the transient Cornell box, of large meshes and of NLOS captures:
-``rectangle``, ``cube``, ``obj``, ``ply`` and in-memory ``mesh`` shapes,
-``diffuse`` BSDFs (top level, nested or by ``ref``), ``area`` emitters and
-the delta emitters ``projector``, ``point`` and ``spot`` (loaded as a
-point), the ``perspective`` sensor and the ``nlos_capture_meter`` nested in
-a shape, with a ``transient_hdr_film`` or a ``phasor_hdr_film``, and the
-``transient_path``, ``path`` and ``transient_nlos_path`` integrators.
-Every other plugin the JAX
-package accepts raises ``NotImplementedError`` naming the ROADMAP item
-that will port it; what the JAX loader refuses (other sensor types such as
-``thinlens`` and ``irradiancemeter``, unknown scene entries) raises its
-``ValueError``.
+Counterpart of ``mitransient_tpu/scene/schema.py``: ``rectangle``,
+``cube``, ``obj``, ``ply`` and in-memory ``mesh`` shapes; every BSDF of
+the JAX package (``diffuse``, ``conductor`` / ``mirror``,
+``roughconductor``, ``plastic`` / ``roughplastic``, ``dielectric`` /
+``thindielectric``, ``null``; top level, nested or by ``ref``), with the
+``twosided``, ``bumpmap``, ``normalmap``, ``mask`` and ``blendbsdf``
+wrappers and ``bitmap`` / ``checkerboard`` textures; ``area`` and
+``angulararea`` emitters and the delta emitters ``projector``, ``point``
+and ``spot`` (loaded as a point); the ``perspective`` sensor and the
+``nlos_capture_meter`` nested in a shape, with a ``transient_hdr_film`` or
+a ``phasor_hdr_film``; and the ``transient_path``, ``path`` and
+``transient_nlos_path`` integrators.  Media raise
+``NotImplementedError`` naming the ROADMAP item that will port them; what
+the JAX loader refuses (other sensor types such as ``thinlens`` and
+``irradiancemeter``, unknown scene entries) raises its ``ValueError``.
 
 The tables are built on the host with numpy exactly as the JAX loader
 builds them, then each one is moved to ``device`` once.  Above
 ``ACCEL_MIN_TRIS`` triangles the loader also builds the chunked
 acceleration structure (``ops/accel.py``).  The device is the card unless
 the caller asks for the CPU.
+
+Bitmaps are decoded with ``imageio``.  A missing file leaves the BSDF
+untextured, as in the JAX package; an existing file without ``imageio``
+to decode it raises ``ImportError`` (the JAX package would render it
+untextured).
 """
 from __future__ import annotations
 
 from typing import Any, NamedTuple
 
 import logging
+import os
 
 import numpy as np
 import torch
@@ -35,7 +43,13 @@ from ..core.transform import Transform4, from_spec
 from ..ops.accel import ACCEL_MIN_TRIS, build_accel
 from ..ops.intersect import tri_table
 from .scene import (
+    BSDF_CONDUCTOR,
+    BSDF_DIELECTRIC,
     BSDF_DIFFUSE,
+    BSDF_NULL,
+    BSDF_ROUGH_CONDUCTOR,
+    BSDF_ROUGH_PLASTIC,
+    EM_ANGULAR_AREA,
     EM_AREA,
     EM_POINT,
     EM_PROJECTOR,
@@ -44,13 +58,14 @@ from .scene import (
     GeomParams,
     SceneData,
     Triangles,
+    bsdf_kinds,
+    em_tri_key_table,
     emitter_kinds,
 )
 from .shapes import SHAPE_REGISTRY, Shape
 
 RGB_TO_LUMA = np.array([0.212671, 0.715160, 0.072169])
 
-# BSDF plugin types of the JAX package; all but "diffuse" are refused.
 _BSDF_TYPES = (
     "diffuse", "conductor", "mirror", "roughconductor",
     "dielectric", "thindielectric", "null", "twosided",
@@ -59,19 +74,17 @@ _BSDF_TYPES = (
 )
 _ROADMAP_ITEM = {
     # scene entries the JAX package accepts and the port does not yet
-    "bsdf": "11", "angulararea": "11", "texture": "11",
     "homogeneous": "15", "heterogeneous": "15", "transient_prbvolpath": "15",
 }
-_FILM_KINDS = ("transient_hdr_film", "phasor_hdr_film")
 _INTEGRATORS = ("transient_path", "path", "transient_nlos_path")
+_TEXTURES = ("bitmap", "checkerboard")
 _log = logging.getLogger("mitransient_tpu_torch")
 
 
 def _not_ported(what: str, key: str) -> NotImplementedError:
-    item = _ROADMAP_ITEM.get(key, "11")
     return NotImplementedError(
         f"{what} is not ported to mitransient_tpu_torch yet "
-        f"(ROADMAP item {item})")
+        f"(ROADMAP item {_ROADMAP_ITEM[key]})")
 
 
 def resolve_device(device) -> torch.device:
@@ -85,14 +98,187 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def parse_color(spec: Any, channels: int) -> np.ndarray:
-    """Parse an rgb/float spectrum value to (C,) float32."""
+# --------------------------------------------------------------------------
+# Textures: every texture of a scene is packed into one padded f32 atlas
+# (BSDFParams.textures) so that the shading-time lookup is a flat bilinear
+# gather; images are capped at TEXTURE_MAX_RES a side by box downsampling
+# --------------------------------------------------------------------------
+
+TEXTURE_MAX_RES = 512
+_IMAGE_CACHE: dict = {}  # (path, mtime) -> decoded ndarray as stored
+_IMAGE_CACHE_MAX = 64
+
+
+def _read_image(fn: str):
+    """Decode an image file once per process; None where the file cannot
+    be read or decoded.  Raises ImportError where ``imageio`` is missing."""
+    try:
+        key = (fn, os.path.getmtime(fn))
+    except OSError:
+        return None
+    if key in _IMAGE_CACHE:
+        return _IMAGE_CACHE[key]
+    try:
+        import imageio.v3 as iio
+    except ImportError as e:
+        raise ImportError(f"decoding the bitmap {fn!r} needs imageio, which "
+                          "is not installed") from e
+    try:
+        img = np.asarray(iio.imread(fn))
+    except Exception:
+        return None
+    if len(_IMAGE_CACHE) >= _IMAGE_CACHE_MAX:
+        _IMAGE_CACHE.clear()
+    _IMAGE_CACHE[key] = img
+    return img
+
+
+def _texture_mean(spec: dict, base_dir: str = ".") -> np.ndarray:
+    """The mean colour of a texture, the table's reflectance entry."""
+    fn = spec.get("filename")
+    if fn and not os.path.isabs(fn):
+        fn = os.path.join(base_dir, fn)
+    if fn and os.path.exists(fn):
+        img = _read_image(fn)
+        if img is not None:
+            was_int = img.dtype.kind in "ui"
+            img = np.asarray(img, np.float64)
+            if was_int or img.max() > 1.5:
+                img = img / 255.0
+            if img.ndim == 2:
+                img = img[..., None]
+            return img.reshape(-1, img.shape[-1]).mean(axis=0)[:3]
+    try:
+        a = parse_color(spec.get("color0", 0.4), 3)
+        b = parse_color(spec.get("color1", 0.2), 3)
+        return 0.5 * (np.asarray(a, np.float64) + np.asarray(b, np.float64))
+    except Exception:
+        return np.full((3,), 0.5)
+
+
+def _srgb_to_linear(c: np.ndarray) -> np.ndarray:
+    return np.where(c <= 0.04045, c / 12.92, ((c + 0.055) / 1.055) ** 2.4)
+
+
+_SRGB_LUT8 = _srgb_to_linear(np.arange(256, dtype=np.float64) / 255.0)
+
+
+def _box_downsample(img: np.ndarray, cap: int) -> np.ndarray:
+    k = int(np.ceil(max(img.shape[0], img.shape[1]) / cap))
+    if k <= 1:
+        return img
+    h2 = (img.shape[0] // k) * k
+    w2 = (img.shape[1] // k) * k
+    img = img[:h2, :w2]
+    return img.reshape(h2 // k, k, w2 // k, k, img.shape[-1]).mean(axis=(1, 3))
+
+
+def _to_channels(img: np.ndarray, channels: int) -> np.ndarray:
+    if img.shape[-1] >= 3 and channels == 1:
+        return (img[..., :3] @ RGB_TO_LUMA)[..., None]
+    if img.shape[-1] == 1 and channels == 3:
+        return np.repeat(img, 3, axis=-1)
+    return img[..., :channels]
+
+
+def _uv_transform(spec) -> tuple[float, float, float, float]:
+    """(su, sv, ou, ov) of a ``to_uv`` transform (scale and offset only)."""
+    if spec is None:
+        return (1.0, 1.0, 0.0, 0.0)
+    t = spec if hasattr(spec, "m") else from_spec(spec)
+    m = np.asarray(t.m, np.float64)
+    return (float(m[0, 0]), float(m[1, 1]), float(m[0, 3]), float(m[1, 3]))
+
+
+def _load_texture(spec: dict, base_dir: str, channels: int, cache: dict):
+    """Texture spec -> (img (h, w, C) f32 linear, (su, sv, ou, ov)), or
+    None for a bitmap without a readable file."""
+    t = spec.get("type")
+    uv_t = _uv_transform(spec.get("to_uv"))
+    if t == "checkerboard":
+        c0 = parse_color(spec.get("color0", 0.4), channels)
+        c1 = parse_color(spec.get("color1", 0.2), channels)
+        key = ("checker", tuple(c0), tuple(c1), channels)
+        if key not in cache:
+            res = 64
+            u = (np.arange(res) + 0.5) / res
+            mask = (u[None, :] > 0.5) ^ (u[:, None] > 0.5)  # (v, u)
+            cache[key] = np.where(mask[..., None], c1, c0).astype(np.float32)
+        return cache[key], uv_t
+    if t == "bitmap":
+        fn = spec.get("filename")
+        if not fn:
+            return None
+        if not os.path.isabs(fn):
+            fn = os.path.join(base_dir, fn)
+        raw = spec.get("raw", False)
+        key = ("bitmap", fn, bool(raw), channels)
+        if key not in cache:
+            if not os.path.exists(fn):
+                return None
+            img = _read_image(fn)
+            if img is None:
+                return None
+            if img.dtype == np.uint8:
+                img = (_SRGB_LUT8[img] if not raw
+                       else img.astype(np.float64) / 255.0)
+            else:
+                img = img.astype(np.float64)
+                if img.max() > 1.5:
+                    img = img / 255.0
+                if not raw:
+                    img = _srgb_to_linear(img)
+            if img.ndim == 2:
+                img = img[..., None]
+            img = _box_downsample(img, TEXTURE_MAX_RES)
+            cache[key] = _to_channels(img, channels).astype(np.float32)
+        return cache[key], uv_t
+    return None
+
+
+def _load_bump_texture(spec: dict, base_dir: str, cache: dict, kind: int):
+    """A bumpmap (``kind`` 1) or normalmap (2) wrapper's texture -> ((h, w,
+    3) f32, uv transform), or None.  A bump map packs (height, dh/dx,
+    dh/dy), its central-difference gradients in texel units; a normal map
+    the tangent-space normal 2 rgb - 1 of its raw data."""
+    if kind == 2:
+        spec = dict(spec)
+        spec.setdefault("raw", True)  # normals are data, never sRGB
+    key = ("bump", kind, spec.get("filename"), spec.get("type"),
+           str(spec.get("to_uv")))
+    if key in cache:
+        return cache[key]
+    loaded = _load_texture(spec, base_dir, 3 if kind == 2 else 1, cache)
+    if loaded is None:
+        return None
+    img, uv_t = loaded
+    if kind == 2:
+        out = (2.0 * img[..., :3] - 1.0).astype(np.float32)
+    else:
+        hgt = img[..., 0]
+        # central differences, one-sided at the border
+        gx = np.empty_like(hgt)
+        gy = np.empty_like(hgt)
+        gx[:, 1:-1] = 0.5 * (hgt[:, 2:] - hgt[:, :-2])
+        gx[:, :1] = hgt[:, 1:2] - hgt[:, :1]
+        gx[:, -1:] = hgt[:, -1:] - hgt[:, -2:-1]
+        gy[1:-1, :] = 0.5 * (hgt[2:, :] - hgt[:-2, :])
+        gy[:1, :] = hgt[1:2, :] - hgt[:1, :]
+        gy[-1:, :] = hgt[-1:, :] - hgt[-2:-1, :]
+        out = np.stack([hgt, gx, gy], axis=-1).astype(np.float32)
+    cache[key] = (out, uv_t)
+    return cache[key]
+
+
+def parse_color(spec: Any, channels: int, base_dir: str = ".") -> np.ndarray:
+    """Parse an rgb/float spectrum value to (C,) float32; a texture gives
+    its mean colour (the atlas holds the texture itself)."""
     if isinstance(spec, dict):
         t = spec.get("type")
         if t in ("rgb", "srgb", "spectrum", "uniform", "d65"):
             v = np.asarray(spec.get("value", 1.0), np.float64)
-        elif t in ("bitmap", "checkerboard"):
-            raise _not_ported(f"texture {t!r}", "texture")
+        elif t in _TEXTURES:
+            v = _texture_mean(spec, base_dir)
         else:
             raise ValueError(f"unsupported spectrum type {t!r}")
     else:
@@ -209,9 +395,9 @@ MAX_DEPTH_CAP = 32  # static bound substituted for max_depth = -1 (infinity)
 
 
 def _parse_film(d: dict) -> FilmConfig:
+    # as in the JAX loader, every kind but the phasor film is the
+    # transient film
     kind = d.get("type", "transient_hdr_film")
-    if kind not in _FILM_KINDS:
-        raise _not_ported(f"film {kind!r}", kind)
     rf = d.get("rfilter", "box")
     fc = FilmConfig(
         kind=kind,
@@ -301,17 +487,126 @@ class _BSDFEntry(NamedTuple):
     eta_im: np.ndarray
     alpha: float
     eta_ratio: float
-    alpha_v: float = 0.0
+    alpha_v: float = 0.0  # bitangent GGX roughness; == alpha if isotropic
+    tex: np.ndarray | None = None  # (h, w, C) reflectance texture
+    tex_uv: tuple = (1.0, 1.0, 0.0, 0.0)  # (su, sv, ou, ov)
+    # bump / normal map: (h, w, 3), see _load_bump_texture
+    bump_tex: np.ndarray | None = None
+    bump_uv: tuple = (1.0, 1.0, 0.0, 0.0)
+    bump_scale: float = 1.0
+    bump_kind: int = 0  # 0 none, 1 bumpmap, 2 normalmap
 
 
-def _parse_bsdf(key: str, d: dict, channels: int) -> _BSDFEntry:
+# complex IORs (about 550 nm) of the named conductor materials
+CONDUCTOR_IOR = {
+    "Au": (np.array([0.1431, 0.3749, 1.4424]), np.array([3.9831, 2.3857, 1.6032])),
+    "Ag": (np.array([0.1553, 0.1163, 0.1380]), np.array([4.8283, 3.1222, 2.1457])),
+    "Al": (np.array([1.3404, 0.9511, 0.6852]), np.array([7.3509, 6.4542, 5.6351])),
+    "Cu": (np.array([0.2004, 0.9240, 1.1022]), np.array([3.9129, 2.4528, 2.1421])),
+    "none": (np.zeros(3), np.zeros(3)),
+}
+
+
+def _ior(value, default: float) -> float:
+    """An IOR given as a number; a named one (a string) takes ``default``,
+    as the JAX loader does."""
+    return default if value is None or isinstance(value, str) else float(value)
+
+
+def _parse_bsdf(key: str, d: dict, channels: int, base_dir: str = ".",
+                tex_cache: dict | None = None) -> _BSDFEntry:
     t = d.get("type", "diffuse")
-    if t != "diffuse":
-        raise _not_ported(f"bsdf {t!r} (key {key!r})", "bsdf")
-    refl = parse_color(d.get("reflectance", 1.0), channels)
-    zeros = np.zeros(channels, np.float32)
-    return _BSDFEntry(key, BSDF_DIFFUSE, False, refl, zeros, zeros.copy(),
-                      0.0, 1.5046)
+    two_sided = False
+    bump_tex = None
+    bump_uv = (1.0, 1.0, 0.0, 0.0)
+    bump_scale = 1.0
+    bump_kind = 0
+    # unwrap the adapter BSDFs down to the lobe that carries the response
+    for _ in range(4):
+        if t == "twosided":
+            two_sided = True
+        elif t in ("bumpmap", "normalmap"):
+            # the wrapper's texture, taken before descending
+            spec = d.get("map") or d.get("normalmap") or next(
+                (v for v in d.values() if isinstance(v, dict)
+                 and v.get("type") in _TEXTURES), None)
+            if spec is not None and tex_cache is not None:
+                kind = 1 if t == "bumpmap" else 2
+                loaded = _load_bump_texture(spec, base_dir, tex_cache, kind)
+                if loaded is not None:
+                    bump_tex, bump_uv = loaded
+                    bump_kind = kind
+                    bump_scale = float(d.get("scale", 1.0))
+        elif t not in ("mask", "blendbsdf"):
+            break
+        inner = d.get("bsdf") or next(
+            (v for v in d.values() if isinstance(v, dict)
+             and v.get("type") not in (None,) + _TEXTURES and "type" in v),
+            None)
+        if inner is None:
+            break
+        d = inner
+        t = d.get("type", "diffuse")
+
+    refl_spec = d.get("reflectance", d.get("specular_reflectance", 1.0))
+    eta_re = np.zeros(channels, np.float32)
+    eta_im = np.zeros(channels, np.float32)
+    alpha = alpha_v = 0.0
+    eta_ratio = 1.5046
+
+    def alpha_of(default: float) -> tuple[float, float]:
+        # isotropic ``alpha`` or the anisotropic ``alpha_u`` / ``alpha_v``
+        # pair (cbox_polarized.xml:53-54) -> (alpha_u, alpha_v)
+        if "alpha" in d:
+            a = float(d["alpha"])
+            return a, a
+        if "alpha_u" in d or "alpha_v" in d:
+            au = float(d.get("alpha_u", d.get("alpha_v", default)))
+            return au, float(d.get("alpha_v", au))
+        return default, default
+
+    if t == "diffuse":
+        kind = BSDF_DIFFUSE
+    elif t in ("plastic", "roughplastic"):
+        # a GGX dielectric coating over a diffuse substrate; the smooth
+        # plastic is a low-roughness coating
+        kind = BSDF_ROUGH_PLASTIC
+        refl_spec = d.get("diffuse_reflectance", 0.5)
+        alpha, alpha_v = (alpha_of(0.1) if t == "roughplastic"
+                          else (0.03, 0.03))
+        eta_ratio = (_ior(d.get("int_ior"), 1.49)
+                     / _ior(d.get("ext_ior"), 1.000277))
+    elif t in ("conductor", "mirror", "roughconductor"):
+        rough = t == "roughconductor"
+        kind = BSDF_ROUGH_CONDUCTOR if rough else BSDF_CONDUCTOR
+        default = "Au" if rough else "none"
+        er, ei = CONDUCTOR_IOR.get(d.get("material", default),
+                                   CONDUCTOR_IOR[default])
+        eta_re = parse_color(d.get("eta", list(er)), channels)
+        eta_im = parse_color(d.get("k", list(ei)), channels)
+        if rough:
+            alpha, alpha_v = alpha_of(0.1)
+    elif t in ("dielectric", "thindielectric"):
+        kind = BSDF_DIELECTRIC
+        eta_ratio = (_ior(d.get("int_ior"), 1.5046)
+                     / _ior(d.get("ext_ior"), 1.000277))
+    elif t == "null":
+        kind = BSDF_NULL
+    else:
+        raise ValueError(f"unsupported bsdf type {t!r} (key {key!r})")
+    refl = parse_color(refl_spec, channels, base_dir)
+
+    tex = None
+    tex_uv = (1.0, 1.0, 0.0, 0.0)
+    if isinstance(refl_spec, dict) and refl_spec.get("type") in _TEXTURES:
+        loaded = _load_texture(refl_spec, base_dir, channels,
+                               tex_cache if tex_cache is not None else {})
+        if loaded is not None:
+            tex, tex_uv = loaded
+    return _BSDFEntry(key, kind, two_sided, refl, eta_re, eta_im, alpha,
+                      eta_ratio, alpha_v=alpha_v, tex=tex, tex_uv=tex_uv,
+                      bump_tex=bump_tex, bump_uv=bump_uv,
+                      bump_scale=bump_scale, bump_kind=bump_kind)
 
 
 class _EmitterEntry(NamedTuple):
@@ -344,6 +639,7 @@ class Scene:
         self._bsdfs: list[_BSDFEntry] = []
         self._bsdf_index: dict[str, int] = {}
         self._emitters: list[_EmitterEntry] = []
+        self._tex_cache: dict = {}
         sensor_dicts: list[tuple[dict, int]] = []  # (dict, enclosing shape)
 
         def add_bsdf(key: str, d: dict) -> int:
@@ -353,12 +649,15 @@ class Scene:
                     raise KeyError(f"bsdf ref {ref!r} not found")
                 return self._bsdf_index[ref]
             idx = len(self._bsdfs)
-            self._bsdfs.append(_parse_bsdf(key, d, C))
+            self._bsdfs.append(_parse_bsdf(key, d, C, base_dir,
+                                           self._tex_cache))
             self._bsdf_index[key] = idx
             return idx
 
         def register_nested_ids(val):
-            # Mitsuba allows an ``id`` on any nesting level
+            # Mitsuba allows an ``id`` on any nesting level (a twosided
+            # inside a bumpmap wrapper, say): each such subtree is
+            # referencable
             for cv in val.values():
                 if isinstance(cv, dict) and cv.get("type") in _BSDF_TYPES:
                     nid = cv.get("id")
@@ -392,12 +691,12 @@ class Scene:
                     ct = cv.get("type")
                     if ct == "ref" or ct in _BSDF_TYPES:
                         bsdf_idx = add_bsdf(f"{key}.{ck}", cv)
-                    elif ct == "area":
+                    elif ct in ("area", "angulararea"):
                         em_idx = len(self._emitters)
                         cutoff = float(cv.get("cutoff_angle", 20.0))
                         self._emitters.append(_EmitterEntry(
                             key=f"{key}.{ck}",
-                            kind=EM_AREA,
+                            kind=EM_AREA if ct == "area" else EM_ANGULAR_AREA,
                             radiance=parse_color(cv.get("radiance", 1.0), C),
                             to_world=from_spec(cv.get("to_world")),
                             fov=0.0,
@@ -554,6 +853,8 @@ class Scene:
                 eta_ratio=np.array([b.eta_ratio for b in self._bsdfs],
                                    np.float32),
                 alpha_v=np.array([b.alpha_v for b in self._bsdfs], np.float32),
+                **self._atlas("tex", C),
+                **self._atlas("bump", 3),
             ),
             "emitter": self._emitter_table(C, v0, e1, e2, ng, area, shape_id),
         }
@@ -564,14 +865,58 @@ class Scene:
                                   rotate=np.zeros_like(pivot), pivot=pivot)
 
         def dev(table):
-            return type(table)(*(torch.from_numpy(np.ascontiguousarray(a))
-                                 .to(self.device) for a in table))
+            return type(table)(*(
+                None if a is None
+                else torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                for a in table))
 
         accel = None
         if count > ACCEL_MIN_TRIS:
             accel = build_accel(v0, e1, e2, device=self.device)
+        bp = host["bsdf"]
         return SceneData(**{k: dev(v) for k, v in host.items()}, accel=accel,
-                         emitter_kinds=emitter_kinds(host["emitter"].kind))
+                         emitter_kinds=emitter_kinds(host["emitter"].kind),
+                         bsdf_kinds=bsdf_kinds(bp.kind, bp.two_sided))
+
+    def _atlas(self, prefix: str, channels: int) -> dict:
+        """The atlas columns of the BSDF table for the reflectance textures
+        (``prefix`` "tex") or the bump and normal maps ("bump"), or {} when
+        no BSDF has one: each distinct texture padded to the largest (h,
+        w) and stacked; the per-BSDF (h, w) drive the wrap, so the padding
+        is never sampled."""
+        img_of, name = (("tex", "textures") if prefix == "tex"
+                        else ("bump_tex", "bump_textures"))
+        if all(getattr(b, img_of) is None for b in self._bsdfs):
+            return {}
+        B = len(self._bsdfs)
+        slots: dict[int, int] = {}
+        uniq: list[np.ndarray] = []
+        ids = np.full(B, -1, np.int32)
+        hw = np.ones((B, 2), np.float32)
+        uvt = np.tile(np.array([1.0, 1.0, 0.0, 0.0], np.float32), (B, 1))
+        scale = np.zeros(B, np.float32)
+        kind = np.zeros(B, np.int32)
+        for bi, b in enumerate(self._bsdfs):
+            img = getattr(b, img_of)
+            if img is None:
+                continue
+            if id(img) not in slots:
+                slots[id(img)] = len(uniq)
+                uniq.append(img)
+            ids[bi] = slots[id(img)]
+            hw[bi] = img.shape[:2]
+            uvt[bi] = b.tex_uv if prefix == "tex" else b.bump_uv
+            scale[bi], kind[bi] = b.bump_scale, b.bump_kind
+        th = max(t.shape[0] for t in uniq)
+        tw = max(t.shape[1] for t in uniq)
+        atlas = np.zeros((len(uniq), th, tw, channels), np.float32)
+        for j, img in enumerate(uniq):
+            atlas[j, :img.shape[0], :img.shape[1]] = img
+        out = {f"{prefix}_id": ids, f"{prefix}_hw": hw, f"{prefix}_uv": uvt,
+               name: atlas}
+        if prefix == "bump":
+            out.update(bump_scale=scale, bump_kind=kind)
+        return out
 
     def _emitter_table(self, C, v0, e1, e2, ng, area, shape_id):
         E = len(self._emitters)
@@ -623,6 +968,7 @@ class Scene:
             em_tri_e2=e2[em_tri_idx].astype(np.float32),
             em_tri_ng=ng[em_tri_idx].astype(np.float32),
             em_tri_shape=shape_id[em_tri_idx].astype(np.int32),
+            em_tri_key=em_tri_key_table(em_tri_count, em_tri_cdf),
         )
 
 

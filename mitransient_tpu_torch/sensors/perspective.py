@@ -16,7 +16,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..core.math import normalize
+from ..core.math import divide, normalize
 from ..core.records import Ray
 from ..core.rng import Sampler
 from ..scene.schema import SensorConfig
@@ -78,8 +78,8 @@ def sample_rays(
     py = (pix // width).to(torch.float32) + float(oy)
 
     jitter = sampler.next_2d()  # dims 0-1
-    u = (px + jitter[:, 0]) / fw
-    v = (py + jitter[:, 1]) / fh
+    u = divide(px + jitter[:, 0], fw)
+    v = divide(py + jitter[:, 1], fh)
     d_cam = torch.stack([(1.0 - 2.0 * u) * cam.tan_half[0],
                          (1.0 - 2.0 * v) * cam.tan_half[1],
                          torch.ones_like(u)], dim=-1)

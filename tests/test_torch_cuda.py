@@ -32,6 +32,7 @@ from mitransient_tpu_torch.sensors.perspective import build_camera
 from torch_cases import (
     box_rays,
     golden_mismatch,
+    material_case,
     overlapping_rays,
     overlapping_soup,
     random_rays,
@@ -476,3 +477,36 @@ def test_small_sphere_render_on_cuda_goes_through_the_bvh_kernel(cuda, mode):
     for got, want in ((s_g, s_c), (t_g, t_c)):
         m = golden_mismatch(got, want)
         assert m["shape_ok"] and m["n_bad"] == 0, m
+
+
+@pytest.mark.cuda
+def test_math_rounds_alike_on_card_and_cpu(cuda):
+    """``core/math.py``'s sqrt, cos_sin and divide give the same bits on
+    the card as on the CPU."""
+    from mitransient_tpu_torch.core import math as tm
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.rand(1 << 20, generator=g) * 8.0 - 4.0
+    for name, f in (("sqrt", lambda a: tm.sqrt(a.abs())),
+                    ("cos", lambda a: tm.cos_sin(a)[0]),
+                    ("sin", lambda a: tm.cos_sin(a)[1]),
+                    ("divide", lambda a: tm.divide(a, 0.02))):
+        assert torch.equal(f(x.to(cuda)).cpu(), f(x)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("multipass", [False, True])
+@pytest.mark.parametrize("name", ["dielectric", "flagship"])
+def test_material_render_is_bit_identical_on_card_and_cpu(cuda, name,
+                                                           multipass):
+    """A glass cube standing on the floor sends rays to its bottom, coplanar
+    with the floor, where an ulp decides which triangle a ray hits: the
+    card renders it bit for bit as the CPU does."""
+    out = []
+    for dev in (cuda, "cpu"):
+        desc, run = material_case(mt, name)
+        s, t, stats = run(mt.load_dict(desc, device=dev), multipass)
+        out.append((s.cpu(), t.cpu(), int(stats["rays"])))
+    assert out[0][2] == out[1][2]
+    assert torch.equal(out[0][0], out[1][0]) and torch.equal(out[0][1],
+                                                              out[1][1])

@@ -8,11 +8,16 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = """
-import importlib, pkgutil, sys
+import importlib, os, pkgutil, sys, tempfile
 sys.path.insert(0, {repo!r})
 import mitransient_tpu_torch as mt
 for info in pkgutil.walk_packages(mt.__path__, "mitransient_tpu_torch."):
     importlib.import_module(info.name)
+with tempfile.TemporaryDirectory() as td:
+    path = os.path.join(td, "scene.xml")
+    with open(path, "w") as f:
+        f.write({xml!r})
+    mt.load_file(path, device="cpu")
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "mitransient_tpu."))
              or m == "mitransient_tpu")
@@ -21,10 +26,27 @@ sys.exit(1 if bad else 0)
 """
 
 
+# a rough gold box on a checkered floor, seen by a perspective sensor
+_XML = """<scene version="3.0.0">
+    <sensor type="perspective"><film type="transient_hdr_film">
+        <integer name="width" value="4"/><integer name="height" value="4"/>
+    </film></sensor>
+    <shape type="rectangle" id="floor"><bsdf type="diffuse">
+        <texture type="checkerboard" name="reflectance"/>
+    </bsdf></shape>
+    <shape type="cube" id="box"><bsdf type="roughconductor">
+        <string name="material" value="Au"/>
+    </bsdf></shape>
+</scene>
+"""
+
+
 def test_port_imports_without_jax():
-    """Every module of the port, imported in a fresh process, leaves jax
-    and mitransient_tpu out of sys.modules."""
-    res = subprocess.run([sys.executable, "-c", _PROBE.format(repo=REPO)],
+    """Every module of the port, imported in a fresh process, and a scene
+    loaded from an XML file leave jax and mitransient_tpu out of
+    sys.modules."""
+    res = subprocess.run([sys.executable, "-c",
+                          _PROBE.format(repo=REPO, xml=_XML)],
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
 
@@ -32,7 +54,8 @@ def test_port_imports_without_jax():
 def test_public_api():
     import mitransient_tpu_torch as mt
 
-    for name in ("load_dict", "cornell_box", "render", "set_variant",
+    for name in ("load_dict", "load_file", "cornell_box", "render",
+                 "set_variant",
                  "variant", "save_film_state", "load_film_state",
                  "render_aovs"):
         assert callable(getattr(mt, name)), name

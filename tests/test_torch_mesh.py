@@ -22,8 +22,7 @@ import torch
 
 import mitransient_tpu as mitr
 import mitransient_tpu_torch as mt
-from mitransient_tpu_torch.convert import scene_data_to_numpy
-from test_torch_scene import jax_leaves
+from test_torch_scene import assert_leaves_equal
 from torch_cases import golden_mismatch, small_cbox, small_sphere_cbox, uv_sphere
 
 torch.set_num_threads(1)
@@ -68,27 +67,11 @@ def _file_scene(name):
     return desc
 
 
-def _assert_leaves_equal(jsc, tsc):
-    want = jax_leaves(jsc.data)
-    got = scene_data_to_numpy(tsc.data)
-    assert set(got) <= set(want)
-    assert set(want) - set(got) <= {k for k in want if k.startswith("medium.")}
-    for k, g in got.items():
-        w = want[k]
-        assert g.shape == w.shape and g.dtype == w.dtype, k
-        if g.dtype.kind == "f" and not k.startswith("accel."):
-            np.testing.assert_allclose(
-                g, w, rtol=0, atol=1e-7 * max(float(np.abs(w).max()), 1e-30),
-                err_msg=k)
-        else:
-            np.testing.assert_array_equal(g, w, err_msg=k)
-
-
 def test_mesh_scene_leaves_equal_jax():
     desc = small_sphere_cbox(mt)
     jsc, tsc = mitr.load_dict(desc), mt.load_dict(desc, device="cpu")
     assert tsc.data.accel is not None and jsc.data.accel is not None
-    _assert_leaves_equal(jsc, tsc)
+    assert_leaves_equal(jsc, tsc)
 
 
 @pytest.mark.parametrize("fmt", ["obj_uv", "obj_big", "ply_ascii",
@@ -111,7 +94,7 @@ def test_file_mesh_leaves_equal_jax(tmp_path, fmt):
     tsc = mt.load_dict(desc, device="cpu", base_dir=str(tmp_path))
     assert tsc.data.tri.v0.shape[0] == len(faces) + 24
     assert (tsc.data.accel is not None) == (fmt == "obj_big")
-    _assert_leaves_equal(jsc, tsc)
+    assert_leaves_equal(jsc, tsc)
 
 
 def test_small_sphere_render_matches_jax_with_and_without_accel():

@@ -46,6 +46,25 @@ def jax_leaves(sd) -> dict:
     return out
 
 
+def assert_leaves_equal(jsc, tsc):
+    """The port's scene leaves equal the JAX loader's: the same keys (but
+    media), integers, bools and the accel's tables exactly, other floats
+    within 1e-7 of the leaf's max."""
+    want = jax_leaves(jsc.data)
+    got = scene_data_to_numpy(tsc.data)
+    assert set(got) <= set(want)
+    assert set(want) - set(got) <= {k for k in want if k.startswith("medium.")}
+    for k, g in got.items():
+        w = want[k]
+        assert g.shape == w.shape and g.dtype == w.dtype, k
+        if g.dtype.kind == "f" and not k.startswith("accel."):
+            np.testing.assert_allclose(
+                g, w, rtol=0, atol=1e-7 * max(float(np.abs(w).max()), 1e-30),
+                err_msg=k)
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=k)
+
+
 @pytest.fixture(params=["rgb", "mono"])
 def both_scenes(request):
     old = mitr.variant()
@@ -104,13 +123,23 @@ def test_triangle_table_of_loaded_and_carried_scenes(both_scenes):
 
 
 def test_scene_data_from_numpy_refuses_what_is_not_ported():
+    """Only media are refused (ROADMAP item 15); other BSDF kinds, two-sided
+    rows and the texture columns load."""
     leaves = jax_leaves(mitr.load_dict(mitr.cornell_box()).data)
-    bad = dict(leaves, **{"bsdf.kind": np.array([0, 1, 0], np.int32)})
-    with pytest.raises(NotImplementedError):
-        scene_data_from_numpy(bad, device="cpu")
-    with pytest.raises(NotImplementedError):
-        scene_data_from_numpy(dict(leaves, **{"bsdf.tex_id": np.zeros(3)}),
+    med = leaves["tri.medium_id"].copy()
+    med[3] = 0
+    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
+        scene_data_from_numpy(dict(leaves, **{"tri.medium_id": med}),
                               device="cpu")
+    B = leaves["bsdf.kind"].shape[0]
+    kinds = np.arange(B, dtype=np.int32) % 6
+    sd = scene_data_from_numpy(
+        dict(leaves, **{"bsdf.kind": kinds,
+                        "bsdf.two_sided": np.arange(B) % 2 == 0,
+                        "bsdf.tex_id": np.full(B, -1, np.int32)}),
+        device="cpu")
+    assert sd.bsdf_kinds == tscene.BSDFKinds(tuple(sorted(set(kinds))), True)
+    assert sd.bsdf.tex_id.tolist() == [-1] * B and sd.bsdf.textures is None
     sd = scene_data_from_numpy({k: v for k, v in leaves.items()
                                 if not k.startswith("geom.")}, device="cpu")
     assert sd.geom is None
@@ -144,19 +173,34 @@ def test_configs_match_jax():
 
 
 @pytest.mark.parametrize("change", [
-    lambda d: d["white"].update(type="conductor"),
-    lambda d: d["light"]["emitter"].update(type="angulararea"),
-    lambda d: d["white"].update(type="roughconductor"),
     lambda d: d["integrator"].update(type="transient_prbvolpath"),
-    lambda d: d["white"]["reflectance"].update(type="checkerboard"),
     lambda d: d["small-box"].update(medium={"type": "homogeneous"}),
-    lambda d: d["white"]["reflectance"].update(type="bitmap"),
 ])
 def test_unported_plugins_raise(change):
     desc = mt.cornell_box()
     change(desc)
-    with pytest.raises(NotImplementedError, match="ROADMAP item"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
         mt.load_dict(desc, device="cpu")
+
+
+@pytest.mark.parametrize("change", [
+    lambda d: d["white"].update(type="conductor"),
+    lambda d: d["light"]["emitter"].update(type="angulararea"),
+    lambda d: d["white"].update(type="roughconductor"),
+    lambda d: d["white"]["reflectance"].update(type="checkerboard"),
+    lambda d: d["white"]["reflectance"].update(type="bitmap"),
+], ids=["conductor", "angulararea", "roughconductor", "checkerboard",
+        "bitmap"])
+def test_ported_plugins_load_and_match_jax(change):
+    """The plugins an earlier port refused load with the JAX loader's
+    leaves (a bitmap without a file is the untextured mean colour)."""
+    desc = mt.cornell_box()
+    change(desc)
+    jsc = mitr.load_dict(copy.deepcopy(desc))
+    tsc = mt.load_dict(desc, device="cpu")
+    assert_leaves_equal(jsc, tsc)
+    assert tsc.data.bsdf_kinds.kinds == jsc.data.bsdf.ks.kinds
+    assert tsc.data.emitter_kinds == jsc.data.emitter.ks.kinds
 
 
 @pytest.mark.parametrize("change", [

@@ -396,3 +396,229 @@ def nlos_case(pkg, name: str):
     elif name not in ("account", "filter_depth"):
         raise KeyError(name)
     return d, run
+
+
+# --------------------------------------------------------------------------
+# Materials, textures and the angulararea emitter
+# --------------------------------------------------------------------------
+
+GOLD_GGX = {"type": "roughconductor", "material": "Au", "alpha_u": 0.3,
+            "alpha_v": 0.3}  # the reference's gold (cbox_polarized.xml:53-54)
+
+
+def materials_cbox(pkg, w=256, h=256, bins=300, max_depth=8) -> dict:
+    """The materials flagship: cornell_box() (bins of 0.02 from OPL 3.5,
+    rr_depth 5) with a gold GGX large box and a glass small box (a
+    dielectric of the default IORs)."""
+    d = small_cbox(pkg, w, h, bins, max_depth)
+    d["large-box"]["bsdf"] = dict(GOLD_GGX)
+    d["small-box"]["bsdf"] = {"type": "dielectric"}
+    return d
+
+
+def room(emitter: dict, res: int, bins: int) -> dict:
+    """A gray room with a downward-facing ceiling light panel (a copy of
+    examples/angulararea_emitter/render_angular_vs_area.py:room)."""
+    return {
+        "type": "scene",
+        "integrator": {"type": "transient_path", "max_depth": 8,
+                       "temporal_filter": "box"},
+        "sensor": {
+            "type": "perspective",
+            "fov": 45.0,
+            "to_world": {"look_at": {"origin": [0.0, 1.0, 3.5],
+                                     "target": [0.0, 0.5, 0.0],
+                                     "up": [0, 1, 0]}},
+            "film": {"type": "transient_hdr_film", "width": res,
+                     "height": res, "temporal_bins": bins,
+                     "start_opl": 3.0, "bin_width_opl": 0.08},
+        },
+        "floor": {
+            "type": "rectangle",
+            "to_world": [{"rotate": {"axis": [1, 0, 0], "angle": -90}},
+                         {"scale": 4.0}],
+            "bsdf": {"type": "diffuse",
+                     "reflectance": {"type": "rgb",
+                                     "value": [0.85, 0.85, 0.85]}},
+        },
+        "back": {
+            "type": "rectangle",
+            "to_world": [{"translate": [0.0, 2.0, -3.0]}, {"scale": 4.0}],
+            "bsdf": {"type": "diffuse",
+                     "reflectance": {"type": "rgb",
+                                     "value": [0.85, 0.85, 0.85]}},
+        },
+        "light": {
+            "type": "rectangle",
+            "to_world": [{"translate": [0.0, 2.5, 0.0]},
+                         {"rotate": {"axis": [1, 0, 0], "angle": 90}},
+                         {"scale": 0.4}],
+            "bsdf": {"type": "diffuse",
+                     "reflectance": {"type": "rgb", "value": [0, 0, 0]}},
+            "emitter": emitter,
+        },
+    }
+
+
+ROOM_RADIANCE = {"type": "rgb", "value": [18.387, 10.9873, 2.75357]}
+ROOM_EMITTERS = {  # the example's two lights (angular_1light.xml:59-64)
+    "area": {"type": "area", "radiance": ROOM_RADIANCE},
+    "angulararea": {"type": "angulararea", "radiance": ROOM_RADIANCE,
+                    "cutoff_angle": 35.0, "beam_width": 20.0},
+}
+
+
+def room_spot_share(steady: np.ndarray) -> float:
+    """The share of the floor's energy under the light: the steady image's
+    bottom rows (the floor) within the middle third of the columns."""
+    h, w, _ = steady.shape
+    floor = steady[int(0.7 * h):].sum(axis=-1)
+    return float(floor[:, w // 3:2 * w // 3].sum() / max(floor.sum(), 1e-30))
+
+
+def _diffuse(rgb):
+    return {"type": "diffuse", "reflectance": {"type": "rgb", "value": rgb}}
+
+
+# the small box's BSDF (or, with a key, another shape's) in each lobe and
+# wrapper case; each name of MATERIAL_CASES not here builds its own scene
+_BOX_BSDFS = {
+    "conductor": {"type": "conductor"},
+    "mirror": {"type": "mirror", "material": "Cu"},
+    "roughconductor": {"type": "roughconductor", "material": "Au",
+                       "alpha": 0.2},
+    "roughconductor_aniso": {"type": "roughconductor", "material": "Ag",
+                             "alpha_u": 0.4, "alpha_v": 0.05},
+    "plastic": {"type": "plastic",
+                "diffuse_reflectance": {"type": "rgb",
+                                        "value": [0.2, 0.4, 0.7]}},
+    "roughplastic": {"type": "roughplastic", "alpha": 0.2, "int_ior": 1.6,
+                     "diffuse_reflectance": {"type": "rgb",
+                                             "value": [0.7, 0.4, 0.2]}},
+    "dielectric": {"type": "dielectric"},
+    "thindielectric": {"type": "thindielectric", "int_ior": 1.33},
+    "null": {"type": "null"},
+    "mask": {"type": "mask", "opacity": 0.5,
+             "bsdf": {"type": "roughconductor", "material": "Al",
+                      "alpha": 0.15}},
+    "blendbsdf": {"type": "blendbsdf", "weight": 0.3,
+                  "coat": {"type": "plastic"},
+                  "base": _diffuse([0.3, 0.6, 0.3])},
+}
+
+# the cases that render the box scene of materials_cbox() or a cube of
+# another BSDF standing on the floor: their rays can reach the cube's
+# bottom from inside, where it is coplanar with the floor (see
+# MATERIAL_TIES)
+MATERIAL_CASES = (
+    "conductor", "mirror", "roughconductor", "roughconductor_aniso",
+    "plastic", "roughplastic", "dielectric", "thindielectric", "null",
+    "twosided", "mask", "blendbsdf", "checkerboard", "bumpmap",
+    "normalmap", "angulararea", "emissive_sphere", "nlos_rough_wall",
+    "flagship")
+# the elements of the steady image (of 12 x 12 x 3 = 432) out of
+# test_golden's rule between the JAX package on the CPU and the port, in
+# the regen render and the multi-pass render: rays that leave a
+# transmissive cube through its bottom meet the floor in the same plane,
+# and XLA's FMA-contracted t and the port's separately rounded one pick
+# different triangles there (ROADMAP queue 3); with the cube lifted off
+# the floor by 2 mm no element is out.  The transient films agree with
+# none out.  The paths that part change the ray count by up to 0.3 %.
+MATERIAL_TIES = {"dielectric": (14, 12), "thindielectric": (6, 4),
+                 "null": (4, 6), "flagship": (15, 16)}
+MATERIAL_TIE_RAYS = 3e-3
+
+
+def material_case(pkg, name: str):
+    """Configuration ``name`` of MATERIAL_CASES for the package ``pkg`` ->
+    (scene dict, run(scene, multipass) -> (steady, transient, stats)).  A
+    12 x 12 box of 120 bins (the cbox_rgb golden's) and depth 6 unless
+    said otherwise; the regen
+    render at spp 8, the multi-pass render (``regenerate=False``) at spp 4.
+
+    The lobes and wrappers replace the small box's BSDF (mask and
+    blendbsdf unwrap to their inner lobe); twosided: a two-sided rough
+    plastic panel in the small box's place, turned so that the camera
+    sees its back; checkerboard: a red and green checkered floor with an
+    offset and scaled ``to_uv`` (negative uv); bumpmap / normalmap: a
+    checkerboard bump map on the floor and a checkerboard normal map on
+    the back wall; angulararea: ``room`` at 12 x 12 with the example's
+    angulararea light; emissive_sphere: a rough gold 48 x 48 UV sphere
+    (4,512 triangles: the accel and the BVH kernel) that is an area light
+    beside the ceiling light, so that NEE picks among 4,514 emitter
+    triangles in two segments; nlos_rough_wall: ``nlos_scene`` with a rough
+    conductor relay wall; flagship: ``materials_cbox`` at 12 x 12."""
+
+    def run_box(spp_regen=8, spp_mp=4):
+        def run(scene, multipass):
+            if multipass:
+                return pkg.render(scene, spp=spp_mp, seed=1,
+                                  regenerate=False, return_stats=True)
+            return pkg.render(scene, spp=spp_regen, seed=0,
+                              return_stats=True)
+        return run
+
+    d = small_cbox(pkg, 12, 12, 120, 6)
+    run = run_box()
+    if name in _BOX_BSDFS:
+        d["small-box"]["bsdf"] = dict(_BOX_BSDFS[name])
+    elif name == "twosided":
+        d["small-box"] = {
+            "type": "rectangle",
+            "to_world": [{"translate": [0.3, -0.55, 0.3]},
+                         {"rotate": {"axis": [1, 0, 0], "angle": -40}},
+                         {"rotate": {"axis": [0, 1, 0], "angle": 180}},
+                         {"scale": 0.35}],
+            "bsdf": {"type": "twosided",
+                     "bsdf": {"type": "roughplastic", "alpha": 0.3}}}
+    elif name == "checkerboard":
+        d["floor"]["bsdf"] = {"type": "diffuse", "reflectance": {
+            "type": "checkerboard",
+            "color0": {"type": "rgb", "value": [0.9, 0.05, 0.05]},
+            "color1": {"type": "rgb", "value": [0.05, 0.9, 0.05]},
+            "to_uv": {"translate": [-0.3, 0.2, 0.0],
+                      "scale": [3.0, 3.0, 1.0]}}}
+    elif name == "bumpmap":
+        d["floor"]["bsdf"] = {
+            "type": "bumpmap", "scale": 0.02,
+            "map": {"type": "checkerboard", "color0": 0.0, "color1": 1.0,
+                    "to_uv": {"scale": [4.0, 4.0, 1.0]}},
+            "bsdf": _diffuse([0.8, 0.8, 0.8])}
+        d["back"]["bsdf"] = {
+            "type": "normalmap",
+            "normalmap": {"type": "checkerboard",
+                          "color0": {"type": "rgb", "value": [0.5, 0.5, 1.0]},
+                          "color1": {"type": "rgb", "value": [0.8, 0.6, 0.8]},
+                          "to_uv": {"scale": [3.0, 3.0, 1.0]}},
+            "bsdf": {"type": "roughplastic", "alpha": 0.25}}
+    elif name == "normalmap":
+        d["floor"]["bsdf"] = {
+            "type": "normalmap",
+            "normalmap": {"type": "checkerboard",
+                          "color0": {"type": "rgb", "value": [0.3, 0.5, 0.9]},
+                          "color1": {"type": "rgb", "value": [0.7, 0.4, 0.9]},
+                          "to_uv": {"scale": [2.0, 2.0, 1.0]}},
+            "bsdf": _diffuse([0.8, 0.8, 0.8])}
+    elif name == "angulararea":
+        d = room(dict(ROOM_EMITTERS["angulararea"]), 12, 48)
+    elif name == "emissive_sphere":
+        d = with_sphere(d, 48, 48)
+        d["small-box"]["bsdf"] = {"type": "roughconductor", "material": "Au",
+                                  "alpha": 0.25}
+        d["small-box"]["emitter"] = {
+            "type": "area", "radiance": {"type": "rgb",
+                                         "value": [0.8, 0.5, 0.2]}}
+    elif name == "nlos_rough_wall":
+        d = nlos_scene()
+        d["relay_wall"]["bsdf"] = {"type": "roughconductor", "material": "Al",
+                                   "alpha": 0.3}
+
+        def run(scene, multipass):
+            pkg.nlos.focus_emitter_at_relay_wall_pixel([2.0, 2.0], scene)
+            return pkg.render(scene, spp=16, seed=0, return_stats=True,
+                              **({"max_lanes": 4 * 16} if multipass else {}))
+    elif name == "flagship":
+        d = materials_cbox(pkg, 12, 12, 120, 6)
+    else:
+        raise KeyError(name)
+    return d, run
