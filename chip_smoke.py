@@ -129,15 +129,52 @@ Phases, each of which raises on failure:
     K3 launches once a loop iteration or bounce, and K1 and K2 (the BVH
     kernel twice, with an accel) at least once.
 
+23. PRB backward (``render_backward`` of ``transient_path``): the
+    ``gradients`` golden config on the card against
+    ``tests/goldens/gradients.npz`` and against the port on the host CPU
+    (test_golden's rule, no element out); ``optimize_reflectance``'s full
+    configuration (64x64, 200 bins of 0.04 from OPL 0, depth 4, spp 256 =
+    2^20 lanes), 3 Adam steps (``torch.optim.Adam``, lr 5e-2, seeds 0-2),
+    each a multi-pass render and a ``render_backward``, with the loss,
+    max|theta - true|, the seconds of each and the peak memory, and at
+    step 0 the gradient by full AD beside PRB's; ``render_backward`` of
+    the flagship frame (256x256,
+    300 bins, depth 8, rr_depth 5, spp 128 = 2^23 lanes in one pass): K1
+    and K2 launch once a bounce of each of the two sweeps and K3 never,
+    wall and peak memory of a second call, the share of a third call spent
+    in autograd's backward, and a fourth under torch.profiler with the
+    device time of the table-gradient reductions (``index_add_``); the
+    4,512-triangle sphere config through the BVH kernel, card against CPU
+    (tables within 1e-4 of their largest value: the reductions add by
+    atomics on the card).
+24. Forward mode: ``forward_time_gradients``' full configuration
+    (128x128, 300 bins of 8/300 from 0, depth 4, spp 512 = 2^23 lanes)
+    timed on a second call, K3 launching once a bounce for the
+    derivative film; the test_grad box's derivative video on the card
+    against the CPU (test_golden's rule).
+25. Full AD and K3's autograd Function: on the NLOS single capture's
+    bounce-1 events, the Function's backward (a gather) bit-equal to the
+    plain version's ``index_add_`` autograd on the card and its jvp (K3
+    on the tangents) bit-equal to the plain version's forward AD on the
+    host CPU, the gather timed beside its bound and one ``index_select``;
+    ``render_backward`` (full AD) of the 32x32 single capture at spp 2048
+    (2 chunks of 2^20 lanes; K3 once a bounce of each) with its wall and
+    peak memory; the flip-free geometry scenes (``GEOMETRY_CASES``), the
+    GGX-alpha and texel cases (PRB and full AD) card against CPU.
+
 Kernel times (``_time_ms``) are means of launches made back to back, so
 that the wrapper's host work overlaps the card's as in a render.  It
 prints, as its last three lines, the card's name and power limit, one
 JSON object with each kernel's launches (in the regen flagship or
 ``cbox_mesh`` render; K1-K3 also in the multi-pass flagship render,
 ``multipass_launches``, in the NLOS single capture, ``nlos_launches``,
-and in the materials flagship, ``materials_launches``), error, times and
-bound (K1-K3 also on the inputs of phases 16, 19 and 20, keys ``nlos_*``,
-``exhaustive_*`` and ``materials_*``), and ``{"ok": true,
+and in the materials flagship, ``materials_launches``; in the gradient
+phases ``prb_backward_launches``, ``forward_launches`` and
+``fullad_launches``), error, times and bound (K1-K3 also on the inputs of
+phases 16, 19 and 20, keys ``nlos_*``, ``exhaustive_*`` and
+``materials_*``; K3 also its Function's ``backward_max_abs_err``,
+``jvp_max_abs_err`` and the backward gather's ``gather_*`` times), and
+``{"ok": true,
 "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, it exits with an error.  Nothing here
 imports jax.
@@ -174,6 +211,10 @@ EXHAUSTIVE = dict(spp=512, lasers=8)  # 32 x 32 scan x 8 x 8 lasers
 MATERIALS_EVENTS_ITERATION = 8  # the materials flagship's held iteration
 ROOM = dict(res=200, bins=200, spp=256)  # the angulararea example's size
 PROFILE_SPP = 64  # the profiled render: the profiler slows the host
+GRAD_FLAGSHIP = dict(spp=128, seed=0)  # render_backward: 2^23 lanes, 1 pass
+# card against CPU, gradient tables: the table-gradient reductions add by
+# atomics on the card, in lane order on the CPU
+GRAD_TABLE_ATOL = 1e-4
 BVH_SUBSET = 1 << 16  # rays of the kernel-against-plain comparison
 K1_MISMATCH_SHARE = 1e-4  # BVH kernel (Woop) against K1 (Moller-Trumbore)
 # the K1 / BVH crossover: UV spheres (rings, segments) of 64-8192
@@ -1551,6 +1592,394 @@ def materials_card_against_cpu(mt, cases, dev):
                                          "disagree")
 
 
+def _tables_close(label, got, want, atol=GRAD_TABLE_ATOL):
+    """Two DiffParams (card, CPU) field by field: within ``atol`` of each
+    table's largest |value|.  -> the largest such share."""
+    worst = 0.0
+    for f in got._fields:
+        g, w = getattr(got, f), getattr(want, f)
+        if (g is None) != (w is None):
+            raise AssertionError(f"{label}: table {f} present on one side")
+        if g is None:
+            continue
+        scale = max(float(w.abs().max()), 1e-30)
+        share = float((g.cpu() - w.cpu()).abs().max()) / scale
+        worst = max(worst, share)
+        if not share <= atol:
+            raise AssertionError(f"{label}: table {f} differs by {share:.3g} "
+                                 f"of its largest value (allowed {atol})")
+    return worst
+
+
+def _grad_in(film_cfg, rng, steady=False):
+    """(grad_steady, grad_transient) for a film: uniform [0, 1) adjoints
+    made by numpy from ``rng`` (the steady one only with ``steady``)."""
+    import numpy as np
+
+    h, w, T = film_cfg.height, film_cfg.width, film_cfg.temporal_bins
+    gs = rng.random((h, w, 3)).astype(np.float32) if steady else None
+    return gs, rng.random((h, w, T, 3)).astype(np.float32)
+
+
+def _timed(fn):
+    """(result, seconds) of ``fn()`` up to a synchronize, with the peak
+    memory it allocated (GiB)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def prb_backward_phase(mt, cases, dev):
+    """Phase 23: PRB backward.  Returns the K1-K3 launches of the flagship
+    backward."""
+    import numpy as np
+    import torch
+
+    from mitransient_tpu_torch.integrators import prb
+    from mitransient_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from mitransient_tpu_torch.ops import bvh
+
+    # 1. the gradients golden, card against its golden and the CPU
+    golden = np.load(os.path.join(ROOT, "tests", "goldens",
+                                  "gradients.npz"))
+    grad_in = (np.ones((8, 8, 3), np.float32),
+               np.ones((8, 8, 100, 3), np.float32))
+    tabs = {}
+    for d in (dev, "cpu"):
+        scene = mt.load_dict(cases.gradients_cbox(mt), device=d)
+        tabs[str(d)] = mt.render_backward(scene, grad_in, **cases.GRADIENTS)[
+            "__tables__"]
+    for k in ("bsdf_reflectance", "emitter_radiance"):
+        for label, got in (("golden", golden[k]),
+                           ("CPU", getattr(tabs["cpu"], k).numpy())):
+            m = cases.golden_mismatch(getattr(tabs[str(dev)], k).cpu().numpy(),
+                                      got)
+            print(f"gradients {k} on the card vs {label}: {m}")
+            if not (m["shape_ok"] and m["n_bad"] == 0):
+                raise AssertionError(f"gradients {k}: card against {label}")
+
+    # 2. optimize_reflectance's full configuration, 3 Adam steps
+    cfg = cases.OPTIMIZE_REFLECTANCE
+    scene = mt.load_dict(cases.time_window_cbox(mt, cfg["res"], cfg["bins"]),
+                         device=dev)
+    path = "white.reflectance.value"
+    params = mt.traverse(scene)
+    true_val = params[path].clone()
+    _s, target = mt.render(scene, spp=cfg["spp"], seed=cfg["target_seed"])
+    theta = torch.tensor(cfg["start"], device=dev, requires_grad=True)
+    opt = torch.optim.Adam([theta], lr=cfg["lr"])
+    err0 = float((theta.detach() - true_val).abs().max())
+    print(f"optimize_reflectance ({cfg['res']}x{cfg['res']}, {cfg['bins']} "
+          f"bins, depth 4, spp {cfg['spp']} = {cfg['res'] ** 2 * cfg['spp']} "
+          f"lanes): start max|theta - true| {err0:.4f}")
+    for step in range(3):
+        params[path] = theta.detach()
+        params.update()
+        (_s, img), t_render, _m = _timed(lambda: mt.render(
+            scene, spp=cfg["spp"], seed=step, regenerate=False))
+        adj = (2.0 / img.numel()) * (img - target)
+        grads, t_back, peak = _timed(lambda: mt.render_backward(
+            scene, (None, adj), spp=cfg["spp"], seed=step))
+        loss = float(((img - target) ** 2).mean())
+        if step == 0:
+            # the same gradient by full AD: each splat's adjoint at its own
+            # bin, where PRB reads it at the vertex's
+            exact, t_full, peak_full = _timed(lambda: mt.render_backward(
+                scene, (None, adj), spp=cfg["spp"], seed=step,
+                method="fullad")[path])
+            print(f"optimize_reflectance step 0 gradient: PRB "
+                  f"{grads[path].cpu().numpy()}, full AD "
+                  f"{exact.cpu().numpy()} ({t_full:.4f} s, peak memory "
+                  f"{peak_full:.2f} GiB)")
+        theta.grad = grads[path].clone()
+        opt.step()
+        with torch.no_grad():
+            theta.clamp_(0.0, 1.0)
+        err = float((theta.detach() - true_val).abs().max())
+        print(f"optimize_reflectance step {step} (seed {step}): loss "
+              f"{loss:.6e}, max|theta - true| {err:.4f}, render "
+              f"{t_render:.4f} s, render_backward {t_back:.4f} s, peak "
+              f"memory {peak:.2f} GiB")
+        if not np.isfinite(loss) or not torch.isfinite(theta).all():
+            raise AssertionError("optimize_reflectance: non-finite step")
+
+    # 3. render_backward on the flagship frame, 2^23 lanes in one pass
+    scene = mt.load_dict(mt.cornell_box(), device=dev)
+    film_cfg = scene.sensors[0].film
+    rng = np.random.default_rng(11)
+    grad_in = _grad_in(film_cfg, rng, steady=True)
+    lanes = film_cfg.width * film_cfg.height * GRAD_FLAGSHIP["spp"]
+    reset_launch_counts()
+    g1, wall1, peak1 = _timed(lambda: mt.render_backward(
+        scene, grad_in, **GRAD_FLAGSHIP))
+    counts = launch_counts()
+    depth = scene.integrator.max_depth
+    print(f"flagship render_backward ({lanes} lanes, depth {depth}, rr_depth "
+          f"{scene.integrator.rr_depth}) call 1: {wall1:.3f} s, launches "
+          f"{counts}, peak memory {peak1:.2f} GiB")
+    if (counts.get("closest_hit") != 2 * depth
+            or counts.get("ray_test") != 2 * depth
+            or "splat_accumulate" in counts):
+        raise AssertionError(f"flagship backward: launches {counts}, "
+                             f"expected K1 and K2 {2 * depth} times each")
+    for f in g1["__tables__"]._fields:
+        v = getattr(g1["__tables__"], f)
+        if v is not None and not torch.isfinite(v).all():
+            raise AssertionError(f"flagship backward: {f} not finite")
+    g2, wall2, peak2 = _timed(lambda: mt.render_backward(
+        scene, grad_in, **GRAD_FLAGSHIP))
+    print(f"flagship render_backward call 2: {wall2:.3f} s -> "
+          f"{lanes * 2 / wall2 / 1e6:.2f} M lanes/s over both sweeps, peak "
+          f"memory {peak2:.2f} GiB")
+    # call 3: the time in autograd's backward (table_grads), synchronized
+    spent = []
+    table_grads = prb.table_grads
+
+    def timed_table_grads(obj, leaves):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = table_grads(obj, leaves)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    prb.table_grads = timed_table_grads
+    try:
+        _g3, wall3, _p = _timed(lambda: mt.render_backward(
+            scene, grad_in, **GRAD_FLAGSHIP))
+    finally:
+        prb.table_grads = table_grads
+    print(f"flagship render_backward call 3 (synchronized around autograd): "
+          f"{wall3:.3f} s, autograd's backward {sum(spent):.4f} s in "
+          f"{len(spent)} bounces = {sum(spent) / wall3:.3f} of the call")
+    # call 4 under the profiler: the table-gradient reductions' share
+    _profile_backward(mt, scene, grad_in)
+
+    # 4. the 4,512-triangle sphere config through the BVH kernel
+    tabs = {}
+    for d in (dev, "cpu"):
+        sc = mt.load_dict(cases.small_sphere_cbox(mt), device=d)
+        reset_launch_counts()
+        tabs[str(d)] = mt.render_backward(
+            sc, _grad_in(sc.sensors[0].film, np.random.default_rng(12)),
+            spp=8, seed=0)["__tables__"]
+        if d == dev:
+            sphere_counts = launch_counts()
+    worst = _tables_close("sphere backward", tabs[str(dev)], tabs["cpu"])
+    print(f"small sphere render_backward on the card: launches "
+          f"{sphere_counts}; tables against the CPU within {worst:.3g} of "
+          "their largest value")
+    if sphere_counts.get(f"bvh_query_{bvh.BVH_MODE}", 0) < 2 * 2 * 6:
+        raise AssertionError(f"sphere backward: launches {sphere_counts}")
+    return counts
+
+
+def _profile_backward(mt, scene, grad_in):
+    """One flagship render_backward under torch.profiler: device time by
+    kernel group, the table-gradient reductions (``index_add_``'s
+    ``indexFunc*`` kernels: the backward of every table gather) apart."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        mt.render_backward(scene, grad_in, **GRAD_FLAGSHIP)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    groups, by_name = {}, {}
+    for e in kernels:
+        us = e.time_range.elapsed_us()
+        g = ("table_grad_reduction" if "indexFunc" in e.name
+             else "ray_kernels" if ("hit_kernel" in e.name
+                                    or "bvh_" in e.name) else "other")
+        groups[g] = groups.get(g, 0.0) + us
+        by_name[e.name] = by_name.get(e.name, 0.0) + us
+    total = sum(groups.values())
+    if not total:
+        raise AssertionError("the profiled backward shows no device time")
+    print(f"flagship render_backward profiled: wall {wall:.3f} s, device "
+          f"time {total / 1e6:.4f} s in {len(kernels)} kernels; by group: "
+          + ", ".join(f"{g} {t / 1e3:.2f} ms ({t / total:.3f})"
+                      for g, t in sorted(groups.items())))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print("  largest kernels: " + "; ".join(
+        f"{n[:60]} {t / 1e3:.2f} ms" for n, t in top))
+
+
+def forward_mode_phase(mt, cases, dev):
+    """Phase 24: forward mode.  Returns the launches of the
+    forward_time_gradients render."""
+    import numpy as np
+
+    from mitransient_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    cfg = cases.FORWARD_TIME_GRADIENTS
+    scene = mt.load_dict(cases.time_window_cbox(mt, cfg["res"], cfg["bins"]),
+                         device=dev)
+    tangent = {"green.reflectance.value": [1.0, 1.0, 1.0]}
+    lanes = cfg["res"] ** 2 * cfg["spp"]
+    reset_launch_counts()
+    (ds, dt), wall1, peak1 = _timed(lambda: mt.render_forward(
+        scene, tangent, spp=cfg["spp"], seed=0))
+    counts = launch_counts()
+    depth = scene.integrator.max_depth
+    (_ds, _dt), wall2, peak2 = _timed(lambda: mt.render_forward(
+        scene, tangent, spp=cfg["spp"], seed=1))
+    print(f"forward_time_gradients ({cfg['res']}x{cfg['res']}, {cfg['bins']} "
+          f"bins, depth {depth}, spp {cfg['spp']} = {lanes} lanes): call 1 "
+          f"{wall1:.3f} s, launches {counts}; call 2 (seed 1) {wall2:.3f} s, "
+          f"peak memory {peak2:.2f} GiB; d_steady sum {float(ds.sum()):.6g}, "
+          f"d_transient sum {float(dt.sum()):.6g}")
+    if counts != {"closest_hit": 2 * depth, "ray_test": 2 * depth,
+                  "splat_accumulate": depth}:
+        raise AssertionError(f"forward replay: launches {counts}, expected "
+                             f"K3 once a bounce ({depth})")
+    if not (np.isfinite(dt.cpu().numpy()).all() and float(dt.sum()) > 0):
+        raise AssertionError("forward_time_gradients: non-finite or no "
+                             "derivative")
+    out = []
+    for d in (dev, "cpu"):
+        sc = mt.load_dict(cases.grad_cbox(mt), device=d)
+        out.append([a.cpu().numpy() for a in mt.render_forward(
+            sc, {"white.reflectance.value": [1.0, 1.0, 1.0]},
+            spp=cases.GRAD_SPP, seed=0)])
+    for k, got, want in zip(("d_steady", "d_transient"), out[0], out[1]):
+        m = cases.golden_mismatch(got, want)
+        print(f"test_grad box render_forward {k}, card against CPU: {m}")
+        if not (m["shape_ok"] and m["n_bad"] == 0):
+            raise AssertionError(f"forward {k}: card and CPU disagree")
+    return counts
+
+
+def full_ad_phase(mt, cases, dev):
+    """Phase 25: full AD and K3's autograd Function.  Returns (the K3
+    Function's errors and the gather's times, the NLOS full-AD launches)."""
+    import numpy as np
+    import torch
+    from torch.autograd import forward_ad as fwAD
+
+    from mitransient_tpu_torch.film import transient_film as tf
+    from mitransient_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    # 1. the Function on the NLOS single capture's bounce-1 events
+    scene = mt.load_dict(cases.nlos_scene(sx=NLOS_SCAN, sy=NLOS_SCAN),
+                         device=dev)
+    mt.nlos.focus_emitter_at_relay_wall_pixel([NLOS_SCAN / 2] * 2, scene)
+    hw = NLOS_SCAN ** 2
+    with capture_bounce({}) as kept:
+        mt.render(scene, **NLOS)
+    bins, vals = kept["events"][:2]
+    shape = (vals.shape[1], scene.sensors[0].film.temporal_bins + 1, hw)
+    lanes = bins.shape[0] // hw
+    rng = np.random.default_rng(13)
+    w = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+    v = vals.clone().requires_grad_()
+    film = tf.SplatEvents.apply(torch.zeros(shape, device=dev), bins,
+                                v * 1.0, None, None, lanes)
+    (g_fn,) = torch.autograd.grad((film * w).sum(), v)
+    p = vals.clone().requires_grad_()
+    plain = torch.zeros(shape, device=dev)
+    tf._scatter_layout(plain, hw, bins, p * 1.0)
+    (g_plain,) = torch.autograd.grad((plain * w).sum(), p)
+    bwd_err = float((g_fn - g_plain).abs().max())
+    if not torch.equal(g_fn, g_plain):
+        raise AssertionError(f"K3 Function backward differs from the plain "
+                             f"version's autograd ({bwd_err})")
+    tan = torch.from_numpy(rng.normal(size=vals.shape).astype(np.float32))
+    with fwAD.dual_level():
+        out = tf.SplatEvents.apply(torch.zeros(shape, device=dev), bins,
+                                   fwAD.make_dual(vals, tan.to(dev)), None,
+                                   None, lanes)
+        t_card = fwAD.unpack_dual(out).tangent.cpu()
+        ref = torch.zeros(shape)
+        tf._scatter_layout(ref, hw, bins.cpu(),
+                           fwAD.make_dual(vals.cpu(), tan))
+        t_cpu = fwAD.unpack_dual(ref).tangent
+    jvp_err = float((t_card - t_cpu).abs().max())
+    if not torch.equal(t_card, t_cpu):
+        raise AssertionError(f"K3 Function jvp differs from the plain "
+                             f"version's forward AD on the CPU ({jvp_err})")
+    # the backward gather beside its bound: the film sectors the events
+    # land in read once, the bins read once, the (N, C) cotangent written
+    sectors, _b = splat_bound([bins, vals], hw, shape[1])
+    gather_bound = _bound(32 * sectors + bins.numel() * 4 + vals.numel() * 4,
+                          0)
+    gfilm = w
+    idx = ((torch.arange(shape[0], device=dev)[None, :] * (shape[1] * hw))
+           + (bins.long() * hw + torch.arange(bins.shape[0], device=dev)
+              % hw)[:, None]).reshape(-1)
+    flat = gfilm.reshape(-1)
+    k3fn = dict(
+        backward_max_abs_err=bwd_err, jvp_max_abs_err=jvp_err,
+        gather_ms=_time_ms(lambda: tf.gather_cells(gfilm, bins)),
+        gather_bound_ms=gather_bound[0], gather_bound_by=gather_bound[1],
+        gather_library_ms=_time_ms(lambda: flat.index_select(0, idx)))
+    print(f"K3 Function on the NLOS bounce-{NLOS_EVENTS_BOUNCE} events "
+          f"({bins.shape[0]} lanes, {hw} pixels): backward bit-equal to the "
+          "plain version's index_add_ autograd on the card, jvp bit-equal to "
+          "its forward AD on the CPU; the backward gather "
+          f"{k3fn['gather_ms']:.4f} ms, one index_select "
+          f"{k3fn['gather_library_ms']:.4f} ms, bound "
+          f"{gather_bound[0]:.4f} ms ({gather_bound[1]}, {sectors} sectors)")
+
+    # 2. full AD of the 32 x 32 single capture, spp 2048 (2 chunks)
+    fc = scene.sensors[0].film
+    grad_in = _grad_in(fc, np.random.default_rng(14))
+    reset_launch_counts()
+    grads, wall, peak = _timed(lambda: mt.render_backward(
+        scene, grad_in, spp=NLOS["spp"], seed=0))
+    counts = launch_counts()
+    key = "hidden-target.bsdf.reflectance.value"
+    print(f"NLOS single {NLOS_SCAN}x{NLOS_SCAN} render_backward (full AD, "
+          f"spp {NLOS['spp']} in 2 chunks of 2^20 lanes): {wall:.3f} s, "
+          f"peak memory {peak:.2f} GiB, launches {counts}; {key} "
+          f"{grads[key].cpu().numpy()}")
+    depth = scene.integrator.max_depth
+    if counts.get("splat_accumulate") != 2 * depth or not torch.isfinite(
+            grads[key]).all() or not (grads[key] > 0).all():
+        raise AssertionError(f"NLOS full AD: launches {counts} (K3 expected "
+                             f"{2 * depth}), gradient {grads[key]}")
+    _g, wall2, _p = _timed(lambda: mt.render_backward(
+        scene, grad_in, spp=NLOS["spp"], seed=1))
+    print(f"NLOS single render_backward call 2 (seed 1): {wall2:.3f} s")
+
+    # 3. the geometry, GGX-alpha and texel cases, card against CPU
+    for name, (light, adjoint, _paths) in sorted(cases.GEOMETRY_CASES.items()):
+        tabs = {}
+        for d in (dev, "cpu"):
+            sc = mt.load_dict(cases.flat_scene(light), device=d)
+            tabs[str(d)] = mt.render_backward(
+                sc, cases.flat_adjoint(adjoint), spp=64, seed=0,
+                method="fullad")["__tables__"]
+        worst = _tables_close(f"geometry {name}", tabs[str(dev)],
+                              tabs["cpu"])
+        print(f"geometry {name} full AD, card against CPU: tables within "
+              f"{worst:.3g} of their largest value")
+    for name in ("ggx", "texels"):
+        for method in (None, "fullad"):
+            tabs = {}
+            for d in (dev, "cpu"):
+                sc = mt.load_dict(cases.diff_case(mt, name), device=d)
+                tabs[str(d)] = mt.render_backward(
+                    sc, _grad_in(sc.sensors[0].film,
+                                 np.random.default_rng(15)),
+                    spp=16, seed=0, method=method)["__tables__"]
+            worst = _tables_close(f"{name} {method or 'prb'}",
+                                  tabs[str(dev)], tabs["cpu"])
+            print(f"{name} {method or 'prb'} backward, card against CPU: "
+                  f"tables within {worst:.3g} of their largest value")
+    return k3fn, counts
+
+
 def main() -> int:
     import torch
 
@@ -1603,7 +2032,18 @@ def main() -> int:
     materials, materials_held = render_materials_flagship(mt, cases, dev)
     render_angulararea(mt, cases, dev)
     materials_card_against_cpu(mt, cases, dev)
+    grad_counts = {"prb_backward": prb_backward_phase(mt, cases, dev),
+                   "forward": forward_mode_phase(mt, cases, dev)}
+    k3fn, grad_counts["fullad"] = full_ad_phase(mt, cases, dev)
     for r in rows:
+        for phase, c in grad_counts.items():
+            if r["name"] in ("closest_hit", "ray_test", "splat_accumulate"):
+                r[f"{phase}_launches"] = c.get(r["name"], 0)
+        if r["name"] == "splat_accumulate":
+            r["max_abs_err"] = max(r["max_abs_err"],
+                                   k3fn["backward_max_abs_err"],
+                                   k3fn["jvp_max_abs_err"])
+            r.update(k3fn)
         r["launches"] = counts[r["name"]]
         if r["name"] not in nlos_held:
             continue

@@ -22,7 +22,13 @@ NLOS capture meter into a transient film or a phasor film; above 4096
 triangles through a chunked acceleration structure.  Scenes come from a
 dict (:func:`load_dict`) or a Mitsuba XML file (:func:`load_file`); media
 are refused (ROADMAP item 15).  :func:`render_aovs` gives first-hit AOVs.
-Scenes load onto the card unless the caller asks for ``device="cpu"``.
+It differentiates them: :func:`render_backward` (the PRB two-sweep
+replay, or full AD through the wavefront for NLOS captures and
+``method="fullad"``) and :func:`render_forward` give gradients and
+derivative videos with respect to the parameters that :func:`traverse`
+names (reflectance, roughness, texels, emitter radiance and position,
+shape poses).  Scenes load onto the card unless the caller asks for
+``device="cpu"``.
 On a CUDA device the ray queries and the film splat run in the kernels of
 ``csrc/``; on the CPU they run their plain PyTorch versions.
 """
@@ -32,8 +38,10 @@ from .render import (  # noqa: F401
     load_film_state,
     render,
     render_aovs,
+    render_backward,
+    render_forward,
     save_film_state,
 )
-from .scene.schema import Scene, load_dict  # noqa: F401
+from .scene.schema import ParamMap, Scene, load_dict, traverse  # noqa: F401
 from .scene.xml_loader import load_file  # noqa: F401
 from .utils import cornell_box, speed_of_light  # noqa: F401

@@ -9,7 +9,9 @@ the emitter-triangle search keys, the accel's trees over the chunk and
 super-chunk boxes) and the static kind sets are its own: they are rebuilt
 here and left out of the flattened leaves.  The NLOS
 integrator's constants (``NLOSContext``, ``ExhaustiveLaser``) cross the
-same way (:func:`nlos_context_from_numpy`).
+same way (:func:`nlos_context_from_numpy`), and so do the gradient
+tables of the differentiable renders (:func:`diff_params_from_numpy`,
+:func:`diff_params_to_numpy`).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from .integrators.nlos_path import ExhaustiveLaser, NLOSContext
+from .integrators.prb import DiffParams
 from .ops.accel import Accel, accel_trees
 from .ops.intersect import tri_table
 from .scene.schema import resolve_device
@@ -112,3 +115,33 @@ def scene_data_to_numpy(sd: SceneData) -> dict[str, np.ndarray]:
             if v is not None and f not in DERIVED_FIELDS.get(name, ()):
                 out[f"{name}.{f}"] = v.cpu().numpy()
     return out
+
+
+# the JAX package's DiffParams fields that the port does not have (media,
+# ROADMAP item 15)
+_MEDIUM_PARAMS = ("medium_albedo", "medium_sigma_t")
+
+
+def diff_params_from_numpy(fields: dict, device="cuda") -> DiffParams:
+    """The JAX package's ``DiffParams``, as ``{field: array or None}``, as
+    the port's :class:`DiffParams` on ``device``; the media's fields are
+    dropped, and must be absent, None or all zero."""
+    device = resolve_device(device)
+    extra = set(fields) - set(DiffParams._fields) - set(_MEDIUM_PARAMS)
+    if extra:
+        raise ValueError(f"not fields of a DiffParams: {sorted(extra)}")
+    for f in _MEDIUM_PARAMS:
+        if fields.get(f) is not None and np.any(np.asarray(fields[f])):
+            raise NotImplementedError(
+                f"{f}: participating media (ROADMAP item 15)")
+    return DiffParams(**{
+        f: None if fields.get(f) is None
+        else torch.tensor(np.asarray(fields[f]), device=device)
+        for f in DiffParams._fields})
+
+
+def diff_params_to_numpy(p: DiffParams) -> dict:
+    """The port's DiffParams as ``{field: host array or None}`` under the
+    JAX package's field names."""
+    return {f: None if v is None else v.detach().cpu().numpy()
+            for f, v in p._asdict().items()}

@@ -100,3 +100,12 @@ def stable_sqrt(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
 def stable_normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     """normalize() that returns 0 for the zero vector."""
     return v / sqrt(torch.clamp_min(dot(v, v), eps * eps))[..., None]
+
+
+def replace_grad(value_of: torch.Tensor,
+                 grad_of: torch.Tensor) -> torch.Tensor:
+    """Dr.Jit's ``dr.replace_grad(a, b)``: the value of ``value_of`` with
+    the derivative of ``grad_of``.  Written as ``value + (g - g)`` rather
+    than the JAX package's ``g + (value - g)``, so that the value is
+    ``value_of``'s bit for bit wherever ``grad_of`` is finite."""
+    return value_of.detach() + (grad_of - grad_of.detach())

@@ -13,13 +13,18 @@ kernel ``ops/splat_pallas.py``.
 * OPL -> bin: ``bin = floor((distance - start_opl) / bin_width_opl)``.
 * :func:`splat_accumulate` adds one or two event sets into the film in
   place: the plain :func:`_scatter_layout` for CPU tensors, the kernel of
-  ``csrc/splat.cu`` for CUDA tensors.  :func:`splat_transient_flat` splats
+  ``csrc/splat.cu`` for CUDA tensors.  The splats of a render go through
+  :class:`SplatEvents`, its autograd Function, so that a differentiated
+  render keeps K3 on the card: its backward is a gather of the film's
+  cotangent at each event's cell, its jvp K3 on the tangent values (the
+  JAX package instead reroutes AD through XLA's scatter,
+  ``xla_splat_scope``, because its Pallas kernel has no AD rules).  :func:`splat_transient_flat` splats
   into a film whose pixel axis is any flat layout of slots (the exhaustive
   NLOS capture's laser x scan-pixel slots).
 * ``temporal_filter='gaussian'`` spreads each event over a +-3 sigma window
   of bins with normalized Gaussian weights (:func:`_splat_gaussian`); like
   the JAX package, which takes its XLA scatter for it on every backend, it
-  adds through a plain ``index_add_``.
+  adds through a plain ``index_add_``, which autograd differentiates.
 * The steady image accumulates the per-lane total L once per pass as a
   dense spp-axis reduction (:func:`splat_steady`), or under a gaussian
   spatial filter (:func:`splat_steady_gaussian`).
@@ -103,8 +108,8 @@ def splat_transient_pair(
     if dist_b is not None:
         bins_b, _ = time_bin(cfg, dist_b)
         vb = torch.where(active[:, None], val_b, 0.0)
-    splat_accumulate(state.transient, bins_a, va, bins_b, vb, spp=spp)
-    return state
+    film = SplatEvents.apply(state.transient, bins_a, va, bins_b, vb, spp)
+    return state._replace(transient=film)
 
 
 def splat_transient_flat(
@@ -123,8 +128,8 @@ def splat_transient_flat(
         state = _count_suspect(state, cfg, val, None, active)
     bins, _ = time_bin(cfg, dist)
     v = torch.where(active[:, None], val, 0.0)
-    splat_accumulate(state.transient, bins, v, None, None, spp=spp)
-    return state
+    film = SplatEvents.apply(state.transient, bins, v, None, None, spp)
+    return state._replace(transient=film)
 
 
 def _splat_gaussian(film, cfg: FilmConfig, distance, value, active,
@@ -212,18 +217,35 @@ def _scatter_layout(film: torch.Tensor, hw: int, bins: torch.Tensor,
     _scatter_cells(film, pix, bins, vals)
 
 
+def _cell_index(shape, pix: torch.Tensor, bins: torch.Tensor):
+    """Flat indices of the cells ``film[c, bins[i], pix[i]]`` of a (C, T_pad,
+    HW) film, (N, C) lane-major, and the in-film mask (N,); a lane whose
+    bin lies outside the film points at cell 0."""
+    C, t_pad, hw = shape
+    keep = (bins >= 0) & (bins < t_pad)
+    cell = torch.where(keep, bins.to(torch.int64) * hw + pix, 0)
+    chan = torch.arange(C, device=bins.device) * (t_pad * hw)
+    return cell[:, None] + chan[None, :], keep
+
+
 def _scatter_cells(film: torch.Tensor, pix: torch.Tensor, bins: torch.Tensor,
                    vals: torch.Tensor) -> None:
     """``film[c, bins[i], pix[i]] += vals[i, c]`` in place, in the order of
-    i, then c; bins outside the film dropped."""
-    C, t_pad, hw = film.shape
-    keep = (bins >= 0) & (bins < t_pad)
-    # offset inside one channel; a dropped lane adds 0.0 to cell 0
-    cell = torch.where(keep, bins.to(torch.int64) * hw + pix, 0)
-    chan = torch.arange(C, device=bins.device) * (t_pad * hw)
-    idx = (cell[:, None] + chan[None, :]).reshape(-1)  # lane-major, then c
+    i, then c; bins outside the film dropped (a dropped lane adds 0.0 to
+    cell 0)."""
+    idx, keep = _cell_index(film.shape, pix, bins)
     src = torch.where(keep[:, None], vals, 0.0).reshape(-1)
-    film.view(-1).index_add_(0, idx, src)
+    film.view(-1).index_add_(0, idx.reshape(-1), src)
+
+
+def gather_cells(g_film: torch.Tensor, bins: torch.Tensor) -> torch.Tensor:
+    """``g_film[c, bins[i], i % hw]`` for every lane and channel, 0 where
+    the bin lies outside the film: the cotangent of one event set's values
+    (N, C) under :func:`splat_accumulate`."""
+    pix = torch.arange(bins.shape[0], device=bins.device) % g_film.shape[-1]
+    idx, keep = _cell_index(g_film.shape, pix, bins)
+    g = g_film.reshape(-1).index_select(0, idx.reshape(-1)).view(idx.shape)
+    return torch.where(keep[:, None], g, 0.0)
 
 
 def splat_accumulate(film: torch.Tensor, bins_a: torch.Tensor,
@@ -262,6 +284,48 @@ def splat_accumulate(film: torch.Tensor, bins_a: torch.Tensor,
             _build.stream_of(dev))
     _build.check(err, kernel)
     _build.count_launch(kernel)
+
+
+class SplatEvents(torch.autograd.Function):
+    """K3 (:func:`splat_accumulate`) with autograd rules; it adds one or
+    two event sets into ``film`` (C, T + 1, HW) in place and returns it.
+
+    * backward: the film's cotangent passes through, and each event value's
+      cotangent is :func:`gather_cells` of it (a plain gather: the JAX
+      package's transpose is XLA's gather, and no Pallas backward exists);
+    * jvp: the film's tangent plus K3 applied to the values' tangents, in
+      the same lane order, in place on the film's tangent.
+
+    On CPU tensors both take the plain versions, as the primal does."""
+
+    @staticmethod
+    def forward(ctx, film, bins_a, vals_a, bins_b, vals_b, spp):
+        splat_accumulate(film, bins_a, vals_a, bins_b, vals_b, spp=spp)
+        ctx.mark_dirty(film)
+        # the bins are integer inputs, never modified: kept as they are for
+        # both the backward and the jvp
+        ctx.bins, ctx.spp = (bins_a, bins_b), spp
+        return film
+
+    @staticmethod
+    def backward(ctx, g_film):
+        bins_a, bins_b = ctx.bins
+        g_a = g_b = None
+        if ctx.needs_input_grad[2]:
+            g_a = gather_cells(g_film, bins_a)
+        if bins_b is not None and ctx.needs_input_grad[4]:
+            g_b = gather_cells(g_film, bins_b)
+        return g_film, None, g_a, None, g_b, None
+
+    @staticmethod
+    def jvp(ctx, t_film, _t_bins_a, t_vals_a, _t_bins_b, t_vals_b, _t_spp):
+        sets = [(b, t.contiguous()) for b, t in zip(ctx.bins, (t_vals_a,
+                                                               t_vals_b))
+                if b is not None and t is not None]
+        if sets:
+            (b_a, t_a), (b_b, t_b) = (sets + [(None, None)])[:2]
+            splat_accumulate(t_film, b_a, t_a, b_b, t_b, spp=ctx.spp)
+        return t_film
 
 
 def check_pixel_slab(channels: int, t_pad: int) -> None:

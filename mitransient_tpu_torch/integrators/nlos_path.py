@@ -419,13 +419,16 @@ def _continue(sd, ctx, icfg, si, lb, ub, it, active_next, beta, eta):
     beta = torch.where(active_next[:, None], beta * weight / pdf_method, beta)
     if eta_s is not None:
         eta = torch.where(active_next, eta * eta_s, eta)
-    beta_max = beta.amax(dim=-1)
+    # Russian roulette is a detached decision: no derivative through its
+    # probability or scale
+    beta_max = beta.amax(dim=-1).detach()
     active_next = active_next & (beta_max != 0.0)
     rr_prob = torch.clamp_max(beta_max * eta * eta, 0.95)
     active_next = active_next & (rr_prob > 0.0)
     if it >= icfg.rr_depth:
         rr_scale = torch.where(active_next,
-                               1.0 / torch.clamp_min(rr_prob, 1e-6), 1.0)
+                               1.0 / torch.clamp_min(rr_prob, 1e-6),
+                               1.0).detach()
         beta = beta * rr_scale[:, None]
         active_next = active_next & (ub[:, 9] < rr_prob)
     return o_new, d_world, beta, eta, active_next, pdf_dir, delta

@@ -68,16 +68,22 @@ def sample_primal(
     sample_scale: float,
     spp: int,
     bvh_mode: str = BVH_MODE,
+    initial_distance: torch.Tensor | None = None,
+    enable_film: bool = True,
 ):
     """Trace one wavefront of ``n = pix.shape[0]`` spp-major lanes.
 
     Returns (film, L (N, C), valid (N,), n_rays () int64).
     ``sample_scale`` is the 1/total_spp factor of every transient splat;
     the steady image gets the raw per-lane L from the caller.  The
-    transient film is updated in place.  ``bvh_mode`` is the traversal mode
-    of every ray query in scenes with an accel.  (The JAX function's
-    ``base_dim`` is unused there too; its ``initial_distance`` and
-    ``enable_film`` serve NLOS and differentiation, not ported yet.)
+    transient film is updated in place (through K3's autograd Function,
+    so that a differentiated render reaches the film).  ``bvh_mode`` is
+    the traversal mode of every ray query in scenes with an accel.
+    ``initial_distance`` (N,) seeds each lane's optical path length;
+    ``enable_film=False`` skips the splats (the PRB renders' primal sweep,
+    which needs only L; ``film`` may then be None).  Russian roulette is a
+    detached decision: its probability and scale carry no derivative.
+    (The JAX function's ``base_dim`` is unused there too.)
     """
     n = pix.shape[0]
     C = sd.bsdf.reflectance.shape[-1]
@@ -85,7 +91,8 @@ def sample_primal(
     f32 = torch.float32
     key = sampler.key
 
-    distance0 = torch.zeros((n,), dtype=f32, device=dev)
+    distance0 = (initial_distance if initial_distance is not None
+                 else torch.zeros((n,), dtype=f32, device=dev))
     ones = torch.ones((n,), dtype=torch.bool, device=dev)
     if icfg.camera_unwarp:
         si0 = ray_intersect(sd, ray, ones, bvh_mode)
@@ -109,12 +116,12 @@ def sample_primal(
     )
     for it in range(icfg.max_depth):
         st = _bounce(sd, key, it, n, st, film_cfg, icfg, spp, splat_w,
-                     bvh_mode)
+                     bvh_mode, enable_film)
     return st.film, st.L, st.depth > 0, st.n_rays
 
 
 def _bounce(sd, key, it, n, st: PathState, film_cfg, icfg, spp, splat_w,
-            bvh_mode) -> PathState:
+            bvh_mode, enable_film) -> PathState:
     ub = draw_bounce_block(key, it, n, DIMS_PER_BOUNCE, st.o.device)
 
     def rnd1(k):
@@ -153,11 +160,13 @@ def _bounce(sd, key, it, n, st: PathState, film_cfg, icfg, spp, splat_w,
                          st.beta * mis_em[:, None] * f_em * em_weight, 0.0)
     # one film update for both splat events of the bounce: the emitter hit
     # at `distance`, NEE at `distance + ds.dist * eta`
-    film = splat_pair_any(
-        st.film, film_cfg, spp,
-        distance, Le * splat_w[:, None],
-        distance + ds.dist * st.eta, Lr_dir * splat_w[:, None],
-        active, icfg.temporal_filter, icfg.gaussian_stddev)
+    film = st.film
+    if enable_film:
+        film = splat_pair_any(
+            film, film_cfg, spp,
+            distance, Le * splat_w[:, None],
+            distance + ds.dist * st.eta, Lr_dir * splat_w[:, None],
+            active, icfg.temporal_filter, icfg.gaussian_stddev)
 
     # ---- BSDF sampling
     bs = bsdf_api.sample(lb, si.wi, rnd1(2), rnd2(3), active_next)
@@ -167,14 +176,17 @@ def _bounce(sd, key, it, n, st: PathState, film_cfg, icfg, spp, splat_w,
     beta = torch.where(active_next[:, None], st.beta * bs.weight, st.beta)
     eta = torch.where(active_next, st.eta * bs.eta, st.eta)
 
-    # ---- stopping criteria
-    beta_max = beta.amax(dim=-1)
+    # ---- stopping criteria: Russian roulette is a detached decision
+    # (detached PRB); differentiating 1 / rr_prob would also give infinite
+    # derivatives on lanes of tiny throughput
+    beta_max = beta.amax(dim=-1).detach()
     active_next = active_next & (beta_max != 0.0)
     rr_prob = torch.clamp_max(beta_max * eta * eta, 0.95)
     active_next = active_next & (rr_prob > 0.0)
     if it >= icfg.rr_depth:
         rr_scale = torch.where(rr_prob > 0.0,
-                               1.0 / torch.clamp_min(rr_prob, 1e-30), 0.0)
+                               1.0 / torch.clamp_min(rr_prob, 1e-30),
+                               0.0).detach()
         beta = torch.where(active_next[:, None], beta * rr_scale[:, None],
                            beta)
         active_next = active_next & (rnd1(5) < rr_prob)

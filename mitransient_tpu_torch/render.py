@@ -14,7 +14,17 @@ A render takes one of two branches, chosen as the JAX package chooses:
 A scene with an ``nlos_capture_meter`` or the ``transient_nlos_path``
 integrator goes to the NLOS renderer (``integrators/nlos_path.py``), as in
 the JAX package.  :func:`render_aovs` gives first-hit AOVs of a perspective
-sensor.  The render runs on the device of ``scene.data``.
+sensor.  The render runs on the device of ``scene.data``, under
+``torch.no_grad()``.
+
+Differentiable rendering (the JAX package's ``render.py:300-730``):
+:func:`render_backward` gives parameter gradients by the PRB two-sweep
+replay (``integrators/prb.py``) for ``transient_path``, and by full AD
+through the wavefront (``integrators/fullad.py``) for NLOS captures and
+``method="fullad"``; :func:`render_forward` gives derivative videos by the
+PRB forward replay for ``transient_path`` and by forward-mode AD through
+the whole primal (``torch.autograd.forward_ad``) otherwise.  Both split
+the spp budget into chunks and add up.
 """
 from __future__ import annotations
 
@@ -22,18 +32,30 @@ import numpy as np
 import torch
 
 from .core.rng import Sampler
+from .core.math import divide
 from .film.transient_film import (
     TransientFilmState,
     develop_any,
     film_init_any,
     splat_steady,
     splat_steady_gaussian,
+    splat_transient_pair,
     surface_sample_validation,
 )
 from .film.phasor_film import PhasorFilmState
 from .integrators import DEFAULT_MAX_LANES
 from .integrators.path import sample_primal
 from .integrators.path_regen import sample_primal_regen
+from .integrators.nlos_path import _split_spp
+from .integrators.prb import (
+    DiffParams,
+    add_params,
+    adjoint_images,
+    extract_params,
+    grads_to_named,
+    insert_params,
+    sample_adjoint,
+)
 from .ops.bvh import BVH_MODE, MODES
 from .scene.scene import primal_sd
 from .scene.schema import Scene
@@ -88,6 +110,7 @@ def _perspective_pass(sd, cam, film, seed, pass_idx, inv_total_spp, *,
     return film, n_rays
 
 
+@torch.no_grad()
 def render(
     scene: Scene,
     spp: int | None = None,
@@ -245,6 +268,7 @@ def load_film_state(path):
         return film, int(z["done_passes"]), int(z["total_rays"])
 
 
+@torch.no_grad()
 def render_aovs(scene: Scene, spp: int = 16, seed: int = 0, sensor: int = 0,
                 aovs=("albedo", "sh_normal", "depth", "position", "alpha"),
                 bvh_mode: str = BVH_MODE):
@@ -279,3 +303,282 @@ def render_aovs(scene: Scene, spp: int = 16, seed: int = 0, sensor: int = 0,
     }
     return {k: v.reshape(spp, h * w, -1).mean(dim=0).reshape(h, w, -1)
             for k, v in out.items() if k in aovs}
+
+
+# --------------------------------------------------------------------------
+# Differentiable rendering (PRB two-sweep, full AD, forward mode)
+# --------------------------------------------------------------------------
+
+def _prb_setup(scene: Scene, spp, sensor,
+               max_lanes: int = DEFAULT_MAX_LANES * 4):
+    """The differentiable renders' refusals and spp split -> (sensor config,
+    integrator config, film config, spp, HW, spp a chunk, chunks)."""
+    cfg = scene.sensors[sensor]
+    icfg = scene.integrator
+    film_cfg = cfg.film
+    if film_cfg.is_cropped:
+        raise NotImplementedError(
+            "differential rendering with a cropped film is not supported; "
+            "render the full film or crop the gradient instead")
+    if film_cfg.kind == "phasor_hdr_film":
+        raise NotImplementedError(
+            "the phasor film is not differentiable (matching the "
+            "reference's PhasorHDRFilm); use transient_hdr_film for "
+            "gradients")
+    spp = spp if spp is not None else cfg.spp
+    hw = film_cfg.width * film_cfg.height
+    if hw * spp > (1 << 32):
+        # the reference's one-wavefront refusal (common.py:51-85, 237-240);
+        # below it the spp budget is chunked and the chunks add up
+        raise ValueError(
+            f"render_backward/forward wavefront exceeds 2^32 lanes "
+            f"(lanes = {hw * spp}); reduce spp")
+    spp_chunk, n_passes, _total = _split_spp(spp, hw, max_lanes)
+    return cfg, icfg, film_cfg, spp, hw, spp_chunk, n_passes
+
+
+def _refuse_unported(scene: Scene) -> None:
+    """The JAX package differentiates these; the port does not have them."""
+    if scene.integrator.kind == "transient_prbvolpath":
+        raise NotImplementedError(
+            "volumetric differentiation is not ported to "
+            "mitransient_tpu_torch yet (ROADMAP item 15)")
+    if scene.variant.polarized or scene.variant.spectral:
+        raise NotImplementedError(
+            "polarized and spectral differentiation is not ported to "
+            "mitransient_tpu_torch yet (ROADMAP item 16)")
+
+
+def _backward_pass(sd, cam, grad_st_flat, grad_tr_flat, seed, pass_idx,
+                   inv_spp, *, film_cfg, icfg, width, height, spp, bvh_mode):
+    """One spp chunk of the PRB backward: the primal sweep for L (no film),
+    then the adjoint replay.  -> DiffParams gradients."""
+    n = width * height * spp
+    sampler = Sampler(seed, n, stream=pass_idx, device=cam.origin.device)
+    ray, pix, ray_weight = sample_rays(cam, sampler, width, height, spp)
+    _f, L, _v, _r = sample_primal(
+        sd, sampler, ray, pix, ray_weight, None, film_cfg, icfg,
+        sample_scale=inv_spp, spp=spp, bvh_mode=bvh_mode, enable_film=False)
+    return sample_adjoint(
+        sd, sampler.key, ray, pix, ray_weight, L, grad_tr_flat, grad_st_flat,
+        film_cfg, icfg, inv_spp, mode="backward", bvh_mode=bvh_mode)
+
+
+@torch.no_grad()
+def render_backward(scene: Scene, grad_in, spp: int | None = None,
+                    seed: int = 0, sensor: int = 0,
+                    method: str | None = None,
+                    max_lanes: int = DEFAULT_MAX_LANES * 4,
+                    bvh_mode: str = BVH_MODE):
+    """Reverse-mode differentiable rendering
+    (``TransientADIntegrator.render_backward``, common.py:325-409).
+
+    ``grad_in`` = (grad_steady (H, W, C) | None, grad_transient
+    (H, W, T, C) | None), arrays or tensors.  Returns {traverse path:
+    gradient tensor}, plus the table gradients (:class:`DiffParams`) under
+    ``'__tables__'``, on the scene's device.
+
+    ``transient_path`` takes the PRB two-sweep replay, in chunks of at most
+    ``max_lanes`` lanes; ``transient_nlos_path`` (single and confocal) and
+    ``method="fullad"`` take full AD through the wavefront, in chunks of
+    2^20 lanes, whose gradients also reach the shape poses and the delta
+    emitters' positions.  The phasor film, crop windows and wavefronts of
+    more than 2^32 lanes are refused as in the JAX package; volumetric
+    (ROADMAP item 15), polarized and spectral scenes (item 16) are not
+    ported."""
+    _refuse_unported(scene)
+    if scene.integrator.kind == "transient_nlos_path" or method == "fullad":
+        from .integrators.fullad import render_backward_fullad
+
+        return render_backward_fullad(scene, grad_in, spp=spp, seed=seed,
+                                      sensor=sensor, bvh_mode=bvh_mode)
+    cfg, icfg, film_cfg, spp, hw, spp_chunk, n_passes = _prb_setup(
+        scene, spp, sensor, max_lanes)
+    gs, gt = adjoint_images(grad_in, film_cfg, scene.variant.color_channels,
+                            scene.device)
+    cam = build_camera(cfg, device=scene.device)
+    sd = primal_sd(scene.data)
+    total_spp = spp_chunk * n_passes
+    grads = None
+    for p in range(n_passes):
+        grads = add_params(grads, _backward_pass(
+            sd, cam, gs, gt.reshape(hw * film_cfg.temporal_bins, -1), seed,
+            p, 1.0 / total_spp, film_cfg=film_cfg,
+            icfg=icfg, width=film_cfg.width, height=film_cfg.height,
+            spp=spp_chunk, bvh_mode=bvh_mode))
+    return grads_to_named(scene, grads)
+
+
+def _forward_pass(sd, cam, tangents, seed, pass_idx, inv_spp, *, film_cfg,
+                  icfg, width, height, spp, bvh_mode):
+    """One spp chunk of the PRB forward replay -> the derivative film's
+    state (additive over chunks; the caller develops the sum).  Each
+    bounce's derivative splat goes into the film through K3."""
+    n = width * height * spp
+    dev = cam.origin.device
+    C = sd.bsdf.reflectance.shape[-1]
+    sampler = Sampler(seed, n, stream=pass_idx, device=dev)
+    ray, pix, ray_weight = sample_rays(cam, sampler, width, height, spp)
+    _f, L, _v, _r = sample_primal(
+        sd, sampler, ray, pix, ray_weight, None, film_cfg, icfg,
+        sample_scale=inv_spp, spp=spp, bvh_mode=bvh_mode, enable_film=False)
+    vals, dists = sample_adjoint(
+        sd, sampler.key, ray, pix, ray_weight, L, None, None, film_cfg, icfg,
+        inv_spp, mode="forward", tangents=tangents, bvh_mode=bvh_mode)
+    dfilm = film_init_any(film_cfg, C, device=dev)
+    act = torch.ones((n,), dtype=torch.bool, device=dev)
+    for v, dist in zip(vals, dists):
+        dfilm = splat_transient_pair(dfilm, film_cfg, spp, dist, v, None,
+                                     None, act, icfg.temporal_filter,
+                                     icfg.gaussian_stddev)
+    # the steady derivative: the lanes' raw sum of dLo (the splats carry
+    # the 1 / total spp scale, which develop's weight sum divides again)
+    dL_total = vals[0]
+    for v in vals[1:]:
+        dL_total = dL_total + v
+    return splat_steady(dfilm, spp, divide(dL_total, inv_spp), ray_weight)
+
+
+_TANGENT_TABLES = {  # the JAX package's _build_tangents tables
+    "bsdf.reflectance": "bsdf_reflectance",
+    "emitter.radiance": "emitter_radiance",
+    "bsdf.alpha": "bsdf_alpha",
+    "bsdf.textures": "bsdf_textures",
+}
+
+
+def _build_tangents(scene: Scene, tangent: dict) -> DiffParams:
+    """A {traverse path or whole-table name: value} tangent as DiffParams
+    (zeros elsewhere).  As in the JAX package, the tables of
+    :data:`_TANGENT_TABLES` take tangents: an isotropic ``alpha`` path moves
+    ``alpha_u`` only, and other paths are ignored."""
+    dev = scene.device
+    out = {f: (None if t is None else torch.zeros_like(t))
+           for f, t in extract_params(scene.data)._asdict().items()}
+    for path, val in tangent.items():
+        v = torch.as_tensor(val, dtype=torch.float32, device=dev)
+        if path in _TANGENT_TABLES:  # a whole table
+            out[_TANGENT_TABLES[path]] = v
+        elif path in scene._param_paths:
+            table, idx = scene._param_paths[path]
+            field = _TANGENT_TABLES.get(table)
+            if field is not None and out[field] is not None:
+                out[field] = out[field].clone()
+                out[field][idx] = v
+    return DiffParams(**out)
+
+
+def _forward_pass_jvp(sd, ctx, tangents, seed, pass_idx, inv_spp, *,
+                      film_cfg, icfg, spp, hw, kind, skip_le, bvh_mode):
+    """Forward mode through the whole primal of one spp chunk, with
+    ``torch.autograd.forward_ad`` dual tables: the ray kernels get detached
+    (plain) inputs, the film splat goes through K3's Function, whose jvp
+    is K3 on the tangents.  -> (primal, tangent) film states."""
+    from torch.autograd import forward_ad as fwAD
+
+    dev = sd.bsdf.reflectance.device
+    with fwAD.dual_level():
+        theta = DiffParams(*(
+            None if p is None else fwAD.make_dual(
+                p, t if t is not None else torch.zeros_like(p))
+            for p, t in zip(extract_params(sd), tangents)))
+        sdt = insert_params(sd, theta)
+        C = sdt.bsdf.reflectance.shape[-1]
+        sampler = Sampler(seed, spp * hw, stream=pass_idx, device=dev)
+        if kind == "transient_nlos_path":
+            from .integrators.nlos_path import (
+                sample_nlos_primal,
+                sample_nlos_rays,
+            )
+
+            film = film_init_any(film_cfg, C, scan_pixels=hw, device=dev)
+            ray, rw = sample_nlos_rays(ctx, spp, hw)
+            film, L, _v, _r = sample_nlos_primal(
+                sdt, ctx, sampler, ray, rw, film, film_cfg, icfg, inv_spp,
+                spp, skip_le=skip_le, bvh_mode=bvh_mode)
+        else:
+            film = film_init_any(film_cfg, C, device=dev)
+            ray, pix, rw = sample_rays(ctx, sampler, film_cfg.width,
+                                       film_cfg.height, spp)
+            film, L, _v, _r = sample_primal(
+                sdt, sampler, ray, pix, rw, film, film_cfg, icfg, inv_spp,
+                spp, bvh_mode)
+        state = splat_steady(film, spp, L, rw)
+        parts = [fwAD.unpack_dual(a) for a in state]
+        primal = type(state)(*(x.primal.clone() for x in parts))
+        tangent = type(state)(*(
+            torch.zeros_like(x.primal) if x.tangent is None
+            else x.tangent.clone() for x in parts))
+    return primal, tangent
+
+
+@torch.no_grad()
+def render_forward(scene: Scene, tangent: dict, spp: int | None = None,
+                   seed: int = 0, sensor: int = 0,
+                   max_lanes: int = DEFAULT_MAX_LANES * 4,
+                   bvh_mode: str = BVH_MODE):
+    """Forward-mode differentiable rendering (``render_forward``,
+    common.py:215-323): the derivative (d_steady (H, W, C), d_transient
+    (H, W, T, C)) along ``tangent``, a dict of traverse paths (or the
+    whole-table names ``'bsdf.reflectance'``, ``'emitter.radiance'``,
+    ``'bsdf.alpha'``, ``'bsdf.textures'``) to tangent values.
+
+    ``transient_path`` takes the PRB forward replay, whose derivative
+    splats go into the film through K3; NLOS single and confocal captures
+    (and other integrators) take forward-mode AD through the whole primal.
+    An exhaustive capture is refused as in the reference
+    (transientnlospath.py:729-731)."""
+    _refuse_unported(scene)
+    cfg, icfg, film_cfg, spp, hw, spp_chunk, n_passes = _prb_setup(
+        scene, spp, sensor, max_lanes)
+    nlos = (cfg.kind == "nlos_capture_meter"
+            or icfg.kind == "transient_nlos_path")
+    if nlos and icfg.capture_type == "exhaustive":
+        raise ValueError(
+            "Exhaustive capture is not supported in differentiable "
+            "rendering (transientnlospath.py:729-731)")
+    tangents = _build_tangents(scene, tangent)
+    total_spp = spp_chunk * n_passes
+    dev = scene.device
+
+    def add_states(a, b):
+        return b if a is None else type(b)(*(x + y for x, y in zip(a, b)))
+
+    if icfg.kind == "transient_path" and not nlos:
+        cam = build_camera(cfg, device=dev)
+        dfilm = None
+        for p in range(n_passes):
+            dfilm = add_states(dfilm, _forward_pass(
+                primal_sd(scene.data), cam, tangents, seed, p,
+                1.0 / total_spp, film_cfg=film_cfg, icfg=icfg,
+                width=film_cfg.width, height=film_cfg.height,
+                spp=spp_chunk, bvh_mode=bvh_mode))
+        return develop_any(dfilm, film_cfg)
+
+    skip_le = False
+    if nlos:
+        from .integrators.nlos_path import can_skip_le, prepare_nlos
+
+        ctx = prepare_nlos(scene, cfg, bvh_mode)
+        kind = "transient_nlos_path"
+        skip_le = can_skip_le(scene.data)
+    else:
+        ctx = build_camera(cfg, device=dev)
+        kind = icfg.kind
+    # add the (primal, tangent) film states over the chunks, then take the
+    # jvp of develop once at the sum (the filter weights carry no tangent)
+    s_tot = t_tot = None
+    for p in range(n_passes):
+        s_p, t_p = _forward_pass_jvp(
+            scene.data, ctx, tangents, seed, p, 1.0 / total_spp,
+            film_cfg=film_cfg, icfg=icfg, spp=spp_chunk, hw=hw, kind=kind,
+            skip_le=skip_le, bvh_mode=bvh_mode)
+        s_tot, t_tot = add_states(s_tot, s_p), add_states(t_tot, t_p)
+    from torch.autograd import forward_ad as fwAD
+
+    with fwAD.dual_level():
+        state = type(s_tot)(*(fwAD.make_dual(a, t)
+                              for a, t in zip(s_tot, t_tot)))
+        out = develop_any(state, film_cfg,
+                          shape_hw=(film_cfg.height, film_cfg.width))
+        return tuple(fwAD.unpack_dual(o).tangent.clone() for o in out)

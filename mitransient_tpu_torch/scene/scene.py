@@ -13,10 +13,13 @@ the lobes of the BSDF kinds it holds (``SceneData.bsdf_kinds``): the JAX
 package's static ``KindsStatic``.
 
 The tables keep every leaf of the JAX package's ``SceneData`` except the
-media (ROADMAP item 15), including those no primal render reads
-(geometry deltas), so that ``convert.py`` carries a JAX scene across
-whole.  The port adds tables derived from those leaves
-(:data:`DERIVED_FIELDS`).
+media (ROADMAP item 15), so that ``convert.py`` carries a JAX scene across
+whole.  The per-shape geometry deltas (:class:`GeomParams`, zero after
+loading) exist for geometry gradients: with them, :func:`ray_intersect`
+re-derives the hit distance from the moved triangle's plane and NEE moves
+its emitter points, so that autograd reaches the shape poses; primal
+renders strip them (:func:`primal_sd`).  The port adds tables derived
+from those leaves (:data:`DERIVED_FIELDS`).
 """
 from __future__ import annotations
 
@@ -26,7 +29,16 @@ import numpy as np
 import torch
 
 from ..core.frame import Frame
-from ..core.math import cross, divide, dot, normalize, safe_div, sqrt
+from ..core.math import (
+    cos_sin,
+    cross,
+    divide,
+    dot,
+    normalize,
+    replace_grad,
+    safe_div,
+    sqrt,
+)
 from ..core.records import DirectionSample, Ray, SurfaceInteraction
 from ..ops.bvh import BVH_MODE
 from ..ops.accel import TREE_FIELDS, Accel
@@ -148,9 +160,13 @@ class EmitterParams(NamedTuple):
 
 
 class GeomParams(NamedTuple):
-    """Per-shape rigid-motion deltas (all zero after loading).  They exist
-    for geometry gradients, which the port does not have yet (ROADMAP
-    item 14); primal renders strip them with :func:`primal_sd`."""
+    """Per-shape rigid-motion deltas, the differentiable geometry: a
+    translation and an axis-angle rotation about ``pivot`` (the shape's
+    to_world origin), all zero after loading.  Gradients with respect to
+    them are d(render)/d(shape pose) at the current pose.  To move a shape,
+    set ``traverse(scene)['<key>.to_world.translate']`` and ``update()``,
+    which re-bakes the soup on the host.  Primal renders strip them with
+    :func:`primal_sd`."""
 
     translate: torch.Tensor  # (S, 3)
     rotate: torch.Tensor  # (S, 3) axis-angle radians
@@ -206,8 +222,50 @@ def is_delta_kind(kind: torch.Tensor) -> torch.Tensor:
     return (kind == EM_PROJECTOR) | (kind == EM_POINT)
 
 
+class GeomDelta(NamedTuple):
+    """Per-lane rigid delta in Rodrigues vector form: a point moves as
+    ``p + a w x (p - piv) + b w x (w x (p - piv)) + tr`` and a direction as
+    the same without pivot and translation.  At zero deltas every added
+    term is exactly zero, so the attach changes no primal bit."""
+
+    w: torch.Tensor  # (N, 3) axis-angle
+    a: torch.Tensor  # (N,) sin(t) / t
+    b: torch.Tensor  # (N,) (1 - cos t) / t^2
+    tr: torch.Tensor  # (N, 3)
+    piv: torch.Tensor  # (N, 3)
+
+    def point(self, p: torch.Tensor) -> torch.Tensor:
+        c1 = cross(self.w, p - self.piv)
+        c2 = cross(self.w, c1)
+        return p + self.a[:, None] * c1 + self.b[:, None] * c2 + self.tr
+
+    def vector(self, v: torch.Tensor) -> torch.Tensor:
+        c1 = cross(self.w, v)
+        c2 = cross(self.w, c1)
+        return v + self.a[:, None] * c1 + self.b[:, None] * c2
+
+
+def geom_delta_of(geom: GeomParams, shape_ids: torch.Tensor) -> GeomDelta:
+    """The rigid deltas of shapes ``shape_ids`` (clamped at 0), lane by
+    lane.  The angle is clamped at 1e-6 and small angles take the Taylor
+    forms, so the gradient stays finite at zero."""
+    idx = torch.clamp_min(shape_ids, 0)
+    w = geom.rotate.index_select(0, idx)
+    theta2 = dot(w, w)
+    theta = sqrt(torch.clamp_min(theta2, 1e-12))
+    cos_t, sin_t = cos_sin(theta)
+    small = theta2 < 1e-12
+    a = torch.where(small, 1.0 - divide(theta2, 6.0), sin_t / theta)
+    b = torch.where(small, 0.5 - divide(theta2, 24.0),
+                    (1.0 - cos_t) / torch.clamp_min(theta2, 1e-12))
+    return GeomDelta(w=w, a=a, b=b, tr=geom.translate.index_select(0, idx),
+                     piv=geom.pivot.index_select(0, idx))
+
+
 def primal_sd(sd: SceneData) -> SceneData:
-    """Strip the geometry deltas for a primal render."""
+    """Strip the geometry deltas for a primal render: there the attach
+    costs work and changes no bit.  The differentiable renders that need
+    gradients through hit points (full AD) keep them."""
     return sd._replace(geom=None) if sd.geom is not None else sd
 
 
@@ -218,7 +276,11 @@ def primal_sd(sd: SceneData) -> SceneData:
 def ray_intersect(sd: SceneData, ray: Ray, active: torch.Tensor,
                   bvh_mode: str = BVH_MODE) -> SurfaceInteraction:
     """Closest hit + shading record (``mi.Scene.ray_intersect``).  The
-    kernel's inputs are detached: visibility is a discrete choice.
+    kernel's inputs are detached: the hit triangle is a discrete choice,
+    and the kernels have no autograd.  Derivatives re-enter through the
+    shading record, built from the tables (and, with ``sd.geom``, the hit
+    distance re-derived from the moved triangle's plane), as the
+    reference's attached ray_intersect (transientpath.py:148-151).
     ``bvh_mode`` is the traversal mode of scenes with an accel."""
     t, prim = _closest_hit_q(
         sd.tri.v0, sd.tri.e1, sd.tri.e2, ray.o.detach(), ray.d.detach(),
@@ -228,11 +290,10 @@ def ray_intersect(sd: SceneData, ray: Ray, active: torch.Tensor,
 
 
 def _si_from_t_prim(sd: SceneData, ray: Ray, t, prim) -> SurfaceInteraction:
-    """Shading record from a traversal result (t, prim)."""
-    if sd.geom is not None:
-        raise NotImplementedError(
-            "geometry deltas (differentiable shape poses) are not ported yet "
-            "(ROADMAP item 14); render primal_sd(scene.data)")
+    """Shading record from a traversal result (t, prim).  With
+    ``sd.geom`` the hit triangle moves by its shape's delta, and ``t``
+    takes the derivative of the distance to the moved triangle's plane
+    while its value stays the kernel's bit for bit."""
     valid = prim >= 0
     prim_c = torch.clamp_min(prim, 0)
     tri = sd.tri
@@ -241,6 +302,17 @@ def _si_from_t_prim(sd: SceneData, ray: Ray, t, prim) -> SurfaceInteraction:
         return a.index_select(0, prim_c)
 
     v0, e1, e2, ng = row(tri.v0), row(tri.e1), row(tri.e2), row(tri.ng)
+    if sd.geom is not None:
+        gd = geom_delta_of(sd.geom, row(tri.shape_id))
+        v0, e1, e2, ng = gd.point(v0), gd.vector(e1), gd.vector(e2), \
+            gd.vector(ng)
+        denom = dot(ray.d, ng)
+        ok_den = torch.abs(denom) > 1e-12
+        t_plane = dot(v0 - ray.o, ng) / torch.where(ok_den, denom, 1.0)
+        # misses carry t = inf: keep them out of the arithmetic
+        t_fin = torch.where(valid, t, 0.0)
+        t_att = torch.where(ok_den & valid, t_plane, t_fin)
+        t = torch.where(valid, replace_grad(t_fin, t_att), t)
     p = ray.o + ray.d * torch.where(valid, t, 0.0)[:, None]
     # Barycentrics of p in the winning triangle (projection method).
     w = p - v0
@@ -408,7 +480,9 @@ def _sample_emitter_triangle(sd: SceneData, em_idx: torch.Tensor,
 def _uniform_triangle_point(sd: SceneData, slot: torch.Tensor,
                             u1: torch.Tensor, u2: torch.Tensor):
     """Uniform barycentric sample of emitter-triangle ``slot``, gathered
-    from the compact per-emitter table."""
+    from the compact per-emitter table.  With ``sd.geom`` the point and
+    normal move by the emitter shape's delta, so that NEE carries the
+    gradient of a moving light."""
     su = sqrt(torch.clamp_min(u1, 0.0))
     b1 = 1.0 - su
     b2 = u2 * su
@@ -416,7 +490,11 @@ def _uniform_triangle_point(sd: SceneData, slot: torch.Tensor,
     p = (em.em_tri_v0.index_select(0, slot)
          + em.em_tri_e1.index_select(0, slot) * b1[:, None]
          + em.em_tri_e2.index_select(0, slot) * b2[:, None])
-    return p, em.em_tri_ng.index_select(0, slot)
+    ng = em.em_tri_ng.index_select(0, slot)
+    if sd.geom is not None:
+        gd = geom_delta_of(sd.geom, em.em_tri_shape.index_select(0, slot))
+        p, ng = gd.point(p), gd.vector(ng)
+    return p, ng
 
 
 def sample_emitter_direction(

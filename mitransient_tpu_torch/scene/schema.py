@@ -23,6 +23,10 @@ builds them, then each one is moved to ``device`` once.  Above
 acceleration structure (``ops/accel.py``).  The device is the card unless
 the caller asks for the CPU.
 
+:func:`traverse` gives the ``mi.traverse``-style string-path view of the
+scene's parameters (:class:`ParamMap`), over the paths the loader
+registers as the JAX loader does (``Scene._param_paths``).
+
 Bitmaps are decoded with ``imageio``.  A missing file leaves the BSDF
 untextured, as in the JAX package; an existing file without ``imageio``
 to decode it raises ``ImportError`` (the JAX package would render it
@@ -640,6 +644,8 @@ class Scene:
         self._bsdf_index: dict[str, int] = {}
         self._emitters: list[_EmitterEntry] = []
         self._tex_cache: dict = {}
+        # traverse() path -> (table, row), as the JAX loader registers them
+        self._param_paths: dict[str, tuple[str, int]] = {}
         sensor_dicts: list[tuple[dict, int]] = []  # (dict, enclosing shape)
 
         def add_bsdf(key: str, d: dict) -> int:
@@ -652,6 +658,10 @@ class Scene:
             self._bsdfs.append(_parse_bsdf(key, d, C, base_dir,
                                            self._tex_cache))
             self._bsdf_index[key] = idx
+            for leaf in ("reflectance", "alpha", "alpha_u", "alpha_v"):
+                self._param_paths[f"{key}.{leaf}.value"] = (
+                    "bsdf.reflectance" if leaf == "reflectance"
+                    else f"bsdf.{leaf}", idx)
             return idx
 
         def register_nested_ids(val):
@@ -705,6 +715,8 @@ class Scene:
                                                     cutoff * 0.75)),
                             shape_index=shape_idx,
                         ))
+                        self._param_paths[f"{key}.{ck}.radiance.value"] = (
+                            "emitter.radiance", em_idx)
                         shape.emitter_key = em_idx
                     elif ct in _ROADMAP_ITEM:
                         raise _not_ported(f"{ct!r} (in {key!r})", ct)
@@ -720,6 +732,11 @@ class Scene:
                 # a spot loads as a point light; irradiance or intensity is
                 # the table's radiance
                 rad_key = "irradiance" if t == "projector" else "intensity"
+                em_idx = len(self._emitters)
+                self._param_paths.update({
+                    f"{key}.{rad_key}.value": ("emitter.radiance", em_idx),
+                    f"{key}.to_world": ("emitter.to_world", em_idx),
+                    f"{key}.position": ("emitter.position", em_idx)})
                 self._emitters.append(_EmitterEntry(
                     key=key,
                     kind=EM_PROJECTOR if t == "projector" else EM_POINT,
@@ -774,6 +791,18 @@ class Scene:
                 raise ValueError(f"unsupported sensor type {st!r}")
         if not self.sensors:
             raise ValueError("scene has no sensor")
+        # the film's time window and the NLOS laser in the traversal
+        # surface: host-side settings that update() applies to the next
+        # render (the reference's NonDifferentiable film parameters)
+        for s_i, scfg in enumerate(self.sensors):
+            sk = "sensor" if s_i == 0 else f"sensor{s_i}"
+            for f in ("start_opl", "bin_width_opl", "temporal_bins"):
+                self._param_paths[f"{sk}.film.{f}"] = (f"film.{f}", s_i)
+            if scfg.kind == "nlos_capture_meter":
+                self._param_paths[f"{sk}.laser_bounce_opl"] = (
+                    "nlos.laser_bounce_opl", s_i)
+                self._param_paths[f"{sk}.laser_target"] = (
+                    "nlos.laser_target", s_i)
         self.laser_target = np.zeros(3)
         self.laser_bounce_opl = 0.0
         self.laser_focused = False
@@ -863,6 +892,11 @@ class Scene:
             pivot[s_i] = shp.to_world.translation
         host["geom"] = GeomParams(translate=np.zeros_like(pivot),
                                   rotate=np.zeros_like(pivot), pivot=pivot)
+        for s_i, skey in enumerate(self._shape_keys):
+            self._param_paths[f"{skey}.to_world.translate"] = (
+                "shape.translate", s_i)
+            self._param_paths[f"{skey}.to_world.rotate"] = (
+                "shape.rotate", s_i)
 
         def dev(table):
             return type(table)(*(
@@ -904,6 +938,12 @@ class Scene:
                 slots[id(img)] = len(uniq)
                 uniq.append(img)
             ids[bi] = slots[id(img)]
+            if prefix == "tex":
+                # the texels of the texture's padded atlas slab (th, tw, C)
+                # as traverse paths (the reference's bitmap ``.data``)
+                for alias in ("reflectance.data", "diffuse_reflectance.data"):
+                    self._param_paths[f"{b.key}.{alias}"] = (
+                        "bsdf.textures", int(ids[bi]))
             hw[bi] = img.shape[:2]
             uvt[bi] = b.tex_uv if prefix == "tex" else b.bump_uv
             scale[bi], kind[bi] = b.bump_scale, b.bump_kind
@@ -980,3 +1020,181 @@ def load_dict(desc: dict, device="cuda", base_dir: str = ".") -> Scene:
     if desc.get("type") != "scene":
         raise ValueError("top-level dict must have type='scene'")
     return Scene(desc, device=device, base_dir=base_dir)
+
+
+# --------------------------------------------------------------------------
+# Parameter traversal (mi.traverse; the JAX package's ParamMap)
+# --------------------------------------------------------------------------
+
+def _host(value) -> np.ndarray:
+    """A parameter value (tensor, array or number) as a host float64 array."""
+    if isinstance(value, torch.Tensor):
+        value = value.detach().cpu().numpy()
+    return np.asarray(value, np.float64)
+
+
+def _set_row(table: torch.Tensor, idx: int, value) -> torch.Tensor:
+    """A copy of ``table`` with row ``idx`` set to ``value`` (autograd
+    reaches ``value`` through the copy)."""
+    out = table.clone()
+    out[idx] = torch.as_tensor(value, dtype=table.dtype, device=table.device)
+    return out
+
+
+# traverse tables held in SceneData: table -> (record, field)
+_DEVICE_TABLES = {
+    "bsdf.reflectance": ("bsdf", "reflectance"),
+    "bsdf.alpha_u": ("bsdf", "alpha"),
+    "bsdf.alpha_v": ("bsdf", "alpha_v"),
+    "bsdf.textures": ("bsdf", "textures"),
+    "emitter.radiance": ("emitter", "radiance"),
+    "emitter.position": ("emitter", "position"),
+}
+
+
+class ParamMap:
+    """String-path view over the scene's parameters, as ``mi.traverse``::
+
+        params = traverse(scene)
+        params['white.reflectance.value'] = torch.tensor([0.5, 0.5, 0.5])
+        params.update()
+
+    :meth:`apply` is the pure form: it maps a {path: value} dict onto a new
+    SceneData and leaves the scene as it is."""
+
+    def __init__(self, scene: Scene):
+        self.scene = scene
+        self._staged: dict[str, Any] = {}
+
+    def keys(self):
+        return list(self.scene._param_paths.keys())
+
+    def __contains__(self, key):
+        return key in self.scene._param_paths
+
+    def __getitem__(self, key):
+        sc = self.scene
+        table, idx = sc._param_paths[key]
+        if table == "bsdf.alpha":
+            table = "bsdf.alpha_u"
+        if table in _DEVICE_TABLES:
+            rec, field = _DEVICE_TABLES[table]
+            return getattr(getattr(sc.data, rec), field)[idx]
+        if table == "emitter.to_world":
+            return sc._emitters[idx].to_world
+        if table == "shape.translate":
+            # the absolute translation of the shape's to_world
+            return torch.tensor(sc.shapes[idx].to_world.translation,
+                                dtype=torch.float32, device=sc.device)
+        if table == "shape.rotate":
+            # an additive axis-angle delta about the shape's pivot, zero
+            # after update() has baked the pose into the soup
+            return sc.data.geom.rotate[idx]
+        if table.startswith("film."):
+            return getattr(sc.sensors[idx].film, table.split(".", 1)[1])
+        if table == "nlos.laser_bounce_opl":
+            return float(sc.laser_bounce_opl)
+        if table == "nlos.laser_target":
+            return np.asarray(sc.laser_target, np.float32)
+        raise KeyError(key)
+
+    def __setitem__(self, key, value):
+        if key not in self.scene._param_paths:
+            raise KeyError(key)
+        self._staged[key] = value
+
+    def update(self) -> None:
+        """Apply the staged values: the device tables, their host mirrors
+        (so that a later re-bake keeps them), and the host-side settings.
+        A moved shape re-bakes the soup, the emitter tables, the pivots and
+        the accel on the host; the geometry deltas stay zero."""
+        sc = self.scene
+        sc.data = self.apply(self._staged, sc.data)
+        rebake = False
+        for key, value in self._staged.items():
+            table, idx = sc._param_paths[key]
+            if table == "bsdf.reflectance":
+                b = sc._bsdfs[idx]
+                sc._bsdfs[idx] = b._replace(reflectance=_host(value).astype(
+                    np.float32).reshape(b.reflectance.shape))
+            elif table == "emitter.radiance":
+                e = sc._emitters[idx]
+                sc._emitters[idx] = e._replace(radiance=_host(value).astype(
+                    np.float32).reshape(e.radiance.shape))
+            elif table in ("bsdf.alpha", "bsdf.alpha_u"):
+                a = float(_host(value))
+                b = sc._bsdfs[idx]
+                sc._bsdfs[idx] = b._replace(
+                    alpha=a, alpha_v=a if table == "bsdf.alpha" else b.alpha_v)
+            elif table == "bsdf.alpha_v":
+                sc._bsdfs[idx] = sc._bsdfs[idx]._replace(
+                    alpha_v=float(_host(value)))
+            elif table == "emitter.position":
+                e = sc._emitters[idx]
+                m = e.to_world.m.copy()
+                m[:3, 3] = _host(value)
+                sc._emitters[idx] = e._replace(to_world=Transform4(m))
+            elif table == "emitter.to_world":
+                sc.replace_emitter_transform(idx, value)
+            elif table == "shape.translate":
+                shp = sc.shapes[idx]
+                m = shp.to_world.m.copy()
+                m[:3, 3] = _host(value)
+                shp.to_world = Transform4(m)
+                rebake = True
+            elif table == "shape.rotate":
+                shp = sc.shapes[idx]
+                w = _host(value)
+                th = float(np.linalg.norm(w))
+                if th > 0.0:
+                    piv = shp.to_world.translation
+                    delta = (Transform4().translate(piv)
+                             .rotate(w / th, np.rad2deg(th))
+                             .translate(-piv))
+                    shp.to_world = delta @ shp.to_world
+                    rebake = True
+            elif table.startswith("film."):
+                field = table.split(".", 1)[1]
+                cast = int if field == "temporal_bins" else float
+                scfg = sc.sensors[idx]
+                sc.sensors[idx] = scfg._replace(
+                    film=scfg.film._replace(**{field: cast(value)}))
+            elif table == "nlos.laser_bounce_opl":
+                sc.laser_bounce_opl = float(value)
+            elif table == "nlos.laser_target":
+                sc.laser_target = _host(value)
+                sc.laser_focused = True
+        if rebake:
+            # the soup moved: rebuild SceneData from the host objects, then
+            # this batch's device tables on top (textures have no mirror)
+            sc.data = self.apply(self._staged, sc._compile())
+        self._staged = {}
+
+    def apply(self, updates: dict, data: SceneData | None = None
+              ) -> SceneData:
+        """``data`` (by default the scene's) with ``updates`` {path: value}
+        written into copies of its tables; host-side paths (emitter and
+        shape transforms, film and laser settings) are left to
+        :meth:`update`."""
+        data = data if data is not None else self.scene.data
+        for key, value in updates.items():
+            table, idx = self.scene._param_paths[key]
+            if table == "bsdf.alpha":  # the isotropic path sets both leaves
+                data = data._replace(bsdf=data.bsdf._replace(
+                    alpha=_set_row(data.bsdf.alpha, idx, value),
+                    alpha_v=_set_row(data.bsdf.alpha_v, idx, value)))
+            elif table in _DEVICE_TABLES:
+                rec, field = _DEVICE_TABLES[table]
+                r = getattr(data, rec)
+                data = data._replace(**{rec: r._replace(**{
+                    field: _set_row(getattr(r, field), idx, value)})})
+            elif not (table in ("emitter.to_world", "shape.translate",
+                                "shape.rotate")
+                      or table.startswith(("film.", "nlos."))):
+                raise KeyError(key)
+        return data
+
+
+def traverse(scene: Scene) -> ParamMap:
+    """The :class:`ParamMap` of ``scene`` (``mi.traverse``)."""
+    return ParamMap(scene)

@@ -510,3 +510,93 @@ def test_material_render_is_bit_identical_on_card_and_cpu(cuda, name,
     assert out[0][2] == out[1][2]
     assert torch.equal(out[0][0], out[1][0]) and torch.equal(out[0][1],
                                                               out[1][1])
+
+
+@pytest.mark.cuda
+def test_splat_function_keeps_k3_under_autograd(cuda):
+    """K3's autograd Function on the card: its forward and its jvp launch
+    K3; the backward (a gather) equals the plain version's index_add_
+    autograd bit for bit, and the jvp's tangent film equals the plain
+    version's forward AD on the host CPU (lane order) bit for bit."""
+    from torch.autograd import forward_ad as fwAD
+
+    rng = np.random.default_rng(9)
+    lanes, hw, bins = 5, 700, 60
+    host = [torch.from_numpy(a) for _ in range(2)
+            for a in splat_events(rng, lanes, hw, bins)]
+    host[0][::11] = bins + 4  # beyond the film: dropped
+    ev = [a.to(cuda) for a in host]
+    shape = (3, bins + 1, hw)
+    w = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda)
+    va, vb = ev[1].clone().requires_grad_(), ev[3].clone().requires_grad_()
+    reset_launch_counts()
+    film = tf.SplatEvents.apply(torch.zeros(shape, device=cuda), ev[0],
+                                va * 1.0, ev[2], vb * 1.0, lanes)
+    assert launch_counts() == {"splat_accumulate": 1}
+    got = torch.autograd.grad((film * w).sum(), (va, vb))
+    pa, pb = ev[1].clone().requires_grad_(), ev[3].clone().requires_grad_()
+    plain = torch.zeros(shape, device=cuda)
+    tf._scatter_layout(plain, hw, ev[0], pa * 1.0)
+    tf._scatter_layout(plain, hw, ev[2], pb * 1.0)
+    want = torch.autograd.grad((plain * w).sum(), (pa, pb))
+    assert all(torch.equal(g, x) for g, x in zip(got, want))
+    ta, tb = (torch.from_numpy(rng.normal(size=v.shape).astype(np.float32))
+              for v in (host[1], host[3]))
+    with fwAD.dual_level():
+        reset_launch_counts()
+        out = tf.SplatEvents.apply(
+            torch.zeros(shape, device=cuda), ev[0],
+            fwAD.make_dual(ev[1], ta.to(cuda)), ev[2],
+            fwAD.make_dual(ev[3], tb.to(cuda)), lanes)
+        t_card = fwAD.unpack_dual(out).tangent.cpu()
+        assert launch_counts() == {"splat_accumulate": 2}
+        ref = torch.zeros(shape)
+        tf._scatter_layout(ref, hw, host[0], fwAD.make_dual(host[1], ta))
+        tf._scatter_layout(ref, hw, host[2], fwAD.make_dual(host[3], tb))
+        t_cpu = fwAD.unpack_dual(ref).tangent
+    assert torch.equal(t_card, t_cpu)
+
+
+def _tables_close(got, want, what):
+    for f in got._fields:
+        g, w = getattr(got, f), getattr(want, f)
+        assert (g is None) == (w is None), (what, f)
+        if g is not None:
+            scale = max(float(w.abs().max()), 1e-30)
+            assert float((g.cpu() - w).abs().max()) <= 1e-4 * scale, (what, f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["prb", "fullad", "forward"])
+def test_differentiation_on_cuda_matches_cpu(cuda, method):
+    """render_backward (PRB and full AD) and render_forward of the test_grad
+    box on the card against the CPU: the table gradients within 1e-4 of
+    their largest value (the table-gradient reductions add by atomics on
+    the card), the derivative video under the golden rule; K1 and K2 run
+    in both sweeps, and K3 wherever a film is splatted (full AD's film,
+    the forward replay's derivative film)."""
+    from torch_cases import grad_cbox
+
+    out = {}
+    for dev in ("cpu", cuda):
+        scene = mt.load_dict(grad_cbox(mt, 8, 8, 100, 3), device=dev)
+        reset_launch_counts()
+        if method == "forward":
+            out[str(dev)] = mt.render_forward(
+                scene, {"white.reflectance.value": [1.0, 0.5, 0.25]}, spp=8,
+                seed=0)
+        else:
+            out[str(dev)] = mt.render_backward(
+                scene, (None, np.ones((8, 8, 100, 3), np.float32)), spp=8,
+                seed=0, method="fullad" if method == "fullad" else None)
+        counts = launch_counts()
+    sweeps = 1 if method == "fullad" else 2
+    assert counts["closest_hit"] == sweeps * 3 == counts["ray_test"]
+    assert counts.get("splat_accumulate", 0) == (0 if method == "prb" else 3)
+    if method == "forward":
+        for g, w in zip(out[str(cuda)], out["cpu"]):
+            m = golden_mismatch(g.cpu().numpy(), w.numpy())
+            assert m["shape_ok"] and m["n_bad"] == 0, m
+    else:
+        _tables_close(out[str(cuda)]["__tables__"], out["cpu"]["__tables__"],
+                      method)

@@ -57,7 +57,8 @@ def test_public_api():
     for name in ("load_dict", "load_file", "cornell_box", "render",
                  "set_variant",
                  "variant", "save_film_state", "load_film_state",
-                 "render_aovs"):
+                 "render_aovs", "render_backward", "render_forward",
+                 "traverse"):
         assert callable(getattr(mt, name)), name
     for name in ("focus_emitter_at_relay_wall_3dpoint",
                  "focus_emitter_at_relay_wall_uv",

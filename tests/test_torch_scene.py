@@ -304,10 +304,27 @@ def test_ray_intersect_matches_jax():
 
 
 def test_ray_intersect_refuses_geometry_deltas():
+    """Geometry deltas were refused until the port had geometry gradients
+    (ROADMAP item 14); now ray_intersect takes them, and at their loaded
+    (zero) value the shading record is the primal one bit for bit, with
+    a derivative with respect to the shape's translation."""
     tsc = mt.load_dict(mt.cornell_box(), device="cpu")
     ray = Ray.make(torch.zeros((4, 3)), torch.tensor([[0.0, 0.0, -1.0]] * 4))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        tscene.ray_intersect(tsc.data, ray, torch.ones(4, dtype=torch.bool))
+    act = torch.ones(4, dtype=torch.bool)
+    geom = tsc.data.geom
+    tr = geom.translate.clone().requires_grad_()
+    sd = tsc.data._replace(geom=geom._replace(translate=tr))
+    si = tscene.ray_intersect(sd, ray, act)
+    plain = tscene.ray_intersect(tscene.primal_sd(tsc.data), ray, act)
+    assert torch.equal(si.t.detach(), plain.t)
+    (g,) = torch.autograd.grad(si.t.sum(), tr)
+    # all four rays hit one face: t = (v0 + tr - o) . n / (d . n)
+    hit = int(si.shape_id[0])
+    assert (si.shape_id == hit).all()
+    n = plain.n[0]
+    want = 4.0 * n / (ray.d[0] @ n)
+    torch.testing.assert_close(g[hit], want, rtol=1e-6, atol=0.0)
+    assert torch.count_nonzero(g.sum(dim=1)) == 1
 
 
 def test_emitter_queries_match_jax():

@@ -622,3 +622,202 @@ def material_case(pkg, name: str):
     else:
         raise KeyError(name)
     return d, run
+
+
+# --------------------------------------------------------------------------
+# Differentiable rendering: copies of the JAX tests' scene dicts (those test
+# modules import the JAX package, which chip_smoke.py must not load)
+# --------------------------------------------------------------------------
+
+def gradients_cbox(pkg) -> dict:
+    """The ``gradients`` golden's scene (golden_configs.gradients):
+    small_cbox 8 x 8, 100 bins of 0.2 from OPL 0, depth 4, no Russian
+    roulette; its render_backward takes ones for both adjoint images at
+    ``GRADIENTS``."""
+    d = small_cbox(pkg, 8, 8, 100, 4)
+    d["sensor"]["film"]["start_opl"] = 0.0
+    d["sensor"]["film"]["bin_width_opl"] = 0.2
+    d["integrator"]["rr_depth"] = 99
+    return d
+
+
+GRADIENTS = dict(spp=8, seed=0)
+
+
+def grad_cbox(pkg, w=16, h=16, bins=300, max_depth=4) -> dict:
+    """test_grad.py's box: a full-coverage time window (bins of 0.1 from
+    OPL 0) and no Russian roulette, so the estimator is smooth in the
+    parameters; rendered at ``GRAD_SPP``."""
+    d = pkg.cornell_box()
+    f = d["sensor"]["film"]
+    f.update(width=w, height=h, temporal_bins=bins, start_opl=0.0,
+             bin_width_opl=0.1)
+    d["integrator"]["max_depth"] = max_depth
+    d["integrator"]["rr_depth"] = 99
+    return d
+
+
+GRAD_SPP = 32
+
+
+def flat_scene(light="point", bins=100, tfilter="gaussian") -> dict:
+    """test_geomgrad.py's flip-free geometry-gradient scene: a large floor
+    filling the 16 x 16 view and a point light or an area light the
+    contributing rays never hit (``discard_direct_light`` for the area
+    light), no Russian roulette, a gaussian temporal filter (the arrival
+    bins move smoothly with the hit distance); spp 64."""
+    d = {
+        "type": "scene",
+        "integrator": {
+            "type": "transient_path", "max_depth": 2, "rr_depth": 99,
+            "temporal_filter": tfilter,
+            "discard_direct_light": light == "area",
+        },
+        "floor": {
+            "type": "rectangle", "to_world": {"scale": 5.0},
+            "bsdf": {"type": "diffuse",
+                     "reflectance": {"type": "rgb",
+                                     "value": [0.7, 0.5, 0.3]}},
+        },
+        "sensor": {
+            "type": "perspective", "fov": 40,
+            "to_world": {"look_at": {"origin": [0, 0, 3],
+                                     "target": [0, 0, 0], "up": [0, 1, 0]}},
+            "film": {"type": "transient_hdr_film", "width": 16,
+                     "height": 16, "temporal_bins": bins, "start_opl": 0.0,
+                     "bin_width_opl": 0.1},
+            "sampler": {"type": "independent", "sample_count": 64},
+        },
+    }
+    if light == "point":
+        d["light"] = {"type": "point",
+                      "to_world": {"translate": [0.6, 0.4, 2.0]},
+                      "intensity": {"type": "rgb",
+                                    "value": [10.0, 10.0, 10.0]}}
+    else:
+        d["light"] = {
+            "type": "rectangle",
+            "to_world": {"translate": [0.5, 0.3, 2.0],
+                         "rotate": {"axis": [1, 0, 0], "angle": 180},
+                         "scale": 0.3},
+            "emitter": {"type": "area",
+                        "radiance": {"type": "rgb",
+                                     "value": [8.0, 8.0, 8.0]}}}
+    return d
+
+
+def flat_adjoint(kind: str, bins: int = 100):
+    """test_geomgrad.py's adjoint images of ``flat_scene``: "steady" (ones
+    on the steady image), "rand" (uniform [0, 1) on the transient, seed 0)
+    or "arrival" (bin index b on bin b) -> (grad_steady, grad_transient)."""
+    if kind == "steady":
+        return np.ones((16, 16, 3), np.float32), None
+    if kind == "rand":
+        return None, np.random.RandomState(0).uniform(
+            0.0, 1.0, (16, 16, bins, 3)).astype(np.float32)
+    return None, np.broadcast_to(
+        np.arange(bins, dtype=np.float32)[None, None, :, None],
+        (16, 16, bins, 3)).copy()
+
+
+# (light, adjoint, traverse paths whose gradients are compared)
+GEOMETRY_CASES = {
+    "floor_point_steady": ("point", "steady", ("floor.to_world.translate",
+                                              "floor.to_world.rotate",
+                                              "light.position")),
+    "point_rand": ("point", "rand", ("floor.to_world.translate",
+                                     "floor.to_world.rotate",
+                                     "light.position")),
+    "point_arrival": ("point", "arrival", ("light.position",
+                                           "floor.to_world.translate")),
+    "area_rand": ("area", "rand", ("light.to_world.translate",
+                                   "light.to_world.rotate",
+                                   "floor.to_world.translate")),
+}
+
+
+def diffparams_cbox(pkg, res=16, max_depth=4) -> dict:
+    """test_diffparams.py's box: res x res, 200 bins of 0.1 from OPL 0, no
+    Russian roulette."""
+    d = pkg.cornell_box()
+    d["sensor"]["film"].update(width=res, height=res, temporal_bins=200,
+                               start_opl=0.0, bin_width_opl=0.1)
+    d["integrator"]["max_depth"] = max_depth
+    d["integrator"]["rr_depth"] = 99
+    return d
+
+
+GGX_SMALL_BOX = {"type": "roughconductor", "material": "Al", "alpha": 0.3}
+CHECKER_FLOOR = {"type": "diffuse", "reflectance": {
+    "type": "checkerboard",
+    "color0": {"type": "rgb", "value": [0.7, 0.3, 0.2]},
+    "color1": {"type": "rgb", "value": [0.2, 0.6, 0.7]}}}
+
+
+def diff_case(pkg, name: str) -> dict:
+    """The GGX-alpha ("ggx": the small box a rough aluminium of alpha 0.3,
+    12 x 12) and texel ("texels": a checkerboard floor, 8 x 8, depth 3)
+    scenes of test_diffparams.py."""
+    if name == "ggx":
+        d = diffparams_cbox(pkg, res=12)
+        d["small-box"]["bsdf"] = dict(GGX_SMALL_BOX)
+    elif name == "texels":
+        d = diffparams_cbox(pkg, res=8, max_depth=3)
+        d["floor"]["bsdf"] = dict(CHECKER_FLOOR)
+    else:
+        raise KeyError(name)
+    return d
+
+
+def safety_scene(bsdf: dict, max_depth=3) -> dict:
+    """test_grad_safety.py's scene: a 3 x 3 floor of ``bsdf`` under a small
+    area light, 8 x 8, 40 bins of 0.4 from OPL 0, no Russian roulette."""
+    return {
+        "type": "scene",
+        "integrator": {"type": "transient_path", "max_depth": max_depth,
+                       "rr_depth": 99},
+        "floor": {"type": "rectangle", "to_world": {"scale": 3.0},
+                  "bsdf": bsdf},
+        "light": {"type": "rectangle",
+                  "to_world": {"translate": [0.4, 0.2, 2.0],
+                               "rotate": {"axis": [1, 0, 0], "angle": 180},
+                               "scale": 0.3},
+                  "emitter": {"type": "area", "radiance": 6.0}},
+        "sensor": {"type": "perspective", "fov": 45,
+                   "to_world": {"look_at": {"origin": [0, 0, 3],
+                                            "target": [0, 0, 0],
+                                            "up": [0, 1, 0]}},
+                   "film": {"type": "transient_hdr_film", "width": 8,
+                            "height": 8, "temporal_bins": 40,
+                            "start_opl": 0.0, "bin_width_opl": 0.4}},
+    }
+
+
+SAFETY_BSDFS = {  # test_grad_safety.BSDFS
+    "diffuse": {"type": "diffuse", "reflectance": 0.6},
+    "roughconductor": {"type": "roughconductor", "alpha": 0.1},
+    "roughplastic": {"type": "roughplastic", "alpha": 0.1,
+                     "diffuse_reflectance": 0.5},
+    "roughplastic_tex": {"type": "roughplastic", "alpha": 0.1,
+                         "diffuse_reflectance": {"type": "checkerboard"}},
+    "conductor": {"type": "conductor"},
+    "dielectric": {"type": "dielectric"},
+    "twosided_rc": {"type": "twosided",
+                    "nested": {"type": "roughconductor", "alpha": 0.1}},
+}
+
+
+def time_window_cbox(pkg, res: int, bins: int) -> dict:
+    """The diff_transient examples' box (optimize_reflectance.py,
+    forward_time_gradients.py): res x res, ``bins`` bins covering OPL 0-8,
+    depth 4."""
+    d = pkg.cornell_box()
+    d["sensor"]["film"].update(width=res, height=res, temporal_bins=bins,
+                               start_opl=0.0, bin_width_opl=8.0 / bins)
+    d["integrator"]["max_depth"] = 4
+    return d
+
+
+OPTIMIZE_REFLECTANCE = dict(res=64, bins=200, spp=256, lr=5e-2,
+                            target_seed=7, start=(0.15, 0.6, 0.25))
+FORWARD_TIME_GRADIENTS = dict(res=128, bins=300, spp=512)
