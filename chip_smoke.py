@@ -140,8 +140,11 @@ Phases, each of which raises on failure:
     step 0 the gradient by full AD beside PRB's; ``render_backward`` of
     the flagship frame (256x256,
     300 bins, depth 8, rr_depth 5, spp 128 = 2^23 lanes in one pass): K1
-    and K2 launch once a bounce of each of the two sweeps and K3 never,
-    wall and peak memory of a second call, the share of a third call spent
+    and K2 launch once a bounce of each of the two sweeps and K3 never;
+    the inputs K1 and K2 get in the replay sweep's bounce 1 (2^23
+    closest-hit rays, 2^23 shadow rays) held against the plain versions
+    as in phase 16, each timed with its bound; wall and peak memory of a
+    second call, the share of a third call spent
     in autograd's backward, and a fourth under torch.profiler with the
     device time of the table-gradient reductions (``index_add_``); the
     4,512-triangle sphere config through the BVH kernel, card against CPU
@@ -150,7 +153,10 @@ Phases, each of which raises on failure:
 24. Forward mode: ``forward_time_gradients``' full configuration
     (128x128, 300 bins of 8/300 from 0, depth 4, spp 512 = 2^23 lanes)
     timed on a second call, K3 launching once a bounce for the
-    derivative film; the test_grad box's derivative video on the card
+    derivative film; the inputs K1 and K2 get in the replay sweep's
+    bounce 1 (2^23 rays each) and the events of bounce 1's derivative
+    splat (2^23 lanes into a (3, 301, 16384) film) held against the plain
+    versions as in phase 16, each timed with its bound; the test_grad box's derivative video on the card
     against the CPU (test_golden's rule).
 25. Full AD and K3's autograd Function: on the NLOS single capture's
     bounce-1 events, the Function's backward (a gather) bit-equal to the
@@ -172,7 +178,8 @@ and in the materials flagship, ``materials_launches``; in the gradient
 phases ``prb_backward_launches``, ``forward_launches`` and
 ``fullad_launches``), error, times and bound (K1-K3 also on the inputs of
 phases 16, 19 and 20, keys ``nlos_*``, ``exhaustive_*`` and
-``materials_*``; K3 also its Function's ``backward_max_abs_err``,
+``materials_*``, and on those of phases 23 and 24, ``grad_prb_*`` for K1
+and K2 and ``grad_forward_*``; K3 also its Function's ``backward_max_abs_err``,
 ``jvp_max_abs_err`` and the backward gather's ``gather_*`` times), and
 ``{"ok": true,
 "device": {...}}``.  Without a CUDA device, or without the
@@ -212,6 +219,9 @@ MATERIALS_EVENTS_ITERATION = 8  # the materials flagship's held iteration
 ROOM = dict(res=200, bins=200, spp=256)  # the angulararea example's size
 PROFILE_SPP = 64  # the profiled render: the profiler slows the host
 GRAD_FLAGSHIP = dict(spp=128, seed=0)  # render_backward: 2^23 lanes, 1 pass
+# the replay sweep's bounce whose K1 and K2 inputs (and, in forward mode,
+# whose derivative splat's events) phases 23 and 24 hold
+GRAD_HELD_BOUNCE = 1
 # card against CPU, gradient tables: the table-gradient reductions add by
 # atomics on the card, in lane order on the CPU
 GRAD_TABLE_ATOL = 1e-4
@@ -1136,22 +1146,25 @@ def _check_energy(name, s, t, first_bins=None):
 
 
 @contextlib.contextmanager
-def capture_bounce(sizes, bounce=NLOS_EVENTS_BOUNCE):
+def capture_bounce(sizes, bounce=NLOS_EVENTS_BOUNCE, splat=None):
     """While open, keep copies of what the kernels get in bounce ``bounce``
-    of the renders run: K3's event sets under "events" (the ``bounce``-th
-    splat), and under a soup kernel's name ("closest_hit", "ray_test") the
-    (o, d, maxt, active) of its ``bounce``-th launch on ``sizes[kernel]``
-    rays (a wavefront's launches; the few-ray launches of a capture's
-    constants do not count).  Yields the dict it fills."""
+    of the renders run: K3's event sets under "events" (the ``splat``-th
+    splat, by default the ``bounce``-th), and under a soup kernel's name
+    ("closest_hit", "ray_test") the (o, d, maxt, active) of its
+    ``bounce``-th launch on ``sizes[kernel]`` rays (a wavefront's launches,
+    counted over every sweep of a differentiated render; the few-ray
+    launches of a capture's constants do not count).  Yields the dict it
+    fills."""
     from mitransient_tpu_torch.film import transient_film as tf
     from mitransient_tpu_torch.ops import intersect as isect
 
     calls = {"splat": 0, **{k: 0 for k in sizes}}
+    splat_at = bounce if splat is None else splat
     kept = {}
     splat, soup_kernel = tf.splat_accumulate, isect._soup_kernel
 
     def capture(film, *events, spp):
-        if calls["splat"] == bounce:
+        if calls["splat"] == splat_at:
             kept["events"] = [e.clone() for e in events if e is not None]
         calls["splat"] += 1
         splat(film, *events, spp=spp)
@@ -1174,8 +1187,9 @@ def hold_captured(scene, kept, label, dev, hw):
     """K1, K2 and K3 on a render's captured inputs (``capture_bounce``)
     against their plain versions, bit for bit: K1 and K2 against the plain
     soup queries on the card, K3 against its plain version on the host CPU
-    (``check_splat``, into a (C, 301, hw) film).  Each timed, with its
-    bound.  -> {kernel name: {max_abs_err, ms, plain_ms, bound, ...}}."""
+    (``check_splat``, into a (C, 301, hw) film), where K3 ran.  Each
+    timed, with its bound.  -> {kernel name: {max_abs_err, ms, plain_ms,
+    bound, ...}}."""
     from mitransient_tpu_torch.film import transient_film as tf
     from mitransient_tpu_torch.ops import intersect as isect
 
@@ -1206,6 +1220,8 @@ def hold_captured(scene, kept, label, dev, hw):
               f"{count} {'hits' if kernel == 'closest_hit' else 'occluded'}, "
               f"{m} triangles): kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+    if "events" not in kept:
+        return out
     k3 = check_splat(tf, kept["events"], hw, dev, t_pad=301)
     print(f"splat_accumulate on {label} events "
           f"({kept['events'][0].shape[0]} lanes, {hw} slots, "
@@ -1637,7 +1653,8 @@ def _timed(fn):
 
 def prb_backward_phase(mt, cases, dev):
     """Phase 23: PRB backward.  Returns the K1-K3 launches of the flagship
-    backward."""
+    backward and K1 and K2 on the inputs of its replay sweep's bounce
+    ``GRAD_HELD_BOUNCE`` (``hold_captured``)."""
     import numpy as np
     import torch
 
@@ -1715,14 +1732,19 @@ def prb_backward_phase(mt, cases, dev):
     rng = np.random.default_rng(11)
     grad_in = _grad_in(film_cfg, rng, steady=True)
     lanes = film_cfg.width * film_cfg.height * GRAD_FLAGSHIP["spp"]
-    reset_launch_counts()
-    g1, wall1, peak1 = _timed(lambda: mt.render_backward(
-        scene, grad_in, **GRAD_FLAGSHIP))
-    counts = launch_counts()
     depth = scene.integrator.max_depth
+    # call 1 keeps what K1 and K2 get in the replay sweep's bounce
+    # GRAD_HELD_BOUNCE (the primal sweep launches them `depth` times first)
+    reset_launch_counts()
+    with capture_bounce({"closest_hit": lanes, "ray_test": lanes},
+                        bounce=depth + GRAD_HELD_BOUNCE) as kept:
+        g1, wall1, peak1 = _timed(lambda: mt.render_backward(
+            scene, grad_in, **GRAD_FLAGSHIP))
+    counts = launch_counts()
     print(f"flagship render_backward ({lanes} lanes, depth {depth}, rr_depth "
-          f"{scene.integrator.rr_depth}) call 1: {wall1:.3f} s, launches "
-          f"{counts}, peak memory {peak1:.2f} GiB")
+          f"{scene.integrator.rr_depth}) call 1 (its replay's kernel inputs "
+          f"captured): {wall1:.3f} s, launches {counts}, peak memory "
+          f"{peak1:.2f} GiB")
     if (counts.get("closest_hit") != 2 * depth
             or counts.get("ray_test") != 2 * depth
             or "splat_accumulate" in counts):
@@ -1732,6 +1754,11 @@ def prb_backward_phase(mt, cases, dev):
         v = getattr(g1["__tables__"], f)
         if v is not None and not torch.isfinite(v).all():
             raise AssertionError(f"flagship backward: {f} not finite")
+    if set(kept) != {"closest_hit", "ray_test"}:
+        raise AssertionError(f"flagship backward: captured {set(kept)}")
+    held = hold_captured(scene, kept, f"PRB replay bounce {GRAD_HELD_BOUNCE}'s",
+                         dev, film_cfg.width * film_cfg.height)
+    del kept
     g2, wall2, peak2 = _timed(lambda: mt.render_backward(
         scene, grad_in, **GRAD_FLAGSHIP))
     print(f"flagship render_backward call 2: {wall2:.3f} s -> "
@@ -1777,7 +1804,7 @@ def prb_backward_phase(mt, cases, dev):
           "their largest value")
     if sphere_counts.get(f"bvh_query_{bvh.BVH_MODE}", 0) < 2 * 2 * 6:
         raise AssertionError(f"sphere backward: launches {sphere_counts}")
-    return counts
+    return counts, held
 
 
 def _profile_backward(mt, scene, grad_in):
@@ -1817,7 +1844,9 @@ def _profile_backward(mt, scene, grad_in):
 
 def forward_mode_phase(mt, cases, dev):
     """Phase 24: forward mode.  Returns the launches of the
-    forward_time_gradients render."""
+    forward_time_gradients render and K1-K3 on the inputs of its replay
+    sweep's bounce ``GRAD_HELD_BOUNCE`` and that bounce's derivative splat
+    (``hold_captured``)."""
     import numpy as np
 
     from mitransient_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -1827,11 +1856,14 @@ def forward_mode_phase(mt, cases, dev):
                          device=dev)
     tangent = {"green.reflectance.value": [1.0, 1.0, 1.0]}
     lanes = cfg["res"] ** 2 * cfg["spp"]
-    reset_launch_counts()
-    (ds, dt), wall1, peak1 = _timed(lambda: mt.render_forward(
-        scene, tangent, spp=cfg["spp"], seed=0))
-    counts = launch_counts()
     depth = scene.integrator.max_depth
+    reset_launch_counts()
+    with capture_bounce({"closest_hit": lanes, "ray_test": lanes},
+                        bounce=depth + GRAD_HELD_BOUNCE,
+                        splat=GRAD_HELD_BOUNCE) as kept:
+        (ds, dt), wall1, peak1 = _timed(lambda: mt.render_forward(
+            scene, tangent, spp=cfg["spp"], seed=0))
+    counts = launch_counts()
     (_ds, _dt), wall2, peak2 = _timed(lambda: mt.render_forward(
         scene, tangent, spp=cfg["spp"], seed=1))
     print(f"forward_time_gradients ({cfg['res']}x{cfg['res']}, {cfg['bins']} "
@@ -1846,6 +1878,11 @@ def forward_mode_phase(mt, cases, dev):
     if not (np.isfinite(dt.cpu().numpy()).all() and float(dt.sum()) > 0):
         raise AssertionError("forward_time_gradients: non-finite or no "
                              "derivative")
+    if len(kept) != 3 or len(kept["events"]) != 2:
+        raise AssertionError(f"forward replay: captured {set(kept)}")
+    held = hold_captured(scene, kept, f"forward replay bounce "
+                         f"{GRAD_HELD_BOUNCE}'s", dev, cfg["res"] ** 2)
+    del kept
     out = []
     for d in (dev, "cpu"):
         sc = mt.load_dict(cases.grad_cbox(mt), device=d)
@@ -1857,7 +1894,7 @@ def forward_mode_phase(mt, cases, dev):
         print(f"test_grad box render_forward {k}, card against CPU: {m}")
         if not (m["shape_ok"] and m["n_bad"] == 0):
             raise AssertionError(f"forward {k}: card and CPU disagree")
-    return counts
+    return counts, held
 
 
 def full_ad_phase(mt, cases, dev):
@@ -1914,13 +1951,14 @@ def full_ad_phase(mt, cases, dev):
     gather_bound = _bound(32 * sectors + bins.numel() * 4 + vals.numel() * 4,
                           0)
     gfilm = w
+    cells = tf.gather_index(bins, shape)
     idx = ((torch.arange(shape[0], device=dev)[None, :] * (shape[1] * hw))
            + (bins.long() * hw + torch.arange(bins.shape[0], device=dev)
               % hw)[:, None]).reshape(-1)
     flat = gfilm.reshape(-1)
     k3fn = dict(
         backward_max_abs_err=bwd_err, jvp_max_abs_err=jvp_err,
-        gather_ms=_time_ms(lambda: tf.gather_cells(gfilm, bins)),
+        gather_ms=_time_ms(lambda: tf.gather_cells(gfilm, *cells)),
         gather_bound_ms=gather_bound[0], gather_bound_by=gather_bound[1],
         gather_library_ms=_time_ms(lambda: flat.index_select(0, idx)))
     print(f"K3 Function on the NLOS bounce-{NLOS_EVENTS_BOUNCE} events "
@@ -2032,8 +2070,11 @@ def main() -> int:
     materials, materials_held = render_materials_flagship(mt, cases, dev)
     render_angulararea(mt, cases, dev)
     materials_card_against_cpu(mt, cases, dev)
-    grad_counts = {"prb_backward": prb_backward_phase(mt, cases, dev),
-                   "forward": forward_mode_phase(mt, cases, dev)}
+    grad_counts, grad_held = {}, {}
+    grad_counts["prb_backward"], grad_held["grad_prb"] = prb_backward_phase(
+        mt, cases, dev)
+    grad_counts["forward"], grad_held["grad_forward"] = forward_mode_phase(
+        mt, cases, dev)
     k3fn, grad_counts["fullad"] = full_ad_phase(mt, cases, dev)
     for r in rows:
         for phase, c in grad_counts.items():
@@ -2055,7 +2096,10 @@ def main() -> int:
         # materials_): their error joins the row's
         for prefix, held in (("nlos", nlos_held), ("exhaustive",
                                                    exhaustive_held),
-                             ("materials", materials_held)):
+                             ("materials", materials_held),
+                             *grad_held.items()):
+            if r["name"] not in held:  # K3 does not run in PRB backward
+                continue
             h = held[r["name"]]
             r["max_abs_err"] = max(r["max_abs_err"], h["max_abs_err"])
             r.update({f"{prefix}_ms": h["ms"],

@@ -217,15 +217,12 @@ def _scatter_layout(film: torch.Tensor, hw: int, bins: torch.Tensor,
     _scatter_cells(film, pix, bins, vals)
 
 
-def _cell_index(shape, pix: torch.Tensor, bins: torch.Tensor):
-    """Flat indices of the cells ``film[c, bins[i], pix[i]]`` of a (C, T_pad,
-    HW) film, (N, C) lane-major, and the in-film mask (N,); a lane whose
+def _cell_index(t_pad: int, hw: int, pix: torch.Tensor, bins: torch.Tensor):
+    """The flat (T_pad * HW) cell of ``film[:, bins[i], pix[i]]`` in a (C,
+    T_pad, HW) film for every lane, and the in-film mask (N,); a lane whose
     bin lies outside the film points at cell 0."""
-    C, t_pad, hw = shape
     keep = (bins >= 0) & (bins < t_pad)
-    cell = torch.where(keep, bins.to(torch.int64) * hw + pix, 0)
-    chan = torch.arange(C, device=bins.device) * (t_pad * hw)
-    return cell[:, None] + chan[None, :], keep
+    return torch.where(keep, bins.to(torch.int64) * hw + pix, 0), keep
 
 
 def _scatter_cells(film: torch.Tensor, pix: torch.Tensor, bins: torch.Tensor,
@@ -233,19 +230,31 @@ def _scatter_cells(film: torch.Tensor, pix: torch.Tensor, bins: torch.Tensor,
     """``film[c, bins[i], pix[i]] += vals[i, c]`` in place, in the order of
     i, then c; bins outside the film dropped (a dropped lane adds 0.0 to
     cell 0)."""
-    idx, keep = _cell_index(film.shape, pix, bins)
+    C, t_pad, hw = film.shape
+    cell, keep = _cell_index(t_pad, hw, pix, bins)
+    chan = torch.arange(C, device=bins.device) * (t_pad * hw)
+    idx = cell[:, None] + chan[None, :]  # (N, C) lane-major
     src = torch.where(keep[:, None], vals, 0.0).reshape(-1)
     film.view(-1).index_add_(0, idx.reshape(-1), src)
 
 
-def gather_cells(g_film: torch.Tensor, bins: torch.Tensor) -> torch.Tensor:
+def gather_index(bins: torch.Tensor, shape):
+    """The cells that :func:`gather_cells` reads for one event set into a
+    (C, T_pad, HW) film: (the flat (T_pad * HW) cell of every lane, 0 where
+    the bin lies outside the film; the in-film mask (N,))."""
+    _C, t_pad, hw = shape
+    pix = torch.arange(bins.shape[0], device=bins.device) % hw
+    return _cell_index(t_pad, hw, pix, bins)
+
+
+def gather_cells(g_film: torch.Tensor, cell: torch.Tensor,
+                 keep: torch.Tensor) -> torch.Tensor:
     """``g_film[c, bins[i], i % hw]`` for every lane and channel, 0 where
-    the bin lies outside the film: the cotangent of one event set's values
-    (N, C) under :func:`splat_accumulate`."""
-    pix = torch.arange(bins.shape[0], device=bins.device) % g_film.shape[-1]
-    idx, keep = _cell_index(g_film.shape, pix, bins)
-    g = g_film.reshape(-1).index_select(0, idx.reshape(-1)).view(idx.shape)
-    return torch.where(keep[:, None], g, 0.0)
+    the bin lies outside the film (``cell, keep = gather_index(bins,
+    g_film.shape)``): the cotangent (N, C) of one event set's values under
+    :func:`splat_accumulate`."""
+    g = g_film.reshape(g_film.shape[0], -1).index_select(1, cell)
+    return torch.where(keep[:, None], g.T, 0.0)
 
 
 def splat_accumulate(film: torch.Tensor, bins_a: torch.Tensor,
@@ -303,18 +312,18 @@ class SplatEvents(torch.autograd.Function):
         splat_accumulate(film, bins_a, vals_a, bins_b, vals_b, spp=spp)
         ctx.mark_dirty(film)
         # the bins are integer inputs, never modified: kept as they are for
-        # both the backward and the jvp
+        # the jvp; the backward's gather indices are made here, once
         ctx.bins, ctx.spp = (bins_a, bins_b), spp
+        ctx.cells = [
+            gather_index(b, film.shape) if b is not None and needs else None
+            for b, needs in zip((bins_a, bins_b),
+                                ctx.needs_input_grad[2::2])]
         return film
 
     @staticmethod
     def backward(ctx, g_film):
-        bins_a, bins_b = ctx.bins
-        g_a = g_b = None
-        if ctx.needs_input_grad[2]:
-            g_a = gather_cells(g_film, bins_a)
-        if bins_b is not None and ctx.needs_input_grad[4]:
-            g_b = gather_cells(g_film, bins_b)
+        g_a, g_b = (None if c is None else gather_cells(g_film, *c)
+                    for c in ctx.cells)
         return g_film, None, g_a, None, g_b, None
 
     @staticmethod

@@ -79,7 +79,8 @@ def render_backward_fullad(scene: Scene, grad_in, spp=None, seed=0,
                            sensor=0, max_lanes=1 << 20,
                            bvh_mode: str = BVH_MODE):
     """Reverse-mode gradients by full AD, accumulated over spp chunks of at
-    most ``max_lanes`` lanes; the same dict as ``render_backward``."""
+    most ``max_lanes`` lanes; the same dict as ``render_backward``, which
+    makes the refusals (``render._prb_setup``) before it calls this."""
     cfg = scene.sensors[sensor]
     icfg = scene.integrator
     film_cfg = cfg.film
@@ -89,17 +90,8 @@ def render_backward_fullad(scene: Scene, grad_in, spp=None, seed=0,
     C = scene.variant.color_channels
     T = film_cfg.temporal_bins
     dev = scene.device
-    if film_cfg.kind == "phasor_hdr_film":
-        raise NotImplementedError(
-            "the phasor film is not differentiable (matching the "
-            "reference's PhasorHDRFilm); use transient_hdr_film for "
-            "gradients")
     skip_le = False
     if kind == "transient_nlos_path":
-        if icfg.capture_type == "exhaustive":
-            raise ValueError(
-                "Exhaustive capture is not supported in differentiable "
-                "rendering (transientnlospath.py:729-731)")
         ctx = prepare_nlos(scene, cfg, bvh_mode)
         skip_le = can_skip_le(scene.data)
     else:

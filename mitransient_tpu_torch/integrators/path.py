@@ -170,15 +170,43 @@ def _bounce(sd, key, it, n, st: PathState, film_cfg, icfg, spp, splat_w,
 
     # ---- BSDF sampling
     bs = bsdf_api.sample(lb, si.wi, rnd1(2), rnd2(3), active_next)
-    d_world = si.frame.to_world(bs.wo)
-    new_ray = si.spawn_ray(d_world)
-    L = st.L + Le + Lr_dir
-    beta = torch.where(active_next[:, None], st.beta * bs.weight, st.beta)
-    eta = torch.where(active_next, st.eta * bs.eta, st.eta)
+    o, d_world, beta, eta, active_next, prev = next_vertex(
+        si, bs, hit, active_next, st.beta, st.eta,
+        (st.prev_p, st.prev_pdf, st.prev_delta), it, icfg, rnd1(5))
 
-    # ---- stopping criteria: Russian roulette is a detached decision
-    # (detached PRB); differentiating 1 / rr_prob would also give infinite
-    # derivatives on lanes of tiny throughput
+    return PathState(
+        o=o,
+        d=d_world,
+        beta=beta,
+        L=st.L + Le + Lr_dir,
+        eta=eta,
+        distance=distance,
+        active=active_next,
+        depth=st.depth + hit.to(torch.int32),
+        prev_p=prev[0],
+        prev_pdf=prev[1],
+        prev_delta=prev[2],
+        film=film,
+        n_rays=st.n_rays + active.sum() + active_em.sum(),
+    )
+
+
+def next_vertex(si, bs, hit, active_next, beta, eta, prev, it: int,
+                icfg: IntegratorConfig, u_rr: torch.Tensor):
+    """The state update after BSDF sampling, shared by the primal bounce
+    and PRB's replay sweep (``prb.sample_adjoint``), which must take the
+    same random decisions: the spawned ray, the throughput and eta, Russian
+    roulette on ``u_rr``, and the vertex the next bounce's MIS looks back
+    at.  Russian roulette is a detached decision (detached PRB):
+    differentiating 1 / rr_prob would also give infinite derivatives on
+    lanes of tiny throughput.
+
+    prev: (prev_p, prev_pdf, prev_delta).
+    -> (o, d, beta, eta, active_next, prev)."""
+    d = si.frame.to_world(bs.wo)
+    o = si.spawn_ray(d).o
+    beta = torch.where(active_next[:, None], beta * bs.weight, beta)
+    eta = torch.where(active_next, eta * bs.eta, eta)
     beta_max = beta.amax(dim=-1).detach()
     active_next = active_next & (beta_max != 0.0)
     rr_prob = torch.clamp_max(beta_max * eta * eta, 0.95)
@@ -189,20 +217,9 @@ def _bounce(sd, key, it, n, st: PathState, film_cfg, icfg, spp, splat_w,
                                0.0).detach()
         beta = torch.where(active_next[:, None], beta * rr_scale[:, None],
                            beta)
-        active_next = active_next & (rnd1(5) < rr_prob)
-
-    return PathState(
-        o=new_ray.o,
-        d=d_world,
-        beta=beta,
-        L=L,
-        eta=eta,
-        distance=distance,
-        active=active_next,
-        depth=st.depth + hit.to(torch.int32),
-        prev_p=torch.where(hit[:, None], si.p, st.prev_p),
-        prev_pdf=torch.where(active_next, bs.pdf, st.prev_pdf),
-        prev_delta=torch.where(active_next, bs.delta, st.prev_delta),
-        film=film,
-        n_rays=st.n_rays + active.sum() + active_em.sum(),
-    )
+        active_next = active_next & (u_rr < rr_prob)
+    prev_p, prev_pdf, prev_delta = prev
+    prev = (torch.where(hit[:, None], si.p, prev_p),
+            torch.where(active_next, bs.pdf, prev_pdf),
+            torch.where(active_next, bs.delta, prev_delta))
+    return o, d, beta, eta, active_next, prev

@@ -50,7 +50,7 @@ from ..scene.scene import (
     sample_emitter_direction,
 )
 from ..scene.schema import FilmConfig, IntegratorConfig
-from .path import DIMS_PER_BOUNCE
+from .path import DIMS_PER_BOUNCE, next_vertex
 
 
 class DiffParams(NamedTuple):
@@ -250,9 +250,7 @@ def sample_adjoint(
     L_rest = L_total
     eta = torch.ones((n,), dtype=f32, device=dev)
     active = ones
-    prev_p = ray.o
-    prev_pdf = torch.ones((n,), dtype=f32, device=dev)
-    prev_delta = ones
+    prev = (ray.o, torch.ones((n,), dtype=f32, device=dev), ones)
     for it in range(icfg.max_depth):
         ub = draw_bounce_block(sampler_key, it, n, DIMS_PER_BOUNCE, dev)
         si = ray_intersect(sd, Ray.make(o, d), active, bvh_mode)
@@ -262,9 +260,9 @@ def sample_adjoint(
                                            sd.bsdf_kinds)
 
         # detached MIS weights and NEE sample (as the primal sweep)
-        pdf_em_hit = torch.where(prev_delta, 0.0,
-                                 pdf_emitter_direction(sd, prev_p, si))
-        mis = mis_weight(prev_pdf, pdf_em_hit)
+        pdf_em_hit = torch.where(prev[2], 0.0,
+                                 pdf_emitter_direction(sd, prev[0], si))
+        mis = mis_weight(prev[1], pdf_em_hit)
         active_next = active & si.valid
         if it + 1 >= icfg.max_depth:
             active_next = torch.zeros_like(active)
@@ -334,26 +332,10 @@ def sample_adjoint(
             fwd_dists.append(distance)
         Le, Lr_dir = Le.detach(), Lr_dir.detach()
 
-        # ---- state update: as the primal sweep
-        d = si.frame.to_world(bs.wo)
-        o = si.spawn_ray(d).o
-        beta = torch.where(active_next[:, None], beta * bs.weight, beta)
-        eta = torch.where(active_next, eta * bs.eta, eta)
+        # ---- state update: the primal sweep's own
+        o, d, beta, eta, active, prev = next_vertex(
+            si, bs, hit, active_next, beta, eta, prev, it, icfg, ub[:, 5])
         L_rest = L_rest - Le - Lr_dir
-        beta_max = beta.amax(dim=-1)
-        active_next = active_next & (beta_max != 0.0)
-        rr_prob = torch.clamp_max(beta_max * eta * eta, 0.95)
-        active_next = active_next & (rr_prob > 0.0)
-        if it >= icfg.rr_depth:
-            rr_scale = torch.where(rr_prob > 0.0,
-                                   1.0 / torch.clamp_min(rr_prob, 1e-30), 0.0)
-            beta = torch.where(active_next[:, None],
-                               beta * rr_scale[:, None], beta)
-            active_next = active_next & (ub[:, 5] < rr_prob)
-        prev_p = torch.where(hit[:, None], si.p, prev_p)
-        prev_pdf = torch.where(active_next, bs.pdf, prev_pdf)
-        prev_delta = torch.where(active_next, bs.delta, prev_delta)
-        active = active_next
 
     if mode == "backward":
         return grads

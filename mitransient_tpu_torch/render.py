@@ -311,8 +311,10 @@ def render_aovs(scene: Scene, spp: int = 16, seed: int = 0, sensor: int = 0,
 
 def _prb_setup(scene: Scene, spp, sensor,
                max_lanes: int = DEFAULT_MAX_LANES * 4):
-    """The differentiable renders' refusals and spp split -> (sensor config,
-    integrator config, film config, spp, HW, spp a chunk, chunks)."""
+    """The differentiable renders' refusals (every method's: crop, phasor
+    film, 2^32 lanes, the exhaustive capture) and the PRB spp split ->
+    (sensor config, integrator config, film config, spp, HW, spp a chunk,
+    chunks)."""
     cfg = scene.sensors[sensor]
     icfg = scene.integrator
     film_cfg = cfg.film
@@ -333,6 +335,12 @@ def _prb_setup(scene: Scene, spp, sensor,
         raise ValueError(
             f"render_backward/forward wavefront exceeds 2^32 lanes "
             f"(lanes = {hw * spp}); reduce spp")
+    if ((cfg.kind == "nlos_capture_meter"
+         or icfg.kind == "transient_nlos_path")
+            and icfg.capture_type == "exhaustive"):
+        raise ValueError(
+            "Exhaustive capture is not supported in differentiable "
+            "rendering (transientnlospath.py:729-731)")
     spp_chunk, n_passes, _total = _split_spp(spp, hw, max_lanes)
     return cfg, icfg, film_cfg, spp, hw, spp_chunk, n_passes
 
@@ -382,18 +390,19 @@ def render_backward(scene: Scene, grad_in, spp: int | None = None,
     ``max_lanes`` lanes; ``transient_nlos_path`` (single and confocal) and
     ``method="fullad"`` take full AD through the wavefront, in chunks of
     2^20 lanes, whose gradients also reach the shape poses and the delta
-    emitters' positions.  The phasor film, crop windows and wavefronts of
-    more than 2^32 lanes are refused as in the JAX package; volumetric
+    emitters' positions.  The phasor film, crop windows, wavefronts of
+    more than 2^32 lanes and the exhaustive capture are refused
+    (:func:`_prb_setup`); volumetric
     (ROADMAP item 15), polarized and spectral scenes (item 16) are not
     ported."""
     _refuse_unported(scene)
-    if scene.integrator.kind == "transient_nlos_path" or method == "fullad":
+    cfg, icfg, film_cfg, spp, hw, spp_chunk, n_passes = _prb_setup(
+        scene, spp, sensor, max_lanes)
+    if icfg.kind == "transient_nlos_path" or method == "fullad":
         from .integrators.fullad import render_backward_fullad
 
         return render_backward_fullad(scene, grad_in, spp=spp, seed=seed,
                                       sensor=sensor, bvh_mode=bvh_mode)
-    cfg, icfg, film_cfg, spp, hw, spp_chunk, n_passes = _prb_setup(
-        scene, spp, sensor, max_lanes)
     gs, gt = adjoint_images(grad_in, film_cfg, scene.variant.color_channels,
                             scene.device)
     cam = build_camera(cfg, device=scene.device)
@@ -533,10 +542,6 @@ def render_forward(scene: Scene, tangent: dict, spp: int | None = None,
         scene, spp, sensor, max_lanes)
     nlos = (cfg.kind == "nlos_capture_meter"
             or icfg.kind == "transient_nlos_path")
-    if nlos and icfg.capture_type == "exhaustive":
-        raise ValueError(
-            "Exhaustive capture is not supported in differentiable "
-            "rendering (transientnlospath.py:729-731)")
     tangents = _build_tangents(scene, tangent)
     total_spp = spp_chunk * n_passes
     dev = scene.device

@@ -577,6 +577,10 @@ def test_differentiation_on_cuda_matches_cpu(cuda, method):
     the forward replay's derivative film)."""
     from torch_cases import grad_cbox
 
+    # a transient adjoint that varies over the bins, so that the bin each
+    # vertex or splat reads it at matters
+    adjoint = np.random.default_rng(3).uniform(
+        0.0, 1.0, (8, 8, 100, 3)).astype(np.float32)
     out = {}
     for dev in ("cpu", cuda):
         scene = mt.load_dict(grad_cbox(mt, 8, 8, 100, 3), device=dev)
@@ -587,8 +591,8 @@ def test_differentiation_on_cuda_matches_cpu(cuda, method):
                 seed=0)
         else:
             out[str(dev)] = mt.render_backward(
-                scene, (None, np.ones((8, 8, 100, 3), np.float32)), spp=8,
-                seed=0, method="fullad" if method == "fullad" else None)
+                scene, (None, adjoint), spp=8, seed=0,
+                method="fullad" if method == "fullad" else None)
         counts = launch_counts()
     sweeps = 1 if method == "fullad" else 2
     assert counts["closest_hit"] == sweeps * 3 == counts["ray_test"]

@@ -31,6 +31,7 @@ from mitransient_tpu_torch.film import transient_film as tf
 from torch_cases import (
     GRAD_SPP,
     GRADIENTS,
+    OPTIMIZE_REFLECTANCE,
     diff_case,
     golden_mismatch,
     gradients_cbox,
@@ -39,11 +40,17 @@ from torch_cases import (
     nlos_scene,
     small_cbox,
     splat_events,
+    time_window_cbox,
 )
 
 torch.set_num_threads(1)
 
 ONES_T = np.ones((16, 16, 300, 3), np.float32)
+# a transient adjoint that varies over the bins: the bin PRB reads at each
+# vertex (read_adjoint's pixel * T + bin(distance)) decides the gradient,
+# which a constant adjoint cannot show
+RAND_T = np.random.default_rng(0).uniform(
+    0.0, 1.0, ONES_T.shape).astype(np.float32)
 V_WHITE = np.array([1.0, 1.0, 1.0], np.float32)
 V_GREEN = np.array([0.3, 0.2, 0.1], np.float32)
 CHUNKED = 16 * 16 * 8  # max_lanes that splits spp 32 into 4 chunks
@@ -76,10 +83,11 @@ def jax_results(scenes):
     jsc = scenes[0]
     out = {}
     for tag, kw in (("single", {}), ("chunked", {"max_lanes": CHUNKED})):
-        g = mitr.render_backward(jsc, (None, ONES_T), spp=GRAD_SPP, seed=0,
-                                 **kw)
-        out[f"bwd_{tag}"] = {k: np.asarray(v) for k, v in g.items()
-                             if k != "__tables__"}
+        for name, adj in (("bwd", ONES_T), ("rand", RAND_T)):
+            g = mitr.render_backward(jsc, (None, adj), spp=GRAD_SPP, seed=0,
+                                     **kw)
+            out[f"{name}_{tag}"] = {k: np.asarray(v) for k, v in g.items()
+                                    if k != "__tables__"}
         out[f"fwd_{tag}"] = [np.asarray(a) for a in mitr.render_forward(
             jsc, {"white.reflectance.value": V_WHITE}, spp=GRAD_SPP, seed=0,
             **kw)]
@@ -131,6 +139,72 @@ def test_backward_chunked_matches_jax(scenes, jax_results):
                            max_lanes=CHUNKED)
     for k, w in jax_results["bwd_chunked"].items():
         _close_tables(g[k].numpy(), w, k)
+
+
+@pytest.mark.parametrize("tag", ["single", "chunked"])
+def test_backward_time_varying_adjoint_matches_jax(scenes, jax_results, tag):
+    """PRB backward with a uniform random transient adjoint, in one pass
+    and in 4 chunks, against the JAX package."""
+    kw = {"max_lanes": CHUNKED} if tag == "chunked" else {}
+    g = mt.render_backward(scenes[1], (None, RAND_T), spp=GRAD_SPP, seed=0,
+                           **kw)
+    want = jax_results[f"rand_{tag}"]
+    assert set(g) - {"__tables__"} == set(want)
+    for k, w in want.items():
+        _close_tables(g[k].numpy(), w, k)
+    assert np.any(g["white.reflectance.value"].numpy() != 0)
+
+
+def test_optimize_reflectance_adjoint_matches_jax():
+    """The first step of optimize_reflectance at 16 x 16 (200 bins of 0.04
+    from OPL 0, depth 4, spp 32): the adjoint 2 / numel * (img - target)
+    of its transient L2 loss, with the white wall's reflectance moved to
+    the example's start.  PRB against the JAX package's PRB, full AD
+    against the JAX package's full AD, and full AD against a central
+    difference of the same seeded loss (test_grad.py's tolerance).
+
+    PRB reads the adjoint of a vertex's whole contribution at the
+    vertex's own bin, where its NEE and indirect terms land later (the
+    reference's estimator): on this loss its gradient has the other sign
+    than the exact one in the red and blue channels, in both packages
+    (ROADMAP queue 3)."""
+    desc = time_window_cbox(mitr, 16, 200)
+    jsc, tsc = (mitr.load_dict(copy.deepcopy(desc)),
+                mt.load_dict(copy.deepcopy(desc), device="cpu"))
+    path, spp = "white.reflectance.value", GRAD_SPP
+    start = np.array(OPTIMIZE_REFLECTANCE["start"], np.float32)
+    _s, target = mt.render(tsc, spp=spp,
+                           seed=OPTIMIZE_REFLECTANCE["target_seed"])
+    target = target.double().numpy()
+    for pkg, sc in ((mitr, jsc), (mt, tsc)):
+        params = pkg.traverse(sc)
+        params[path] = start
+        params.update()
+    _s, img = mt.render(tsc, spp=spp, seed=0, regenerate=False)
+    adj = ((2.0 / target.size) * (img.double().numpy() - target)).astype(
+        np.float32)
+    grads = {}
+    for method in (None, "fullad"):
+        grads[method] = (
+            np.asarray(mitr.render_backward(jsc, (None, adj), spp=spp,
+                                            seed=0, method=method)[path]),
+            mt.render_backward(tsc, (None, adj), spp=spp, seed=0,
+                               method=method)[path].numpy())
+        _close_tables(grads[method][1], grads[method][0], method or "prb")
+    params, eps, fd = mt.traverse(tsc), 1e-2, []
+    for c in range(3):
+        losses = []
+        for sign in (1.0, -1.0):
+            v = start.copy()
+            v[c] += sign * eps
+            params[path] = v
+            params.update()
+            _s, t = mt.render(tsc, spp=spp, seed=0, regenerate=False)
+            losses.append(float(((t.double().numpy() - target) ** 2).mean()))
+        fd.append((losses[0] - losses[1]) / (2 * eps))
+    np.testing.assert_allclose(grads["fullad"][1], fd, rtol=0.02)
+    for g_prb in grads[None]:  # the JAX package's, then the port's
+        assert g_prb[0] > 0.0 > fd[0] and g_prb[2] > 0.0 > fd[2]
 
 
 @pytest.mark.parametrize("tag", ["single", "chunked"])

@@ -303,7 +303,7 @@ def test_ray_intersect_matches_jax():
                np.asarray(getattr(jsi.frame, f))[valid], "frame." + f)
 
 
-def test_ray_intersect_refuses_geometry_deltas():
+def test_ray_intersect_attaches_geometry_deltas():
     """Geometry deltas were refused until the port had geometry gradients
     (ROADMAP item 14); now ray_intersect takes them, and at their loaded
     (zero) value the shading record is the primal one bit for bit, with
