@@ -167,6 +167,40 @@ Phases, each of which raises on failure:
     (2 chunks of 2^20 lanes; K3 once a bounce of each) with its wall and
     peak memory; the flip-free geometry scenes (``GEOMETRY_CASES``), the
     GGX-alpha and texel cases (PRB and full AD) card against CPU.
+26. Volumetric rendering on the card: the ``volumetric`` golden config
+    against ``tests/goldens/volumetric.npz`` within its coplanar ties
+    (``torch_cases.VOLUMETRIC_TIES``, as on the CPU), then every
+    ``torch_cases.VOL_CASES`` configuration (fog, absorbing fog,
+    ``camera_unwarp``, the null box, Russian roulette over two passes, a
+    constant and a random 8^3 grid with a ``to_world``, a crop window with
+    the gaussian filters) card against the
+    host CPU, test_golden's rule with none out (bit for bit is printed).
+27. The volumetric tutorial at full size (``torch_cases.tutorial_cbox``:
+    128x128, 400 bins, depth 64, spp 512 = 4 passes of 2^21 lanes; fog of
+    sigma_t 1.8, albedo 0.9, HG g 0.3 in the small box): K1 launches 5
+    times a bounce (the path ray and the shadow walk's 4 steps), K3 once
+    and K2 never; finite, non-negative, first arrival in bins 15-18, and
+    the fog's in-scattered light adds energy over black fog (spp 64).
+    The inputs of bounce 1 (K1's path rays and its shadow walk's first
+    rays, which start inside the medium, and K3's two event sets) are held
+    against the plain versions as in phase 16, each timed with its bound
+    (K3 also against ``index_add_``).  Wall, rays/s, peak memory and the
+    threefry's share of a second, uninstrumented render.  Then its grid
+    variant (``tutorial_grid``: a seeded 64^3 density of scale 3, spp 128,
+    depth 16, cut from 64 for the run's time): launches, wall, rays/s,
+    peak memory, the ms of one (2^21, 32, 2) and one (2^21, 16) tracking
+    draw, and the tracking loops' share of a third render synchronized
+    around them.
+28. Volumetric gradients: ``render_backward`` (the PRB replay) of the
+    tutorial's film at depth 64, spp 64 (one chunk of 2^20 lanes; K1 5
+    times a bounce of each sweep, K3 never), full AD and
+    ``render_forward`` at depth 8 (call 1, which pays PyTorch's forward-AD
+    set-up, and call 2), each with its seconds and peak memory, and one
+    depth-2 forward call profiled (host operators against device
+    kernels); the fog
+    and grid configs of ``torch_cases.vol_grad_case``, PRB, full AD and
+    forward mode, card against CPU within 1e-4 of each table's or video's
+    largest value.
 
 Kernel times (``_time_ms``) are means of launches made back to back, so
 that the wrapper's host work overlaps the card's as in a render.  It
@@ -176,7 +210,11 @@ JSON object with each kernel's launches (in the regen flagship or
 ``multipass_launches``, in the NLOS single capture, ``nlos_launches``,
 and in the materials flagship, ``materials_launches``; in the gradient
 phases ``prb_backward_launches``, ``forward_launches`` and
-``fullad_launches``), error, times and bound (K1-K3 also on the inputs of
+``fullad_launches``; in the volumetric tutorial, ``volumetric_launches``,
+and its PRB backward, ``volumetric_prb_backward_launches``), error, times
+and bound (K1 and K3 also on the volumetric tutorial's bounce-1 inputs,
+``volumetric_*``, K1 also on its shadow walk's, ``volumetric_walk_*``;
+K1-K3 also on the inputs of
 phases 16, 19 and 20, keys ``nlos_*``, ``exhaustive_*`` and
 ``materials_*``, and on those of phases 23 and 24, ``grad_prb_*`` for K1
 and K2 and ``grad_forward_*``; K3 also its Function's ``backward_max_abs_err``,
@@ -225,6 +263,13 @@ GRAD_HELD_BOUNCE = 1
 # card against CPU, gradient tables: the table-gradient reductions add by
 # atomics on the card, in lane order on the CPU
 GRAD_TABLE_ATOL = 1e-4
+# the volumetric tutorial's held bounce (K1's path and first shadow-walk
+# rays, K3's events) and its first-arrival bins (camera -> light)
+VOL_HELD_BOUNCE = 1
+VOL_FIRST_BINS = (15, 18)
+VOL_COMPARE_SPP = 64  # the fog and black-fog renders (2^20 lanes)
+VOL_GRID = dict(n=64, spp=128, max_depth=16)  # one pass of 2^21 lanes
+VOL_GRAD = dict(spp=64, fullad_depth=8)  # 2^20 lanes, one chunk
 BVH_SUBSET = 1 << 16  # rays of the kernel-against-plain comparison
 K1_MISMATCH_SHARE = 1e-4  # BVH kernel (Woop) against K1 (Moller-Trumbore)
 # the K1 / BVH crossover: UV spheres (rings, segments) of 64-8192
@@ -1146,20 +1191,22 @@ def _check_energy(name, s, t, first_bins=None):
 
 
 @contextlib.contextmanager
-def capture_bounce(sizes, bounce=NLOS_EVENTS_BOUNCE, splat=None):
+def capture_bounce(sizes, bounce=NLOS_EVENTS_BOUNCE, splat=None, picks=None):
     """While open, keep copies of what the kernels get in bounce ``bounce``
     of the renders run: K3's event sets under "events" (the ``splat``-th
     splat, by default the ``bounce``-th), and under a soup kernel's name
     ("closest_hit", "ray_test") the (o, d, maxt, active) of its
     ``bounce``-th launch on ``sizes[kernel]`` rays (a wavefront's launches,
     counted over every sweep of a differentiated render; the few-ray
-    launches of a capture's constants do not count).  Yields the dict it
-    fills."""
+    launches of a capture's constants do not count).  ``picks`` ({kernel:
+    {launch index: key}}) keeps other launches instead, each under its
+    key.  Yields the dict it fills."""
     from mitransient_tpu_torch.film import transient_film as tf
     from mitransient_tpu_torch.ops import intersect as isect
 
     calls = {"splat": 0, **{k: 0 for k in sizes}}
     splat_at = bounce if splat is None else splat
+    picks = picks or {k: {bounce: k} for k in sizes}
     kept = {}
     splat, soup_kernel = tf.splat_accumulate, isect._soup_kernel
 
@@ -1171,8 +1218,9 @@ def capture_bounce(sizes, bounce=NLOS_EVENTS_BOUNCE, splat=None):
 
     def capture_soup(kernel, table, m, *args):
         if args[0].shape[0] == sizes.get(kernel):
-            if calls[kernel] == bounce:
-                kept[kernel] = tuple(a.clone() for a in args)
+            key = picks.get(kernel, {}).get(calls[kernel])
+            if key is not None:
+                kept[key] = tuple(a.clone() for a in args)
             calls[kernel] += 1
         return soup_kernel(kernel, table, m, *args)
 
@@ -1183,13 +1231,13 @@ def capture_bounce(sizes, bounce=NLOS_EVENTS_BOUNCE, splat=None):
         tf.splat_accumulate, isect._soup_kernel = splat, soup_kernel
 
 
-def hold_captured(scene, kept, label, dev, hw):
+def hold_captured(scene, kept, label, dev, hw, t_pad=301):
     """K1, K2 and K3 on a render's captured inputs (``capture_bounce``)
     against their plain versions, bit for bit: K1 and K2 against the plain
     soup queries on the card, K3 against its plain version on the host CPU
-    (``check_splat``, into a (C, 301, hw) film), where K3 ran.  Each
-    timed, with its bound.  -> {kernel name: {max_abs_err, ms, plain_ms,
-    bound, ...}}."""
+    (``check_splat``, into a (C, t_pad, hw) film), where K3 ran.  Each
+    timed, with its bound.  -> {capture key (the kernel's name, or a
+    ``picks`` key): {max_abs_err, ms, plain_ms, bound, ...}}."""
     from mitransient_tpu_torch.film import transient_film as tf
     from mitransient_tpu_torch.ops import intersect as isect
 
@@ -1197,10 +1245,11 @@ def hold_captured(scene, kept, label, dev, hw):
     soup, table = (tri.v0, tri.e1, tri.e2), tri.table
     m = soup[0].shape[0]
     out = {}
-    for kernel in ("closest_hit", "ray_test"):
-        rays = kept[kernel]
+    for key in [k for k in kept if k != "events"]:
+        kernel = "ray_test" if key.startswith("ray_test") else "closest_hit"
+        rays = kept[key]
         err, count = hold_soup_rays(isect, soup, table, kernel, rays,
-                                    f"{kernel} on {label} rays")
+                                    f"{key} on {label} rays")
         n_rays, n_active = rays[0].shape[0], int(rays[3].sum())
         if kernel == "closest_hit":
             query, plain = isect.closest_hit, isect.intersect_soup
@@ -1210,19 +1259,19 @@ def hold_captured(scene, kept, label, dev, hw):
             query, plain = isect.ray_test, isect.ray_test_soup
             bound = _bound(ray_bytes(n_rays, n_active, 1) + m * 36,
                            any_hit_tests(isect, soup, *rays) * MT_OPS)
-        out[kernel] = dict(
+        out[key] = dict(
             max_abs_err=err, bound=bound,
             ms=_time_ms(lambda: query(*soup, *rays, table=table)),
             plain_ms=_time_ms(lambda: plain(*soup, *rays), reps=3, warmup=1,
                               batches=3))
-        r = out[kernel]
-        print(f"{kernel} on {label} rays ({n_active} active of {n_rays}, "
+        r = out[key]
+        print(f"{key} on {label} rays ({n_active} active of {n_rays}, "
               f"{count} {'hits' if kernel == 'closest_hit' else 'occluded'}, "
               f"{m} triangles): kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
     if "events" not in kept:
         return out
-    k3 = check_splat(tf, kept["events"], hw, dev, t_pad=301)
+    k3 = check_splat(tf, kept["events"], hw, dev, t_pad=t_pad)
     print(f"splat_accumulate on {label} events "
           f"({kept['events'][0].shape[0]} lanes, {hw} slots, "
           f"{len(kept['events']) // 2} event sets): bit-equal to the plain version on the CPU; kernel "
@@ -2018,6 +2067,287 @@ def full_ad_phase(mt, cases, dev):
     return k3fn, counts
 
 
+def volumetric_card_against_cpu(mt, cases, dev):
+    """Phase 26: the ``volumetric`` golden on the card against its golden
+    (within ``VOLUMETRIC_TIES``, as on the CPU), then every
+    ``VOL_CASES`` configuration card against CPU."""
+    import numpy as np
+    import torch
+
+    d = cases.vol_cbox(mt, 2.0, 0.9, 0.1, bins=120)
+    s, t = mt.render(mt.load_dict(d, device=dev), spp=8, seed=0)
+    golden = np.load(os.path.join(ROOT, "tests", "goldens", "volumetric.npz"))
+    for key, got in (("steady", s), ("transient", t)):
+        m = cases.golden_mismatch(got.cpu().numpy(), golden[key])
+        print(f"volumetric {key} vs golden: {m} (coplanar ties allowed: "
+              f"{cases.VOLUMETRIC_TIES[key]})")
+        if not (m["shape_ok"] and m["n_bad"] <= cases.VOLUMETRIC_TIES[key]):
+            raise AssertionError(f"volumetric {key} disagrees with its "
+                                 "golden")
+    for name in cases.VOL_CASES:
+        desc, kw = cases.vol_case(mt, name)
+        out = [mt.render(mt.load_dict(desc, device=d), **kw)
+               for d in (dev, "cpu")]
+        same = all(torch.equal(a.cpu(), b) for a, b in zip(*out))
+        for key, got, want in zip(("steady", "transient"), *out):
+            m = cases.golden_mismatch(got.cpu().numpy(), want.numpy())
+            if not (m["shape_ok"] and m["n_bad"] == 0):
+                raise AssertionError(f"volumetric {name} {key}: card and CPU "
+                                     f"disagree ({m})")
+        print(f"volumetric {name}, card against CPU: none out, bit-equal "
+              f"{same}")
+
+
+def render_volumetric_tutorial(mt, cases, dev):
+    """Phase 27: the volumetric tutorial at full size, then its grid
+    variant.  Returns the tutorial render's launches and K1 and K3 on its
+    bounce ``VOL_HELD_BOUNCE``'s inputs (``hold_captured``)."""
+    import numpy as np
+    import torch
+
+    from mitransient_tpu_torch.core import rng
+    from mitransient_tpu_torch.integrators import volpath
+    from mitransient_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    cfg = cases.TUTORIAL
+    scene = mt.load_dict(cases.tutorial_cbox(mt), device=dev)
+    hw = cfg["res"] ** 2
+    steps = 1 + volpath.TRANSMITTANCE_STEPS
+    first = steps * VOL_HELD_BOUNCE  # K1's launches before the held bounce
+    lanes = 1 << 21
+    reset_launch_counts()
+    with capture_bounce({"closest_hit": lanes}, splat=VOL_HELD_BOUNCE,
+                        picks={"closest_hit": {
+                            first: "closest_hit",
+                            first + 1: "closest_hit_walk"}}) as kept:
+        s, t, stats = mt.render(scene, spp=cfg["spp"], seed=0,
+                                return_stats=True)
+        torch.cuda.synchronize()
+    counts = launch_counts()
+    n = stats["loop_iters"]
+    passes = n // cfg["max_depth"]
+    print(f"volumetric tutorial {cfg['res']}x{cfg['res']}, {cfg['bins']} "
+          f"bins, depth {cfg['max_depth']}, spp {cfg['spp']} ({passes} "
+          f"passes of {lanes} lanes) render 1 (seed 0, its kernel inputs "
+          f"captured): launches {counts} in {n} bounces")
+    if counts != {"closest_hit": steps * n, "splat_accumulate": n}:
+        raise AssertionError(f"volumetric tutorial: launches {counts}, "
+                             f"expected K1 {steps} and K3 1 a bounce, K2 "
+                             "never")
+    s_np, t_np = s.cpu().numpy(), t.cpu().numpy()
+    _check_energy("volumetric tutorial", s_np, t_np, VOL_FIRST_BINS)
+    # the fog's in-scattered light: more energy than black fog
+    sums = {}
+    for albedo in (0.9, 0.0):
+        d = cases.tutorial_cbox(mt)
+        d["small-box"]["medium"]["albedo"]["value"] = [albedo] * 3
+        st = mt.render(mt.load_dict(d, device=dev), spp=VOL_COMPARE_SPP,
+                       seed=3)[0]
+        sums[albedo] = float(st.sum())
+    print(f"volumetric tutorial at spp {VOL_COMPARE_SPP}: steady sum "
+          f"{sums[0.9]:.6g} with fog of albedo 0.9, {sums[0.0]:.6g} with "
+          "black fog")
+    if not sums[0.9] > sums[0.0]:
+        raise AssertionError("volumetric tutorial: the fog adds no energy")
+    if len(kept) != 3 or len(kept["events"]) != 4:
+        raise AssertionError(f"volumetric tutorial: captured {set(kept)}")
+    walk = kept["closest_hit_walk"]
+    print(f"volumetric bounce {VOL_HELD_BOUNCE}'s shadow walk: "
+          f"{int(walk[3].sum())} active rays")
+    held = hold_captured(scene, kept, f"volumetric bounce "
+                         f"{VOL_HELD_BOUNCE}'s", dev, hw,
+                         t_pad=cfg["bins"] + 1)
+    del s, t, kept
+
+    # render 2, uninstrumented: wall, rays/s, peak memory, threefry share
+    (_s, _t, stats2), wall, peak = _timed(lambda: mt.render(
+        scene, spp=cfg["spp"], seed=1, return_stats=True))
+    rays = int(stats2["rays"])
+    key = rng.Sampler(1, lanes).key
+    draw_ms = _time_ms(lambda: rng.draw_bounce_block(
+        key, 2, lanes, volpath.VOL_DIMS_PER_BOUNCE, dev), reps=5, warmup=1,
+        batches=3)
+    share = n * draw_ms / 1e3 / wall
+    kern = n * (steps * held["closest_hit"]["ms"]
+                + held["splat_accumulate"]["ms"]) / 1e3
+    print(f"volumetric tutorial render 2 (seed 1): {wall:.4f} s, {rays} rays "
+          f"-> {rays / wall / 1e6:.2f} M rays/s, peak memory {peak:.2f} GiB; "
+          f"threefry ({lanes}, {volpath.VOL_DIMS_PER_BOUNCE}) {draw_ms:.4f} "
+          f"ms a bounce, {n} bounces = {share:.3f} of the wall; K1 x "
+          f"{steps} + K3 {kern:.4f} s (bounce {VOL_HELD_BOUNCE}'s times x "
+          f"{n}); the rest (eager bounce code) "
+          f"{wall - n * draw_ms / 1e3 - kern:.4f} s")
+
+    # the grid variant: a seeded 64^3 density in the small box
+    g = VOL_GRID
+    grid = mt.load_dict(cases.tutorial_grid(mt, n=g["n"],
+                                            max_depth=g["max_depth"]),
+                        device=dev)
+    reset_launch_counts()
+    _s, t1, st1 = mt.render(grid, spp=g["spp"], seed=0, return_stats=True)
+    gcounts = launch_counts()
+    ng = st1["loop_iters"]
+    if gcounts != {"closest_hit": steps * ng, "splat_accumulate": ng}:
+        raise AssertionError(f"volumetric grid: launches {gcounts}")
+    _check_energy("volumetric grid", _s.cpu().numpy(), t1.cpu().numpy(),
+                  VOL_FIRST_BINS)
+    (_s, _t, st2), gwall, gpeak = _timed(lambda: mt.render(
+        grid, spp=g["spp"], seed=1, return_stats=True))
+    grays = int(st2["rays"])
+    track_ms = _time_ms(lambda: volpath.tracking_draw(
+        key, 3, lanes, (volpath.DELTA_STEPS, 2), dev), reps=2, warmup=1,
+        batches=3)
+    ratio_ms = _time_ms(lambda: volpath.tracking_draw(
+        key, 1000, lanes, (volpath.RATIO_STEPS,), dev), reps=2, warmup=1,
+        batches=3)
+    print(f"volumetric grid ({g['n']}^3 density, scale 3; {cfg['res']}x"
+          f"{cfg['res']}, depth {g['max_depth']}, spp {g['spp']} = {lanes} "
+          f"lanes): launches {gcounts} in {ng} bounces; render 2 (seed 1) "
+          f"{gwall:.4f} s, {grays} rays -> {grays / gwall / 1e6:.2f} M rays/s, "
+          f"peak memory {gpeak:.2f} GiB; one ({lanes}, "
+          f"{volpath.DELTA_STEPS}, 2) tracking draw {track_ms:.4f} ms, one "
+          f"({lanes}, {volpath.RATIO_STEPS}) {ratio_ms:.4f} ms")
+    # render 3: the tracking loops (draws included), synchronized around
+    spent = {"delta_track_flight": [0.0, 0], "segment_transmittance": [0.0, 0]}
+    originals = {name: getattr(volpath, name) for name in spent}
+
+    def synchronized(name):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = originals[name](*args, **kw)
+            torch.cuda.synchronize()
+            spent[name][0] += time.perf_counter() - t0
+            spent[name][1] += 1
+            return out
+        return run
+
+    for name in spent:
+        setattr(volpath, name, synchronized(name))
+    try:
+        _r, gwall3, _p = _timed(lambda: mt.render(grid, spp=g["spp"], seed=1))
+    finally:
+        for name, fn in originals.items():
+            setattr(volpath, name, fn)
+    track = sum(v[0] for v in spent.values())
+    draws = ng * (track_ms + volpath.TRANSMITTANCE_STEPS * ratio_ms) / 1e3
+    print(f"volumetric grid render 3 (synchronized around the tracking): "
+          f"{gwall3:.4f} s; delta tracking {spent['delta_track_flight'][0]:.4f}"
+          f" s in {spent['delta_track_flight'][1]} calls, ratio tracking "
+          f"{spent['segment_transmittance'][0]:.4f} s in "
+          f"{spent['segment_transmittance'][1]} calls: {track / gwall3:.3f} "
+          f"of the wall, of which the draws ~{draws:.4f} s "
+          f"({draws / gwall3:.3f}), the eager density steps the rest")
+    return counts, held
+
+
+def _profile_forward(mt, cases, dev, tangent, depth=2, spp=64):
+    """One volumetric render_forward (the tutorial's film at ``depth``,
+    ``spp``) under torch.profiler: its wall against the host time of its
+    operators and the device time of its kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    scene = mt.load_dict(cases.tutorial_cbox(mt, max_depth=depth),
+                         device=dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        mt.render_forward(scene, tangent, spp=spp, seed=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.events()
+    device = sum(e.time_range.elapsed_us() for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    host = sum(e.self_cpu_time_total for e in events
+               if e.device_type == torch.autograd.DeviceType.CPU)
+    if not device:
+        raise AssertionError("the profiled forward shows no device time")
+    print(f"volumetric render_forward profiled (depth {depth}, spp {spp}): "
+          f"wall {wall:.3f} s, host operators {host / 1e6:.4f} s, device "
+          f"kernels {device / 1e6:.4f} s")
+
+
+def volumetric_gradients(mt, cases, dev):
+    """Phase 28: volumetric PRB backward at the tutorial's film and depth,
+    full AD and forward mode at depth ``VOL_GRAD['fullad_depth']``, each
+    timed with its peak memory; on the small configurations each card
+    against CPU.  Returns the PRB backward's launches."""
+    import numpy as np
+    import torch
+
+    from mitransient_tpu_torch.integrators import volpath
+    from mitransient_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    cfg = cases.TUTORIAL
+    scene = mt.load_dict(cases.tutorial_cbox(mt), device=dev)
+    fc = scene.sensors[0].film
+    grad_in = _grad_in(fc, np.random.default_rng(21), steady=True)
+    lanes = fc.width * fc.height * VOL_GRAD["spp"]
+    depth = cfg["max_depth"]
+    reset_launch_counts()
+    g, wall, peak = _timed(lambda: mt.render_backward(
+        scene, grad_in, spp=VOL_GRAD["spp"], seed=0))
+    counts = launch_counts()
+    tabs = g["__tables__"]
+    print(f"volumetric render_backward (PRB; {fc.width}x{fc.height}, depth "
+          f"{depth}, spp {VOL_GRAD['spp']} = {lanes} lanes in one chunk): "
+          f"{wall:.3f} s, peak memory {peak:.2f} GiB, launches {counts}; "
+          f"medium_albedo {tabs.medium_albedo.cpu().numpy()}")
+    steps = 1 + volpath.TRANSMITTANCE_STEPS
+    if counts != {"closest_hit": 2 * steps * depth}:
+        raise AssertionError(f"volumetric backward: launches {counts}")
+    if not all(torch.isfinite(v).all() for v in tabs if v is not None):
+        raise AssertionError("volumetric backward: non-finite tables")
+
+    small = mt.load_dict(cases.tutorial_cbox(
+        mt, max_depth=VOL_GRAD["fullad_depth"]), device=dev)
+    _g, wall_f, peak_f = _timed(lambda: mt.render_backward(
+        small, grad_in, spp=VOL_GRAD["spp"], seed=0, method="fullad"))
+    tangent = {"small-box.medium.albedo.value": [1.0, 1.0, 1.0],
+               "small-box.medium.sigma_t.value": 0.5}
+    # the first forward-mode call of a process pays PyTorch's one-time set-up
+    # of its forward-AD formulas (seconds): timed apart from call 2
+    _d, wall_j1, _p = _timed(lambda: mt.render_forward(
+        small, tangent, spp=VOL_GRAD["spp"], seed=0))
+    (ds, dt), wall_j, peak_j = _timed(lambda: mt.render_forward(
+        small, tangent, spp=VOL_GRAD["spp"], seed=1))
+    print(f"volumetric full AD (depth {VOL_GRAD['fullad_depth']}, {lanes} "
+          f"lanes): {wall_f:.3f} s, peak memory {peak_f:.2f} GiB; "
+          f"render_forward (albedo and sigma_t): call 1 {wall_j1:.3f} s, "
+          f"call 2 (seed 1) {wall_j:.3f} s, peak memory {peak_j:.2f} GiB, "
+          f"d_transient sum {float(dt.sum()):.6g}")
+    if not (torch.isfinite(dt).all() and torch.isfinite(ds).all()):
+        raise AssertionError("volumetric forward: non-finite derivative")
+    _profile_forward(mt, cases, dev, tangent)
+
+    for name in ("fog", "grid"):
+        out = {}
+        for d in (dev, "cpu"):
+            sc = mt.load_dict(cases.vol_grad_case(mt, name), device=d)
+            adj = _grad_in(sc.sensors[0].film, np.random.default_rng(22),
+                           steady=True)
+            out[str(d)] = (
+                mt.render_backward(sc, adj, spp=4, seed=3)["__tables__"],
+                mt.render_backward(sc, adj, spp=4, seed=3,
+                                   method="fullad")["__tables__"],
+                [a.cpu() for a in mt.render_forward(sc, tangent, spp=4,
+                                                    seed=3)])
+        worst = max(_tables_close(f"volumetric {name} {m}", a, b)
+                    for m, a, b in zip(("prb", "fullad"), out[str(dev)][:2],
+                                       out["cpu"][:2]))
+        for got, want in zip(out[str(dev)][2], out["cpu"][2]):
+            share = float((got - want).abs().max()) / max(
+                float(want.abs().max()), 1e-30)
+            worst = max(worst, share)
+            if not share <= GRAD_TABLE_ATOL:
+                raise AssertionError(f"volumetric {name} forward: card and "
+                                     f"CPU differ by {share:.3g}")
+        print(f"volumetric {name} PRB, full AD and forward, card against "
+              f"CPU: within {worst:.3g} of each table's largest value")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -2076,6 +2406,10 @@ def main() -> int:
     grad_counts["forward"], grad_held["grad_forward"] = forward_mode_phase(
         mt, cases, dev)
     k3fn, grad_counts["fullad"] = full_ad_phase(mt, cases, dev)
+    volumetric_card_against_cpu(mt, cases, dev)
+    vol, vol_held = render_volumetric_tutorial(mt, cases, dev)
+    grad_counts["volumetric_prb_backward"] = volumetric_gradients(mt, cases,
+                                                                  dev)
     for r in rows:
         for phase, c in grad_counts.items():
             if r["name"] in ("closest_hit", "ray_test", "splat_accumulate"):
@@ -2086,6 +2420,23 @@ def main() -> int:
                                    k3fn["jvp_max_abs_err"])
             r.update(k3fn)
         r["launches"] = counts[r["name"]]
+        if r["name"] in ("closest_hit", "ray_test", "splat_accumulate"):
+            r["volumetric_launches"] = vol.get(r["name"], 0)
+        # K1 and K3 on the volumetric tutorial's inputs (prefix volumetric_;
+        # K1 also on its shadow walk's first rays, volumetric_walk_)
+        for prefix, key in (("volumetric", r["name"]),
+                            ("volumetric_walk", r["name"] + "_walk")):
+            if key not in vol_held:
+                continue
+            h = vol_held[key]
+            r["max_abs_err"] = max(r["max_abs_err"], h["max_abs_err"])
+            r.update({f"{prefix}_ms": h["ms"],
+                      f"{prefix}_plain_ms": h["plain_ms"],
+                      f"{prefix}_bound_ms": h["bound"][0],
+                      f"{prefix}_bound_by": h["bound"][1]})
+            if "library_ms" in h:
+                r.update({f"{prefix}_library_ms": h["library_ms"],
+                          f"{prefix}_sectors": h["sectors"]})
         if r["name"] not in nlos_held:
             continue
         r["multipass_launches"] = multipass[r["name"]]

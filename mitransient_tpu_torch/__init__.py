@@ -12,7 +12,10 @@ sample streams, crop windows, ``camera_unwarp``, the gaussian temporal
 and spatial filters and checkpoint/resume; and NLOS captures
 (``transient_nlos_path``: single, confocal and exhaustive, with laser and
 hidden-geometry sampling; ``nlos`` holds the laser-focus helpers and
-``scan_confocal``).  Scenes are rectangles, cubes and triangle meshes
+``scan_confocal``); and the volumetric path tracer
+(``transient_prbvolpath``: homogeneous and grid media inside null-bounded
+shapes, with a Henyey-Greenstein phase function).  Scenes are
+rectangles, cubes and triangle meshes
 with every BSDF of the JAX package (diffuse, conductor and mirror,
 anisotropic rough conductor, plastic and rough plastic, dielectric and
 thin dielectric, null; the two-sided, mask and blend wrappers; bitmap
@@ -20,14 +23,14 @@ and checkerboard textures; bump and normal maps), area, angulararea,
 projector and point emitters, seen through a perspective sensor or an
 NLOS capture meter into a transient film or a phasor film; above 4096
 triangles through a chunked acceleration structure.  Scenes come from a
-dict (:func:`load_dict`) or a Mitsuba XML file (:func:`load_file`); media
-are refused (ROADMAP item 15).  :func:`render_aovs` gives first-hit AOVs.
-It differentiates them: :func:`render_backward` (the PRB two-sweep
-replay, or full AD through the wavefront for NLOS captures and
+dict (:func:`load_dict`) or a Mitsuba XML file (:func:`load_file`).
+:func:`render_aovs` gives first-hit AOVs.  It differentiates them:
+:func:`render_backward` (the PRB two-sweep replay, surface or
+volumetric, or full AD through the wavefront for NLOS captures and
 ``method="fullad"``) and :func:`render_forward` give gradients and
 derivative videos with respect to the parameters that :func:`traverse`
 names (reflectance, roughness, texels, emitter radiance and position,
-shape poses).  Scenes load onto the card unless the caller asks for
+media albedo and extinction, shape poses).  Scenes load onto the card unless the caller asks for
 ``device="cpu"``.
 On a CUDA device the ray queries and the film splat run in the kernels of
 ``csrc/``; on the CPU they run their plain PyTorch versions.

@@ -28,6 +28,7 @@ from .scene.scene import (
     BSDFParams,
     EmitterParams,
     GeomParams,
+    MediumParams,
     SceneData,
     Triangles,
     bsdf_kinds,
@@ -36,7 +37,7 @@ from .scene.scene import (
 )
 
 _RECORDS = {"tri": Triangles, "bsdf": BSDFParams, "emitter": EmitterParams,
-            "accel": Accel, "geom": GeomParams}
+            "accel": Accel, "geom": GeomParams, "medium": MediumParams}
 
 
 def scene_data_from_numpy(leaves: dict[str, np.ndarray],
@@ -46,17 +47,18 @@ def scene_data_from_numpy(leaves: dict[str, np.ndarray],
 
     Every field of the port's records must be present, but for the BSDF
     table's texture and bump-map columns, which a scene without them
-    leaves out (the ``accel`` and ``geom`` records may be left out; the
-    derived tables are built, not read).  Media leaves (``medium.*``) are
-    ignored when no triangle has an interior medium; a scene with media
-    raises ``NotImplementedError``.
+    leaves out (the ``accel``, ``geom`` and ``medium`` records may be
+    left out; the derived tables are built, not read).  A scene whose
+    triangles name an interior medium (``tri.medium_id``) needs the
+    ``medium`` record.
     """
     device = resolve_device(device)
-    if np.any(np.asarray(leaves["tri.medium_id"]) >= 0):
-        raise NotImplementedError("participating media (ROADMAP item 15)")
+    if (np.any(np.asarray(leaves["tri.medium_id"]) >= 0)
+            and not any(k.startswith("medium.") for k in leaves)):
+        raise ValueError("tri.medium_id names media but no medium.* leaves "
+                         "are given")
     extra = set(leaves) - {f"{r}.{f}" for r, cls in _RECORDS.items()
                            for f in cls._fields}
-    extra = {k for k in extra if not k.startswith("medium.")}
     if extra:
         raise ValueError(f"not leaves of a scene: {sorted(extra)}")
 
@@ -83,7 +85,7 @@ def scene_data_from_numpy(leaves: dict[str, np.ndarray],
 
     return SceneData(tri=record("tri"), bsdf=record("bsdf"),
                      emitter=record("emitter"), accel=optional("accel"),
-                     geom=optional("geom"),
+                     geom=optional("geom"), medium=optional("medium"),
                      emitter_kinds=emitter_kinds(leaves["emitter.kind"]),
                      bsdf_kinds=bsdf_kinds(leaves["bsdf.kind"],
                                            leaves["bsdf.two_sided"]))
@@ -117,23 +119,14 @@ def scene_data_to_numpy(sd: SceneData) -> dict[str, np.ndarray]:
     return out
 
 
-# the JAX package's DiffParams fields that the port does not have (media,
-# ROADMAP item 15)
-_MEDIUM_PARAMS = ("medium_albedo", "medium_sigma_t")
-
-
 def diff_params_from_numpy(fields: dict, device="cuda") -> DiffParams:
     """The JAX package's ``DiffParams``, as ``{field: array or None}``, as
-    the port's :class:`DiffParams` on ``device``; the media's fields are
-    dropped, and must be absent, None or all zero."""
+    the port's :class:`DiffParams` on ``device`` (the same field names;
+    absent fields are None)."""
     device = resolve_device(device)
-    extra = set(fields) - set(DiffParams._fields) - set(_MEDIUM_PARAMS)
+    extra = set(fields) - set(DiffParams._fields)
     if extra:
         raise ValueError(f"not fields of a DiffParams: {sorted(extra)}")
-    for f in _MEDIUM_PARAMS:
-        if fields.get(f) is not None and np.any(np.asarray(fields[f])):
-            raise NotImplementedError(
-                f"{f}: participating media (ROADMAP item 15)")
     return DiffParams(**{
         f: None if fields.get(f) is None
         else torch.tensor(np.asarray(fields[f]), device=device)

@@ -9,8 +9,9 @@ order to the backend.  :func:`sqrt` and :func:`cos_sin` return the
 correctly rounded float32: the card's float32 ``torch.sqrt`` is, the
 CPU's vectorized one is an ulp off in about 0.6 % of arguments, and
 neither device's float32 ``cos`` / ``sin`` is, so those go through
-float64; and :func:`divide` divides by a Python number, where the card's
-``x / c`` multiplies by a rounded 1 / c.  Rays that meet coplanar triangles would
+float64 (as do :func:`log` and :func:`exp`, the media's free-flight
+and transmittance terms); and :func:`divide` divides by a Python number,
+where the card's ``x / c`` multiplies by a rounded 1 / c.  Rays that meet coplanar triangles would
 otherwise part between the devices.
 """
 from __future__ import annotations
@@ -43,6 +44,16 @@ def cos_sin(x: torch.Tensor):
     """The correctly rounded float32 cosine and sine on every device."""
     xd = x.double()
     return torch.cos(xd).to(x.dtype), torch.sin(xd).to(x.dtype)
+
+
+def log(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 natural logarithm on every device."""
+    return torch.log(x.double()).to(x.dtype)
+
+
+def exp(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 exponential on every device."""
+    return torch.exp(x.double()).to(x.dtype)
 
 
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

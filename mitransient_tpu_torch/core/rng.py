@@ -59,17 +59,25 @@ def fold_in(key: tuple[int, int], data: int) -> tuple[int, int]:
     return threefry2x32(key[0], key[1], 0, int(data) & _M32)
 
 
-def uniform(key: tuple[int, int], shape, device="cpu") -> torch.Tensor:
-    """``jax.random.uniform(key, shape)``: float32 in [0, 1)."""
+def uniform(key: tuple[int, int], shape, device="cpu",
+            rows: tuple[int, int] | None = None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape)``: float32 in [0, 1).
+
+    ``rows=(r0, r1)`` draws only rows ``[r0, r1)`` of the leading axis,
+    the same bits as those rows of the whole draw (they are the flat
+    counters ``[r0 * k, r1 * k)``, k the size of a row), so that a large
+    draw can be made in slices."""
     shape = tuple(shape)
-    numel = 1
-    for s in shape:
-        numel *= s
-    i = torch.arange(numel, dtype=torch.int64, device=device)
+    row = 1
+    for s in shape[1:]:
+        row *= s
+    r0, r1 = rows if rows is not None else (0, shape[0] if shape else 1)
+    i = torch.arange(r0 * row, r1 * row, dtype=torch.int64, device=device)
     a, b = threefry2x32(key[0], key[1], i >> 32, i & _M32)
     bits = (((a ^ b) >> 9) | 0x3F800000).to(torch.int32)
     u = bits.view(torch.float32) - 1.0
-    return torch.clamp_min(u, 0.0).reshape(shape)
+    return torch.clamp_min(u, 0.0).reshape((r1 - r0,) + shape[1:] if shape
+                                           else ())
 
 
 class Sampler:

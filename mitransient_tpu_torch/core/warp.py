@@ -1,5 +1,6 @@
-"""Sample warps used by the diffuse lobe (counterpart of
-``mitransient_tpu/core/warp.py``: concentric disk and cosine hemisphere)."""
+"""Sample warps (counterpart of ``mitransient_tpu/core/warp.py``): the
+concentric disk and cosine hemisphere of the diffuse lobe, and the
+Henyey-Greenstein phase function of the media."""
 from __future__ import annotations
 
 import math
@@ -9,6 +10,7 @@ import torch
 from .math import cos_sin, safe_sqrt
 
 INV_PI = 1.0 / math.pi
+INV_FOUR_PI = 1.0 / (4.0 * math.pi)
 
 
 def square_to_uniform_disk_concentric(sample: torch.Tensor) -> torch.Tensor:
@@ -41,3 +43,29 @@ def square_to_cosine_hemisphere(sample: torch.Tensor) -> torch.Tensor:
 
 def square_to_cosine_hemisphere_pdf(v: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(v[..., 2], 0.0) * INV_PI
+
+
+def square_to_hg(sample: torch.Tensor, g: torch.Tensor):
+    """Henyey-Greenstein phase direction about +z -> (dir (N, 3), pdf (N,));
+    ``g`` (N,) per lane.  Near-isotropic lanes (|g| < 1e-3) sample the
+    uniform sphere."""
+    g = torch.broadcast_to(g, sample[..., 0].shape)
+    small = torch.abs(g) < 1e-3
+    g_safe = torch.where(small, 0.5, g)
+    sqr = (1.0 - g_safe * g_safe) / (1.0 - g_safe
+                                     + 2.0 * g_safe * sample[..., 1])
+    cos_theta_hg = (1.0 + g_safe * g_safe - sqr * sqr) / (2.0 * g_safe)
+    cos_theta = torch.where(small, 1.0 - 2.0 * sample[..., 1], cos_theta_hg)
+    sin_theta = safe_sqrt(1.0 - cos_theta * cos_theta)
+    c, s = cos_sin((2.0 * math.pi) * sample[..., 0])
+    d = torch.stack([sin_theta * c, sin_theta * s, cos_theta], dim=-1)
+    return d, hg_pdf(cos_theta, g)
+
+
+def hg_pdf(cos_theta: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Henyey-Greenstein phase value and pdf, with ``cos_theta`` measured
+    from the propagation direction (g > 0 peaks forward), as
+    :func:`square_to_hg` samples it."""
+    denom = 1.0 + g * g - 2.0 * g * cos_theta
+    return INV_FOUR_PI * (1.0 - g * g) / torch.clamp_min(
+        denom * safe_sqrt(denom), 1e-12)

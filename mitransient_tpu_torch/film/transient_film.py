@@ -38,6 +38,7 @@ import math
 from typing import NamedTuple
 
 import torch
+from torch.autograd.graph import increment_version
 
 from ..core.math import divide
 from ..kernels import _build
@@ -293,6 +294,10 @@ def splat_accumulate(film: torch.Tensor, bins_a: torch.Tensor,
             _build.stream_of(dev))
     _build.check(err, kernel)
     _build.count_launch(kernel)
+    # the kernel wrote through a raw pointer: bump the film's version as an
+    # in-place torch op would, which forward-mode AD checks for in
+    # SplatEvents.jvp's in-place update of the film's tangent
+    increment_version(film)
 
 
 class SplatEvents(torch.autograd.Function):

@@ -1,7 +1,7 @@
 """Full reverse-mode AD through the whole wavefront (counterpart of
 ``mitransient_tpu/integrators/fullad.py``), for ``transient_nlos_path``
-(single and confocal captures) and for ``transient_path`` with
-``method="fullad"``.
+(single and confocal captures) and for ``transient_path`` and
+``transient_prbvolpath`` with ``method="fullad"``.
 
 Autograd records the primal render of one spp chunk (every bounce, kept
 alive until the backward) and runs its exact adjoint.  Sampling decisions
@@ -32,6 +32,7 @@ from .nlos_path import (
     sample_nlos_rays,
 )
 from .path import sample_primal
+from .volpath import sample_volpath_primal
 from .prb import (
     DiffParams,
     add_params,
@@ -64,7 +65,9 @@ def fullad_grads(sd, ctx, gs, gt_full, seed, stream, inv_total, *,
         else:
             ray, pix, rw = sample_rays(ctx, sampler, film_cfg.width,
                                        film_cfg.height, spp)
-            film, L, _v, _r = sample_primal(
+            sample_fn = (sample_volpath_primal
+                         if kind == "transient_prbvolpath" else sample_primal)
+            film, L, _v, _r = sample_fn(
                 sdt, sampler, ray, pix, rw, film, film_cfg, icfg, inv_total,
                 spp, bvh_mode)
         _steady, transient = develop_any(

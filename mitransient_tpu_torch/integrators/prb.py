@@ -54,13 +54,12 @@ from .path import DIMS_PER_BOUNCE, next_vertex
 
 
 class DiffParams(NamedTuple):
-    """The differentiable parameter tables (the JAX package's DiffParams
-    without the media's ``medium_albedo`` and ``medium_sigma_t``, ROADMAP
-    item 15): the BSDF reflectance and emitter radiance, GGX roughness,
-    texture texels, the per-shape rigid deltas and the delta emitters'
-    positions.  A field is None where the scene has no such table (the
-    textures) or the caller strips it (the geometry deltas of the PRB
-    sweeps, :func:`scene.primal_sd`)."""
+    """The differentiable parameter tables (the JAX package's DiffParams):
+    the BSDF reflectance and emitter radiance, GGX roughness, texture
+    texels, the per-shape rigid deltas, the delta emitters' positions and
+    the media's albedo and extinction.  A field is None where the scene
+    has no such table (the textures) or the caller strips it (the geometry
+    deltas of the PRB sweeps, :func:`scene.primal_sd`)."""
 
     bsdf_reflectance: torch.Tensor  # (B, C)
     emitter_radiance: torch.Tensor  # (E, C)
@@ -70,10 +69,12 @@ class DiffParams(NamedTuple):
     shape_translate: torch.Tensor | None = None  # (S, 3)
     shape_rotate: torch.Tensor | None = None  # (S, 3) axis-angle
     emitter_position: torch.Tensor | None = None  # (E, 3)
+    medium_albedo: torch.Tensor | None = None  # (M, C)
+    medium_sigma_t: torch.Tensor | None = None  # (M,)
 
 
 def extract_params(sd: SceneData) -> DiffParams:
-    geom = sd.geom
+    geom, med = sd.geom, sd.medium
     return DiffParams(
         bsdf_reflectance=sd.bsdf.reflectance,
         emitter_radiance=sd.emitter.radiance,
@@ -83,6 +84,8 @@ def extract_params(sd: SceneData) -> DiffParams:
         shape_translate=geom.translate if geom is not None else None,
         shape_rotate=geom.rotate if geom is not None else None,
         emitter_position=sd.emitter.position,
+        medium_albedo=med.albedo if med is not None else None,
+        medium_sigma_t=med.sigma_t if med is not None else None,
     )
 
 
@@ -92,10 +95,13 @@ def insert_params(sd: SceneData, p: DiffParams) -> SceneData:
     def pick(new, old):
         return new if new is not None else old
 
-    geom = sd.geom
+    geom, med = sd.geom, sd.medium
     if geom is not None and p.shape_translate is not None:
         geom = geom._replace(translate=p.shape_translate,
                              rotate=p.shape_rotate)
+    if med is not None:
+        med = med._replace(albedo=pick(p.medium_albedo, med.albedo),
+                           sigma_t=pick(p.medium_sigma_t, med.sigma_t))
     return sd._replace(
         bsdf=sd.bsdf._replace(
             reflectance=p.bsdf_reflectance,
@@ -106,6 +112,7 @@ def insert_params(sd: SceneData, p: DiffParams) -> SceneData:
             radiance=p.emitter_radiance,
             position=pick(p.emitter_position, sd.emitter.position)),
         geom=geom,
+        medium=med,
     )
 
 
@@ -144,6 +151,8 @@ _TABLE_FIELD = {  # traverse table -> DiffParams field
     "shape.translate": "shape_translate",
     "shape.rotate": "shape_rotate",
     "emitter.position": "emitter_position",
+    "medium.albedo": "medium_albedo",
+    "medium.sigma_t": "medium_sigma_t",
 }
 
 

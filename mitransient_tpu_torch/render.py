@@ -11,15 +11,18 @@ A render takes one of two branches, chosen as the JAX package chooses:
   threefry stream (``Sampler(seed, n, stream=pass)``) traced by
   ``integrators/path.py``, accumulated into one film.
 
-A scene with an ``nlos_capture_meter`` or the ``transient_nlos_path``
-integrator goes to the NLOS renderer (``integrators/nlos_path.py``), as in
-the JAX package.  :func:`render_aovs` gives first-hit AOVs of a perspective
+The ``transient_prbvolpath`` integrator (participating media) always
+takes the multi-pass branch, each pass traced by
+``integrators/volpath.py``.  A scene with an ``nlos_capture_meter`` or
+the ``transient_nlos_path`` integrator goes to the NLOS renderer
+(``integrators/nlos_path.py``), as in the JAX package.  :func:`render_aovs` gives first-hit AOVs of a perspective
 sensor.  The render runs on the device of ``scene.data``, under
 ``torch.no_grad()``.
 
 Differentiable rendering (the JAX package's ``render.py:300-730``):
 :func:`render_backward` gives parameter gradients by the PRB two-sweep
-replay (``integrators/prb.py``) for ``transient_path``, and by full AD
+replay for ``transient_path`` (``integrators/prb.py``) and
+``transient_prbvolpath`` (``integrators/prb_vol.py``), and by full AD
 through the wavefront (``integrators/fullad.py``) for NLOS captures and
 ``method="fullad"``; :func:`render_forward` gives derivative videos by the
 PRB forward replay for ``transient_path`` and by forward-mode AD through
@@ -46,6 +49,8 @@ from .film.phasor_film import PhasorFilmState
 from .integrators import DEFAULT_MAX_LANES
 from .integrators.path import sample_primal
 from .integrators.path_regen import sample_primal_regen
+from .integrators.prb_vol import sample_volpath_adjoint
+from .integrators.volpath import sample_volpath_primal
 from .integrators.nlos_path import _split_spp
 from .integrators.prb import (
     DiffParams,
@@ -96,7 +101,9 @@ def _perspective_pass(sd, cam, film, seed, pass_idx, inv_total_spp, *,
         cam, sampler, width, height, spp_chunk,
         crop_offset=(film_cfg.crop_offset_x, film_cfg.crop_offset_y),
         full_size=(film_cfg.width, film_cfg.height))
-    film, L, _valid, n_rays = sample_primal(
+    sample_fn = (sample_volpath_primal if icfg.kind == "transient_prbvolpath"
+                 else sample_primal)
+    film, L, _valid, n_rays = sample_fn(
         sd, sampler, ray, pix, ray_weight, film, film_cfg, icfg,
         sample_scale=inv_total_spp, spp=spp_chunk,
         bvh_mode=bvh_mode)
@@ -160,6 +167,7 @@ def render(
                            max_lanes=max_lanes,
                            progress_callback=progress_callback,
                            return_stats=return_stats, bvh_mode=bvh_mode)
+    _refuse_variant(scene)
     film_cfg = cfg.film
     spp = spp if spp is not None else cfg.spp
     dw, dh = film_cfg.data_width, film_cfg.data_height
@@ -345,12 +353,19 @@ def _prb_setup(scene: Scene, spp, sensor,
     return cfg, icfg, film_cfg, spp, hw, spp_chunk, n_passes
 
 
+def _refuse_variant(scene: Scene) -> None:
+    """A volumetric scene of a polarized or spectral variant, which the
+    JAX package renders and the port does not."""
+    if (scene.integrator.kind == "transient_prbvolpath"
+            and (scene.variant.polarized or scene.variant.spectral)):
+        raise NotImplementedError(
+            "polarized and spectral volumetric rendering is not ported to "
+            "mitransient_tpu_torch yet (ROADMAP item 16)")
+
+
 def _refuse_unported(scene: Scene) -> None:
     """The JAX package differentiates these; the port does not have them."""
-    if scene.integrator.kind == "transient_prbvolpath":
-        raise NotImplementedError(
-            "volumetric differentiation is not ported to "
-            "mitransient_tpu_torch yet (ROADMAP item 15)")
+    _refuse_variant(scene)
     if scene.variant.polarized or scene.variant.spectral:
         raise NotImplementedError(
             "polarized and spectral differentiation is not ported to "
@@ -387,17 +402,21 @@ def render_backward(scene: Scene, grad_in, spp: int | None = None,
     ``'__tables__'``, on the scene's device.
 
     ``transient_path`` takes the PRB two-sweep replay, in chunks of at most
-    ``max_lanes`` lanes; ``transient_nlos_path`` (single and confocal) and
-    ``method="fullad"`` take full AD through the wavefront, in chunks of
-    2^20 lanes, whose gradients also reach the shape poses and the delta
-    emitters' positions.  The phasor film, crop windows, wavefronts of
-    more than 2^32 lanes and the exhaustive capture are refused
-    (:func:`_prb_setup`); volumetric
-    (ROADMAP item 15), polarized and spectral scenes (item 16) are not
-    ported."""
+    ``max_lanes`` lanes; ``transient_prbvolpath`` the volumetric replay
+    (:func:`render_backward_volpath`, chunks of 2^20 lanes);
+    ``transient_nlos_path`` (single and confocal) and ``method="fullad"``
+    take full AD through the wavefront, in chunks of 2^20 lanes, whose
+    gradients also reach the shape poses and the delta emitters'
+    positions.  The phasor film, crop windows, wavefronts of more than
+    2^32 lanes and the exhaustive capture are refused
+    (:func:`_prb_setup`); polarized and spectral scenes (ROADMAP item 16)
+    are not ported."""
     _refuse_unported(scene)
     cfg, icfg, film_cfg, spp, hw, spp_chunk, n_passes = _prb_setup(
         scene, spp, sensor, max_lanes)
+    if icfg.kind == "transient_prbvolpath" and method != "fullad":
+        return render_backward_volpath(scene, grad_in, spp=spp, seed=seed,
+                                       sensor=sensor, bvh_mode=bvh_mode)
     if icfg.kind == "transient_nlos_path" or method == "fullad":
         from .integrators.fullad import render_backward_fullad
 
@@ -414,6 +433,48 @@ def render_backward(scene: Scene, grad_in, spp: int | None = None,
             sd, cam, gs, gt.reshape(hw * film_cfg.temporal_bins, -1), seed,
             p, 1.0 / total_spp, film_cfg=film_cfg,
             icfg=icfg, width=film_cfg.width, height=film_cfg.height,
+            spp=spp_chunk, bvh_mode=bvh_mode))
+    return grads_to_named(scene, grads)
+
+
+def _backward_pass_vol(sd, cam, grad_st_flat, grad_tr_flat, seed, pass_idx,
+                       inv_spp, *, film_cfg, icfg, spp, bvh_mode):
+    """One spp chunk of the volumetric PRB backward: the primal sweep for
+    L (no film), then the replay with per-term adjoint reads."""
+    width, height = film_cfg.width, film_cfg.height
+    n = width * height * spp
+    sampler = Sampler(seed, n, stream=pass_idx, device=cam.origin.device)
+    ray, pix, ray_weight = sample_rays(cam, sampler, width, height, spp)
+    _f, L, _v, _r = sample_volpath_primal(
+        sd, sampler, ray, pix, ray_weight, None, film_cfg, icfg,
+        sample_scale=inv_spp, spp=spp, bvh_mode=bvh_mode, enable_film=False)
+    return sample_volpath_adjoint(
+        sd, sampler.key, ray, pix, ray_weight, L, grad_tr_flat, grad_st_flat,
+        film_cfg, icfg, inv_spp, bvh_mode=bvh_mode)
+
+
+@torch.no_grad()
+def render_backward_volpath(scene: Scene, grad_in, spp: int | None = None,
+                            seed: int = 0, sensor: int = 0,
+                            max_lanes: int = 1 << 20,
+                            bvh_mode: str = BVH_MODE):
+    """Volumetric PRB backward (``integrators/prb_vol.py``): two
+    primal-shaped sweeps a chunk, memory independent of the path depth,
+    over spp chunks of at most ``max_lanes`` lanes split as the JAX
+    package splits them (the pass index seeds each chunk's streams).
+    The same dict as :func:`render_backward`."""
+    _refuse_unported(scene)
+    cfg, icfg, film_cfg, spp, hw, spp_chunk, n_passes = _prb_setup(
+        scene, spp, sensor, max_lanes)
+    gs, gt = adjoint_images(grad_in, film_cfg, scene.variant.color_channels,
+                            scene.device)
+    cam = build_camera(cfg, device=scene.device)
+    sd = primal_sd(scene.data)
+    grads = None
+    for p in range(n_passes):
+        grads = add_params(grads, _backward_pass_vol(
+            sd, cam, gs, gt.reshape(hw * film_cfg.temporal_bins, -1), seed,
+            p, 1.0 / (spp_chunk * n_passes), film_cfg=film_cfg, icfg=icfg,
             spp=spp_chunk, bvh_mode=bvh_mode))
     return grads_to_named(scene, grads)
 
@@ -453,6 +514,8 @@ _TANGENT_TABLES = {  # the JAX package's _build_tangents tables
     "emitter.radiance": "emitter_radiance",
     "bsdf.alpha": "bsdf_alpha",
     "bsdf.textures": "bsdf_textures",
+    "medium.albedo": "medium_albedo",
+    "medium.sigma_t": "medium_sigma_t",
 }
 
 
@@ -509,7 +572,9 @@ def _forward_pass_jvp(sd, ctx, tangents, seed, pass_idx, inv_spp, *,
             film = film_init_any(film_cfg, C, device=dev)
             ray, pix, rw = sample_rays(ctx, sampler, film_cfg.width,
                                        film_cfg.height, spp)
-            film, L, _v, _r = sample_primal(
+            sample_fn = (sample_volpath_primal
+                         if kind == "transient_prbvolpath" else sample_primal)
+            film, L, _v, _r = sample_fn(
                 sdt, sampler, ray, pix, rw, film, film_cfg, icfg, inv_spp,
                 spp, bvh_mode)
         state = splat_steady(film, spp, L, rw)
@@ -530,7 +595,8 @@ def render_forward(scene: Scene, tangent: dict, spp: int | None = None,
     common.py:215-323): the derivative (d_steady (H, W, C), d_transient
     (H, W, T, C)) along ``tangent``, a dict of traverse paths (or the
     whole-table names ``'bsdf.reflectance'``, ``'emitter.radiance'``,
-    ``'bsdf.alpha'``, ``'bsdf.textures'``) to tangent values.
+    ``'bsdf.alpha'``, ``'bsdf.textures'``, ``'medium.albedo'``,
+    ``'medium.sigma_t'``) to tangent values.
 
     ``transient_path`` takes the PRB forward replay, whose derivative
     splats go into the film through K3; NLOS single and confocal captures

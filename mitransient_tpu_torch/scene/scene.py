@@ -12,9 +12,9 @@ kinds the scene holds (``SceneData.emitter_kinds``), and the BSDF code only
 the lobes of the BSDF kinds it holds (``SceneData.bsdf_kinds``): the JAX
 package's static ``KindsStatic``.
 
-The tables keep every leaf of the JAX package's ``SceneData`` except the
-media (ROADMAP item 15), so that ``convert.py`` carries a JAX scene across
-whole.  The per-shape geometry deltas (:class:`GeomParams`, zero after
+The tables keep every leaf of the JAX package's ``SceneData``, the
+participating media (:class:`MediumParams`) among them, so that
+``convert.py`` carries a JAX scene across whole.  The per-shape geometry deltas (:class:`GeomParams`, zero after
 loading) exist for geometry gradients: with them, :func:`ray_intersect`
 re-derives the hit distance from the moved triangle's plane and NEE moves
 its emitter points, so that autograd reaches the shape poses; primal
@@ -173,6 +173,23 @@ class GeomParams(NamedTuple):
     pivot: torch.Tensor  # (S, 3)
 
 
+class MediumParams(NamedTuple):
+    """Participating media, each the interior of the shapes whose triangles
+    name it (``Triangles.medium_id``): extinction ``sigma_t`` (the scale of
+    a heterogeneous medium's density), single-scattering albedo, HG
+    anisotropy ``g``, a density grid (constant (1, 1, 1) ones where no
+    medium has a grid) with its world -> [0, 1]^3 affine, and the tracking
+    majorant (sigma_t times the grid's largest density).  A scene without
+    media holds one zero row."""
+
+    sigma_t: torch.Tensor  # (M,)
+    albedo: torch.Tensor  # (M, C)
+    g: torch.Tensor  # (M,)
+    grid: torch.Tensor  # (M, GZ, GY, GX) density
+    grid_w2l: torch.Tensor  # (M, 3, 4) local = A @ [p; 1]
+    majorant: torch.Tensor  # (M,)
+
+
 class SceneData(NamedTuple):
     tri: Triangles
     bsdf: BSDFParams
@@ -186,6 +203,7 @@ class SceneData(NamedTuple):
     # triangles (ops/accel.py); None for small scenes
     accel: Accel | None = None
     geom: GeomParams | None = None
+    medium: MediumParams | None = None
 
 
 def emitter_kinds(kind) -> tuple[int, ...]:

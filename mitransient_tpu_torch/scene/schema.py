@@ -11,9 +11,10 @@ wrappers and ``bitmap`` / ``checkerboard`` textures; ``area`` and
 ``angulararea`` emitters and the delta emitters ``projector``, ``point``
 and ``spot`` (loaded as a point); the ``perspective`` sensor and the
 ``nlos_capture_meter`` nested in a shape, with a ``transient_hdr_film`` or
-a ``phasor_hdr_film``; and the ``transient_path``, ``path`` and
-``transient_nlos_path`` integrators.  Media raise
-``NotImplementedError`` naming the ROADMAP item that will port them; what
+a ``phasor_hdr_film``; ``homogeneous`` and ``heterogeneous`` media nested
+in a shape (its interior), the density of a heterogeneous one inline or
+from a Mitsuba ``.vol`` file; and the ``transient_path``, ``path``,
+``transient_nlos_path`` and ``transient_prbvolpath`` integrators.  What
 the JAX loader refuses (other sensor types such as ``thinlens`` and
 ``irradiancemeter``, unknown scene entries) raises its ``ValueError``.
 
@@ -60,6 +61,7 @@ from .scene import (
     BSDFParams,
     EmitterParams,
     GeomParams,
+    MediumParams,
     SceneData,
     Triangles,
     bsdf_kinds,
@@ -76,19 +78,11 @@ _BSDF_TYPES = (
     "plastic", "roughplastic", "bumpmap", "normalmap", "mask",
     "blendbsdf",
 )
-_ROADMAP_ITEM = {
-    # scene entries the JAX package accepts and the port does not yet
-    "homogeneous": "15", "heterogeneous": "15", "transient_prbvolpath": "15",
-}
-_INTEGRATORS = ("transient_path", "path", "transient_nlos_path")
+_MEDIA = ("homogeneous", "heterogeneous")
+_INTEGRATORS = ("transient_path", "path", "transient_nlos_path",
+                "transient_prbvolpath")
 _TEXTURES = ("bitmap", "checkerboard")
 _log = logging.getLogger("mitransient_tpu_torch")
-
-
-def _not_ported(what: str, key: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to mitransient_tpu_torch yet "
-        f"(ROADMAP item {_ROADMAP_ITEM[key]})")
 
 
 def resolve_device(device) -> torch.device:
@@ -272,6 +266,109 @@ def _load_bump_texture(spec: dict, base_dir: str, cache: dict, kind: int):
         out = np.stack([hgt, gx, gy], axis=-1).astype(np.float32)
     cache[key] = (out, uv_t)
     return cache[key]
+
+
+# --------------------------------------------------------------------------
+# Media: density grids
+# --------------------------------------------------------------------------
+
+def _parse_density(dens, base_dir: str):
+    """A heterogeneous medium's density: an inline (GZ, GY, GX) array, or a
+    ``gridvolume`` dict holding it (``data``) or naming a Mitsuba ``.vol``
+    file (``filename``), with an optional ``to_world``.  -> (grid (GZ, GY,
+    GX) f32, world -> local affine (3, 4) f32 into [0, 1]^3)."""
+    to_world = None
+    if isinstance(dens, dict):
+        to_world = dens.get("to_world")
+        if dens.get("type") == "gridvolume" or "filename" in dens:
+            fn = dens["filename"]
+            if not os.path.isabs(fn):
+                fn = os.path.join(base_dir, fn)
+            grid = read_vol(fn)
+        else:
+            grid = np.asarray(dens.get("data", dens.get("value")),
+                              np.float32)
+    else:
+        grid = np.asarray(dens, np.float32)
+    if grid.ndim == 4:  # (Z, Y, X, 1) channel grids
+        grid = grid[..., 0]
+    if grid.ndim != 3:
+        raise ValueError("density grid must be 3-D (Z, Y, X)")
+    inv = np.linalg.inv(np.asarray(from_spec(to_world).m, np.float64))
+    return grid.astype(np.float32), inv[:3, :].astype(np.float32)
+
+
+def read_vol(path: str) -> np.ndarray:
+    """A Mitsuba binary grid volume (``.vol``, float32 encoding) -> its
+    first channel, (Z, Y, X) f32."""
+    import struct
+
+    with open(path, "rb") as f:
+        head = f.read(48)
+        if head[:3] != b"VOL":
+            raise ValueError("not a Mitsuba .vol file")
+        enc, gx, gy, gz, ch = struct.unpack_from("<iiiii", head, 4)
+        if enc != 1:
+            raise NotImplementedError("only float32 .vol grids supported")
+        data = np.fromfile(f, np.float32, gx * gy * gz * ch)
+    return data.reshape(gz, gy, gx, ch)[..., 0]
+
+
+def _parse_medium(cv: dict, channels: int, base_dir: str) -> dict:
+    """A ``homogeneous`` or ``heterogeneous`` medium as the JAX loader
+    reads it: ``sigma_t`` (the ``scale`` where ``sigma_t`` is itself the
+    grid), ``albedo``, the HG ``g`` and, for a heterogeneous medium, its
+    density grid (``density``, else ``sigma_t``) and affine."""
+    sig = cv.get("sigma_t")
+    med = {"sigma_t": (float(cv.get("scale", 1.0)) if isinstance(sig, dict)
+                       else float(cv.get("sigma_t", 1.0))),
+           "albedo": parse_color(cv.get("albedo", 0.75), channels),
+           "g": float(cv.get("phase", {}).get("g", 0.0)),
+           "grid": None}
+    if cv.get("type") == "heterogeneous":
+        med["grid"], med["grid_w2l"] = _parse_density(
+            cv.get("density", sig), base_dir)
+    return med
+
+
+def _medium_table(media: list, channels: int) -> MediumParams:
+    """The host medium table (at least one row, so lookups are well
+    formed).  Grids are edge-padded to one common shape (each medium's
+    affine rescaled to its own extent); media without a grid get a
+    constant-1 grid, a (1, 1, 1) one where no medium has a grid."""
+    n_med = max(len(media), 1)
+    sigma_t = np.array([m["sigma_t"] for m in media] or [0.0], np.float32)
+    grids = [m["grid"] for m in media if m["grid"] is not None]
+    w2l = np.zeros((n_med, 3, 4), np.float32)
+    w2l[:, :, :3] = np.eye(3)
+    if not grids:
+        packed = np.ones((n_med, 1, 1, 1), np.float32)
+        maj = sigma_t.copy()
+    else:
+        gz, gy, gx = (max(g.shape[a] for g in grids) for a in range(3))
+        packed = np.ones((n_med, gz, gy, gx), np.float32)
+        maj = np.zeros((n_med,), np.float32)
+        for i, m in enumerate(media):
+            g = m["grid"]
+            if g is None:
+                maj[i] = m["sigma_t"]
+                continue
+            z, y, x = g.shape
+            packed[i, :z, :y, :x] = g
+            packed[i, z:] = packed[i, z - 1:z]
+            packed[i, :, y:] = packed[i, :, y - 1:y]
+            packed[i, :, :, x:] = packed[i, :, :, x - 1:x]
+            sz = np.array([(x - 1) / max(gx - 1, 1), (y - 1) / max(gy - 1, 1),
+                           (z - 1) / max(gz - 1, 1)])
+            w2l[i] = (np.asarray(m["grid_w2l"], np.float64)
+                      * sz[:, None]).astype(np.float32)
+            maj[i] = m["sigma_t"] * float(g.max())
+    return MediumParams(
+        sigma_t=sigma_t,
+        albedo=np.stack([m["albedo"] for m in media]
+                        or [np.zeros(channels, np.float32)]),
+        g=np.array([m["g"] for m in media] or [0.0], np.float32),
+        grid=packed, grid_w2l=w2l, majorant=maj)
 
 
 def parse_color(spec: Any, channels: int, base_dir: str = ".") -> np.ndarray:
@@ -644,6 +741,7 @@ class Scene:
         self._bsdf_index: dict[str, int] = {}
         self._emitters: list[_EmitterEntry] = []
         self._tex_cache: dict = {}
+        self._media: list[dict] = []
         # traverse() path -> (table, row), as the JAX loader registers them
         self._param_paths: dict[str, tuple[str, int]] = {}
         sensor_dicts: list[tuple[dict, int]] = []  # (dict, enclosing shape)
@@ -718,8 +816,12 @@ class Scene:
                         self._param_paths[f"{key}.{ck}.radiance.value"] = (
                             "emitter.radiance", em_idx)
                         shape.emitter_key = em_idx
-                    elif ct in _ROADMAP_ITEM:
-                        raise _not_ported(f"{ct!r} (in {key!r})", ct)
+                    elif ct in _MEDIA:
+                        shape.medium_key = len(self._media)
+                        self._media.append(_parse_medium(cv, C, base_dir))
+                        for leaf in ("albedo", "sigma_t"):
+                            self._param_paths[f"{key}.{ck}.{leaf}.value"] = (
+                                f"medium.{leaf}", shape.medium_key)
                     elif ct in ("nlos_capture_meter", "perspective",
                                 "irradiancemeter"):
                         sensor_dicts.append((cv, shape_idx))
@@ -747,8 +849,6 @@ class Scene:
                     beam_width=float(val.get("beam_width", 15.0)),
                     shape_index=-1,
                 ))
-            elif t in _ROADMAP_ITEM:
-                raise _not_ported(f"scene entry {key!r} of type {t!r}", t)
             elif t in ("perspective", "thinlens"):
                 sensor_dicts.append((val, -1))
             elif t in _INTEGRATORS:
@@ -869,7 +969,8 @@ class Scene:
                 shape_id=shape_id,
                 bsdf_id=per_tri([s.bsdf_key for s in self.shapes]),
                 emitter_id=per_tri(em_of_shape),
-                medium_id=per_tri([-1] * len(self.shapes)),
+                medium_id=per_tri([-1 if s.medium_key is None
+                                   else s.medium_key for s in self.shapes]),
                 table=tri_table(*map(torch.from_numpy, (v0, e1, e2))).numpy(),
             ),
             "bsdf": BSDFParams(
@@ -886,6 +987,7 @@ class Scene:
                 **self._atlas("bump", 3),
             ),
             "emitter": self._emitter_table(C, v0, e1, e2, ng, area, shape_id),
+            "medium": _medium_table(self._media, C),
         }
         pivot = np.zeros((max(len(self.shapes), 1), 3), np.float32)
         for s_i, shp in enumerate(self.shapes):
@@ -1049,6 +1151,8 @@ _DEVICE_TABLES = {
     "bsdf.textures": ("bsdf", "textures"),
     "emitter.radiance": ("emitter", "radiance"),
     "emitter.position": ("emitter", "position"),
+    "medium.albedo": ("medium", "albedo"),
+    "medium.sigma_t": ("medium", "sigma_t"),
 }
 
 
@@ -1129,6 +1233,11 @@ class ParamMap:
             elif table == "bsdf.alpha_v":
                 sc._bsdfs[idx] = sc._bsdfs[idx]._replace(
                     alpha_v=float(_host(value)))
+            elif table == "medium.albedo":
+                sc._media[idx]["albedo"] = _host(value).astype(
+                    np.float32).reshape(sc._media[idx]["albedo"].shape)
+            elif table == "medium.sigma_t":
+                sc._media[idx]["sigma_t"] = float(_host(value))
             elif table == "emitter.position":
                 e = sc._emitters[idx]
                 m = e.to_world.m.copy()

@@ -45,6 +45,7 @@ class Shape:
         self.to_world: Transform4 = from_spec(props.get("to_world"))
         self.bsdf_key = None  # filled by schema
         self.emitter_key = None
+        self.medium_key = None  # the interior medium's row, None = vacuum
 
     def triangles(self) -> TriangleData:
         raise NotImplementedError

@@ -340,20 +340,25 @@ def test_refusals_match_jax(kind, call):
 
 
 def test_unported_differentiation_is_refused():
-    """Volumetric scenes (ROADMAP item 15) and the polarized and spectral
-    variants (item 16), which the JAX package differentiates, are refused
-    where the port meets them: at load, at set_variant, and in the
-    dispatch of render_backward and render_forward."""
+    """The polarized and spectral variants (ROADMAP item 16), which the
+    JAX package differentiates, are refused where the port meets them: at
+    set_variant, and in the dispatch of render_backward and render_forward,
+    volumetric scenes among them.  Volumetric scenes themselves (item 15)
+    load and differentiate."""
     d = small_cbox(mt, 8, 8, 20, 2)
     d["small-box"]["medium"] = {"type": "homogeneous", "sigma_t": 1.0}
-    with pytest.raises(NotImplementedError, match="item 15"):
-        mt.load_dict(d, device="cpu")
+    assert mt.load_dict(d, device="cpu").data.medium.sigma_t.tolist() == [1.0]
     with pytest.raises(NotImplementedError, match="item 16"):
         mt.set_variant("mono_polarized")
     sc = mt.load_dict(small_cbox(mt, 8, 8, 20, 2), device="cpu")
+    vol = copy.copy(sc)
+    vol.integrator = sc.integrator._replace(kind="transient_prbvolpath")
+    assert set(mt.render_backward(vol, (None, None), spp=1)) >= {
+        "__tables__", "white.reflectance.value"}
     for change, item in ((lambda s: setattr(s, "integrator", s.integrator.
-                                            _replace(kind="transient_prbvolpath")),
-                          "item 15"),
+                                            _replace(kind="transient_prbvolpath"))
+                          or setattr(s, "variant", Variant(3, spectral=True)),
+                          "item 16"),
                          (lambda s: setattr(s, "variant",
                                             Variant(3, polarized=True)),
                           "item 16"),

@@ -123,14 +123,21 @@ def test_triangle_table_of_loaded_and_carried_scenes(both_scenes):
 
 
 def test_scene_data_from_numpy_refuses_what_is_not_ported():
-    """Only media are refused (ROADMAP item 15); other BSDF kinds, two-sided
-    rows and the texture columns load."""
+    """Every leaf of a JAX scene now crosses: triangles that name a medium
+    take the ``medium`` record with them (refused only without it), and
+    other BSDF kinds, two-sided rows and the texture columns load."""
     leaves = jax_leaves(mitr.load_dict(mitr.cornell_box()).data)
     med = leaves["tri.medium_id"].copy()
     med[3] = 0
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        scene_data_from_numpy(dict(leaves, **{"tri.medium_id": med}),
-                              device="cpu")
+    sd = scene_data_from_numpy(dict(leaves, **{"tri.medium_id": med}),
+                               device="cpu")
+    assert sd.tri.medium_id.tolist() == med.tolist()
+    assert torch.equal(sd.medium.sigma_t,
+                       torch.tensor(leaves["medium.sigma_t"]))
+    with pytest.raises(ValueError, match="medium"):
+        scene_data_from_numpy(
+            {k: v for k, v in dict(leaves, **{"tri.medium_id": med}).items()
+             if not k.startswith("medium.")}, device="cpu")
     B = leaves["bsdf.kind"].shape[0]
     kinds = np.arange(B, dtype=np.int32) % 6
     sd = scene_data_from_numpy(
@@ -177,10 +184,24 @@ def test_configs_match_jax():
     lambda d: d["small-box"].update(medium={"type": "homogeneous"}),
 ])
 def test_unported_plugins_raise(change):
+    """The volumetric integrator and media, refused until ROADMAP item 15
+    was ported, load with the JAX loader's leaves and configs; a medium at
+    the top level of the scene, which the JAX loader refuses, raises its
+    ValueError."""
     desc = mt.cornell_box()
     change(desc)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        mt.load_dict(desc, device="cpu")
+    jsc = mitr.load_dict(copy.deepcopy(desc))
+    tsc = mt.load_dict(copy.deepcopy(desc), device="cpu")
+    assert_leaves_equal(jsc, tsc)
+    for f in tsc.integrator._fields:
+        assert getattr(tsc.integrator, f) == getattr(jsc.integrator, f), f
+    desc["fog"] = {"type": "homogeneous"}
+    msgs = []
+    for pkg, kw in ((mitr, {}), (mt, {"device": "cpu"})):
+        with pytest.raises(ValueError) as err:
+            pkg.load_dict(copy.deepcopy(desc), **kw)
+        msgs.append(str(err.value))
+    assert msgs[0] == msgs[1]
 
 
 @pytest.mark.parametrize("change", [

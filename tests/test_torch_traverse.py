@@ -186,6 +186,8 @@ def test_diff_params_cross_from_jax_and_back(name):
     for f, v in back.items():
         if v is not None:
             np.testing.assert_array_equal(v, jfields[f], err_msg=f)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        diff_params_from_numpy({**jfields, "medium_albedo": np.ones((1, 3))},
-                               device="cpu")
+    # the media's tables cross too (ROADMAP item 15 ported)
+    got = diff_params_from_numpy({**jfields, "medium_albedo": np.ones((1, 3))},
+                                 device="cpu")
+    assert torch.equal(got.medium_albedo, torch.ones((1, 3),
+                                                     dtype=torch.float64))

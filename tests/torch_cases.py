@@ -821,3 +821,177 @@ def time_window_cbox(pkg, res: int, bins: int) -> dict:
 OPTIMIZE_REFLECTANCE = dict(res=64, bins=200, spp=256, lr=5e-2,
                             target_seed=7, start=(0.15, 0.6, 0.25))
 FORWARD_TIME_GRADIENTS = dict(res=128, bins=300, spp=512)
+
+
+# --------------------------------------------------------------------------
+# Volumetric rendering (transient_prbvolpath)
+# --------------------------------------------------------------------------
+
+def vol_cbox(pkg, sigma_t=None, albedo=0.9, g=0.1, w=8, h=8, bins=100,
+             max_depth=5, lift=0.0, rr_depth=99) -> dict:
+    """tests/test_volumetric.py's ``vol_cbox``: the box with the
+    ``transient_prbvolpath`` integrator and, where ``sigma_t`` is given,
+    fog of that extinction, ``albedo`` and HG ``g`` in the small box
+    behind a null BSDF (the reference tutorial's scene).  ``lift`` raises
+    the small box off the floor, with which its bottom is coplanar."""
+    d = pkg.cornell_box()
+    d["sensor"]["film"].update(width=w, height=h, temporal_bins=bins)
+    d["integrator"] = {"type": "transient_prbvolpath",
+                       "max_depth": max_depth, "rr_depth": rr_depth}
+    d["small-box"]["to_world"]["translate"][1] += lift
+    if sigma_t is not None:
+        d["small-box"]["bsdf"] = {"type": "null"}
+        d["small-box"]["medium"] = {
+            "type": "homogeneous", "sigma_t": sigma_t,
+            "albedo": {"type": "rgb", "value": [albedo] * 3},
+            "phase": {"type": "hg", "g": g}}
+    return d
+
+
+def hetero_medium(density, scale=3.0, albedo=0.9, g=0.1,
+                  to_world=None) -> dict:
+    """test_volumetric's ``_hetero_cbox`` medium: a ``heterogeneous``
+    medium of an inline density grid, in a dict with its ``to_world``
+    where it has one (a ``gridvolume`` dict names a ``.vol`` file)."""
+    med = {"type": "heterogeneous", "scale": scale,
+           "density": np.asarray(density, np.float32),
+           "albedo": {"type": "rgb", "value": [albedo] * 3},
+           "phase": {"type": "hg", "g": g}}
+    if to_world is not None:
+        med["density"] = {"data": med["density"], "to_world": to_world}
+    return med
+
+
+# a grid placed over the small box, axis-aligned ([0, 1]^3 -> world)
+GRID_TO_WORLD = {"translate": [0.03, -1.0, 0.07], "scale": 0.62}
+VOL_LIFT = 0.002  # the per-sample cases' small box, 2 mm off the floor
+
+
+def grid_density(n: int = 8, seed: int = 5) -> np.ndarray:
+    """A seeded random (n, n, n) density in [0.2, 1.8)."""
+    return (0.2 + 1.6 * np.random.default_rng(seed).random(
+        (n, n, n))).astype(np.float32)
+
+
+VOL_CASES = ("fog", "absorbing", "unwarp", "null_box", "rr", "grid_constant",
+             "grid_random", "crop_filters")
+
+
+def vol_case(pkg, name: str) -> tuple[dict, dict]:
+    """Configuration ``name`` of VOL_CASES -> (scene dict, render kwargs).
+    An 8 x 8 box of 100 bins, depth 5, the small box lifted by
+    ``VOL_LIFT`` so that no path meets its coplanar bottom: fog (sigma_t
+    2, albedo 0.9, g 0.3), absorbing fog (sigma_t 5, albedo 0),
+    ``camera_unwarp`` (a window of 0.02 from OPL 0), the null box with no
+    medium, fog with Russian roulette from depth 2 over two passes, a
+    constant 4^3 grid (scale 3, which the JAX loader reads as sigma_t 1),
+    the seeded 8^3 grid with ``GRID_TO_WORLD``, and the fog through a crop
+    window with the gaussian rfilter and temporal filter; "phasor", the
+    fog into the phasor golden's film (8 x 8, 400 bins; a mono variant),
+    is no member of VOL_CASES."""
+    kw = dict(spp=4, seed=1)
+    if name in ("phasor", "crop_filters"):
+        d, kw = vol_case(pkg, "fog")
+        if name == "phasor":
+            d["sensor"]["film"] = {
+                "type": "phasor_hdr_film", "width": 8, "height": 8,
+                "temporal_bins": 400, "bin_width_opl": 0.02,
+                "start_opl": 3.5, "wl_mean": 0.5, "wl_sigma": 0.5}
+        else:
+            d["sensor"]["film"].update(
+                crop_offset_x=2, crop_offset_y=1, crop_width=5,
+                crop_height=6, rfilter={"type": "gaussian", "stddev": 0.6})
+            d["integrator"].update(temporal_filter="gaussian",
+                                   gaussian_stddev=1.5)
+        return d, kw
+    if name == "null_box":
+        d = vol_cbox(pkg, lift=VOL_LIFT)
+        d["small-box"]["bsdf"] = {"type": "null"}
+        return d, kw
+    if name.startswith("grid"):
+        d = vol_cbox(pkg, 1.0, lift=VOL_LIFT)
+        d["small-box"]["medium"] = (
+            hetero_medium(np.ones((4, 4, 4)), scale=3.0)
+            if name == "grid_constant"
+            else hetero_medium(grid_density(), scale=2.5, albedo=0.7,
+                               to_world=GRID_TO_WORLD))
+        return d, kw
+    sig, alb, g = {"absorbing": (5.0, 0.0, 0.1), "unwarp": (1.0, 0.9, 0.1)
+                   }.get(name, (2.0, 0.9, 0.3))
+    d = vol_cbox(pkg, sig, alb, g, lift=VOL_LIFT,
+                 rr_depth=2 if name == "rr" else 99)
+    if name == "unwarp":
+        d["integrator"]["camera_unwarp"] = True
+        d["sensor"]["film"].update(start_opl=0.0, bin_width_opl=0.02)
+    if name == "rr":
+        kw = dict(spp=6, seed=2, max_lanes=3 * 64)
+    return d, kw
+
+
+# the elements of the volumetric golden (8 x 8, 120 bins: 192 steady and
+# 23,040 transient elements) out of test_golden's rule between the port
+# on the CPU and the JAX package's golden: paths in the fog leave the
+# small box through its bottom, coplanar with the floor, where XLA's
+# FMA-contracted hit distance and the port's separately rounded one pick
+# different triangles (ROADMAP queue 3); with the box lifted 2 mm none is
+# out.  Those paths change the ray count by 0.15 %.
+VOLUMETRIC_TIES = {"steady": 12, "transient": 3}
+VOLUMETRIC_TIE_RAYS = 2e-3
+
+
+def vol_grad_case(pkg, name: str) -> dict:
+    """The differentiated volumetric configurations: fog, test_prb_vol.py's
+    ``_scene`` (sigma_t 2, albedo 0.8, g 0.2); grid, its heterogeneous
+    replay case (a 4^3 density of 0.8 around a 2.0 core, scale 2.5,
+    albedo 0.7).  8 x 8, 100 bins of 0.6 from OPL 0, depth 5, the small
+    box 2 mm off the floor."""
+    if name == "grid":
+        density = np.full((4, 4, 4), 0.8, np.float32)
+        density[1:3, 1:3, 1:3] = 2.0
+        d = vol_cbox(pkg, 1.0, lift=VOL_LIFT)
+        d["small-box"]["medium"] = hetero_medium(density, scale=2.5,
+                                                 albedo=0.7)
+    else:
+        d = vol_cbox(pkg, 2.0, 0.8, 0.2, lift=VOL_LIFT)
+    d["sensor"]["film"].update(start_opl=0.0, bin_width_opl=0.6)
+    return d
+
+
+# the reference tutorial (examples/transient/render_cbox_volumetric.py:
+# 25-38): 128 x 128, 400 bins, depth 64, spp 512, fog of sigma_t 1.8,
+# albedo 0.9, HG g 0.3 in the small box
+TUTORIAL = dict(res=128, bins=400, max_depth=64, spp=512)
+# [0, 1]^3 onto the small box of cornell_box() (its to_world after a map
+# of the unit cube onto [-1, 1]^3)
+GRID_IN_SMALL_BOX = [{"translate": [0.335, -0.7, 0.38]},
+                     {"rotate": {"axis": [0, 1, 0], "angle": -17}},
+                     {"scale": 0.3}, {"translate": [-1.0, -1.0, -1.0]},
+                     {"scale": 2.0}]
+
+
+def tutorial_cbox(pkg, res=TUTORIAL["res"], bins=TUTORIAL["bins"],
+                  max_depth=TUTORIAL["max_depth"]) -> dict:
+    """The volumetric tutorial's scene (default rr_depth 5)."""
+    d = pkg.cornell_box()
+    d["sensor"]["film"].update(width=res, height=res, temporal_bins=bins)
+    d["integrator"] = {"type": "transient_prbvolpath", "max_depth": max_depth}
+    d["small-box"]["bsdf"] = {"type": "null"}
+    d["small-box"]["medium"] = {
+        "type": "homogeneous", "sigma_t": 1.8,
+        "albedo": {"type": "rgb", "value": [0.9, 0.9, 0.9]},
+        "phase": {"type": "hg", "g": 0.3}}
+    return d
+
+
+def tutorial_grid(pkg, n=64, seed=0, max_depth=16, **kw) -> dict:
+    """The tutorial's scene with a seeded random n^3 density (in [0.2,
+    1.8)) filling the small box, scale 3: the grid given as ``sigma_t``,
+    as Mitsuba gives it, so that the loaders read the scale as sigma_t."""
+    d = tutorial_cbox(pkg, max_depth=max_depth, **kw)
+    d["small-box"]["medium"] = {
+        "type": "heterogeneous", "scale": 3.0,
+        "sigma_t": {"data": grid_density(n, seed),
+                    "to_world": GRID_IN_SMALL_BOX},
+        "albedo": {"type": "rgb", "value": [0.9, 0.9, 0.9]},
+        "phase": {"type": "hg", "g": 0.3}}
+    return d
