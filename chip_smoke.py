@@ -201,6 +201,36 @@ Phases, each of which raises on failure:
     and grid configs of ``torch_cases.vol_grad_case``, PRB, full AD and
     forward mode, card against CPU within 1e-4 of each table's or video's
     largest value.
+29. The polarized and spectral variants on the card: the ``cbox_polarized``
+    and ``cbox_spectral`` goldens (test_golden's rule, no element out),
+    then every ``torch_cases.VARIANT_CASES`` configuration (mono_polarized,
+    rgb_polarized, spectral, spectral_polarized, each with a gold GGX
+    small box; regen for the polarized ones, multi-pass for all) card
+    against CPU, no element out, with whether it is bit for bit; K3 once a
+    loop iteration or bounce, K1 and K2 at least once.
+30. The polarized cbox at full width (``torch_cases.polarized_cbox``, the
+    reference's ``examples/polarization`` config: mono_polarized, 256x256,
+    400 bins, depth 5, a gold GGX small box; spp 1024, cut from 4096)
+    through the regen loop: K1-K3 once a loop iteration; intensity
+    physics, physical Stokes vectors (DoP 0.95 quantile at most 1.05),
+    linear polarization on the gold box and none on the diffuse walls, the
+    ``vis_polarized`` false-color maps in [0, 1]; the inputs K1, K2 and K3
+    get in loop iteration 1 held against the plain versions as in phase
+    16 (K3 into a (4, 401, 65536) film), each timed with its bound (K3
+    also against ``index_add_``); wall, rays/s and peak memory of a second,
+    uninstrumented render (seed 1); one render at spp 64 under
+    torch.profiler (``profile_render``: busy share, device time by kernel
+    group and the kernels of most time).
+31. The spectral flagship (``cornell_box()`` under ``spectral``, multi-pass,
+    spp 256 = 8 passes of 2^21 lanes): K1-K3 once a bounce, the physics
+    checks, rays/s of a second render, the threefry's share (bounce
+    blocks, jitter and the hero-wavelength draw) and the spectral
+    conversions' (a bounce's uplifts and sRGB conversions on 2^21 lanes),
+    and one pass under torch.profiler; then ``rgb_polarized``
+    (regen) and ``spectral_polarized`` (multi-pass) at the flagship's film,
+    spp 64, with K3 held bit for bit on each one's bounce-1 12-channel
+    events (into (12, 301, 65536)), timed with its bound and
+    ``index_add_``.
 
 Kernel times (``_time_ms``) are means of launches made back to back, so
 that the wrapper's host work overlaps the card's as in a render.  It
@@ -211,13 +241,18 @@ JSON object with each kernel's launches (in the regen flagship or
 and in the materials flagship, ``materials_launches``; in the gradient
 phases ``prb_backward_launches``, ``forward_launches`` and
 ``fullad_launches``; in the volumetric tutorial, ``volumetric_launches``,
-and its PRB backward, ``volumetric_prb_backward_launches``), error, times
+and its PRB backward, ``volumetric_prb_backward_launches``; in the
+polarized cbox, ``polarized_launches``; in the spectral flagship,
+``spectral_launches``; in the 12-channel flagships,
+``stokes12_launches`` and ``stokes12_spectral_launches``), error, times
 and bound (K1 and K3 also on the volumetric tutorial's bounce-1 inputs,
 ``volumetric_*``, K1 also on its shadow walk's, ``volumetric_walk_*``;
 K1-K3 also on the inputs of
 phases 16, 19 and 20, keys ``nlos_*``, ``exhaustive_*`` and
 ``materials_*``, and on those of phases 23 and 24, ``grad_prb_*`` for K1
-and K2 and ``grad_forward_*``; K3 also its Function's ``backward_max_abs_err``,
+and K2 and ``grad_forward_*``; K1-K3 on the polarized cbox's iteration-1
+inputs, ``polarized_*``; K3 on the 12-channel events, ``stokes12_*``
+(rgb_polarized) and ``stokes12_spectral_*``; K3 also its Function's ``backward_max_abs_err``,
 ``jvp_max_abs_err`` and the backward gather's ``gather_*`` times), and
 ``{"ok": true,
 "device": {...}}``.  Without a CUDA device, or without the
@@ -270,6 +305,16 @@ VOL_FIRST_BINS = (15, 18)
 VOL_COMPARE_SPP = 64  # the fog and black-fog renders (2^20 lanes)
 VOL_GRID = dict(n=64, spp=128, max_depth=16)  # one pass of 2^21 lanes
 VOL_GRAD = dict(spp=64, fullad_depth=8)  # 2^20 lanes, one chunk
+# the polarized cbox (torch_cases.polarized_cbox: 256x256, 400 bins, depth
+# 5, gold GGX small box), spp cut from the reference's 4096 for chip time;
+# its held loop iteration; the gold box's pixels and the top rows, where
+# every camera ray meets a diffuse wall first (Q = U = 0 exactly)
+POL_CBOX = dict(spp=1024, seed=0)
+POL_HELD_ITERATION = 1
+POL_BOX = (slice(184, 232), slice(136, 200))
+POL_DIFFUSE_ROWS = 128
+SPECTRAL = dict(spp=256, seed=0)  # the spectral flagship: 8 passes of 32
+STOKES12_SPP = 64  # rgb_polarized / spectral_polarized at the flagship film
 BVH_SUBSET = 1 << 16  # rays of the kernel-against-plain comparison
 K1_MISMATCH_SHARE = 1e-4  # BVH kernel (Woop) against K1 (Moller-Trumbore)
 # the K1 / BVH crossover: UV spheres (rings, segments) of 64-8192
@@ -937,44 +982,58 @@ def render_mesh(mt, cases, dev, scene):
     return counts
 
 
-def profile_mesh(mt, scene):
-    """One cbox_mesh render in each mode (spp 64, seed 1) under
-    torch.profiler: device time by kernel group, and the union of the
-    kernels' intervals against the render's wall time (the device's busy
-    share; the profiler itself slows the host)."""
+def profile_render(label, render, top=0):
+    """``render()`` under torch.profiler: the device's busy share (the
+    union of the kernels' intervals against the render's wall time; the
+    profiler itself slows the host), device time by kernel group (the BVH
+    kernel, K1, K2, K3 and the rest) and, with ``top``, the ``top``
+    kernels of most device time.  -> device ms by group."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        render()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:  # union of the kernels' intervals, in us
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    groups, names = {}, {}
+    for e in kernels:
+        g = ("bvh_query" if "bvh_tree_kernel" in e.name
+             or "bvh_super_kernel" in e.name else
+             "closest_hit" if "closest_hit_kernel" in e.name else
+             "ray_test" if "any_hit_kernel" in e.name else
+             "splat" if "splat_kernel" in e.name else "other")
+        us = e.time_range.elapsed_us()
+        groups[g] = groups.get(g, 0.0) + us
+        names[e.name] = names.get(e.name, 0.0) + us
+    total = sum(groups.values())
+    print(f"{label}: wall {wall:.3f} s, {len(spans)} device kernels, busy "
+          f"{busy / 1e6:.4f} s = {busy / 1e6 / wall:.3f} of wall; device "
+          "time by group: "
+          + ", ".join(f"{g} {t / 1e3:.2f} ms ({t / total:.3f})"
+                      for g, t in sorted(groups.items())))
+    for name, us in sorted(names.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"  {us / 1e3:9.2f} ms ({us / total:.3f}) {name[:100]}")
+    return groups
+
+
+def profile_mesh(mt, scene):
+    """One cbox_mesh render in each mode (spp 64, seed 1) under
+    torch.profiler (``profile_render``)."""
     from mitransient_tpu_torch.ops import bvh
 
     for mode in bvh.MODES:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            mt.render(scene, spp=PROFILE_SPP, seed=1, bvh_mode=mode)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        kernels = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        spans = sorted((e.time_range.start, e.time_range.end)
-                       for e in kernels)
-        busy, end = 0.0, float("-inf")
-        for a, b in spans:  # union of the kernels' intervals, in us
-            busy += max(0.0, b - max(a, end))
-            end = max(end, b)
-        groups = {}
-        for e in kernels:
-            g = ("bvh_query" if "bvh_tree_kernel" in e.name
-                 or "bvh_super_kernel" in e.name else
-                 "splat" if "splat_kernel" in e.name else "other")
-            groups[g] = groups.get(g, 0.0) + e.time_range.elapsed_us()
-        total = sum(groups.values())
-        print(f"cbox_mesh profiled render ({mode}, spp {PROFILE_SPP}): wall "
-              f"{wall:.3f} s, {len(spans)} device kernels, busy "
-              f"{busy / 1e6:.4f} s = {busy / 1e6 / wall:.3f} of wall; device "
-              "time by group: "
-              + ", ".join(f"{g} {t / 1e3:.2f} ms ({t / total:.3f})"
-                          for g, t in sorted(groups.items())))
+        groups = profile_render(
+            f"cbox_mesh profiled render ({mode}, spp {PROFILE_SPP})",
+            lambda: mt.render(scene, spp=PROFILE_SPP, seed=1, bvh_mode=mode))
         if not groups.get("bvh_query"):
             raise AssertionError(f"the {mode} profile shows no BVH kernel "
                                  "time")
@@ -2348,6 +2407,245 @@ def volumetric_gradients(mt, cases, dev):
     return counts
 
 
+def variant_card_against_cpu(mt, cases, dev):
+    """Phase 29: the cbox_polarized and cbox_spectral goldens on the card,
+    then every ``torch_cases.VARIANT_CASES`` configuration (regen for the
+    polarized ones, multi-pass for all) on the card against the CPU."""
+    import numpy as np
+    import torch
+
+    from mitransient_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    for name, variant in (("cbox_polarized", "mono_polarized"),
+                          ("cbox_spectral", "spectral")):
+        with cases.with_variant(mt, variant):
+            scene = mt.load_dict(cases.small_cbox(mt, 8, 8, 80, 4),
+                                 device=dev)
+        s, t = mt.render(scene, spp=4, seed=0)
+        golden = np.load(os.path.join(ROOT, "tests", "goldens",
+                                      f"{name}.npz"))
+        for key, got in (("steady", s), ("transient", t)):
+            m = cases.golden_mismatch(got.cpu().numpy(), golden[key])
+            print(f"{name} {key} vs golden: {m}")
+            if not (m["shape_ok"] and m["n_bad"] == 0):
+                raise AssertionError(f"{name} {key} disagrees with its golden")
+    for name in cases.VARIANT_CASES:
+        for multipass in (False, True):
+            if not multipass and name not in cases.VARIANT_REGEN:
+                continue
+            label = f"{name} {'multi-pass' if multipass else 'regen'}"
+            out = []
+            for d in (dev, "cpu"):
+                reset_launch_counts()
+                s, t, stats = cases.variant_render(mt, name, multipass,
+                                                   device=d)
+                out.append((s.cpu(), t.cpu(), int(stats["rays"])))
+                if d == dev:
+                    counts, n = launch_counts(), stats["loop_iters"]
+            check_launches(label, counts, n, False)
+            same = all(torch.equal(a, b) for a, b in zip(out[0][:2],
+                                                          out[1][:2]))
+            print(f"{label} on the card: launches {counts}, {n} loop "
+                  f"iterations or bounces, rays {out[0][2]} (CPU "
+                  f"{out[1][2]}), bit for bit with the CPU: {same}")
+            for k, got, ref in zip(("steady", "transient"), out[0], out[1]):
+                m = cases.golden_mismatch(got.numpy(), ref.numpy())
+                print(f"{label} {k}, card against CPU: {m}")
+                if not (m["shape_ok"] and m["n_bad"] == 0):
+                    raise AssertionError(f"{label} {k}: card and CPU "
+                                         "disagree")
+
+
+def render_polarized_cbox(mt, cases, dev):
+    """Phase 30: the polarized cbox at full width through the regen loop;
+    returns its launch counts and K1-K3 on one loop iteration's inputs
+    (``hold_captured``)."""
+    import numpy as np
+    import torch
+
+    from mitransient_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    with cases.with_variant(mt, "mono_polarized"):
+        scene = mt.load_dict(cases.polarized_cbox(mt), device=dev)
+    fc = scene.sensors[0].film
+    it = POL_HELD_ITERATION
+    reset_launch_counts()
+    with capture_bounce({"closest_hit": N_RAYS, "ray_test": N_RAYS},
+                        bounce=it) as kept:
+        s, t, stats = mt.render(scene, return_stats=True, **POL_CBOX)
+        torch.cuda.synchronize()
+    counts = launch_counts()
+    n = stats["loop_iters"]
+    print(f"polarized cbox render 1 ({fc.width}x{fc.height}, "
+          f"{fc.temporal_bins} bins, depth {scene.integrator.max_depth}, "
+          f"spp {POL_CBOX['spp']}, seed 0; iteration {it}'s kernel inputs "
+          f"captured): launches {counts}, loop iterations {n}")
+    for name in ("closest_hit", "ray_test", "splat_accumulate"):
+        if counts.get(name, 0) != n or n == 0:
+            raise AssertionError(f"polarized cbox: {name} launched "
+                                 f"{counts.get(name, 0)} times in {n} loop "
+                                 "iterations")
+    if len(kept) != 3 or len(kept["events"]) != 4:
+        raise AssertionError(f"polarized cbox: captured {sorted(kept)}")
+    s, t = s.cpu().numpy(), t.cpu().numpy()
+    if s.shape != (fc.height, fc.width, 4):
+        raise AssertionError(f"polarized cbox: steady {s.shape}")
+    fails = cases.physics_checks(s[..., :1], t[..., :1], red_green=False)
+    pol = cases.stokes_checks(s)
+    dolp = mt.vis_polarized.degree_of_linear_polarization(s)
+    box = float(np.median(dolp[POL_BOX]))
+    walls = float(np.abs(s[:POL_DIFFUSE_ROWS, :, 1:3]).max())
+    maps = {m: mt.vis_polarized.polarization_generate_false_color(s, m)
+            for m in ("dop", "aolp", "top", "chirality")}
+    print(f"  Stokes: DoP 0.95 quantile {pol['dop_q95']:.4f} (at most "
+          f"{cases.DOP_Q95_MAX}), (|Q| + |U|) / I {pol['qu_share']:.6f}, "
+          f"median DoLP on the gold box {box:.4f}, largest |Q|, |U| in the "
+          f"top {POL_DIFFUSE_ROWS} rows (diffuse walls) {walls}; false-color "
+          f"maps {sorted(maps)} in [0, 1]: "
+          f"{all(0 <= v.min() <= v.max() <= 1 for v in maps.values())}")
+    if (fails or pol["dop_q95"] > cases.DOP_Q95_MAX or not box > 0.01
+            or walls != 0.0
+            or not all(np.isfinite(v).all() and 0 <= v.min() <= v.max() <= 1
+                       for v in maps.values())):
+        raise AssertionError(f"polarized cbox physics checks: {fails}, "
+                             f"{pol}, gold box DoLP {box}, walls {walls}")
+    del s, t
+    held = hold_captured(scene, kept, f"polarized cbox iteration {it}'s",
+                         dev, fc.width * fc.height,
+                         t_pad=fc.temporal_bins + 1)
+    del kept
+    _out, wall, peak = _timed(lambda: mt.render(
+        scene, return_stats=True, spp=POL_CBOX["spp"], seed=1))
+    rays = int(_out[2]["rays"])
+    print(f"polarized cbox render 2 (seed 1): {wall:.3f} s, {rays} rays, "
+          f"{_out[2]['loop_iters']} loop iterations -> "
+          f"{rays / wall / 1e6:.2f} M rays/s, peak memory {peak:.2f} GiB")
+    profile_render(f"polarized cbox profiled render (spp {PROFILE_SPP})",
+                   lambda: mt.render(scene, spp=PROFILE_SPP, seed=2), top=8)
+    return counts, held
+
+
+def spectral_conversion_ms(scene, key, dev):
+    """Milliseconds of one bounce's spectral conversions on 2^21 lanes (as
+    ``integrators/path.py:_bounce`` makes them): the lane BSDF's uplift,
+    the emission uplift of the emitter hit and of NEE, and the sRGB
+    conversion of both splat event sets."""
+    import torch
+
+    from mitransient_tpu_torch.bsdf import api as bsdf_api
+    from mitransient_tpu_torch.core.spectra import N_WL, SpectralCtx
+
+    sctx = SpectralCtx.make(key, N_RAYS, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bp = scene.data.bsdf
+    ids = torch.randint(0, bp.kind.shape[0], (N_RAYS,), generator=gen,
+                        device=dev, dtype=torch.int32)
+    lb = bsdf_api.gather_lane_bsdf(bp, ids, None, scene.data.bsdf_kinds)
+    rgb = torch.rand((N_RAYS, 3), generator=gen, device=dev)
+    vals = torch.rand((N_RAYS, N_WL), generator=gen, device=dev)
+
+    def conversions():
+        sctx.uplift_lb(lb)
+        for _ in range(2):
+            sctx.emission(rgb)
+            sctx.to_film(vals)
+
+    return _time_ms(conversions, reps=5, warmup=1, batches=3)
+
+
+def render_spectral(mt, cases, dev):
+    """Phase 31: the spectral flagship through the multi-pass accumulator,
+    then rgb_polarized and spectral_polarized at the flagship's film with
+    K3 held on their 12-channel events.  Returns the spectral flagship's
+    launch counts, each 12-channel render's, and K3 on their events."""
+    import numpy as np
+    import torch
+
+    from mitransient_tpu_torch.core import rng, spectra
+    from mitransient_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    with cases.with_variant(mt, "spectral"):
+        scene = mt.load_dict(mt.cornell_box(), device=dev)
+    depth = scene.integrator.max_depth
+    reset_launch_counts()
+    (s, t, stats), wall, peak = _timed(lambda: mt.render(
+        scene, return_stats=True, **SPECTRAL))
+    counts = launch_counts()
+    n = stats["loop_iters"]
+    passes = n // depth
+    print(f"spectral flagship render 1 (multi-pass, spp {SPECTRAL['spp']} = "
+          f"{passes} passes, seed 0): {wall:.3f} s, launches {counts}, "
+          f"bounces {n}, peak memory {peak:.2f} GiB")
+    for name in ("closest_hit", "ray_test", "splat_accumulate"):
+        if counts.get(name, 0) != n or n == 0:
+            raise AssertionError(f"spectral flagship: {name} launched "
+                                 f"{counts.get(name, 0)} times in {n} bounces")
+    s, t = s.cpu().numpy(), t.cpu().numpy()
+    fails = cases.physics_checks(s, t)
+    h, w = s.shape[:2]
+    print(f"  first arrival bin {t.sum(axis=(0, 1, 3)).nonzero()[0][0]}, "
+          f"transient/steady {t.sum() / s.sum():.6f}, left wall "
+          f"{s[h // 2, w * 6 // 256]}, right wall {s[h // 2, w * 249 // 256]}")
+    if fails:
+        raise AssertionError(f"spectral flagship physics checks: {fails}")
+    del s, t
+    (_s, _t, stats2), wall2, _p = _timed(lambda: mt.render(
+        scene, return_stats=True, spp=SPECTRAL["spp"], seed=1))
+    rays = int(stats2["rays"])
+    key = rng.Sampler(0, N_RAYS, stream=5).key
+    block = _time_ms(lambda: rng.draw_bounce_block(key, 3, N_RAYS, 6, dev),
+                     reps=5, warmup=1, batches=3)
+    jitter = _time_ms(lambda: rng.Sampler(7, N_RAYS, 2, device=dev)
+                      .eval_2d(0), reps=5, warmup=1, batches=3)
+    wl = _time_ms(lambda: spectra.SpectralCtx.make(key, N_RAYS, dev),
+                  reps=5, warmup=1, batches=3)
+    draws = passes * (depth * block + jitter + wl) / 1e3
+    conv = spectral_conversion_ms(scene, key, dev)
+    convs = passes * depth * conv / 1e3
+    print(f"spectral flagship render 2 (seed 1): {wall2:.3f} s, {rays} rays "
+          f"-> {rays / wall2 / 1e6:.2f} M rays/s; threefry {draws:.3f} s of "
+          f"it ({draws / wall2:.3f}: {passes} passes x ({depth} bounce "
+          f"blocks of {block:.3f} ms + a jitter draw of {jitter:.3f} ms + "
+          f"the hero-wavelength draw and sampling, {wl:.3f} ms)); the "
+          f"spectral conversions {conv:.3f} ms a bounce, {convs:.3f} s "
+          f"({convs / wall2:.3f})")
+    profile_render("spectral flagship profiled render (one pass, spp 32)",
+                   lambda: mt.render(scene, spp=32, seed=2), top=8)
+
+    counts12, held12 = {}, {}
+    for variant, prefix in (("rgb_polarized", "stokes12"),
+                            ("spectral_polarized", "stokes12_spectral")):
+        with cases.with_variant(mt, variant):
+            scene = mt.load_dict(mt.cornell_box(), device=dev)
+        reset_launch_counts()
+        with capture_bounce({}, bounce=1) as kept:
+            (s, t, stats), wall, peak = _timed(lambda: mt.render(
+                scene, return_stats=True, spp=STOKES12_SPP, seed=0))
+        counts12[prefix] = c = launch_counts()
+        n = stats["loop_iters"]
+        s = s.cpu().numpy()
+        pol = cases.stokes_checks(s.reshape(*s.shape[:2], 4, 3).sum(-1))
+        print(f"{variant} flagship (spp {STOKES12_SPP}, seed 0): {wall:.3f} "
+              f"s, {int(stats['rays'])} rays -> "
+              f"{int(stats['rays']) / wall / 1e6:.2f} M rays/s, peak memory "
+              f"{peak:.2f} GiB, launches {c}, {n} loop iterations or "
+              f"bounces; steady {s.shape}, Stokes {pol}")
+        check_launches(variant, c, n, False)
+        fc = scene.sensors[0].film
+        if (s.shape != (fc.height, fc.width, 12) or not np.isfinite(s).all()
+                or pol["dop_q95"] > cases.DOP_Q95_MAX):
+            raise AssertionError(f"{variant} flagship: {s.shape}, {pol}")
+        del s, t
+        if kept["events"][1].shape[1] != 12:
+            raise AssertionError(f"{variant}: K3 got "
+                                 f"{kept['events'][1].shape} values")
+        held12[prefix] = hold_captured(
+            scene, kept, f"{variant} bounce 1's", dev, fc.width * fc.height,
+            t_pad=fc.temporal_bins + 1)["splat_accumulate"]
+        del kept
+    return counts, counts12, held12
+
+
 def main() -> int:
     import torch
 
@@ -2400,18 +2698,24 @@ def main() -> int:
     materials, materials_held = render_materials_flagship(mt, cases, dev)
     render_angulararea(mt, cases, dev)
     materials_card_against_cpu(mt, cases, dev)
-    grad_counts, grad_held = {}, {}
-    grad_counts["prb_backward"], grad_held["grad_prb"] = prb_backward_phase(
+    phase_counts, grad_held = {}, {}
+    phase_counts["prb_backward"], grad_held["grad_prb"] = prb_backward_phase(
         mt, cases, dev)
-    grad_counts["forward"], grad_held["grad_forward"] = forward_mode_phase(
+    phase_counts["forward"], grad_held["grad_forward"] = forward_mode_phase(
         mt, cases, dev)
-    k3fn, grad_counts["fullad"] = full_ad_phase(mt, cases, dev)
+    k3fn, phase_counts["fullad"] = full_ad_phase(mt, cases, dev)
     volumetric_card_against_cpu(mt, cases, dev)
     vol, vol_held = render_volumetric_tutorial(mt, cases, dev)
-    grad_counts["volumetric_prb_backward"] = volumetric_gradients(mt, cases,
-                                                                  dev)
+    phase_counts["volumetric_prb_backward"] = volumetric_gradients(
+        mt, cases, dev)
+    variant_card_against_cpu(mt, cases, dev)
+    phase_counts["polarized"], pol_held = render_polarized_cbox(mt, cases,
+                                                                dev)
+    phase_counts["spectral"], counts12, held12 = render_spectral(mt, cases,
+                                                                 dev)
+    phase_counts.update(counts12)
     for r in rows:
-        for phase, c in grad_counts.items():
+        for phase, c in phase_counts.items():
             if r["name"] in ("closest_hit", "ray_test", "splat_accumulate"):
                 r[f"{phase}_launches"] = c.get(r["name"], 0)
         if r["name"] == "splat_accumulate":
@@ -2448,7 +2752,9 @@ def main() -> int:
         for prefix, held in (("nlos", nlos_held), ("exhaustive",
                                                    exhaustive_held),
                              ("materials", materials_held),
-                             *grad_held.items()):
+                             *grad_held.items(), ("polarized", pol_held),
+                             *((p, {"splat_accumulate": h})
+                               for p, h in held12.items())):
             if r["name"] not in held:  # K3 does not run in PRB backward
                 continue
             h = held[r["name"]]

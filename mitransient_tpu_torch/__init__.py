@@ -22,7 +22,12 @@ thin dielectric, null; the two-sided, mask and blend wrappers; bitmap
 and checkerboard textures; bump and normal maps), area, angulararea,
 projector and point emitters, seen through a perspective sensor or an
 NLOS capture meter into a transient film or a phasor film; above 4096
-triangles through a chunked acceleration structure.  Scenes come from a
+triangles through a chunked acceleration structure.  ``transient_path``
+renders under all six variants of the JAX package: ``mono``, ``rgb``,
+their polarized forms (Mueller-matrix throughput, Stokes films of 4 C
+channels; ``vis_polarized`` holds the polarization maps) and
+``spectral`` / ``spectral_polarized`` (hero wavelengths, sRGB films);
+NLOS, volumetric and differentiable renders are unpolarized RGB or mono.  Scenes come from a
 dict (:func:`load_dict`) or a Mitsuba XML file (:func:`load_file`).
 :func:`render_aovs` gives first-hit AOVs.  It differentiates them:
 :func:`render_backward` (the PRB two-sweep replay, surface or
@@ -35,8 +40,14 @@ media albedo and extinction, shape poses).  Scenes load onto the card unless the
 On a CUDA device the ray queries and the film splat run in the kernels of
 ``csrc/``; on the CPU they run their plain PyTorch versions.
 """
-from . import nlos  # noqa: F401
-from .core.spectrum import set_variant, variant  # noqa: F401
+from . import nlos, vis_polarized  # noqa: F401
+from .core.spectrum import (  # noqa: F401
+    is_monochromatic,
+    is_polarized,
+    is_rgb,
+    set_variant,
+    variant,
+)
 from .render import (  # noqa: F401
     load_film_state,
     render,

@@ -10,7 +10,8 @@ correctly rounded float32: the card's float32 ``torch.sqrt`` is, the
 CPU's vectorized one is an ulp off in about 0.6 % of arguments, and
 neither device's float32 ``cos`` / ``sin`` is, so those go through
 float64 (as do :func:`log` and :func:`exp`, the media's free-flight
-and transmittance terms); and :func:`divide` divides by a Python number,
+and transmittance terms, and :func:`atanh` and :func:`cosh`, the
+spectral wavelength sampler's); and :func:`divide` divides by a Python number,
 where the card's ``x / c`` multiplies by a rounded 1 / c.  Rays that meet coplanar triangles would
 otherwise part between the devices.
 """
@@ -54,6 +55,17 @@ def log(x: torch.Tensor) -> torch.Tensor:
 def exp(x: torch.Tensor) -> torch.Tensor:
     """The correctly rounded float32 exponential on every device."""
     return torch.exp(x.double()).to(x.dtype)
+
+
+def atanh(x: torch.Tensor) -> torch.Tensor:
+    """The float32 inverse hyperbolic tangent, rounded alike on every
+    device (through float64, as :func:`exp`)."""
+    return torch.atanh(x.double()).to(x.dtype)
+
+
+def cosh(x: torch.Tensor) -> torch.Tensor:
+    """The float32 hyperbolic cosine, rounded alike on every device."""
+    return torch.cosh(x.double()).to(x.dtype)
 
 
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

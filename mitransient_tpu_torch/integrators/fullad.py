@@ -45,6 +45,10 @@ from .prb import (
 )
 
 
+EXHAUSTIVE_REFUSAL = ("Exhaustive capture is not supported in differentiable "
+                      "rendering (transientnlospath.py:729-731)")
+
+
 def fullad_grads(sd, ctx, gs, gt_full, seed, stream, inv_total, *,
                  film_cfg, icfg, spp, hw, kind, skip_le: bool = False,
                  bvh_mode: str = BVH_MODE) -> DiffParams:
@@ -83,11 +87,15 @@ def render_backward_fullad(scene: Scene, grad_in, spp=None, seed=0,
                            bvh_mode: str = BVH_MODE):
     """Reverse-mode gradients by full AD, accumulated over spp chunks of at
     most ``max_lanes`` lanes; the same dict as ``render_backward``, which
-    makes the refusals (``render._prb_setup``) before it calls this."""
+    refuses the crop and the phasor film (``render._refuse_film``) before
+    it calls this.  Any spp is chunked, so no lane count is refused; the
+    exhaustive capture is, as in the JAX package."""
     cfg = scene.sensors[sensor]
     icfg = scene.integrator
     film_cfg = cfg.film
     kind = icfg.kind
+    if kind == "transient_nlos_path" and icfg.capture_type == "exhaustive":
+        raise ValueError(EXHAUSTIVE_REFUSAL)
     spp = spp if spp is not None else cfg.spp
     hw = film_cfg.width * film_cfg.height
     C = scene.variant.color_channels

@@ -45,6 +45,7 @@ from ..core.frame import Frame
 from ..core.math import dot, mis_weight, normalize, sqrt
 from ..core.records import Ray
 from ..core.rng import Sampler, draw_bounce_block
+from ..core.spectrum import refuse_variant
 from ..film.transient_film import (
     TransientFilmState,
     develop,
@@ -778,6 +779,7 @@ def render_nlos(scene: Scene, spp=None, seed=0, sensor=0,
     W, T, C)) on the scene's device, and with ``return_stats`` ``rays``
     (int64), ``spp`` and ``loop_iters`` (bounces run, one K1-K3 launch
     each)."""
+    refuse_variant(scene.variant, "NLOS capture")
     cfg = scene.sensors[sensor]
     icfg = scene.integrator
     film_cfg = cfg.film
@@ -829,6 +831,7 @@ def render_nlos_confocal_scan(scene: Scene, spp=None, seed=0, sensor=0,
     loop of focus + render, 1-simple-nlos-scenes.ipynb confocal cell, with
     the same estimator a point).  Returns (steady (ph, pw, C), transient
     (ph, pw, T, C)) over the scan grid (``original_film_width/height``)."""
+    refuse_variant(scene.variant, "NLOS capture")
     cfg = scene.sensors[sensor]
     icfg = scene.integrator
     film_cfg = cfg.film

@@ -1,9 +1,12 @@
 """Transient path tracer with in-loop path regeneration.
 
-Counterpart of ``mitransient_tpu/integrators/path_regen.py`` (unpolarized
-rgb and mono).  When a lane's path terminates, the lane starts its pixel's
-next sample, so the wavefront stays full until every lane has used up its
-share of the spp budget.
+Counterpart of ``mitransient_tpu/integrators/path_regen.py``: mono, rgb
+and their polarized variants (the JAX loop has no spectral branch).  When a
+lane's path terminates, the lane starts its pixel's next sample, so the
+wavefront stays full until every lane has used up its share of the spp
+budget.  A polarized lane restarts from the identity Mueller matrix with
+the new camera ray's sensor-alignment rotator pending (the carry of
+``integrators/path.py``).
 
 Lane layout: lane l = (row r = l // HW, pixel p = l % HW); the lane owns
 sample indices r, r + L, r + 2L, ... of pixel p (L = lanes per pixel), so
@@ -33,7 +36,9 @@ from __future__ import annotations
 import torch
 
 from ..bsdf import api as bsdf_api
+from ..bsdf.polarized import sensor_alignment_angles
 from ..core.math import divide, mis_weight, normalize
+from ..core.mueller import msoa_identity
 from ..core.records import Ray
 from ..film.transient_film import TransientFilmState, splat_pair_any
 from ..ops.bvh import BVH_MODE
@@ -45,6 +50,7 @@ from ..scene.scene import (
     sample_emitter_direction,
 )
 from ..scene.schema import FilmConfig, IntegratorConfig
+from .path import pack_stokes, polarized_nee, polarized_update, rr_step
 
 DIMS_PER_BOUNCE = 8  # 2 NEE + 3 BSDF + 1 RR (+2 spare); dims 0-1 = jitter
 LIVE_CHECK_EVERY = 8  # iterations between host checks of any(lane_live)
@@ -79,10 +85,12 @@ def sample_primal_regen(
     spp_total: int,
     lanes_per_pixel: int,
     bvh_mode: str = BVH_MODE,
+    polarized: bool = False,
 ):
     """Render the full spp budget with path regeneration.
 
-    Returns (film, steady (N, C) per-lane sums of finished samples to be
+    Returns (film, steady (N, C), or (N, 4 C) Stokes-major when
+    ``polarized``, per-lane sums of finished samples to be
     row-reduced, n_rays (int64), iters, loop_iters).  ``iters`` (a device
     int64) counts the iterations the JAX loop would run, those that began
     with a live lane; ``loop_iters`` (a Python int) counts the iterations
@@ -99,6 +107,8 @@ def sample_primal_regen(
     f32 = torch.float32
     splat_scale = 1.0 / spp_total
 
+    CS = 4 * C if polarized else C  # splat and steady channels
+    cam_vert = cam.R[:, 1]  # the sensor's up axis (polarized alignment)
     lane = torch.arange(n, dtype=torch.int64, device=dev)
     pix = lane % hw
     px = (pix % width).to(f32)
@@ -120,8 +130,12 @@ def sample_primal_regen(
     o0, d0 = gen_ray(row)
     o = o0.contiguous()
     d = d0
-    beta = torch.ones((n, C), dtype=f32, device=dev)
-    L_path = torch.zeros((n, C), dtype=f32, device=dev)
+    if polarized:
+        beta0 = msoa_identity(torch.zeros((n, C), dtype=f32, device=dev))
+        beta, pend = beta0, sensor_alignment_angles(d0, cam_vert)
+    else:
+        beta, pend = torch.ones((n, C), dtype=f32, device=dev), ()
+    L_path = torch.zeros((n, CS), dtype=f32, device=dev)
     eta = torch.ones((n,), dtype=f32, device=dev)
     distance = torch.zeros((n,), dtype=f32, device=dev)
     depth = torch.zeros((n,), dtype=torch.int64, device=dev)
@@ -131,7 +145,7 @@ def sample_primal_regen(
     prev_p = o
     prev_pdf = torch.ones((n,), dtype=f32, device=dev)
     prev_delta = torch.ones((n,), dtype=torch.bool, device=dev)
-    steady = torch.zeros((n, C), dtype=f32, device=dev)
+    steady = torch.zeros((n, CS), dtype=f32, device=dev)
     n_rays = torch.zeros((), dtype=torch.int64, device=dev)
     iters = torch.zeros((), dtype=torch.int64, device=dev)
 
@@ -165,7 +179,11 @@ def sample_primal_regen(
         mis = mis_weight(prev_pdf, pdf_em_hit)
         le_mask = hit & (not icfg.discard_direct_light)
         Le_raw = emitter_eval_hit(sd, si, d)
-        Le = torch.where(le_mask[:, None], beta * mis[:, None] * Le_raw, 0.0)
+        if polarized:
+            Le = pack_stokes(beta[:, 0] * (mis[:, None] * Le_raw))
+        else:
+            Le = beta * mis[:, None] * Le_raw
+        Le = torch.where(le_mask[:, None], Le, 0.0)
 
         cont = active & (depth + 1 < icfg.max_depth) & si.valid
         active_em = cont & bsdf_api.is_smooth(lb)
@@ -175,8 +193,12 @@ def sample_primal_regen(
         wo_em = si.frame.to_local(ds.d)
         f_em, pdf_bsdf_em = bsdf_api.eval_pdf(lb, si.wi, wo_em, active_em)
         mis_em = torch.where(ds.delta, 1.0, mis_weight(ds.pdf, pdf_bsdf_em))
-        Lr_dir = torch.where(active_em[:, None],
-                             beta * mis_em[:, None] * f_em * em_weight, 0.0)
+        if polarized:
+            col = polarized_nee(lb, si, wo_em, ds.d, d, pend, beta, f_em)
+            Lr_dir = pack_stokes(col * (mis_em[:, None] * em_weight))
+        else:
+            Lr_dir = beta * mis_em[:, None] * f_em * em_weight
+        Lr_dir = torch.where(active_em[:, None], Lr_dir, 0.0)
 
         film = splat_pair_any(
             film, film_cfg, L,
@@ -190,19 +212,14 @@ def sample_primal_regen(
         new_ray = si.spawn_ray(d_world)
 
         L_acc = L_path + Le + Lr_dir
-        beta = torch.where(cont[:, None], beta * bs.weight, beta)
-        beta_max = beta.amax(dim=-1)
+        if polarized:
+            beta, pend = polarized_update(si, bs, lb, d, d_world, beta, pend,
+                                          cont)
+        else:
+            beta = torch.where(cont[:, None], beta * bs.weight, beta)
         eta = torch.where(cont, eta * bs.eta, eta)
-
-        cont = cont & (beta_max != 0.0)
-        rr_prob = torch.clamp_max(beta_max * eta * eta, 0.95)
-        cont = cont & (rr_prob > 0.0)
-        rr_active = depth >= icfg.rr_depth
-        rr_scale = torch.where(rr_prob > 0.0,
-                               1.0 / torch.clamp_min(rr_prob, 1e-30), 0.0)
-        beta = torch.where((rr_active & cont)[:, None],
-                           beta * rr_scale[:, None], beta)
-        cont = cont & (~rr_active | (rnd1(5) < rr_prob))
+        beta, cont = rr_step(beta, eta, cont, depth >= icfg.rr_depth,
+                             rnd1(5), polarized)
 
         # ---- regeneration: finished paths bank their L and start the
         # lane's next sample
@@ -215,7 +232,15 @@ def sample_primal_regen(
         sample_idx = torch.where(regen, next_sample, sample_idx)
         o_new, d_new = gen_ray(sample_idx)
 
-        beta = torch.where(regen[:, None], 1.0, beta)
+        if polarized:
+            # a fresh sample: the identity, with the new ray's alignment
+            # rotator pending
+            beta = torch.where(regen[:, None], beta0, beta)
+            npc2, nps2 = sensor_alignment_angles(d_new, cam_vert)
+            pend = (torch.where(regen, npc2, pend[0]),
+                    torch.where(regen, nps2, pend[1]))
+        else:
+            beta = torch.where(regen[:, None], 1.0, beta)
         o = torch.where(regen[:, None], o_new, new_ray.o)
         d = torch.where(regen[:, None], d_new, d_world)
         L_path = torch.where((finished | regen)[:, None], 0.0, L_acc)

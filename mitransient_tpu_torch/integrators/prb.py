@@ -342,7 +342,7 @@ def sample_adjoint(
         Le, Lr_dir = Le.detach(), Lr_dir.detach()
 
         # ---- state update: the primal sweep's own
-        o, d, beta, eta, active, prev = next_vertex(
+        o, d, beta, eta, active, prev, _ = next_vertex(
             si, bs, hit, active_next, beta, eta, prev, it, icfg, ub[:, 5])
         L_rest = L_rest - Le - Lr_dir
 

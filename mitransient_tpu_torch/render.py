@@ -15,9 +15,13 @@ The ``transient_prbvolpath`` integrator (participating media) always
 takes the multi-pass branch, each pass traced by
 ``integrators/volpath.py``.  A scene with an ``nlos_capture_meter`` or
 the ``transient_nlos_path`` integrator goes to the NLOS renderer
-(``integrators/nlos_path.py``), as in the JAX package.  :func:`render_aovs` gives first-hit AOVs of a perspective
-sensor.  The render runs on the device of ``scene.data``, under
-``torch.no_grad()``.
+(``integrators/nlos_path.py``), as in the JAX package.  The perspective
+branches render every variant (polarized: a Mueller throughput and Stokes
+films of 4 C channels; spectral: hero wavelengths and sRGB films, never
+through the regen loop); NLOS, media and differentiation refuse the
+polarized and spectral ones (``core/spectrum.py:refuse_variant``).
+:func:`render_aovs` gives first-hit AOVs of a perspective sensor.  The
+render runs on the device of ``scene.data``, under ``torch.no_grad()``.
 
 Differentiable rendering (the JAX package's ``render.py:300-730``):
 :func:`render_backward` gives parameter gradients by the PRB two-sweep
@@ -52,6 +56,7 @@ from .integrators.path_regen import sample_primal_regen
 from .integrators.prb_vol import sample_volpath_adjoint
 from .integrators.volpath import sample_volpath_primal
 from .integrators.nlos_path import _split_spp
+from .integrators.fullad import EXHAUSTIVE_REFUSAL
 from .integrators.prb import (
     DiffParams,
     add_params,
@@ -64,6 +69,7 @@ from .integrators.prb import (
 from .ops.bvh import BVH_MODE, MODES
 from .scene.scene import primal_sd
 from .scene.schema import Scene
+from .core.spectrum import refuse_variant
 from .sensors.perspective import build_camera, sample_rays
 
 _FILM_STATES = {cls.__name__: cls for cls in (TransientFilmState,
@@ -71,10 +77,10 @@ _FILM_STATES = {cls.__name__: cls for cls in (TransientFilmState,
 
 
 def _regen_render(sd, cam, film, seed, *, film_cfg, icfg, spp_total,
-                  lanes_per_pixel, bvh_mode):
+                  lanes_per_pixel, bvh_mode, polarized):
     film, steady_lanes, n_rays, iters, loop_iters = sample_primal_regen(
         sd, seed, cam, film, film_cfg, icfg, spp_total, lanes_per_pixel,
-        bvh_mode)
+        bvh_mode, polarized=polarized)
     # steady_lanes holds per-lane SUMS of finished-sample radiances; every
     # pixel finishes exactly spp_total samples, so add up the lane rows (in
     # row order) and count spp_total unit sample weights per pixel
@@ -89,7 +95,8 @@ def _regen_render(sd, cam, film, seed, *, film_cfg, icfg, spp_total,
 
 
 def _perspective_pass(sd, cam, film, seed, pass_idx, inv_total_spp, *,
-                      film_cfg, icfg, width, height, spp_chunk, bvh_mode):
+                      film_cfg, icfg, width, height, spp_chunk, bvh_mode,
+                      variant):
     """One pass of ``spp_chunk`` samples a pixel over the data window
     (``width`` x ``height``); returns (film, n_rays)."""
     n = width * height * spp_chunk
@@ -101,12 +108,16 @@ def _perspective_pass(sd, cam, film, seed, pass_idx, inv_total_spp, *,
         cam, sampler, width, height, spp_chunk,
         crop_offset=(film_cfg.crop_offset_x, film_cfg.crop_offset_y),
         full_size=(film_cfg.width, film_cfg.height))
-    sample_fn = (sample_volpath_primal if icfg.kind == "transient_prbvolpath"
-                 else sample_primal)
-    film, L, _valid, n_rays = sample_fn(
-        sd, sampler, ray, pix, ray_weight, film, film_cfg, icfg,
-        sample_scale=inv_total_spp, spp=spp_chunk,
-        bvh_mode=bvh_mode)
+    if icfg.kind == "transient_prbvolpath":
+        film, L, _valid, n_rays = sample_volpath_primal(
+            sd, sampler, ray, pix, ray_weight, film, film_cfg, icfg,
+            sample_scale=inv_total_spp, spp=spp_chunk, bvh_mode=bvh_mode)
+    else:
+        film, L, _valid, n_rays = sample_primal(
+            sd, sampler, ray, pix, ray_weight, film, film_cfg, icfg,
+            sample_scale=inv_total_spp, spp=spp_chunk, bvh_mode=bvh_mode,
+            polarized=variant.polarized, cam_vertical=cam.R[:, 1],
+            spectral=variant.spectral)
     if film_cfg.rfilter == "gaussian":
         # the camera jitter again: sampler dims 0-1 of this pass's stream
         film = splat_steady_gaussian(film, height, width, spp_chunk, L,
@@ -134,6 +145,11 @@ def render(
     """Render ``(steady (H, W, C), transient (H, W, T, C))`` for the
     scene's sensor, on the scene's device; a phasor film gives ``(steady,
     phasors (H, W, F, 2))``.  With a crop window H and W are the window's.
+    C is the variant's: 1 (mono), 3 (rgb, spectral), and four times that
+    for the polarized variants, Stokes-major ([I, Q, U, V] of each color
+    block: ``[I, Q, U, V]`` for mono_polarized, ``[I_rgb, Q_rgb, U_rgb,
+    V_rgb]`` for rgb_polarized and spectral_polarized).  Spectral renders
+    take the multi-pass branch, and their films hold linear sRGB.
 
     With ``return_stats`` a third value holds ``rays`` (an int64 count of
     closest-hit lanes plus NEE shadow rays), ``spp`` and ``loop_iters``
@@ -156,10 +172,14 @@ def render(
 
     An NLOS scene renders through ``integrators/nlos_path.py:render_nlos``
     (``regenerate``, ``film_state`` and ``checkpoint_callback`` are not
-    used there, as in the JAX package).
+    used there, as in the JAX package).  NLOS and volumetric scenes of a
+    polarized or spectral variant raise ``NotImplementedError`` (ROADMAP
+    item 16b), as does ``regenerate=True`` for a spectral scene, which the
+    JAX package renders as plain RGB there.
     """
     cfg = scene.sensors[sensor]
     icfg = scene.integrator
+    var = scene.variant
     if cfg.kind == "nlos_capture_meter" or icfg.kind == "transient_nlos_path":
         from .integrators.nlos_path import render_nlos
 
@@ -167,12 +187,13 @@ def render(
                            max_lanes=max_lanes,
                            progress_callback=progress_callback,
                            return_stats=return_stats, bvh_mode=bvh_mode)
-    _refuse_variant(scene)
+    if icfg.kind == "transient_prbvolpath":
+        refuse_variant(var, "volumetric rendering")
     film_cfg = cfg.film
     spp = spp if spp is not None else cfg.spp
     dw, dh = film_cfg.data_width, film_cfg.data_height
     hw = dw * dh
-    C = scene.variant.color_channels
+    C = var.color_channels * (4 if var.polarized else 1)
     dev = scene.device
 
     if bvh_mode not in MODES:
@@ -181,7 +202,7 @@ def render(
         regenerate = (
             icfg.kind == "transient_path"
             and not icfg.camera_unwarp
-            and not scene.variant.spectral
+            and not var.spectral
             and icfg.temporal_filter != "gaussian"
             and film_cfg.rfilter == "box"
             and not film_cfg.is_cropped
@@ -189,6 +210,11 @@ def render(
         )
     if film_state is not None:
         regenerate = False  # resuming implies the multi-pass accumulator
+    if regenerate and var.spectral:
+        raise NotImplementedError(
+            "the regen loop has no spectral branch (the JAX package's "
+            "renders RGB there); render spectral scenes with "
+            "regenerate=None or False")
     cam = build_camera(cfg, device=dev)
     sd = primal_sd(scene.data)
     if regenerate:
@@ -197,7 +223,7 @@ def render(
         film, n_rays, iters, loop_iters = _regen_render(
             sd, cam, film, seed, film_cfg=film_cfg, icfg=icfg,
             spp_total=spp, lanes_per_pixel=lanes_per_pixel,
-            bvh_mode=bvh_mode)
+            bvh_mode=bvh_mode, polarized=var.polarized)
         if progress_callback is not None:
             progress_callback(1.0)
         stats = {"rays": n_rays, "spp": spp, "iters": iters,
@@ -207,7 +233,8 @@ def render(
             sd, cam, seed, spp, film_cfg=film_cfg, icfg=icfg, channels=C,
             max_lanes=max_lanes, film_state=film_state,
             progress_callback=progress_callback,
-            checkpoint_callback=checkpoint_callback, bvh_mode=bvh_mode)
+            checkpoint_callback=checkpoint_callback, bvh_mode=bvh_mode,
+            variant=var)
         stats = {"rays": n_rays, "spp": spp, "loop_iters": loop_iters}
     steady, transient = develop_any(film, film_cfg, shape_hw=(dh, dw))
     stats.update(surface_sample_validation(film, film_cfg))
@@ -218,7 +245,7 @@ def render(
 
 def _multipass_render(sd, cam, seed, spp, *, film_cfg, icfg, channels,
                       max_lanes, film_state, progress_callback,
-                      checkpoint_callback, bvh_mode):
+                      checkpoint_callback, bvh_mode, variant):
     """The multi-pass branch -> (film, rays, total spp, bounces run)."""
     dw, dh = film_cfg.data_width, film_cfg.data_height
     hw = dw * dh
@@ -244,7 +271,7 @@ def _multipass_render(sd, cam, seed, spp, *, film_cfg, icfg, channels,
         film, n_rays = _perspective_pass(
             sd, cam, film, seed, p, 1.0 / total_spp, film_cfg=film_cfg,
             icfg=icfg, width=dw, height=dh, spp_chunk=spp_chunk,
-            bvh_mode=bvh_mode)
+            bvh_mode=bvh_mode, variant=variant)
         total_rays = total_rays + n_rays
         if progress_callback is not None:
             progress_callback((p + 1) / n_passes)
@@ -317,15 +344,12 @@ def render_aovs(scene: Scene, spp: int = 16, seed: int = 0, sensor: int = 0,
 # Differentiable rendering (PRB two-sweep, full AD, forward mode)
 # --------------------------------------------------------------------------
 
-def _prb_setup(scene: Scene, spp, sensor,
-               max_lanes: int = DEFAULT_MAX_LANES * 4):
-    """The differentiable renders' refusals (every method's: crop, phasor
-    film, 2^32 lanes, the exhaustive capture) and the PRB spp split ->
-    (sensor config, integrator config, film config, spp, HW, spp a chunk,
-    chunks)."""
-    cfg = scene.sensors[sensor]
-    icfg = scene.integrator
-    film_cfg = cfg.film
+def _refuse_film(film_cfg) -> None:
+    """The refusals of every differentiable route: the phasor film (as in
+    the JAX package) and a crop window.  The JAX package refuses the crop
+    only in its PRB replay and forward mode; its volumetric PRB and full
+    AD fail on one (``fullad.py:119`` reshapes the cropped film to the
+    full film's size), so the port refuses it on every route."""
     if film_cfg.is_cropped:
         raise NotImplementedError(
             "differential rendering with a cropped film is not supported; "
@@ -335,6 +359,18 @@ def _prb_setup(scene: Scene, spp, sensor,
             "the phasor film is not differentiable (matching the "
             "reference's PhasorHDRFilm); use transient_hdr_film for "
             "gradients")
+
+
+def _prb_setup(scene: Scene, spp, sensor,
+               max_lanes: int = DEFAULT_MAX_LANES * 4):
+    """The refusals of the ``transient_path`` PRB replay and of forward
+    mode (crop, phasor film, 2^32 lanes, the exhaustive capture) and the
+    spp split -> (sensor config, integrator config, film config, spp, HW,
+    spp a chunk, chunks)."""
+    cfg = scene.sensors[sensor]
+    icfg = scene.integrator
+    film_cfg = cfg.film
+    _refuse_film(film_cfg)
     spp = spp if spp is not None else cfg.spp
     hw = film_cfg.width * film_cfg.height
     if hw * spp > (1 << 32):
@@ -346,30 +382,9 @@ def _prb_setup(scene: Scene, spp, sensor,
     if ((cfg.kind == "nlos_capture_meter"
          or icfg.kind == "transient_nlos_path")
             and icfg.capture_type == "exhaustive"):
-        raise ValueError(
-            "Exhaustive capture is not supported in differentiable "
-            "rendering (transientnlospath.py:729-731)")
+        raise ValueError(EXHAUSTIVE_REFUSAL)
     spp_chunk, n_passes, _total = _split_spp(spp, hw, max_lanes)
     return cfg, icfg, film_cfg, spp, hw, spp_chunk, n_passes
-
-
-def _refuse_variant(scene: Scene) -> None:
-    """A volumetric scene of a polarized or spectral variant, which the
-    JAX package renders and the port does not."""
-    if (scene.integrator.kind == "transient_prbvolpath"
-            and (scene.variant.polarized or scene.variant.spectral)):
-        raise NotImplementedError(
-            "polarized and spectral volumetric rendering is not ported to "
-            "mitransient_tpu_torch yet (ROADMAP item 16)")
-
-
-def _refuse_unported(scene: Scene) -> None:
-    """The JAX package differentiates these; the port does not have them."""
-    _refuse_variant(scene)
-    if scene.variant.polarized or scene.variant.spectral:
-        raise NotImplementedError(
-            "polarized and spectral differentiation is not ported to "
-            "mitransient_tpu_torch yet (ROADMAP item 16)")
 
 
 def _backward_pass(sd, cam, grad_st_flat, grad_tr_flat, seed, pass_idx,
@@ -407,13 +422,17 @@ def render_backward(scene: Scene, grad_in, spp: int | None = None,
     ``transient_nlos_path`` (single and confocal) and ``method="fullad"``
     take full AD through the wavefront, in chunks of 2^20 lanes, whose
     gradients also reach the shape poses and the delta emitters'
-    positions.  The phasor film, crop windows, wavefronts of more than
-    2^32 lanes and the exhaustive capture are refused
-    (:func:`_prb_setup`); polarized and spectral scenes (ROADMAP item 16)
-    are not ported."""
-    _refuse_unported(scene)
-    cfg, icfg, film_cfg, spp, hw, spp_chunk, n_passes = _prb_setup(
-        scene, spp, sensor, max_lanes)
+    positions.  The phasor film and crop windows are refused on every
+    route (:func:`_refuse_film`), the exhaustive capture in full AD, and
+    wavefronts of more than 2^32 lanes in the PRB replay of
+    ``transient_path`` (:func:`_prb_setup`), which the routes take in
+    the JAX package's order (its ``render.py:376-398``): the chunked
+    routes never build one wavefront.  Polarized and spectral scenes
+    (ROADMAP item 16b) are not ported."""
+    refuse_variant(scene.variant, "render_backward")
+    cfg = scene.sensors[sensor]
+    icfg = scene.integrator
+    _refuse_film(cfg.film)
     if icfg.kind == "transient_prbvolpath" and method != "fullad":
         return render_backward_volpath(scene, grad_in, spp=spp, seed=seed,
                                        sensor=sensor, bvh_mode=bvh_mode)
@@ -422,6 +441,8 @@ def render_backward(scene: Scene, grad_in, spp: int | None = None,
 
         return render_backward_fullad(scene, grad_in, spp=spp, seed=seed,
                                       sensor=sensor, bvh_mode=bvh_mode)
+    cfg, icfg, film_cfg, spp, hw, spp_chunk, n_passes = _prb_setup(
+        scene, spp, sensor, max_lanes)
     gs, gt = adjoint_images(grad_in, film_cfg, scene.variant.color_channels,
                             scene.device)
     cam = build_camera(cfg, device=scene.device)
@@ -463,9 +484,14 @@ def render_backward_volpath(scene: Scene, grad_in, spp: int | None = None,
     over spp chunks of at most ``max_lanes`` lanes split as the JAX
     package splits them (the pass index seeds each chunk's streams).
     The same dict as :func:`render_backward`."""
-    _refuse_unported(scene)
-    cfg, icfg, film_cfg, spp, hw, spp_chunk, n_passes = _prb_setup(
-        scene, spp, sensor, max_lanes)
+    refuse_variant(scene.variant, "render_backward")
+    cfg = scene.sensors[sensor]
+    icfg = scene.integrator
+    film_cfg = cfg.film
+    _refuse_film(film_cfg)
+    spp = spp if spp is not None else cfg.spp
+    hw = film_cfg.width * film_cfg.height
+    spp_chunk, n_passes, _total = _split_spp(spp, hw, max_lanes)
     gs, gt = adjoint_images(grad_in, film_cfg, scene.variant.color_channels,
                             scene.device)
     cam = build_camera(cfg, device=scene.device)
@@ -602,8 +628,9 @@ def render_forward(scene: Scene, tangent: dict, spp: int | None = None,
     splats go into the film through K3; NLOS single and confocal captures
     (and other integrators) take forward-mode AD through the whole primal.
     An exhaustive capture is refused as in the reference
-    (transientnlospath.py:729-731)."""
-    _refuse_unported(scene)
+    (transientnlospath.py:729-731), and so are the refusals of
+    :func:`_prb_setup` on every route, as in the JAX package."""
+    refuse_variant(scene.variant, "render_forward")
     cfg, icfg, film_cfg, spp, hw, spp_chunk, n_passes = _prb_setup(
         scene, spp, sensor, max_lanes)
     nlos = (cfg.kind == "nlos_capture_meter"

@@ -40,6 +40,9 @@ from torch_cases import (
     small_cbox,
     small_sphere_cbox,
     splat_events,
+    VARIANT_CASES,
+    VARIANT_REGEN,
+    variant_render,
 )
 
 
@@ -216,6 +219,8 @@ def test_splat_kernel_matches_plain(cuda, two_events):
     (1, 301, 5, 40, False),  # rows not 16-byte aligned: no float4
     (3, 4096, 1, 300, True),  # one lane
     (3, 100, 3, 12000, True),  # a 144 KB pixel slab: one pixel a block
+    (4, 1000, 4, 400, True),  # mono_polarized Stokes: 16 pixels a block
+    (12, 1000, 4, 400, True),  # rgb_polarized: a 19,248-byte pixel slab
 ])
 def test_splat_kernel_is_bit_equal_to_cpu_plain(cuda, channels, hw, lanes,
                                                 bins, two_events):
@@ -510,6 +515,31 @@ def test_material_render_is_bit_identical_on_card_and_cpu(cuda, name,
     assert out[0][2] == out[1][2]
     assert torch.equal(out[0][0], out[1][0]) and torch.equal(out[0][1],
                                                               out[1][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("multipass", [False, True])
+@pytest.mark.parametrize("name", VARIANT_CASES)
+def test_variant_render_on_cuda_matches_cpu(cuda, name, multipass):
+    """The polarized and spectral variants (``torch_cases.variant_case``,
+    a gold GGX box) on the card through the kernels against the CPU:
+    test_golden's rule with no element out, the same ray count, and K3
+    launched once a loop iteration or bounce."""
+    if not multipass and name not in VARIANT_REGEN:
+        pytest.skip("the spectral variants render multi-pass only")
+    out = []
+    for dev in (cuda, "cpu"):
+        reset_launch_counts()
+        s, t, stats = variant_render(mt, name, multipass, device=dev)
+        if dev == cuda:
+            counts, n = launch_counts(), stats["loop_iters"]
+        out.append((s.cpu().numpy(), t.cpu().numpy(), int(stats["rays"])))
+    assert counts.get("splat_accumulate") == n
+    assert counts.get("closest_hit", 0) >= n and counts.get("ray_test", 0) > 0
+    assert out[0][2] == out[1][2]
+    for got, want in zip(out[0][:2], out[1][:2]):
+        m = golden_mismatch(got, want)
+        assert m["shape_ok"] and m["n_bad"] == 0, m
 
 
 @pytest.mark.cuda

@@ -340,16 +340,20 @@ def test_refusals_match_jax(kind, call):
 
 
 def test_unported_differentiation_is_refused():
-    """The polarized and spectral variants (ROADMAP item 16), which the
-    JAX package differentiates, are refused where the port meets them: at
-    set_variant, and in the dispatch of render_backward and render_forward,
-    volumetric scenes among them.  Volumetric scenes themselves (item 15)
-    load and differentiate."""
+    """The polarized and spectral variants, which the JAX package
+    differentiates, load and render in the port, but render_backward and
+    render_forward refuse them, naming ROADMAP item 16b, volumetric scenes
+    among them.  Volumetric scenes themselves (item 15) load and
+    differentiate."""
     d = small_cbox(mt, 8, 8, 20, 2)
     d["small-box"]["medium"] = {"type": "homogeneous", "sigma_t": 1.0}
     assert mt.load_dict(d, device="cpu").data.medium.sigma_t.tolist() == [1.0]
-    with pytest.raises(NotImplementedError, match="item 16"):
+    old = mt.variant()
+    try:
         mt.set_variant("mono_polarized")
+        assert mt.variant() == Variant(1, polarized=True)
+    finally:
+        mt.set_variant(old)
     sc = mt.load_dict(small_cbox(mt, 8, 8, 20, 2), device="cpu")
     vol = copy.copy(sc)
     vol.integrator = sc.integrator._replace(kind="transient_prbvolpath")
@@ -358,19 +362,91 @@ def test_unported_differentiation_is_refused():
     for change, item in ((lambda s: setattr(s, "integrator", s.integrator.
                                             _replace(kind="transient_prbvolpath"))
                           or setattr(s, "variant", Variant(3, spectral=True)),
-                          "item 16"),
+                          "item 16b"),
                          (lambda s: setattr(s, "variant",
                                             Variant(3, polarized=True)),
-                          "item 16"),
+                          "item 16b"),
                          (lambda s: setattr(s, "variant",
                                             Variant(3, spectral=True)),
-                          "item 16")):
+                          "item 16b")):
         scene = copy.copy(sc)
         change(scene)
         for call in (lambda: mt.render_backward(scene, (None, None), spp=1),
                      lambda: mt.render_forward(scene, {}, spp=1)):
             with pytest.raises(NotImplementedError, match=item):
                 call()
+
+
+# The chunked routes of render_backward, as the JAX package dispatches them
+# (its render.py:376-398): they never build one wavefront, so they take any
+# spp; the PRB replay of transient_path keeps the 2^32-lane refusal
+# (test_refusals_match_jax).
+_CHUNKED_ROUTES = {
+    "volumetric_prb": ({"kind": "transient_prbvolpath"}, None),
+    "nlos_single": (None, None),
+    "fullad": ({}, "fullad"),
+    "volumetric_fullad": ({"kind": "transient_prbvolpath"}, "fullad"),
+}
+
+
+@pytest.mark.parametrize("route", sorted(_CHUNKED_ROUTES))
+def test_chunked_routes_take_any_lane_count(monkeypatch, route):
+    """Above 2^32 lanes the volumetric PRB replay, full AD and the NLOS
+    single capture reach their chunked route in both packages (each route
+    stubbed, so that no such render runs)."""
+    import importlib
+
+    jrender, jfullad, trender, tfullad = (importlib.import_module(m) for m in (
+        "mitransient_tpu.render", "mitransient_tpu.integrators.fullad",
+        "mitransient_tpu_torch.render",
+        "mitransient_tpu_torch.integrators.fullad"))
+
+    icfg, method = _CHUNKED_ROUTES[route]
+    desc = nlos_scene(sx=2, sy=2) if route == "nlos_single" else small_cbox(
+        mt, 8, 8, 20, 2)
+    reached = []
+    for pkg, render_mod, fullad_mod, kw in (
+            (mitr, jrender, jfullad, {}),
+            (mt, trender, tfullad, {"device": "cpu"})):
+        def stub(name):
+            return lambda *a, **k: reached.append((pkg.__name__, name)) or {}
+
+        monkeypatch.setattr(render_mod, "render_backward_volpath",
+                            stub("volpath"))
+        monkeypatch.setattr(fullad_mod, "render_backward_fullad",
+                            stub("fullad"))
+        sc = pkg.load_dict(copy.deepcopy(desc), **kw)
+        if icfg:
+            sc.integrator = sc.integrator._replace(**icfg)
+        hw = sc.sensors[0].film.width * sc.sensors[0].film.height
+        spp = (1 << 32) // hw + 1
+        pkg.render_backward(sc, (None, None), spp=spp, seed=0, method=method)
+    want = "volpath" if route == "volumetric_prb" else "fullad"
+    assert reached == [("mitransient_tpu", want),
+                       ("mitransient_tpu_torch", want)]
+
+
+@pytest.mark.parametrize("method", [None, "fullad"])
+def test_crop_is_refused_on_every_route(method):
+    """A cropped film (8x8 cropped to 4x4): the port refuses it on the
+    volumetric PRB and full-AD routes too.  There the JAX package gives no
+    gradient of the cropped render either: full AD reshapes an adjoint of
+    the render's (4, 4, 3) shape to the full film's (64, 3) and raises a
+    TypeError (fullad.py:119; ROADMAP queue 3)."""
+    desc = _refusal_scene("crop")
+    grad_in = (np.ones((4, 4, 3), np.float32), None)
+    sc = mt.load_dict(copy.deepcopy(desc), device="cpu")
+    sc.integrator = sc.integrator._replace(kind="transient_prbvolpath")
+    with pytest.raises(NotImplementedError, match="cropped film"):
+        mt.render_backward(sc, grad_in, spp=4, seed=0, method=method)
+    if method == "fullad":
+        sc = mt.load_dict(copy.deepcopy(desc), device="cpu")
+        with pytest.raises(NotImplementedError, match="cropped film"):
+            mt.render_backward(sc, grad_in, spp=4, seed=0, method=method)
+        jsc = mitr.load_dict(copy.deepcopy(desc))
+        with pytest.raises(TypeError, match="cannot reshape"):
+            mitr.render_backward(jsc, grad_in, spp=4, seed=0,
+                                 method=method)
 
 
 # --------------------------------------------------------------------------

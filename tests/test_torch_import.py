@@ -18,6 +18,11 @@ with tempfile.TemporaryDirectory() as td:
     with open(path, "w") as f:
         f.write({xml!r})
     mt.load_file(path, device="cpu")
+    mt.set_variant("mono_polarized")
+    scene = mt.load_file(path, device="cpu")
+    steady, _transient = mt.render(scene, spp=2, seed=0)
+    assert steady.shape[-1] == 4
+    mt.vis_polarized.polarization_generate_false_color(steady.numpy(), "aolp")
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "mitransient_tpu."))
              or m == "mitransient_tpu")
@@ -42,8 +47,9 @@ _XML = """<scene version="3.0.0">
 
 
 def test_port_imports_without_jax():
-    """Every module of the port, imported in a fresh process, and a scene
-    loaded from an XML file leave jax and mitransient_tpu out of
+    """Every module of the port, imported in a fresh process, a scene
+    loaded from an XML file, and its render under the mono_polarized
+    variant with a false-color map leave jax and mitransient_tpu out of
     sys.modules."""
     res = subprocess.run([sys.executable, "-c",
                           _PROBE.format(repo=REPO, xml=_XML)],
@@ -58,8 +64,12 @@ def test_public_api():
                  "set_variant",
                  "variant", "save_film_state", "load_film_state",
                  "render_aovs", "render_backward", "render_forward",
-                 "traverse"):
+                 "traverse", "is_monochromatic", "is_polarized", "is_rgb"):
         assert callable(getattr(mt, name)), name
+    for name in ("degree_of_polarization", "tonemap_transient",
+                 "polarization_generate_false_color",
+                 "show_video_polarized"):
+        assert callable(getattr(mt.vis_polarized, name)), name
     for name in ("focus_emitter_at_relay_wall_3dpoint",
                  "focus_emitter_at_relay_wall_uv",
                  "focus_emitter_at_relay_wall_pixel", "scan_confocal"):

@@ -995,3 +995,85 @@ def tutorial_grid(pkg, n=64, seed=0, max_depth=16, **kw) -> dict:
         "albedo": {"type": "rgb", "value": [0.9, 0.9, 0.9]},
         "phase": {"type": "hg", "g": 0.3}}
     return d
+
+
+# --------------------------------------------------------------------------
+# Polarized and spectral variants
+# --------------------------------------------------------------------------
+
+class with_variant:
+    """``with with_variant(pkg, name):`` sets the package's variant and
+    restores the one before on exit (loaded scenes keep theirs)."""
+
+    def __init__(self, pkg, name: str):
+        self.pkg, self.name = pkg, name
+
+    def __enter__(self):
+        self.old = self.pkg.variant()
+        self.pkg.set_variant(self.name)
+        return self
+
+    def __exit__(self, *exc):
+        self.pkg.set_variant(self.old)
+        return False
+
+
+# the reference's polarized cbox (examples/polarization/
+# render_cbox_polarized.py:27-41, BASELINE.md:21): mono_polarized, 256 x
+# 256, 400 bins, depth 5, a gold GGX small box of alpha 0.3; spp 4096
+GOLD_GGX_BOX = {"type": "roughconductor", "material": "Au",
+                "distribution": "ggx", "alpha": 0.3}
+
+
+def polarized_cbox(pkg, res=256, bins=400, max_depth=5) -> dict:
+    """The polarized cbox's scene (load it under ``mono_polarized``)."""
+    d = small_cbox(pkg, res, res, bins, max_depth)
+    d["small-box"]["bsdf"] = dict(GOLD_GGX_BOX)
+    return d
+
+
+# the variant configurations held per sample against the JAX package and
+# card against CPU: each variant with a gold GGX small box (a regen and a
+# multi-pass render for the polarized ones; the spectral ones render only
+# multi-pass, as in the JAX package)
+VARIANT_CASES = ("mono_polarized", "rgb_polarized", "spectral",
+                 "spectral_polarized")
+VARIANT_REGEN = ("mono_polarized", "rgb_polarized")
+
+
+def variant_case(pkg, name: str, w=8, bins=40, max_depth=4) -> dict:
+    """The scene of configuration ``name`` (a variant of VARIANT_CASES):
+    an 8 x 8 box of 40 bins, depth 4, with a gold GGX small box."""
+    d = small_cbox(pkg, w, w, bins, max_depth)
+    d["small-box"]["bsdf"] = dict(GOLD_GGX_BOX)
+    return d
+
+
+def variant_render(pkg, name: str, multipass: bool, device=None):
+    """Load configuration ``name`` under its variant and render it: the
+    regen render at spp 8, seed 0, or the multi-pass render
+    (``regenerate=False``) at spp 4, seed 1.  -> (steady, transient,
+    stats)."""
+    kw = {} if device is None else {"device": device}
+    with with_variant(pkg, name):
+        scene = pkg.load_dict(variant_case(pkg, name), **kw)
+    if multipass:
+        return pkg.render(scene, spp=4, seed=1, regenerate=False,
+                          return_stats=True)
+    return pkg.render(scene, spp=8, seed=0, return_stats=True)
+
+
+DOP_Q95_MAX = 1.05  # tests/test_polarized.py:46-48, Monte Carlo noise allowed
+
+
+def stokes_checks(steady: np.ndarray) -> dict:
+    """Physical Stokes vectors of a (..., 4) image: the 0.95 quantile of
+    the degree of polarization sqrt(Q^2 + U^2 + V^2) / I over the pixels
+    with I > 1e-3 (at most DOP_Q95_MAX), and the share (|Q| + |U|) / I
+    summed over the image."""
+    I, Q, U, V = (steady[..., k] for k in range(4))
+    mask = I > 1e-3
+    dop = np.sqrt(Q * Q + U * U + V * V)[mask] / I[mask]
+    return {"dop_q95": float(np.quantile(dop, 0.95)) if mask.any() else 0.0,
+            "qu_share": float((np.abs(Q) + np.abs(U)).sum()
+                              / max(float(np.abs(I).sum()), 1e-30))}
