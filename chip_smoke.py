@@ -232,6 +232,43 @@ Phases, each of which raises on failure:
     events (into (12, 301, 65536)), timed with its bound and
     ``index_add_``.
 
+32. The variants through NLOS, volumetric and differentiable rendering,
+    card against CPU: every ``torch_cases.VARIANT_NLOS_CASES``
+    configuration (polarized captures with a gold relay wall, HG with RR,
+    plain NEE toward a point light, the exhaustive capture point by point,
+    ``scan_confocal`` and a confocal capture; spectral captures) and every
+    ``VARIANT_VOL_CASES`` one (polarized and spectral fog, a random 8^3
+    grid), bit for bit with the same ray count, K3 launched, K1 and K2 (or
+    K1 five times a bounce in media) too; the ``VARIANT_GRAD_CASES``
+    gradients (polarized box, NLOS and fog through full AD, the spectral
+    fog through the PRB replay, a spectral box) within 1e-4 of each
+    table's largest value, NaN where the CPU has NaN.
+33. The polarimetric NLOS capture at the reference's scan
+    (``torch_cases.polarized_nlos``: mono_polarized, 64x64, 300 bins, the
+    hidden Z, a gold GGX wall of alpha 0.3, the laser at pixel (32, 32);
+    spp 2048, cut from 65,536: 2^23 lanes in 4 passes): K1-K3 once a
+    bounce (and the constants' K1 and K2), Stokes I's energy and first
+    arrival, DoP 0.95 quantile at most 1.05 and some linear polarization;
+    K1, K2 and K3 held on pass 1's bounce-1 inputs (K3 into (4, 301,
+    4096)), each timed with its bound (K3 also against ``index_add_``);
+    rays/s and peak memory of a second render.  Then the spectral single
+    capture at phase 16's config (32x32, spp 2048) and ``scan_confocal``
+    32x32 under mono_polarized, each with the rays/s of a second render.
+34. The volumetric tutorial under ``spectral`` and ``mono_polarized``
+    (128x128, 400 bins, depth 64, spp 128, cut from 512: one pass of 2^21
+    lanes): K1 five times and K3 once a bounce, the first arrival, physical
+    Stokes vectors; K3 held on bounce 1's 3- and 4-channel events, timed
+    with its bound and ``index_add_``; rays/s and peak memory of a second
+    render, and the spectral conversions' share of its wall.
+35. Variant gradients, each call's seconds and peak memory: full AD of the
+    polarized cbox (256x256, 400 bins, depth 5, spp 16 = 2^20 lanes, S0
+    adjoint; K3 once a bounce) and of the spectral flagship (spp 16), the
+    spectral tutorial through the (RGB) PRB replay at 2^20 lanes, full AD
+    of the polarized NLOS capture at 32x32, spp 1024, and
+    ``render_forward`` of the polarized cbox at 64x64, spp 64 (calls 1 and
+    2); K3's autograd Function at 4 and 12 channels on seeded events, its
+    backward and jvp bit-equal to the plain version's autograd.
+
 Kernel times (``_time_ms``) are means of launches made back to back, so
 that the wrapper's host work overlaps the card's as in a render.  It
 prints, as its last three lines, the card's name and power limit, one
@@ -252,8 +289,15 @@ phases 16, 19 and 20, keys ``nlos_*``, ``exhaustive_*`` and
 ``materials_*``, and on those of phases 23 and 24, ``grad_prb_*`` for K1
 and K2 and ``grad_forward_*``; K1-K3 on the polarized cbox's iteration-1
 inputs, ``polarized_*``; K3 on the 12-channel events, ``stokes12_*``
-(rgb_polarized) and ``stokes12_spectral_*``; K3 also its Function's ``backward_max_abs_err``,
-``jvp_max_abs_err`` and the backward gather's ``gather_*`` times), and
+(rgb_polarized) and ``stokes12_spectral_*``; K1-K3 on the polarized NLOS
+capture's, ``pol_nlos_*``, and K3 on the variant tutorials' events,
+``spectral_vol_*`` and ``pol_vol_*``, with the launches of phases 33-35,
+``pol_nlos_launches``, ``spectral_nlos_launches``,
+``pol_confocal_launches``, ``spectral_vol_launches``,
+``pol_vol_launches`` and ``variant_fullad_launches`` (the polarized
+cbox's full AD); K3 also its Function's ``backward_max_abs_err``,
+``jvp_max_abs_err``, at 4 and 12 channels ``stokes_fn_*_max_abs_err``,
+and the backward gather's ``gather_*`` times), and
 ``{"ok": true,
 "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, it exits with an error.  Nothing here
@@ -315,6 +359,18 @@ POL_BOX = (slice(184, 232), slice(136, 200))
 POL_DIFFUSE_ROWS = 128
 SPECTRAL = dict(spp=256, seed=0)  # the spectral flagship: 8 passes of 32
 STOKES12_SPP = 64  # rgb_polarized / spectral_polarized at the flagship film
+# the polarimetric NLOS capture (torch_cases.polarized_nlos: 64x64 scan,
+# 300 bins, the hidden Z, a gold GGX wall), spp cut from the reference's
+# 65,536 for chip time: 2^23 lanes in 4 passes
+POL_NLOS = dict(scan=64, bins=300, spp=2048)
+VARIANT_TUTORIAL_SPP = 128  # the tutorial under the variants: 2^21 lanes
+# the variant gradient calls: the polarized cbox and the spectral flagship
+# at spp 16 (2^20 lanes, one chunk), the spectral tutorial's PRB replay at
+# spp 64 (2^20), the polarized NLOS capture at spp 1024 (2^20), and
+# forward mode of the polarized cbox at 64x64, spp 64
+VARIANT_GRAD = dict(spp=16, tutorial_spp=64, nlos_spp=1024, forward_res=64,
+                    forward_spp=64)
+STOKES_FN_EVENTS = (64, 4096, 300)  # lanes a pixel, pixels, bins
 BVH_SUBSET = 1 << 16  # rays of the kernel-against-plain comparison
 K1_MISMATCH_SHARE = 1e-4  # BVH kernel (Woop) against K1 (Moller-Trumbore)
 # the K1 / BVH crossover: UV spheres (rings, segments) of 64-8192
@@ -1718,7 +1774,11 @@ def materials_card_against_cpu(mt, cases, dev):
 
 def _tables_close(label, got, want, atol=GRAD_TABLE_ATOL):
     """Two DiffParams (card, CPU) field by field: within ``atol`` of each
-    table's largest |value|.  -> the largest such share."""
+    table's largest |value|, over the finite elements; a NaN must stand
+    where the CPU has one (the polarized box's roughness and poses, ROADMAP
+    queue 3).  -> the largest such share."""
+    import torch
+
     worst = 0.0
     for f in got._fields:
         g, w = getattr(got, f), getattr(want, f)
@@ -1726,8 +1786,15 @@ def _tables_close(label, got, want, atol=GRAD_TABLE_ATOL):
             raise AssertionError(f"{label}: table {f} present on one side")
         if g is None:
             continue
+        g, w = g.cpu(), w.cpu()
+        nan = torch.isnan(w)
+        if not torch.equal(torch.isnan(g), nan):
+            raise AssertionError(f"{label}: table {f} has NaN elsewhere")
+        g, w = g[~nan], w[~nan]
+        if w.numel() == 0:
+            continue
         scale = max(float(w.abs().max()), 1e-30)
-        share = float((g.cpu() - w.cpu()).abs().max()) / scale
+        share = float((g - w).abs().max()) / scale
         worst = max(worst, share)
         if not share <= atol:
             raise AssertionError(f"{label}: table {f} differs by {share:.3g} "
@@ -2646,6 +2713,385 @@ def render_spectral(mt, cases, dev):
     return counts, counts12, held12
 
 
+def variant_paths_card_against_cpu(mt, cases, dev):
+    """Phase 32: every variant NLOS, volumetric and gradient configuration
+    of ``torch_cases`` on the card against the CPU: the renders bit for
+    bit with the same ray count, the gradient tables within
+    ``GRAD_TABLE_ATOL`` of each table's largest value (NaN where the CPU
+    has NaN)."""
+    import torch
+
+    from mitransient_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    for kind, names in (("nlos", cases.VARIANT_NLOS_CASES),
+                        ("vol", cases.VARIANT_VOL_CASES)):
+        for name in names:
+            out = []
+            for d in (dev, "cpu"):
+                reset_launch_counts()
+                s, t, stats = cases.run_variant_case(mt, kind, name, device=d)
+                if d == dev:
+                    counts = launch_counts()
+                out.append((s.cpu(), t.cpu(), int(stats["rays"])))
+            same = all(torch.equal(a, b) for a, b in zip(out[0][:2],
+                                                          out[1][:2]))
+            k3 = counts.get("splat_accumulate", 0)
+            if kind == "vol":  # K1 five times a bounce, K2 never
+                rays_ok = (counts.get("closest_hit") == 5 * k3
+                           and "ray_test" not in counts)
+            else:
+                rays_ok = min(counts.get("closest_hit", 0),
+                              counts.get("ray_test", 0)) >= k3
+            print(f"variant {kind} {name} on the card: launches {counts}, "
+                  f"rays {out[0][2]} (CPU {out[1][2]}), film "
+                  f"{tuple(out[0][1].shape)}, bit for bit with the CPU: "
+                  f"{same}")
+            if not (same and k3 > 0 and rays_ok and out[0][2] == out[1][2]):
+                raise AssertionError(f"variant {kind} {name}: card and CPU "
+                                     "disagree, or the kernels did not run")
+    for name in cases.VARIANT_GRAD_CASES:
+        reset_launch_counts()
+        g = cases.run_variant_case(mt, "grad", name, device=dev)
+        counts = launch_counts()
+        want = cases.run_variant_case(mt, "grad", name, device="cpu")
+        worst = _tables_close(f"variant gradients {name}", g["__tables__"],
+                              want["__tables__"])
+        print(f"variant gradients {name}, card against CPU: launches "
+              f"{counts}, tables within {worst:.3g} of their largest value")
+        if not counts.get("closest_hit"):
+            raise AssertionError(f"variant gradients {name}: K1 never ran")
+
+
+def render_polarized_nlos(mt, cases, dev):
+    """Phase 33: the polarimetric NLOS capture at the reference's scan, the
+    spectral single capture at phase 16's config and ``scan_confocal``
+    under mono_polarized.  Returns ({cell: launches}, K1-K3 on the
+    polarized capture's bounce-1 inputs)."""
+    import numpy as np
+    import torch
+
+    from mitransient_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    cfg = POL_NLOS
+    scan, hw = cfg["scan"], cfg["scan"] ** 2
+    with cases.with_variant(mt, "mono_polarized"):
+        scene = mt.load_dict(cases.polarized_nlos(scan, cfg["bins"]),
+                             device=dev)
+    mt.nlos.focus_emitter_at_relay_wall_pixel([scan / 2] * 2, scene)
+    lanes = 1 << 21  # a pass
+    reset_launch_counts()
+    with capture_bounce({"closest_hit": lanes, "ray_test": lanes}) as kept:
+        (s, t, stats), wall1, peak1 = _timed(lambda: mt.render(
+            scene, spp=cfg["spp"], seed=0, return_stats=True))
+    counts = {"pol_nlos": launch_counts()}
+    n = stats["loop_iters"]
+    print(f"polarized NLOS {scan}x{scan}, {cfg['bins']} bins, depth "
+          f"{scene.integrator.max_depth}, spp {cfg['spp']} "
+          f"({n // scene.integrator.max_depth} passes of {lanes} lanes) "
+          f"render 1 (seed 0, its kernel inputs captured): {wall1:.3f} s, "
+          f"launches {counts['pol_nlos']} in {n} bounces")
+    want = {"closest_hit": n + 1, "ray_test": n + 1, "splat_accumulate": n}
+    if counts["pol_nlos"] != want or len(kept) != 3:
+        raise AssertionError(f"polarized NLOS: launches {counts['pol_nlos']}"
+                             f", expected {want}")
+    s_np, t_np = s.cpu().numpy(), t.cpu().numpy()
+    _check_energy("polarized NLOS (Stokes I)", s_np[..., :1], t_np[..., :1],
+                  NLOS_FIRST_BINS)
+    pol = cases.stokes_checks(s_np)
+    print(f"  Stokes: DoP 0.95 quantile {pol['dop_q95']:.4f} (at most "
+          f"{cases.DOP_Q95_MAX}), (|Q| + |U|) / I {pol['qu_share']:.6f}")
+    if (s_np.shape != (scan, scan, 4) or not np.isfinite(t_np).all()
+            or pol["dop_q95"] > cases.DOP_Q95_MAX or not pol["qu_share"] > 0):
+        raise AssertionError(f"polarized NLOS: {s_np.shape}, {pol}")
+    del s, t, s_np, t_np
+    if kept["events"][1].shape[1] != 4:
+        raise AssertionError(f"polarized NLOS: K3 got "
+                             f"{tuple(kept['events'][1].shape)} values")
+    held = hold_captured(scene, kept, "polarized NLOS bounce 1's", dev, hw,
+                         t_pad=cfg["bins"] + 1)
+    del kept
+    (_s, _t, stats2), wall, peak = _timed(lambda: mt.render(
+        scene, spp=cfg["spp"], seed=1, return_stats=True))
+    rays = int(stats2["rays"])
+    print(f"polarized NLOS render 2 (seed 1): {wall:.4f} s, {rays} rays -> "
+          f"{rays / wall / 1e6:.2f} M rays/s, peak memory {peak:.2f} GiB "
+          f"(render 1: {peak1:.2f} GiB)")
+    del _s, _t
+
+    # the spectral single capture at phase 16's config
+    with cases.with_variant(mt, "spectral"):
+        sc = mt.load_dict(cases.nlos_scene(sx=NLOS_SCAN, sy=NLOS_SCAN),
+                          device=dev)
+    mt.nlos.focus_emitter_at_relay_wall_pixel([NLOS_SCAN / 2] * 2, sc)
+    reset_launch_counts()
+    s, t = mt.render(sc, **NLOS)
+    counts["spectral_nlos"] = launch_counts()
+    s_np, t_np = s.cpu().numpy(), t.cpu().numpy()
+    prof = t_np.sum(axis=(0, 1, 3))
+    first = int(np.nonzero(prof)[0][0])
+    print(f"spectral NLOS {NLOS_SCAN}x{NLOS_SCAN} spp {NLOS['spp']} render "
+          f"1: launches {counts['spectral_nlos']}, film {t_np.shape}, first "
+          f"arrival bin {first}")
+    if (t_np.shape[-1] != 3 or not np.isfinite(t_np).all()
+            or not NLOS_FIRST_BINS[0] <= first <= NLOS_FIRST_BINS[1]):
+        raise AssertionError("spectral NLOS: bad film")
+    (_s, _t, st2), wall, peak = _timed(lambda: mt.render(
+        sc, spp=NLOS["spp"], seed=1, return_stats=True))
+    rays = int(st2["rays"])
+    print(f"spectral NLOS render 2 (seed 1): {wall:.4f} s, {rays} rays -> "
+          f"{rays / wall / 1e6:.2f} M rays/s, peak memory {peak:.2f} GiB")
+
+    # scan_confocal 32 x 32 under mono_polarized
+    with cases.with_variant(mt, "mono_polarized"):
+        sc = mt.load_dict(cases.nlos_confocal(cases.nlos_scene(sx=1, sy=1),
+                                              NLOS_SCAN, NLOS_SCAN),
+                          device=dev)
+    reset_launch_counts()
+    s, t = mt.nlos.scan_confocal(sc, spp=CONFOCAL_SPP, seed=0)
+    counts["pol_confocal"] = launch_counts()
+    _check_energy("polarized scan_confocal (Stokes I)",
+                  s.cpu().numpy()[..., :1], t.cpu().numpy()[..., :1])
+    (_s, _t, st3), wall, peak = _timed(lambda: mt.nlos.scan_confocal(
+        sc, spp=CONFOCAL_SPP, seed=1, return_stats=True))
+    rays = int(st3["rays"])
+    print(f"polarized scan_confocal {NLOS_SCAN}x{NLOS_SCAN} spp "
+          f"{CONFOCAL_SPP}: launches {counts['pol_confocal']}; render 2 "
+          f"(seed 1) {wall:.4f} s, {rays} rays -> {rays / wall / 1e6:.2f} M "
+          f"rays/s, peak memory {peak:.2f} GiB")
+    return counts, held
+
+
+def vol_spectral_conversion_ms(scene, key, dev):
+    """Milliseconds of one volumetric bounce's spectral conversions on 2^21
+    lanes (as ``integrators/volpath.py`` makes them): the medium albedo's
+    and the lane BSDF's uplifts, the emission uplifts of the emitter hit
+    and of NEE, and the sRGB conversion of both splat event sets."""
+    import torch
+
+    from mitransient_tpu_torch.bsdf import api as bsdf_api
+    from mitransient_tpu_torch.core.spectra import N_WL, SpectralCtx
+
+    sctx = SpectralCtx.make(key, N_RAYS, dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    bp = scene.data.bsdf
+    ids = torch.randint(0, bp.kind.shape[0], (N_RAYS,), generator=gen,
+                        device=dev, dtype=torch.int32)
+    lb = bsdf_api.gather_lane_bsdf(bp, ids, None, scene.data.bsdf_kinds)
+    rgb = torch.rand((N_RAYS, 3), generator=gen, device=dev)
+    vals = torch.rand((N_RAYS, N_WL), generator=gen, device=dev)
+
+    def conversions():
+        sctx.uplift(rgb)
+        sctx.uplift_lb(lb)
+        for _ in range(2):
+            sctx.emission(rgb)
+            sctx.to_film(vals)
+
+    return _time_ms(conversions, reps=5, warmup=1, batches=3)
+
+
+def render_variant_tutorial(mt, cases, dev):
+    """Phase 34: the volumetric tutorial under spectral and mono_polarized.
+    Returns ({cell: launches}, {prefix: K3 on its bounce-1 events})."""
+    import numpy as np
+    import torch
+
+    from mitransient_tpu_torch.core import rng
+    from mitransient_tpu_torch.integrators import volpath
+    from mitransient_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    cfg = cases.TUTORIAL
+    hw = cfg["res"] ** 2
+    steps = 1 + volpath.TRANSMITTANCE_STEPS
+    counts, held = {}, {}
+    for variant, prefix, C in (("spectral", "spectral_vol", 3),
+                               ("mono_polarized", "pol_vol", 4)):
+        with cases.with_variant(mt, variant):
+            scene = mt.load_dict(cases.tutorial_cbox(mt), device=dev)
+        reset_launch_counts()
+        with capture_bounce({}, bounce=VOL_HELD_BOUNCE) as kept:
+            (s, t, stats), wall1, _p = _timed(lambda: mt.render(
+                scene, spp=VARIANT_TUTORIAL_SPP, seed=0, return_stats=True))
+        counts[prefix] = c = launch_counts()
+        n = stats["loop_iters"]
+        s_np, t_np = s.cpu().numpy(), t.cpu().numpy()
+        prof = t_np[..., :3 if C == 3 else 1].sum(axis=(0, 1, 3))
+        first = int(np.nonzero(prof)[0][0])
+        pol = cases.stokes_checks(s_np) if C == 4 else None
+        print(f"{variant} volumetric tutorial {cfg['res']}x{cfg['res']}, "
+              f"{cfg['bins']} bins, depth {cfg['max_depth']}, spp "
+              f"{VARIANT_TUTORIAL_SPP} (one pass of {1 << 21} lanes) render 1 "
+              f"(seed 0): {wall1:.3f} s, launches {c} in {n} bounces; film "
+              f"{t_np.shape}, first arrival bin {first}"
+              + (f", Stokes {pol}" if pol else ""))
+        if (c != {"closest_hit": steps * n, "splat_accumulate": n}
+                or t_np.shape[-1] != C or not np.isfinite(t_np).all()
+                or not VOL_FIRST_BINS[0] <= first <= VOL_FIRST_BINS[1]
+                or (pol and pol["dop_q95"] > cases.DOP_Q95_MAX)):
+            raise AssertionError(f"{variant} tutorial: launches {c}, film "
+                                 f"{t_np.shape}, first bin {first}, {pol}")
+        del s, t, s_np, t_np
+        if kept["events"][1].shape[1] != C:
+            raise AssertionError(f"{variant} tutorial: K3 got "
+                                 f"{tuple(kept['events'][1].shape)} values")
+        held[prefix] = hold_captured(
+            scene, kept, f"{variant} tutorial bounce {VOL_HELD_BOUNCE}'s",
+            dev, hw, t_pad=cfg["bins"] + 1)["splat_accumulate"]
+        del kept
+        (_s, _t, stats2), wall, peak = _timed(lambda: mt.render(
+            scene, spp=VARIANT_TUTORIAL_SPP, seed=1, return_stats=True))
+        rays = int(stats2["rays"])
+        line = (f"{variant} tutorial render 2 (seed 1): {wall:.4f} s, {rays} "
+                f"rays -> {rays / wall / 1e6:.2f} M rays/s, peak memory "
+                f"{peak:.2f} GiB")
+        if variant == "spectral":
+            conv = vol_spectral_conversion_ms(scene, rng.Sampler(1, 1 << 21)
+                                              .key, dev)
+            line += (f"; the spectral conversions {conv:.3f} ms a bounce x "
+                     f"{n} bounces = {n * conv / 1e3 / wall:.3f} of the wall")
+        print(line)
+        del _s, _t
+    return counts, held
+
+
+def check_stokes_function(mt, cases, dev):
+    """K3's autograd Function at 4 and 12 channels on seeded events (2^18
+    lanes into (C, 301, 4096)): its backward (a gather) bit-equal to the
+    plain version's index_add_ autograd on the card, its jvp bit-equal to
+    the plain version's forward AD on the host CPU.  -> the largest
+    errors."""
+    import numpy as np
+    import torch
+    from torch.autograd import forward_ad as fwAD
+
+    from mitransient_tpu_torch.film import transient_film as tf
+
+    lanes, hw, bins = STOKES_FN_EVENTS
+    errs = {"backward": 0.0, "jvp": 0.0}
+    for C in (4, 12):
+        rng = np.random.default_rng(40 + C)
+        b_np, v_np = cases.splat_events(rng, lanes, hw, bins, C)
+        b, vals = torch.from_numpy(b_np).to(dev), torch.from_numpy(v_np)
+        shape = (C, bins + 1, hw)
+        w = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+        v = vals.to(dev).requires_grad_()
+        film = tf.SplatEvents.apply(torch.zeros(shape, device=dev), b,
+                                    v * 1.0, None, None, lanes)
+        (g_fn,) = torch.autograd.grad((film * w).sum(), v)
+        p = vals.to(dev).requires_grad_()
+        plain = torch.zeros(shape, device=dev)
+        tf._scatter_layout(plain, hw, b, p * 1.0)
+        (g_plain,) = torch.autograd.grad((plain * w).sum(), p)
+        errs["backward"] = max(errs["backward"],
+                               float((g_fn - g_plain).abs().max()))
+        tan = torch.from_numpy(rng.normal(size=v_np.shape).astype(np.float32))
+        with fwAD.dual_level():
+            out = tf.SplatEvents.apply(
+                torch.zeros(shape, device=dev), b,
+                fwAD.make_dual(vals.to(dev), tan.to(dev)), None, None, lanes)
+            t_card = fwAD.unpack_dual(out).tangent.cpu()
+            ref = torch.zeros(shape)
+            tf._scatter_layout(ref, hw, b.cpu(), fwAD.make_dual(vals, tan))
+            t_cpu = fwAD.unpack_dual(ref).tangent
+        errs["jvp"] = max(errs["jvp"], float((t_card - t_cpu).abs().max()))
+        same = torch.equal(g_fn, g_plain) and torch.equal(t_card, t_cpu)
+        cells = tf.gather_index(b, shape)
+        gather = _time_ms(lambda: tf.gather_cells(w, *cells))
+        print(f"K3 Function at {C} channels ({lanes} lanes into {shape}): "
+              f"backward and jvp bit-equal to the plain version's autograd "
+              f"and forward AD: {same}; the backward gather {gather:.4f} ms")
+        if not same:
+            raise AssertionError(f"K3 Function at {C} channels: {errs}")
+    return errs
+
+
+def variant_gradients(mt, cases, dev):
+    """Phase 35: gradients of the variant cells, each call's seconds and
+    peak memory, and K3's Function at 4 and 12 channels.  Returns
+    (the polarized cbox's full-AD launches, the Function's errors)."""
+    import numpy as np
+    import torch
+
+    from mitransient_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    cfg = VARIANT_GRAD
+
+    def s0_adjoint(scene):
+        fc = scene.sensors[0].film
+        C = 4 * scene.variant.color_channels
+        g = np.zeros((fc.height, fc.width, fc.temporal_bins, C), np.float32)
+        g[..., :C // 4] = 1.0
+        return None, g
+
+    def rand_adjoint(scene, seed):
+        fc = scene.sensors[0].film
+        return None, np.random.default_rng(seed).random(
+            (fc.height, fc.width, fc.temporal_bins, 3)).astype(np.float32)
+
+    def report(label, scene, call, spp):
+        reset_launch_counts()
+        grads, wall, peak = _timed(call)
+        c = launch_counts()
+        refl = grads["__tables__"].bsdf_reflectance
+        nan = sorted(f for f in grads["__tables__"]._fields
+                     if getattr(grads["__tables__"], f) is not None
+                     and bool(getattr(grads["__tables__"], f).isnan().any()))
+        fc = scene.sensors[0].film
+        print(f"{label} ({fc.width}x{fc.height}, {fc.temporal_bins} bins, "
+              f"depth {scene.integrator.max_depth}, spp {spp} = "
+              f"{spp * fc.width * fc.height} lanes): {wall:.3f} s, peak "
+              f"memory {peak:.2f} GiB, launches {c}; |d reflectance| sum "
+              f"{float(refl.abs().sum()):.6g}; NaN tables {nan}")
+        if not torch.isfinite(refl).all() or not refl.abs().sum() > 0:
+            raise AssertionError(f"{label}: reflectance gradient {refl}")
+        return c
+
+    with cases.with_variant(mt, "mono_polarized"):
+        scene = mt.load_dict(cases.polarized_cbox(mt), device=dev)
+    adj = s0_adjoint(scene)
+    counts = report("polarized cbox render_backward (full AD)", scene,
+                    lambda: mt.render_backward(scene, adj, spp=cfg["spp"],
+                                               seed=0), cfg["spp"])
+    if counts.get("splat_accumulate") != scene.integrator.max_depth:
+        raise AssertionError(f"polarized cbox full AD: launches {counts}")
+    del adj
+    with cases.with_variant(mt, "spectral"):
+        scene = mt.load_dict(mt.cornell_box(), device=dev)
+    adj = rand_adjoint(scene, 50)
+    report("spectral flagship render_backward (full AD)", scene,
+           lambda: mt.render_backward(scene, adj, spp=cfg["spp"], seed=0),
+           cfg["spp"])
+    with cases.with_variant(mt, "spectral"):
+        scene = mt.load_dict(cases.tutorial_cbox(mt), device=dev)
+    adj = rand_adjoint(scene, 51)
+    report("spectral tutorial render_backward (the RGB PRB replay)", scene,
+           lambda: mt.render_backward(scene, adj, spp=cfg["tutorial_spp"],
+                                      seed=0), cfg["tutorial_spp"])
+    with cases.with_variant(mt, "mono_polarized"):
+        scene = mt.load_dict(cases.nlos_scene(sx=NLOS_SCAN, sy=NLOS_SCAN),
+                             device=dev)
+    mt.nlos.focus_emitter_at_relay_wall_pixel([NLOS_SCAN / 2] * 2, scene)
+    adj = s0_adjoint(scene)
+    report("polarized NLOS render_backward (full AD)", scene,
+           lambda: mt.render_backward(scene, adj, spp=cfg["nlos_spp"],
+                                      seed=0), cfg["nlos_spp"])
+    del adj
+    with cases.with_variant(mt, "mono_polarized"):
+        scene = mt.load_dict(cases.polarized_cbox(mt, cfg["forward_res"]),
+                             device=dev)
+    for call in (1, 2):
+        (d_s, d_t), wall, peak = _timed(lambda: mt.render_forward(
+            scene, {"white.reflectance.value": [1.0]},
+            spp=cfg["forward_spp"], seed=call))
+        print(f"polarized cbox render_forward ({cfg['forward_res']}^2, spp "
+              f"{cfg['forward_spp']}) call {call}: {wall:.3f} s, peak memory "
+              f"{peak:.2f} GiB, video {tuple(d_t.shape)}, |d steady| sum "
+              f"{float(d_s.abs().sum()):.6g}")
+        if not (torch.isfinite(d_t).all() and d_s[..., 0].abs().sum() > 0):
+            raise AssertionError("polarized cbox forward: bad video")
+    return counts, check_stokes_function(mt, cases, dev)
+
+
 def main() -> int:
     import torch
 
@@ -2714,6 +3160,13 @@ def main() -> int:
     phase_counts["spectral"], counts12, held12 = render_spectral(mt, cases,
                                                                  dev)
     phase_counts.update(counts12)
+    variant_paths_card_against_cpu(mt, cases, dev)
+    counts33, pol_nlos_held = render_polarized_nlos(mt, cases, dev)
+    phase_counts.update(counts33)
+    counts34, vol_variant_held = render_variant_tutorial(mt, cases, dev)
+    phase_counts.update(counts34)
+    phase_counts["variant_fullad"], fn_errs = variant_gradients(mt, cases,
+                                                                dev)
     for r in rows:
         for phase, c in phase_counts.items():
             if r["name"] in ("closest_hit", "ray_test", "splat_accumulate"):
@@ -2721,8 +3174,11 @@ def main() -> int:
         if r["name"] == "splat_accumulate":
             r["max_abs_err"] = max(r["max_abs_err"],
                                    k3fn["backward_max_abs_err"],
-                                   k3fn["jvp_max_abs_err"])
+                                   k3fn["jvp_max_abs_err"],
+                                   *fn_errs.values())
             r.update(k3fn)
+            r.update({f"stokes_fn_{k}_max_abs_err": v
+                      for k, v in fn_errs.items()})
         r["launches"] = counts[r["name"]]
         if r["name"] in ("closest_hit", "ray_test", "splat_accumulate"):
             r["volumetric_launches"] = vol.get(r["name"], 0)
@@ -2754,7 +3210,10 @@ def main() -> int:
                              ("materials", materials_held),
                              *grad_held.items(), ("polarized", pol_held),
                              *((p, {"splat_accumulate": h})
-                               for p, h in held12.items())):
+                               for p, h in held12.items()),
+                             ("pol_nlos", pol_nlos_held),
+                             *((p, {"splat_accumulate": h})
+                               for p, h in vol_variant_held.items())):
             if r["name"] not in held:  # K3 does not run in PRB backward
                 continue
             h = held[r["name"]]

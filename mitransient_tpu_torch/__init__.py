@@ -26,8 +26,9 @@ triangles through a chunked acceleration structure.  ``transient_path``
 renders under all six variants of the JAX package: ``mono``, ``rgb``,
 their polarized forms (Mueller-matrix throughput, Stokes films of 4 C
 channels; ``vis_polarized`` holds the polarization maps) and
-``spectral`` / ``spectral_polarized`` (hero wavelengths, sRGB films);
-NLOS, volumetric and differentiable renders are unpolarized RGB or mono.  Scenes come from a
+``spectral`` / ``spectral_polarized`` (hero wavelengths, sRGB films), and
+so do NLOS captures, volumetric renders and both differentiation modes,
+each on the JAX package's route for every variant.  Scenes come from a
 dict (:func:`load_dict`) or a Mitsuba XML file (:func:`load_file`).
 :func:`render_aovs` gives first-hit AOVs.  It differentiates them:
 :func:`render_backward` (the PRB two-sweep replay, surface or
@@ -38,9 +39,12 @@ names (reflectance, roughness, texels, emitter radiance and position,
 media albedo and extinction, shape poses).  Scenes load onto the card unless the caller asks for
 ``device="cpu"``.
 On a CUDA device the ray queries and the film splat run in the kernels of
-``csrc/``; on the CPU they run their plain PyTorch versions.
+``csrc/``; on the CPU they run their plain PyTorch versions.  ``vis`` and
+``io_exr`` tonemap transient videos and write them as EXR frames; ``log``
+is the leveled logger.
 """
-from . import nlos, vis_polarized  # noqa: F401
+from . import nlos, vis, vis_polarized  # noqa: F401
+from .log import LogLevel, log, set_log_level  # noqa: F401
 from .core.spectrum import (  # noqa: F401
     is_monochromatic,
     is_polarized,
@@ -59,3 +63,4 @@ from .render import (  # noqa: F401
 from .scene.schema import ParamMap, Scene, load_dict, traverse  # noqa: F401
 from .scene.xml_loader import load_file  # noqa: F401
 from .utils import cornell_box, speed_of_light  # noqa: F401
+from .version import __version__  # noqa: F401

@@ -108,6 +108,44 @@ def norm(a: torch.Tensor) -> torch.Tensor:
     return sqrt(torch.clamp_min(dot(a, a), 0.0))
 
 
+def squared_norm(a: torch.Tensor) -> torch.Tensor:
+    return dot(a, a)
+
+
+def lerp(a, b, t):
+    return a + (b - a) * t
+
+
+def matvec3(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Batched (..., 3, 3) @ (..., 3), each row a written-out dot."""
+    return torch.stack([dot(m[..., i, :], v) for i in range(3)], dim=-1)
+
+
+def rodrigues(w: torch.Tensor) -> torch.Tensor:
+    """Rotation matrices (..., 3, 3) from axis-angle vectors ``w`` (..., 3):
+    |w| radians about w.  Series-safe at w -> 0 (R is I exactly at w = 0,
+    with the derivative dR = skew(dw))."""
+    theta2 = dot(w, w)
+    # clamp at 1e-12: the reciprocal's derivative squares the denominator
+    theta = sqrt(torch.clamp_min(theta2, 1e-12))
+    small = theta2 < 1e-12
+    c, s = cos_sin(theta)
+    # sin(t) / t and (1 - cos t) / t^2, with Taylor forms near 0
+    a = torch.where(small, 1.0 - divide(theta2, 6.0), s / theta)
+    b = torch.where(small, 0.5 - divide(theta2, 24.0),
+                    (1.0 - c) / torch.clamp_min(theta2, 1e-12))
+    wx, wy, wz = w[..., 0], w[..., 1], w[..., 2]
+    zero = torch.zeros_like(wx)
+    K = torch.stack([torch.stack([zero, -wz, wy], dim=-1),
+                     torch.stack([wz, zero, -wx], dim=-1),
+                     torch.stack([-wy, wx, zero], dim=-1)], dim=-2)
+    K2 = torch.stack([torch.stack([dot(K[..., i, :], K[..., :, j])
+                                   for j in range(3)], dim=-1)
+                      for i in range(3)], dim=-2)
+    eye = torch.eye(3, dtype=w.dtype, device=w.device).expand(K.shape)
+    return eye + a[..., None, None] * K + b[..., None, None] * K2
+
+
 def safe_rcp(x: torch.Tensor) -> torch.Tensor:
     """``1 / x`` with 0 where ``|x|`` is (denormal-)zero."""
     nz = torch.abs(x) > 1e-20

@@ -85,16 +85,6 @@ def is_spectral() -> bool:
     return _current.spectral
 
 
-def refuse_variant(v: Variant, what: str) -> None:
-    """Raise for a polarized or spectral variant in a part of the renderer
-    that the port runs only unpolarized and RGB (ROADMAP item 16b: NLOS,
-    volumetric and differentiation under the variants)."""
-    if v.polarized or v.spectral:
-        raise NotImplementedError(
-            f"{what} under the {v.name!r} variant is not ported to "
-            "mitransient_tpu_torch yet (ROADMAP item 16b)")
-
-
 # --------------------------------------------------------------------------
 # Spectrum ops (shape-polymorphic over the variant encoding above)
 # --------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Sample warps (counterpart of ``mitransient_tpu/core/warp.py``): the
-concentric disk and cosine hemisphere of the diffuse lobe, and the
-Henyey-Greenstein phase function of the media."""
+concentric disk and cosine hemisphere of the diffuse lobe, the uniform
+sphere and hemisphere, and the Henyey-Greenstein phase function of the
+media."""
 from __future__ import annotations
 
 import math
@@ -11,6 +12,7 @@ from .math import cos_sin, safe_sqrt
 
 INV_PI = 1.0 / math.pi
 INV_FOUR_PI = 1.0 / (4.0 * math.pi)
+TWO_PI = 2.0 * math.pi
 
 
 def square_to_uniform_disk_concentric(sample: torch.Tensor) -> torch.Tensor:
@@ -43,6 +45,24 @@ def square_to_cosine_hemisphere(sample: torch.Tensor) -> torch.Tensor:
 
 def square_to_cosine_hemisphere_pdf(v: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(v[..., 2], 0.0) * INV_PI
+
+
+def square_to_uniform_sphere(sample: torch.Tensor) -> torch.Tensor:
+    z = 1.0 - 2.0 * sample[..., 1]
+    r = safe_sqrt(1.0 - z * z)
+    c, s = cos_sin(TWO_PI * sample[..., 0])
+    return torch.stack([r * c, r * s, z], dim=-1)
+
+
+def square_to_uniform_sphere_pdf() -> float:
+    return INV_FOUR_PI
+
+
+def square_to_uniform_hemisphere(sample: torch.Tensor) -> torch.Tensor:
+    z = sample[..., 1]
+    r = safe_sqrt(1.0 - z * z)
+    c, s = cos_sin(TWO_PI * sample[..., 0])
+    return torch.stack([r * c, r * s, z], dim=-1)
 
 
 def square_to_hg(sample: torch.Tensor, g: torch.Tensor):

@@ -354,13 +354,25 @@ def check_pixel_slab(channels: int, t_pad: int) -> None:
             "bytes of shared memory")
 
 
+def sum_rows(x: torch.Tensor) -> torch.Tensor:
+    """The sum over the leading axis of ``x`` in a fixed pairwise order,
+    the same on every device: ``torch.sum``'s order depends on the device
+    and the shape, which parts the card's steady image from the CPU's in
+    the last bits."""
+    while x.shape[0] > 1:
+        h = x.shape[0] // 2
+        y = x[:h] + x[h:2 * h]
+        x = torch.cat([y, x[2 * h:]]) if x.shape[0] % 2 else y
+    return x[0]
+
+
 def splat_steady(state, spp: int, value: torch.Tensor, weight: torch.Tensor):
     """Add a pass's per-lane radiance ``value`` (N, C), spp-major, with
     filter weights ``weight`` (N,) (box: 1) into the steady image: a dense
-    reduction over the spp axis."""
+    reduction over the spp axis (:func:`sum_rows`)."""
     hw = state.steady.shape[0]
-    v = (value * weight[:, None]).reshape(spp, hw, -1).sum(dim=0)
-    w = weight.reshape(spp, hw).sum(dim=0)
+    v = sum_rows((value * weight[:, None]).reshape(spp, hw, -1))
+    w = sum_rows(weight.reshape(spp, hw))
     return state._replace(steady=state.steady + v,
                           steady_weight=state.steady_weight + w)
 

@@ -1,7 +1,8 @@
 """Full reverse-mode AD through the whole wavefront (counterpart of
 ``mitransient_tpu/integrators/fullad.py``), for ``transient_nlos_path``
 (single and confocal captures) and for ``transient_path`` and
-``transient_prbvolpath`` with ``method="fullad"``.
+``transient_prbvolpath`` with ``method="fullad"``, and for every
+polarized or spectral scene.
 
 Autograd records the primal render of one spp chunk (every bounce, kept
 alive until the backward) and runs its exact adjoint.  Sampling decisions
@@ -13,7 +14,9 @@ backward gathers the film's cotangent.  The ray kernels get detached
 inputs; with the scene's geometry deltas kept, gradients reach the shape
 poses through the attached hit distance (``scene.py:_si_from_t_prim``).
 Gradients add up over spp chunks, so memory is bounded by one chunk's
-graph.
+graph.  The taped estimator is the scene variant's: 4 C Stokes channels
+in the film and the adjoint when polarized, hero wavelengths splatted in
+sRGB when spectral.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ from ..sensors.perspective import build_camera, sample_rays
 from .nlos_path import (
     _split_spp,
     can_skip_le,
+    film_channels,
     prepare_nlos,
     sample_nlos_primal,
     sample_nlos_rays,
@@ -51,21 +55,24 @@ EXHAUSTIVE_REFUSAL = ("Exhaustive capture is not supported in differentiable "
 
 def fullad_grads(sd, ctx, gs, gt_full, seed, stream, inv_total, *,
                  film_cfg, icfg, spp, hw, kind, skip_le: bool = False,
-                 bvh_mode: str = BVH_MODE) -> DiffParams:
+                 bvh_mode: str = BVH_MODE, polarized: bool = False,
+                 spectral: bool = False) -> DiffParams:
     """The table gradients of one spp chunk's sample stream ``stream``:
-    d/d(theta) of <gt_full, transient> + <gs, steady partial>."""
+    d/d(theta) of <gt_full, transient> + <gs, steady partial>, through the
+    primal of the given variant."""
     leaves = as_leaves(extract_params(sd))
     dev = sd.bsdf.reflectance.device
     with torch.enable_grad():
         sdt = insert_params(sd, leaves)
-        C = sdt.bsdf.reflectance.shape[-1]
+        C = sdt.bsdf.reflectance.shape[-1] * (4 if polarized else 1)
         film = film_init_any(film_cfg, C, scan_pixels=hw, device=dev)
         sampler = Sampler(seed, spp * hw, stream=stream, device=dev)
         if kind == "transient_nlos_path":
             ray, rw = sample_nlos_rays(ctx, spp, hw)
             film, L, _v, _r = sample_nlos_primal(
                 sdt, ctx, sampler, ray, rw, film, film_cfg, icfg, inv_total,
-                spp, skip_le=skip_le, bvh_mode=bvh_mode)
+                spp, skip_le=skip_le, bvh_mode=bvh_mode, polarized=polarized,
+                spectral=spectral)
         else:
             ray, pix, rw = sample_rays(ctx, sampler, film_cfg.width,
                                        film_cfg.height, spp)
@@ -73,11 +80,12 @@ def fullad_grads(sd, ctx, gs, gt_full, seed, stream, inv_total, *,
                          if kind == "transient_prbvolpath" else sample_primal)
             film, L, _v, _r = sample_fn(
                 sdt, sampler, ray, pix, rw, film, film_cfg, icfg, inv_total,
-                spp, bvh_mode)
+                spp, bvh_mode, polarized=polarized, cam_vertical=ctx.R[:, 1],
+                spectral=spectral)
         _steady, transient = develop_any(
             film, film_cfg, shape_hw=(film_cfg.height, film_cfg.width))
         # the steady partial: this chunk's sum of L with box weights
-        steady_partial = L.reshape(spp, hw, C).sum(dim=0) * inv_total
+        steady_partial = L.reshape(spp, hw, -1).sum(dim=0) * inv_total
         loss = (gt_full * transient).sum() + (gs * steady_partial).sum()
         return table_grads(loss, leaves)
 
@@ -98,7 +106,8 @@ def render_backward_fullad(scene: Scene, grad_in, spp=None, seed=0,
         raise ValueError(EXHAUSTIVE_REFUSAL)
     spp = spp if spp is not None else cfg.spp
     hw = film_cfg.width * film_cfg.height
-    C = scene.variant.color_channels
+    var = scene.variant
+    C = film_channels(var)
     T = film_cfg.temporal_bins
     dev = scene.device
     skip_le = False
@@ -116,5 +125,6 @@ def render_backward_fullad(scene: Scene, grad_in, spp=None, seed=0,
         grads = add_params(grads, fullad_grads(
             scene.data, ctx, gs, gt, seed, p, 1.0 / total_spp,
             film_cfg=film_cfg, icfg=icfg, spp=spp_chunk, hw=hw, kind=kind,
-            skip_le=skip_le, bvh_mode=bvh_mode))
+            skip_le=skip_le, bvh_mode=bvh_mode, polarized=var.polarized,
+            spectral=var.spectral))
     return grads_to_named(scene, grads)

@@ -1,5 +1,5 @@
 """Transient NLOS path tracer (counterpart of
-``mitransient_tpu/integrators/nlos_path.py``, unpolarized and non-spectral).
+``mitransient_tpu/integrators/nlos_path.py``).
 
 The reference's NLOS integrator (``transient_nlos_path``, [Royo2022]):
 relay-wall capture with laser sampling (a two-segment NEE through the
@@ -21,6 +21,20 @@ sampling, as a dense masked wavefront of ``max_depth`` bounces.
   (:func:`render_nlos_exhaustive`) feeds every laser point from one camera
   wavefront, splatting into a film of laser x scan-pixel slots.
 
+Variants (single and confocal captures; the exhaustive capture renders
+them point by point): under a polarized variant the throughput is a full
+Mueller matrix in the structured layout of ``core/mueller.py``, which
+starts as the sensor-alignment rotator and takes each bounce's
+polarization factor by three structured right-applies
+(``msoa_apply_sandwich``), as the JAX package's NLOS loop does (it keeps
+no pending rotator); the laser NEE needs only column 0 of its two-vertex
+chain, so the wall's factor column goes through the vertex's factor
+(``stokes_apply_sandwich``) and one matrix-vector product with beta.
+Films have 4 C channels, Stokes-major.  Under a spectral variant each
+lane carries ``N_WL`` hero wavelengths (``core/spectra.py``), the BSDF
+rows and the emitter terms are uplifted to them, and every splat and the
+steady value convert to sRGB.
+
 RNG: each bounce draws its 10 sampler dimensions as one threefry block
 (``draw_bounce_block(key, it, n, 10)``): NEE 0-1 (unused by a delta laser),
 HG/BSDF choice 2, hidden point 4-5, BSDF lobe 6 and direction 7-8, Russian
@@ -40,12 +54,22 @@ import numpy as np
 import torch
 
 from ..bsdf import api as bsdf_api
+from ..bsdf.polarized import (
+    polarization_factor_col0_soa,
+    sensor_alignment_soa,
+    specular_params_soa,
+)
 from ..core.distribution import DiscreteDistribution
 from ..core.frame import Frame
 from ..core.math import dot, mis_weight, normalize, sqrt
+from ..core.mueller import (
+    msoa_apply_sandwich,
+    msoa_matvec,
+    stokes_apply_sandwich,
+)
 from ..core.records import Ray
 from ..core.rng import Sampler, draw_bounce_block
-from ..core.spectrum import refuse_variant
+from ..core.spectra import N_WL, SpectralCtx
 from ..film.transient_film import (
     TransientFilmState,
     develop,
@@ -58,6 +82,7 @@ from ..film.transient_film import (
 from ..ops.bvh import BVH_MODE
 from ..ops.intersect import closest_hit
 from ..scene.scene import (
+    BSDF_NULL,
     EM_POINT,
     EM_PROJECTOR,
     SceneData,
@@ -71,6 +96,7 @@ from ..scene.scene import (
 from ..scene.schema import FilmConfig, IntegratorConfig, Scene, SensorConfig
 from ..scene.shapes import Rectangle
 from . import DEFAULT_MAX_LANES
+from .path import _half_vector_cos, pack_stokes
 
 NLOS_DIMS_PER_BOUNCE = 10
 LANE_LASER_PAIRS = 1 << 24  # the exhaustive capture's (laser, lane) budget
@@ -315,11 +341,18 @@ def _depth_gate(icfg: IntegratorConfig, depth: int, active):
 
 
 def _laser_nee(sd, ctx, icfg, si, lb, beta, distance, eta, it, active_e,
-               account_last: bool, lanes=None, bvh_mode=BVH_MODE):
+               account_last: bool, lanes=None, bvh_mode=BVH_MODE,
+               d_in=None, sctx: SpectralCtx | None = None):
     """Two-segment laser NEE (transientnlospath.py:511-635): path vertex ->
     illuminated wall point, traced; wall point -> delta laser, the
     constants of ``ctx`` (or of ``lanes``, one row per lane, in the
-    confocal scan).  -> (Lr (N, C), splat distance (N,))."""
+    confocal scan).  -> (Lr (N, C), splat distance (N,)).
+
+    ``d_in`` (the direction the path arrived along) makes the NEE
+    polarized: ``beta`` is the structured Mueller throughput and Lr the
+    Stokes vector (N, 4 C).  ``sctx`` uplifts the wall's BSDF row and the
+    laser term to the lanes' wavelengths."""
+    n = si.t.shape[0]
     src = lanes if lanes is not None else ctx
     d1v = src.laser_target - si.p
     dist1 = sqrt(torch.clamp_min(dot(d1v, d1v), 1e-20))
@@ -327,7 +360,11 @@ def _laser_nee(sd, ctx, icfg, si, lb, beta, distance, eta, it, active_e,
     occ1 = ray_test(sd, si.p + d1 * 1e-4, d1, dist1 - 2e-4, active_e,
                     bvh_mode)
     active_e = active_e & ~occ1 & src.wall_clear
-    f1, _ = bsdf_api.eval_pdf(lb, si.wi, si.frame.to_local(d1), active_e)
+    wo1 = si.frame.to_local(d1)
+    f1, _ = bsdf_api.eval_pdf(lb, si.wi, wo1, active_e)
+    if d_in is not None:  # the vertex -> wall bounce's factor parameters
+        prm1 = specular_params_soa(lb, -d1, -d_in,
+                                   _half_vector_cos(si.wi, wo1))
     active_e = active_e & (f1.amax(dim=-1) > 1e-7)
     cos_wl = dot(src.wall_ng, -d1)
     active_e = active_e & (cos_wl > 0.0)
@@ -335,27 +372,53 @@ def _laser_nee(sd, ctx, icfg, si, lb, beta, distance, eta, it, active_e,
     pdf_ls = dist1 * dist1 / torch.clamp_min(cos_wl, 1e-9)
     f1 = torch.where(active_e[:, None],
                      f1 / torch.clamp_min(pdf_ls, 1e-9)[:, None], 0.0)
-    beta2 = beta * f1
     dist_after1 = distance + torch.where(active_e, dist1, 0.0) * eta
 
     # wall point -> laser: one row for the wavefront or one a lane
     lb2 = bsdf_api.gather_lane_bsdf(sd.bsdf, src.wall_bsdf_id.reshape(-1),
                                     src.wall_uv.reshape(-1, 2), sd.bsdf_kinds)
+    em_val = src.wall_em
+    wall_d2 = src.wall_d2.reshape(-1, 3)
+    if d_in is not None or sctx is not None:  # a row per lane
+        lb2 = bsdf_api.map_lanes(lb2,
+                                 lambda a: a.expand(n, *a.shape[1:]))
+        em_val = em_val.expand(n, em_val.shape[-1])
+        wall_d2 = wall_d2.expand(n, 3)
+    if sctx is not None:
+        lb2 = sctx.uplift_lb(lb2)
+        em_val = sctx.emission(em_val)
     wframe = Frame.from_normal(src.wall_n_sh.reshape(-1, 3))
     wi2 = wframe.to_local(-d1)
-    wo2 = wframe.to_local(src.wall_d2.reshape(-1, 3))
+    wo2 = wframe.to_local(wall_d2)
     active_e = _depth_gate(icfg, it + 2, active_e)  # two more vertices
     f2, _ = bsdf_api.eval_pdf(lb2, wi2, wo2, active_e)
-    Lr = torch.where(active_e[:, None], beta2 * f2 * src.wall_em, 0.0)
+    if d_in is None:
+        Lr = torch.where(active_e[:, None], beta * f1 * f2 * em_val, 0.0)
+    else:
+        # the source is unpolarized: column 0 of the chain, the wall's
+        # factor column through the vertex's factor, then beta
+        v = polarization_factor_col0_soa(lb2, -wall_d2, -d1,
+                                         _half_vector_cos(wi2, wo2)) * f2
+        is_spec, A, B, Cc, S, ci2, si2, co2, so2 = prm1
+        v_spec = stokes_apply_sandwich(v, A, B, Cc, S, ci2[:, None],
+                                       si2[:, None], co2[:, None],
+                                       so2[:, None])
+        other = torch.cat([v[:1], v[1:] * (lb.kind == BSDF_NULL)[:, None]
+                           .to(v.dtype)])
+        col = msoa_matvec(beta, torch.where(is_spec[:, None], v_spec, other)
+                          * f1)
+        Lr = torch.where(active_e[:, None], pack_stokes(col * em_val), 0.0)
     if account_last:
         return Lr, dist_after1 + src.wall_dist2 * eta
     return Lr, dist_after1
 
 
 def _plain_nee(sd, ctx, icfg, si, lb, beta, distance, eta, it, active_e,
-               account_last: bool, bvh_mode=BVH_MODE):
+               account_last: bool, bvh_mode=BVH_MODE, d_in=None,
+               sctx: SpectralCtx | None = None):
     """NEE toward the single emitter's position
-    (transientnlospath.py:432-509)."""
+    (transientnlospath.py:432-509); ``d_in`` and ``sctx`` as in
+    :func:`_laser_nee`."""
     n = si.t.shape[0]
     em = sd.emitter
     epos, edir = em.position[0], em.direction[0]
@@ -367,17 +430,48 @@ def _plain_nee(sd, ctx, icfg, si, lb, beta, distance, eta, it, active_e,
     em_val = emitter_eval_direction(
         sd, ctx.emitter_idx.expand(n), epos.expand(n, 3), -edir.expand(n, 3),
         d2, dist2, dot(-d2, edir))
-    f2, _ = bsdf_api.eval_pdf(lb, si.wi, si.frame.to_local(d2), active_e)
+    if sctx is not None:
+        em_val = sctx.emission(em_val)
+    wo2 = si.frame.to_local(d2)
+    f2, _ = bsdf_api.eval_pdf(lb, si.wi, wo2, active_e)
     active_e = _depth_gate(icfg, it, active_e)
-    Lr = torch.where(active_e[:, None], beta * f2 * em_val, 0.0)
+    if d_in is None:
+        Lr = torch.where(active_e[:, None], beta * f2 * em_val, 0.0)
+    else:
+        P0 = polarization_factor_col0_soa(lb, -d2, -d_in,
+                                          _half_vector_cos(si.wi, wo2))
+        col = msoa_matvec(beta, P0 * f2)
+        Lr = torch.where(active_e[:, None], pack_stokes(col * em_val), 0.0)
     if account_last:
         return Lr, distance + dist2 * eta
     return Lr, distance
 
 
-def _continue(sd, ctx, icfg, si, lb, ub, it, active_next, beta, eta):
+def _polarized_step(si, lb, wo, d_world, d_in, delta, f, beta):
+    """The Mueller throughput after a sampled direction: beta @ (R_out F
+    R_in) by structured right-applies on specular lanes, column 0 times the
+    weight ``f`` on depolarizing lanes, every column times ``f`` on null
+    lanes (the JAX package's NLOS update, which keeps no pending
+    rotator)."""
+    cos_i = torch.where(delta, torch.abs(si.wi[:, 2]),
+                        _half_vector_cos(si.wi, wo))
+    is_spec, A, B, Cc, S, ci2, si2, co2, so2 = specular_params_soa(
+        lb, -d_world, -d_in, cos_i)
+    spec = msoa_apply_sandwich(beta, A * f, B * f, Cc * f, S * f,
+                               ci2[:, None], si2[:, None], co2[:, None],
+                               so2[:, None])
+    other = beta * f
+    other = torch.cat([other[:, :1], other[:, 1:]
+                       * (lb.kind == BSDF_NULL)[:, None].to(f.dtype)], dim=1)
+    return torch.where(is_spec[:, None], spec, other)
+
+
+def _continue(sd, ctx, icfg, si, lb, ub, it, active_next, beta, eta,
+              d_in=None):
     """Hidden-geometry or BSDF direction sampling (dims 2-8) and Russian
-    roulette (dim 9) -> (o, d, beta, eta, active_next, pdf, delta)."""
+    roulette (dim 9) -> (o, d, beta, eta, active_next, pdf, delta).
+    ``d_in`` (the incoming direction) takes a polarized ``beta`` through
+    :func:`_polarized_step`."""
     hg_on = icfg.nlos_hidden_geometry_sampling
     hg_rr = icfg.nlos_hidden_geometry_sampling_do_rroulette
     pdf_method = 0.5 if hg_on and hg_rr else 1.0
@@ -417,12 +511,18 @@ def _continue(sd, ctx, icfg, si, lb, ub, it, active_next, beta, eta):
     d_world = si.frame.to_world(wo)
     o_new = si.spawn_ray(d_world).o
 
-    beta = torch.where(active_next[:, None], beta * weight / pdf_method, beta)
+    if d_in is None:
+        beta = torch.where(active_next[:, None], beta * weight / pdf_method,
+                           beta)
+    else:
+        beta = torch.where(active_next[:, None], _polarized_step(
+            si, lb, wo, d_world, d_in, delta, weight / pdf_method, beta),
+            beta)
     if eta_s is not None:
         eta = torch.where(active_next, eta * eta_s, eta)
     # Russian roulette is a detached decision: no derivative through its
-    # probability or scale
-    beta_max = beta.amax(dim=-1).detach()
+    # probability or scale; a Mueller throughput's entry [0, 0] drives it
+    beta_max = (beta if d_in is None else beta[0, 0]).amax(dim=-1).detach()
     active_next = active_next & (beta_max != 0.0)
     rr_prob = torch.clamp_max(beta_max * eta * eta, 0.95)
     active_next = active_next & (rr_prob > 0.0)
@@ -449,6 +549,8 @@ def sample_nlos_primal(
     skip_le: bool = False,
     lanes: ExhaustiveLaser | None = None,
     bvh_mode: str = BVH_MODE,
+    polarized: bool = False,
+    spectral: bool = False,
 ):
     """The NLOS wavefront (transientnlospath.py:672-927, primal).
 
@@ -456,7 +558,13 @@ def sample_nlos_primal(
     every emitter is delta (:func:`can_skip_le`).  ``lanes`` gives each
     lane its own laser constants (the confocal scan).  Returns (film, L (N,
     C), valid (N,), n_rays () int64: a closest-hit and a shadow ray per
-    active lane and bounce).  The film's transient is updated in place."""
+    active lane and bounce).  The film's transient is updated in place.
+
+    ``polarized`` carries the Mueller throughput from the sensor-alignment
+    rotator about the world's up axis (the JAX package's NLOS sensors have
+    no camera) and returns L (N, 4 C), Stokes-major; ``spectral`` draws
+    the lanes' hero wavelengths from the sampler key and returns L in
+    linear sRGB (12 channels with ``polarized``)."""
     n = ray.o.shape[0]
     C = sd.bsdf.reflectance.shape[-1]
     dev = ray.o.device
@@ -464,10 +572,18 @@ def sample_nlos_primal(
     key = sampler.key
     account = icfg.account_first_and_last_bounces
     splat_w = (ray_weight * sample_scale)[:, None]
+    sctx = None
+    if spectral:
+        sctx = SpectralCtx.make(key, n, dev)
+        C = N_WL
 
     o, d = ray.o, ray.d
-    beta = torch.ones((n, C), dtype=f32, device=dev)
-    L = torch.zeros((n, C), dtype=f32, device=dev)
+    if polarized:
+        beta = sensor_alignment_soa(
+            d, torch.tensor([0.0, 1.0, 0.0], device=dev), C)
+    else:
+        beta = torch.ones((n, C), dtype=f32, device=dev)
+    L = torch.zeros((n, 4 * C if polarized else C), dtype=f32, device=dev)
     eta = torch.ones((n,), dtype=f32, device=dev)
     distance = torch.zeros((n,), dtype=f32, device=dev)  # ray.time (:718)
     active = torch.ones((n,), dtype=torch.bool, device=dev)
@@ -476,6 +592,10 @@ def sample_nlos_primal(
     prev_pdf = torch.ones((n,), dtype=f32, device=dev)
     prev_delta = active
     n_rays = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def to_film(v):
+        return v if sctx is None else sctx.to_film_any(v, polarized)
+
     for it in range(icfg.max_depth):
         ub = draw_bounce_block(key, it, n, NLOS_DIMS_PER_BOUNCE, dev)
         si = ray_intersect(sd, Ray.make(o, d), active, bvh_mode)
@@ -484,40 +604,49 @@ def sample_nlos_primal(
             distance = distance + torch.where(hit, si.t, 0.0) * eta
         lb = bsdf_api.gather_lane_bsdf(sd.bsdf, si.bsdf_id, si.uv,
                                        sd.bsdf_kinds)
+        if sctx is not None:
+            lb = sctx.uplift_lb(lb)
 
         if not skip_le:
             pdf_em_hit = torch.where(prev_delta, 0.0,
                                      pdf_emitter_direction(sd, prev_p, si))
             mis = mis_weight(prev_pdf, pdf_em_hit)
-            Le = torch.where(hit[:, None],
-                             beta * mis[:, None] * emitter_eval_hit(sd, si, d),
-                             0.0)
+            Le_raw = emitter_eval_hit(sd, si, d)
+            if sctx is not None:
+                Le_raw = sctx.emission(Le_raw)
+            if polarized:  # unpolarized emission: column 0 of beta
+                Le = pack_stokes(beta[:, 0] * (mis[:, None] * Le_raw))
+            else:
+                Le = beta * mis[:, None] * Le_raw
+            Le = torch.where(hit[:, None], Le, 0.0)
 
         active_next = active & si.valid
         if it + 1 >= icfg.max_depth:
             active_next = torch.zeros_like(active)
         active_em = active_next & bsdf_api.is_smooth(lb)
+        d_in = d if polarized else None
         if icfg.nlos_laser_sampling:
             Lr, nee_dist = _laser_nee(sd, ctx, icfg, si, lb, beta, distance,
                                       eta, it, active_em, account, lanes,
-                                      bvh_mode)
+                                      bvh_mode, d_in, sctx)
         else:
             Lr, nee_dist = _plain_nee(sd, ctx, icfg, si, lb, beta, distance,
-                                      eta, it, active_em, account, bvh_mode)
+                                      eta, it, active_em, account, bvh_mode,
+                                      d_in, sctx)
         if skip_le:
             film = splat_transient_pair(
-                film, film_cfg, spp, nee_dist, Lr * splat_w, None, None,
-                active, icfg.temporal_filter, icfg.gaussian_stddev)
+                film, film_cfg, spp, nee_dist, to_film(Lr) * splat_w, None,
+                None, active, icfg.temporal_filter, icfg.gaussian_stddev)
             L = L + Lr
         else:
             film = splat_transient_pair(
-                film, film_cfg, spp, distance, Le * splat_w, nee_dist,
-                Lr * splat_w, active, icfg.temporal_filter,
-                icfg.gaussian_stddev)
+                film, film_cfg, spp, distance, to_film(Le) * splat_w,
+                nee_dist, to_film(Lr) * splat_w, active,
+                icfg.temporal_filter, icfg.gaussian_stddev)
             L = L + Le + Lr
 
         o, d, beta, eta, active_next, pdf_dir, delta = _continue(
-            sd, ctx, icfg, si, lb, ub, it, active_next, beta, eta)
+            sd, ctx, icfg, si, lb, ub, it, active_next, beta, eta, d_in)
         if not skip_le:
             prev_p = torch.where(hit[:, None], si.p, prev_p)
             prev_pdf = torch.where(active_next, pdf_dir, prev_pdf)
@@ -525,7 +654,7 @@ def sample_nlos_primal(
         depth = depth + hit.to(torch.int32)
         n_rays = n_rays + active.sum() * 2
         active = active_next
-    return film, L, depth > 0, n_rays
+    return film, to_film(L), depth > 0, n_rays
 
 
 # --------------------------------------------------------------------------
@@ -740,6 +869,12 @@ def sample_nlos_exhaustive_primal(
 # Renders
 # --------------------------------------------------------------------------
 
+def film_channels(variant) -> int:
+    """The film's channels: the variant's colors, times 4 Stokes
+    components under a polarized variant."""
+    return variant.color_channels * (4 if variant.polarized else 1)
+
+
 def _split_spp(spp: int, hw: int, max_lanes: int):
     """The JAX package's pass split -> (spp a pass, passes, total spp)."""
     spp_chunk = max(1, min(spp, max_lanes // max(hw, 1)))
@@ -749,7 +884,7 @@ def _split_spp(spp: int, hw: int, max_lanes: int):
 
 
 def _nlos_pass(sd, ctx, film, seed, pass_idx, inv_total, *, film_cfg, icfg,
-               spp, hw, skip_le, lanes=None, bvh_mode=BVH_MODE):
+               spp, hw, skip_le, lanes=None, bvh_mode=BVH_MODE, variant):
     """One pass of ``spp`` samples a scan pixel -> (film, n_rays).  With
     ``lanes`` (one row per scan point, the confocal scan) every lane's
     sensor ray aims at its own point and its NEE at its own laser."""
@@ -766,7 +901,8 @@ def _nlos_pass(sd, ctx, film, seed, pass_idx, inv_total, *, film_cfg, icfg,
         ray_weight = torch.ones((n,), dtype=torch.float32, device=dev)
     film, L, _valid, n_rays = sample_nlos_primal(
         sd, ctx, sampler, ray, ray_weight, film, film_cfg, icfg, inv_total,
-        spp, skip_le=skip_le, lanes=lanes, bvh_mode=bvh_mode)
+        spp, skip_le=skip_le, lanes=lanes, bvh_mode=bvh_mode,
+        polarized=variant.polarized, spectral=variant.spectral)
     return splat_steady(film, spp, L, ray_weight), n_rays
 
 
@@ -779,7 +915,6 @@ def render_nlos(scene: Scene, spp=None, seed=0, sensor=0,
     W, T, C)) on the scene's device, and with ``return_stats`` ``rays``
     (int64), ``spp`` and ``loop_iters`` (bounces run, one K1-K3 launch
     each)."""
-    refuse_variant(scene.variant, "NLOS capture")
     cfg = scene.sensors[sensor]
     icfg = scene.integrator
     film_cfg = cfg.film
@@ -801,14 +936,14 @@ def render_nlos(scene: Scene, spp=None, seed=0, sensor=0,
     ctx = prepare_nlos(scene, cfg, bvh_mode)
     spp_chunk, n_passes, total_spp = _split_spp(spp, hw, max_lanes)
     skip_le = can_skip_le(scene.data)
-    film = film_init(film_cfg, scene.variant.color_channels, scan_pixels=hw,
+    film = film_init(film_cfg, film_channels(scene.variant), scan_pixels=hw,
                      device=scene.device)
     total_rays = 0
     for p in range(n_passes):
         film, n_rays = _nlos_pass(
             primal_sd(scene.data), ctx, film, seed, p, 1.0 / total_spp,
             film_cfg=film_cfg, icfg=icfg, spp=spp_chunk, hw=hw,
-            skip_le=skip_le, bvh_mode=bvh_mode)
+            skip_le=skip_le, bvh_mode=bvh_mode, variant=scene.variant)
         total_rays = total_rays + n_rays
         if progress_callback is not None:
             progress_callback((p + 1) / n_passes)
@@ -831,7 +966,6 @@ def render_nlos_confocal_scan(scene: Scene, spp=None, seed=0, sensor=0,
     loop of focus + render, 1-simple-nlos-scenes.ipynb confocal cell, with
     the same estimator a point).  Returns (steady (ph, pw, C), transient
     (ph, pw, T, C)) over the scan grid (``original_film_width/height``)."""
-    refuse_variant(scene.variant, "NLOS capture")
     cfg = scene.sensors[sensor]
     icfg = scene.integrator
     film_cfg = cfg.film
@@ -854,14 +988,14 @@ def render_nlos_confocal_scan(scene: Scene, spp=None, seed=0, sensor=0,
         focus_emitter_at_relay_wall_3dpoint(targets[hw // 2], scene)
     ctx = prepare_nlos(scene, cfg, bvh_mode)
     spp_chunk, n_passes, total_spp = _split_spp(spp, hw, max_lanes)
-    film = film_init(film_cfg, scene.variant.color_channels, scan_pixels=hw,
+    film = film_init(film_cfg, film_channels(scene.variant), scan_pixels=hw,
                      device=scene.device)
     total_rays = 0
     for p in range(n_passes):
         film, n_rays = _nlos_pass(
             primal_sd(scene.data), ctx, film, seed, p, 1.0 / total_spp,
             film_cfg=film_cfg, icfg=icfg, spp=spp_chunk, hw=hw, skip_le=True,
-            lanes=lanes, bvh_mode=bvh_mode)
+            lanes=lanes, bvh_mode=bvh_mode, variant=scene.variant)
         total_rays = total_rays + n_rays
         if progress_callback is not None:
             progress_callback((p + 1) / n_passes)
@@ -895,15 +1029,17 @@ def render_nlos_exhaustive(scene: Scene, spp, seed=0, sensor=0,
     One camera wavefront a pass feeds a chunk of ``laser_chunk`` laser
     points (by default as many as keep Lc x lanes within 2^24); the film
     is ``(chunks, C, T + 1, Lc * hw)``, so each chunk's slots are one
-    contiguous film for K3.  Without laser sampling, or with an emitter
-    that is not delta, each laser point is rendered as a focused single
-    capture instead (:func:`_render_nlos_exhaustive_perpoint`)."""
+    contiguous film for K3.  Without laser sampling, with an emitter that
+    is not delta, or under a polarized or spectral variant, each laser
+    point is rendered as a focused single capture instead
+    (:func:`_render_nlos_exhaustive_perpoint`), as in the JAX package."""
     cfg = scene.sensors[sensor]
     film_cfg = cfg.film
     icfg = scene.integrator
     _check_exhaustive(film_cfg)
     sd = primal_sd(scene.data)
-    if not can_skip_le(sd) or not icfg.nlos_laser_sampling:
+    if (scene.variant.polarized or scene.variant.spectral
+            or not can_skip_le(sd) or not icfg.nlos_laser_sampling):
         return _render_nlos_exhaustive_perpoint(
             scene, spp, seed=seed, sensor=sensor, max_lanes=max_lanes,
             progress_callback=progress_callback, return_stats=return_stats,
@@ -995,7 +1131,7 @@ def _render_nlos_exhaustive_perpoint(scene: Scene, spp, seed=0, sensor=0,
     laser_targets = scene.shapes[cfg.shape_index].position_from_uv(
         _pixel_uv(lw, lh)).astype(np.float32)
     h, w = film_cfg.height, film_cfg.width
-    C = scene.variant.color_channels
+    C = film_channels(scene.variant)
     T = film_cfg.temporal_bins
     out = torch.zeros((h, w, lh, lw, T, C), device=scene.device)
     steady_acc = torch.zeros((h, w, C), device=scene.device)

@@ -1,6 +1,5 @@
 """Transient volumetric path tracer, one wavefront a pass (counterpart of
-``mitransient_tpu/integrators/volpath.py``, ``transient_prbvolpath``;
-unpolarized and non-spectral).
+``mitransient_tpu/integrators/volpath.py``, ``transient_prbvolpath``).
 
 Path tracing through participating media that fill the interiors of
 shapes with null BSDFs: free-flight sampling in the current medium (the
@@ -28,6 +27,18 @@ free flight (tag = bounce), ``(n, 16)`` for each shadow-ray segment (tag
 = 1000 + 4 * bounce + step), in fixed trips of masked steps as in the
 JAX package, so that every stream stays aligned.
 
+Variants, as the JAX package renders them: under a polarized variant the
+throughput is a full Mueller matrix in the structured layout of
+``core/mueller.py`` (no pending rotator), which starts as the
+sensor-alignment rotator about the camera's up axis; a surface bounce
+multiplies it by the polarization factor times the BSDF weight, an HG
+scatter is an ideal depolarizer (column 0 times the albedo), and NEE
+takes column 0 of the surface's factor or of the throughput times the
+phase value.  Under a spectral variant each lane carries ``N_WL`` hero
+wavelengths: the medium's albedo, the BSDF rows and the emitter terms are
+uplifted to them (``sigma_t`` stays achromatic) and the splats convert to
+sRGB.
+
 Sampling is detached: the free-flight distance carries no derivative.
 For homogeneous media an attached survival ratio, exactly 1 in value,
 gives sigma_t its derivative (the JAX package's ``volpath.py:387-408``);
@@ -44,10 +55,17 @@ from typing import NamedTuple
 import torch
 
 from ..bsdf import api as bsdf_api
+from ..bsdf.polarized import (
+    polarization_factor_col0_soa,
+    polarization_factor_soa,
+    sensor_alignment_soa,
+)
 from ..core.frame import Frame
 from ..core.math import dot, exp, log, mis_weight
+from ..core.mueller import msoa_depolarize_cols, msoa_matvec, msoa_product
 from ..core.records import Ray
 from ..core.rng import Sampler, draw_bounce_block, fold_in, uniform
+from ..core.spectra import N_WL, SpectralCtx
 from ..core.warp import hg_pdf, square_to_hg
 from ..film.transient_film import splat_pair_any
 from ..ops.bvh import BVH_MODE
@@ -60,6 +78,7 @@ from ..scene.scene import (
     sample_emitter_direction,
 )
 from ..scene.schema import FilmConfig, IntegratorConfig
+from .path import _half_vector_cos, pack_stokes
 
 VOL_DIMS_PER_BOUNCE = 8
 TRANSMITTANCE_STEPS = 4  # null-boundary crossings along a shadow ray
@@ -324,8 +343,8 @@ def survival_ratio(sigma_t, t_event, medium_scatter, in_medium, hit):
 class VolState(NamedTuple):
     o: torch.Tensor  # (N, 3)
     d: torch.Tensor  # (N, 3)
-    beta: torch.Tensor  # (N, C)
-    L: torch.Tensor  # (N, C)
+    beta: torch.Tensor  # (N, C); polarized: the structured (4, 4, N, C)
+    L: torch.Tensor  # (N, C); polarized: (N, 4 C), Stokes-major
     eta: torch.Tensor  # (N,)
     distance: torch.Tensor  # (N,) accumulated OPL
     active: torch.Tensor  # (N,) bool
@@ -374,12 +393,14 @@ class Vertex(NamedTuple):
 
 
 def trace_vertex(sd: SceneData, key, it: int, ub, st, icfg: IntegratorConfig,
-                 bvh_mode: str) -> Vertex:
+                 bvh_mode: str, sctx: SpectralCtx | None = None) -> Vertex:
     """One bounce's path query, free flight, NEE sample (with the shadow
     ray's transmittance walk) and direction samples, from the state ``st``
     (any record with ``o``, ``d``, ``eta``, ``distance``, ``active``,
     ``medium``, ``prev_p``, ``prev_pdf``, ``prev_delta``).  The random
-    decisions are the JAX package's, from the bounce block ``ub``."""
+    decisions are the JAX package's, from the bounce block ``ub``.
+    ``sctx`` uplifts the medium's albedo, the BSDF rows and the NEE
+    emitter term to the lanes' wavelengths."""
     n = ub.shape[0]
     active = st.active
     si = ray_intersect(sd, Ray.make(st.o, st.d), active, bvh_mode)
@@ -387,6 +408,8 @@ def trace_vertex(sd: SceneData, key, it: int, ub, st, icfg: IntegratorConfig,
 
     # ---- free flight in the current medium (dim 0)
     sigma_t, med_albedo, med_g, in_medium = medium_lookup(sd, st.medium)
+    if sctx is not None:
+        med_albedo = sctx.uplift(med_albedo)
     t_fly = free_flight(sd, key, it, ub[:, 0], st.medium, sigma_t, in_medium,
                         st.o, st.d, torch.where(hit, si.t, float("inf")),
                         active)
@@ -396,6 +419,8 @@ def trace_vertex(sd: SceneData, key, it: int, ub, st, icfg: IntegratorConfig,
     distance = st.distance + torch.where(active, t_event, 0.0) * st.eta
 
     lb = bsdf_api.gather_lane_bsdf(sd.bsdf, si.bsdf_id, si.uv, sd.bsdf_kinds)
+    if sctx is not None:
+        lb = sctx.uplift_lb(lb)
     null_srf = bsdf_api.is_null(lb) & ~medium_scatter
 
     # ---- the emitter hit's MIS weight (surfaces only)
@@ -413,6 +438,8 @@ def trace_vertex(sd: SceneData, key, it: int, ub, st, icfg: IntegratorConfig,
                                                | bsdf_api.is_smooth(lb))
     ds, em_weight = sample_emitter_direction(sd, p_event, ub[:, 1:3], False,
                                              active_em, bvh_mode)
+    if sctx is not None:
+        em_weight = sctx.emission(em_weight)
     active_em = active_em & (ds.pdf > 0.0)
     trans, occ, segs = shadow_walk(sd, p_event, ds.d, ds.dist, st.medium,
                                    active_em, key, it, bvh_mode)
@@ -443,12 +470,16 @@ def trace_vertex(sd: SceneData, key, it: int, ub, st, icfg: IntegratorConfig,
         d_hg=d_hg, pdf_hg=pdf_hg, bs=bs, new_med=new_med)
 
 
-def next_state(v: Vertex, st, beta, it: int, icfg: IntegratorConfig, u_rr):
+def next_state(v: Vertex, st, beta, it: int, icfg: IntegratorConfig, u_rr,
+               polarized: bool = False):
     """The state update after a vertex, shared by the primal and PRB's
     replay sweep: the spawned ray, the throughput (``beta`` already holds
     the vertex's albedo), eta and Russian roulette on ``u_rr`` (a
     detached decision) -> (o, d, beta, eta, active_next, prev_p, prev_pdf,
-    prev_delta)."""
+    prev_delta).  A ``polarized`` throughput takes the surface's
+    polarization factor times the BSDF weight; medium lanes keep it (HG
+    sampling has unit weight), and entry [0, 0] drives Russian
+    roulette."""
     ms = v.medium_scatter
     d_srf = v.si.frame.to_world(v.bs.wo)
     new_d = torch.where(ms[:, None], v.d_hg, d_srf)
@@ -458,9 +489,21 @@ def next_state(v: Vertex, st, beta, it: int, icfg: IntegratorConfig, u_rr):
     delta_step = ~ms & v.bs.delta
     eta_step = torch.where(ms, 1.0, v.bs.eta)
     active_next = v.active_next
-    beta = torch.where(active_next[:, None], beta * w_step, beta)
+    if polarized:
+        si, bs = v.si, v.bs
+        cos_i = torch.where(bs.delta, torch.abs(si.wi[:, 2]),
+                            _half_vector_cos(si.wi, bs.wo))
+        P = polarization_factor_soa(v.lb, -d_srf, -st.d, cos_i,
+                                    transmitted=bs.wo[:, 2] * si.wi[:, 2]
+                                    < 0.0)
+        step = torch.where(ms[:, None], beta,
+                           msoa_product(beta, P * bs.weight))
+        beta = torch.where(active_next[:, None], step, beta)
+        beta_max = beta[0, 0].amax(dim=-1).detach()
+    else:
+        beta = torch.where(active_next[:, None], beta * w_step, beta)
+        beta_max = beta.amax(dim=-1).detach()
     eta = torch.where(active_next, st.eta * eta_step, st.eta)
-    beta_max = beta.amax(dim=-1).detach()
     active_next = active_next & (beta_max != 0.0)
     rr_prob = torch.clamp_max(beta_max * eta * eta, 0.95)
     active_next = active_next & (rr_prob > 0.0)
@@ -489,11 +532,18 @@ def sample_volpath_primal(
     spp: int,
     bvh_mode: str = BVH_MODE,
     enable_film: bool = True,
+    polarized: bool = False,
+    cam_vertical: torch.Tensor | None = None,
+    spectral: bool = False,
 ):
     """Trace one volumetric wavefront of ``n = pix.shape[0]`` spp-major
     lanes -> (film, L (N, C), valid (N,), n_rays () int64), as
     ``path.sample_primal``.  ``enable_film=False`` skips the splats (PRB's
-    primal sweep; ``film`` may then be None)."""
+    primal sweep; ``film`` may then be None).  ``polarized`` carries the
+    Mueller throughput from the sensor-alignment rotator about
+    ``cam_vertical`` and returns L (N, 4 C), Stokes-major; ``spectral``
+    draws the lanes' hero wavelengths from the sampler key and returns L
+    in linear sRGB."""
     n = pix.shape[0]
     C = sd.bsdf.reflectance.shape[-1]
     dev = ray.o.device
@@ -501,14 +551,28 @@ def sample_volpath_primal(
     key = sampler.key
     splat_w = ray_weight * sample_scale
     grids = has_grids(sd)
+    sctx = None
+    if spectral:
+        sctx = SpectralCtx.make(key, n, dev)
+        C = N_WL
+    if polarized:
+        vert = (cam_vertical if cam_vertical is not None
+                else torch.tensor([0.0, 1.0, 0.0], device=dev))
+        beta0 = sensor_alignment_soa(ray.d, vert, C)
+    else:
+        beta0 = torch.ones((n, C), dtype=f32, device=dev)
+
+    def to_film(v):
+        return v if sctx is None else sctx.to_film_any(v, polarized)
+
     distance0 = (-first_surface_distance(sd, ray, bvh_mode=bvh_mode)
                  if icfg.camera_unwarp
                  else torch.zeros((n,), dtype=f32, device=dev))
     ones = torch.ones((n,), dtype=torch.bool, device=dev)
     st = VolState(
         o=ray.o, d=ray.d,
-        beta=torch.ones((n, C), dtype=f32, device=dev),
-        L=torch.zeros((n, C), dtype=f32, device=dev),
+        beta=beta0,
+        L=torch.zeros((n, 4 * C if polarized else C), dtype=f32, device=dev),
         eta=torch.ones((n,), dtype=f32, device=dev),
         distance=distance0, active=ones,
         depth=torch.zeros((n,), dtype=torch.int32, device=dev),
@@ -519,7 +583,7 @@ def sample_volpath_primal(
         n_rays=torch.zeros((), dtype=torch.int64, device=dev))
     for it in range(icfg.max_depth):
         ub = draw_bounce_block(key, it, n, VOL_DIMS_PER_BOUNCE, dev)
-        v = trace_vertex(sd, key, it, ub, st, icfg, bvh_mode)
+        v = trace_vertex(sd, key, it, ub, st, icfg, bvh_mode, sctx)
         beta = st.beta
         if not grids:
             beta = beta * survival_ratio(v.sigma_t, v.t_event,
@@ -527,21 +591,37 @@ def sample_volpath_primal(
                                          v.hit)[:, None]
         ms = v.medium_scatter[:, None]
         # Le uses the throughput before the medium's albedo, NEE after it
-        Le = torch.where(v.le_mask[:, None], beta * v.mis[:, None]
-                         * emitter_eval_hit(sd, v.si, st.d), 0.0)
-        beta = torch.where(ms, beta * v.med_albedo, beta)
-        f_em = torch.where(ms, v.f_phase, v.f_srf)
-        Lr_dir = torch.where(v.active_em[:, None],
-                             beta * v.mis_em[:, None] * f_em * v.em_weight
-                             * v.trans[:, None], 0.0)
+        Le_raw = emitter_eval_hit(sd, v.si, st.d)
+        if sctx is not None:
+            Le_raw = sctx.emission(Le_raw)
+        if polarized:  # unpolarized emission: column 0 of beta
+            Le = pack_stokes(beta[:, 0] * (v.mis[:, None] * Le_raw))
+            # an HG scatter depolarizes: column 0 times the albedo
+            beta = torch.where(ms, msoa_depolarize_cols(beta, v.med_albedo),
+                               beta)
+            P0 = polarization_factor_col0_soa(
+                v.lb, -v.ds.d, -st.d, _half_vector_cos(v.si.wi, v.wo_em))
+            A = torch.where(ms, beta[:, 0] * v.f_phase,
+                            msoa_matvec(beta, P0 * v.f_srf))
+            Lr_dir = pack_stokes(A * (v.mis_em[:, None] * v.em_weight
+                                      * v.trans[:, None]))
+        else:
+            Le = beta * v.mis[:, None] * Le_raw
+            beta = torch.where(ms, beta * v.med_albedo, beta)
+            f_em = torch.where(ms, v.f_phase, v.f_srf)
+            Lr_dir = (beta * v.mis_em[:, None] * f_em * v.em_weight
+                      * v.trans[:, None])
+        Le = torch.where(v.le_mask[:, None], Le, 0.0)
+        Lr_dir = torch.where(v.active_em[:, None], Lr_dir, 0.0)
         film = st.film
         if enable_film:
             film = splat_pair_any(
-                film, film_cfg, spp, v.distance, Le * splat_w[:, None],
-                v.distance + v.ds.dist * st.eta, Lr_dir * splat_w[:, None],
+                film, film_cfg, spp, v.distance, to_film(Le) * splat_w[:, None],
+                v.distance + v.ds.dist * st.eta,
+                to_film(Lr_dir) * splat_w[:, None],
                 st.active, icfg.temporal_filter, icfg.gaussian_stddev)
         o, d, beta, eta, active, prev_p, prev_pdf, prev_delta = next_state(
-            v, st, beta, it, icfg, ub[:, 7])
+            v, st, beta, it, icfg, ub[:, 7], polarized)
         st = VolState(
             o=o, d=d, beta=beta, L=st.L + Le + Lr_dir, eta=eta,
             distance=v.distance, active=active,
@@ -549,4 +629,4 @@ def sample_volpath_primal(
             medium=v.new_med, prev_p=prev_p, prev_pdf=prev_pdf,
             prev_delta=prev_delta, film=film,
             n_rays=st.n_rays + st.active.sum() * (1 + TRANSMITTANCE_STEPS))
-    return st.film, st.L, st.depth > 0, st.n_rays
+    return st.film, to_film(st.L), st.depth > 0, st.n_rays

@@ -15,12 +15,10 @@ The ``transient_prbvolpath`` integrator (participating media) always
 takes the multi-pass branch, each pass traced by
 ``integrators/volpath.py``.  A scene with an ``nlos_capture_meter`` or
 the ``transient_nlos_path`` integrator goes to the NLOS renderer
-(``integrators/nlos_path.py``), as in the JAX package.  The perspective
-branches render every variant (polarized: a Mueller throughput and Stokes
-films of 4 C channels; spectral: hero wavelengths and sRGB films, never
-through the regen loop); NLOS, media and differentiation refuse the
-polarized and spectral ones (``core/spectrum.py:refuse_variant``).
-:func:`render_aovs` gives first-hit AOVs of a perspective sensor.  The
+(``integrators/nlos_path.py``), as in the JAX package.  Every branch
+renders every variant (polarized: a Mueller throughput and Stokes films
+of 4 C channels; spectral: hero wavelengths and sRGB films, never through
+the regen loop).  :func:`render_aovs` gives first-hit AOVs of a perspective sensor.  The
 render runs on the device of ``scene.data``, under ``torch.no_grad()``.
 
 Differentiable rendering (the JAX package's ``render.py:300-730``):
@@ -29,9 +27,10 @@ replay for ``transient_path`` (``integrators/prb.py``) and
 ``transient_prbvolpath`` (``integrators/prb_vol.py``), and by full AD
 through the wavefront (``integrators/fullad.py``) for NLOS captures and
 ``method="fullad"``; :func:`render_forward` gives derivative videos by the
-PRB forward replay for ``transient_path`` and by forward-mode AD through
-the whole primal (``torch.autograd.forward_ad``) otherwise.  Both split
-the spp budget into chunks and add up.
+PRB forward replay for unpolarized, non-spectral ``transient_path`` and by
+forward-mode AD through the whole primal (``torch.autograd.forward_ad``)
+otherwise.  Both split the spp budget into chunks and add up, and both
+take the JAX package's route for every integrator and variant.
 """
 from __future__ import annotations
 
@@ -55,7 +54,7 @@ from .integrators.path import sample_primal
 from .integrators.path_regen import sample_primal_regen
 from .integrators.prb_vol import sample_volpath_adjoint
 from .integrators.volpath import sample_volpath_primal
-from .integrators.nlos_path import _split_spp
+from .integrators.nlos_path import _split_spp, film_channels
 from .integrators.fullad import EXHAUSTIVE_REFUSAL
 from .integrators.prb import (
     DiffParams,
@@ -69,7 +68,6 @@ from .integrators.prb import (
 from .ops.bvh import BVH_MODE, MODES
 from .scene.scene import primal_sd
 from .scene.schema import Scene
-from .core.spectrum import refuse_variant
 from .sensors.perspective import build_camera, sample_rays
 
 _FILM_STATES = {cls.__name__: cls for cls in (TransientFilmState,
@@ -108,16 +106,13 @@ def _perspective_pass(sd, cam, film, seed, pass_idx, inv_total_spp, *,
         cam, sampler, width, height, spp_chunk,
         crop_offset=(film_cfg.crop_offset_x, film_cfg.crop_offset_y),
         full_size=(film_cfg.width, film_cfg.height))
-    if icfg.kind == "transient_prbvolpath":
-        film, L, _valid, n_rays = sample_volpath_primal(
-            sd, sampler, ray, pix, ray_weight, film, film_cfg, icfg,
-            sample_scale=inv_total_spp, spp=spp_chunk, bvh_mode=bvh_mode)
-    else:
-        film, L, _valid, n_rays = sample_primal(
-            sd, sampler, ray, pix, ray_weight, film, film_cfg, icfg,
-            sample_scale=inv_total_spp, spp=spp_chunk, bvh_mode=bvh_mode,
-            polarized=variant.polarized, cam_vertical=cam.R[:, 1],
-            spectral=variant.spectral)
+    sample_fn = (sample_volpath_primal
+                 if icfg.kind == "transient_prbvolpath" else sample_primal)
+    film, L, _valid, n_rays = sample_fn(
+        sd, sampler, ray, pix, ray_weight, film, film_cfg, icfg,
+        sample_scale=inv_total_spp, spp=spp_chunk, bvh_mode=bvh_mode,
+        polarized=variant.polarized, cam_vertical=cam.R[:, 1],
+        spectral=variant.spectral)
     if film_cfg.rfilter == "gaussian":
         # the camera jitter again: sampler dims 0-1 of this pass's stream
         film = splat_steady_gaussian(film, height, width, spp_chunk, L,
@@ -172,10 +167,9 @@ def render(
 
     An NLOS scene renders through ``integrators/nlos_path.py:render_nlos``
     (``regenerate``, ``film_state`` and ``checkpoint_callback`` are not
-    used there, as in the JAX package).  NLOS and volumetric scenes of a
-    polarized or spectral variant raise ``NotImplementedError`` (ROADMAP
-    item 16b), as does ``regenerate=True`` for a spectral scene, which the
-    JAX package renders as plain RGB there.
+    used there, as in the JAX package).  ``regenerate=True`` for a
+    spectral scene raises ``NotImplementedError``: the JAX package renders
+    it as plain RGB there.
     """
     cfg = scene.sensors[sensor]
     icfg = scene.integrator
@@ -187,13 +181,11 @@ def render(
                            max_lanes=max_lanes,
                            progress_callback=progress_callback,
                            return_stats=return_stats, bvh_mode=bvh_mode)
-    if icfg.kind == "transient_prbvolpath":
-        refuse_variant(var, "volumetric rendering")
     film_cfg = cfg.film
     spp = spp if spp is not None else cfg.spp
     dw, dh = film_cfg.data_width, film_cfg.data_height
     hw = dw * dh
-    C = var.color_channels * (4 if var.polarized else 1)
+    C = film_channels(var)
     dev = scene.device
 
     if bvh_mode not in MODES:
@@ -416,27 +408,32 @@ def render_backward(scene: Scene, grad_in, spp: int | None = None,
     gradient tensor}, plus the table gradients (:class:`DiffParams`) under
     ``'__tables__'``, on the scene's device.
 
-    ``transient_path`` takes the PRB two-sweep replay, in chunks of at most
-    ``max_lanes`` lanes; ``transient_prbvolpath`` the volumetric replay
-    (:func:`render_backward_volpath`, chunks of 2^20 lanes);
-    ``transient_nlos_path`` (single and confocal) and ``method="fullad"``
-    take full AD through the wavefront, in chunks of 2^20 lanes, whose
-    gradients also reach the shape poses and the delta emitters'
-    positions.  The phasor film and crop windows are refused on every
-    route (:func:`_refuse_film`), the exhaustive capture in full AD, and
-    wavefronts of more than 2^32 lanes in the PRB replay of
-    ``transient_path`` (:func:`_prb_setup`), which the routes take in
-    the JAX package's order (its ``render.py:376-398``): the chunked
-    routes never build one wavefront.  Polarized and spectral scenes
-    (ROADMAP item 16b) are not ported."""
-    refuse_variant(scene.variant, "render_backward")
+    The routes, in the JAX package's order (its ``render.py:376-396``):
+    an unpolarized ``transient_prbvolpath`` scene without
+    ``method="fullad"`` takes the volumetric replay
+    (:func:`render_backward_volpath`, chunks of 2^20 lanes), a spectral
+    one included, whose replay differentiates the RGB estimator as the
+    JAX package's does; ``transient_nlos_path`` (single and confocal), a
+    polarized volumetric scene, any polarized or spectral scene and
+    ``method="fullad"`` take full AD through the wavefront of the scene's
+    variant, in chunks of 2^20 lanes, whose gradients also reach the shape
+    poses and the delta emitters' positions; the rest, unpolarized RGB or
+    mono ``transient_path``, takes the PRB two-sweep replay in chunks of
+    at most ``max_lanes`` lanes.  The phasor film and crop windows are
+    refused on every route (:func:`_refuse_film`), the exhaustive capture
+    in full AD, and wavefronts of more than 2^32 lanes in the PRB replay
+    of ``transient_path`` (:func:`_prb_setup`): the chunked routes never
+    build one wavefront."""
     cfg = scene.sensors[sensor]
     icfg = scene.integrator
+    var = scene.variant
     _refuse_film(cfg.film)
-    if icfg.kind == "transient_prbvolpath" and method != "fullad":
+    if (icfg.kind == "transient_prbvolpath" and method != "fullad"
+            and not var.polarized):
         return render_backward_volpath(scene, grad_in, spp=spp, seed=seed,
                                        sensor=sensor, bvh_mode=bvh_mode)
-    if icfg.kind == "transient_nlos_path" or method == "fullad":
+    if (icfg.kind in ("transient_nlos_path", "transient_prbvolpath")
+            or var.polarized or var.spectral or method == "fullad"):
         from .integrators.fullad import render_backward_fullad
 
         return render_backward_fullad(scene, grad_in, spp=spp, seed=seed,
@@ -483,8 +480,18 @@ def render_backward_volpath(scene: Scene, grad_in, spp: int | None = None,
     primal-shaped sweeps a chunk, memory independent of the path depth,
     over spp chunks of at most ``max_lanes`` lanes split as the JAX
     package splits them (the pass index seeds each chunk's streams).
-    The same dict as :func:`render_backward`."""
-    refuse_variant(scene.variant, "render_backward")
+    The same dict as :func:`render_backward`.
+
+    The replay is the RGB (or mono) estimator's, as the JAX package's
+    (``prb_vol.py``): a spectral scene is differentiated through the
+    estimator of its RGB tables, not through its spectral primal (ROADMAP
+    queue 3), and a polarized scene is refused (``render_backward``
+    sends it to full AD)."""
+    if scene.variant.polarized:
+        raise NotImplementedError(
+            "polarized volumetric is primal-only via the PRB replay; "
+            "render_backward dispatches polarized volumetric scenes to "
+            "the chunked full-AD path instead")
     cfg = scene.sensors[sensor]
     icfg = scene.integrator
     film_cfg = cfg.film
@@ -567,11 +574,13 @@ def _build_tangents(scene: Scene, tangent: dict) -> DiffParams:
 
 
 def _forward_pass_jvp(sd, ctx, tangents, seed, pass_idx, inv_spp, *,
-                      film_cfg, icfg, spp, hw, kind, skip_le, bvh_mode):
+                      film_cfg, icfg, spp, hw, kind, skip_le, bvh_mode,
+                      variant):
     """Forward mode through the whole primal of one spp chunk, with
     ``torch.autograd.forward_ad`` dual tables: the ray kernels get detached
     (plain) inputs, the film splat goes through K3's Function, whose jvp
-    is K3 on the tangents.  -> (primal, tangent) film states."""
+    is K3 on the tangents.  The primal is the ``variant``'s (4 C Stokes
+    channels when polarized).  -> (primal, tangent) film states."""
     from torch.autograd import forward_ad as fwAD
 
     dev = sd.bsdf.reflectance.device
@@ -581,7 +590,7 @@ def _forward_pass_jvp(sd, ctx, tangents, seed, pass_idx, inv_spp, *,
                 p, t if t is not None else torch.zeros_like(p))
             for p, t in zip(extract_params(sd), tangents)))
         sdt = insert_params(sd, theta)
-        C = sdt.bsdf.reflectance.shape[-1]
+        C = sdt.bsdf.reflectance.shape[-1] * (4 if variant.polarized else 1)
         sampler = Sampler(seed, spp * hw, stream=pass_idx, device=dev)
         if kind == "transient_nlos_path":
             from .integrators.nlos_path import (
@@ -593,7 +602,8 @@ def _forward_pass_jvp(sd, ctx, tangents, seed, pass_idx, inv_spp, *,
             ray, rw = sample_nlos_rays(ctx, spp, hw)
             film, L, _v, _r = sample_nlos_primal(
                 sdt, ctx, sampler, ray, rw, film, film_cfg, icfg, inv_spp,
-                spp, skip_le=skip_le, bvh_mode=bvh_mode)
+                spp, skip_le=skip_le, bvh_mode=bvh_mode,
+                polarized=variant.polarized, spectral=variant.spectral)
         else:
             film = film_init_any(film_cfg, C, device=dev)
             ray, pix, rw = sample_rays(ctx, sampler, film_cfg.width,
@@ -602,7 +612,8 @@ def _forward_pass_jvp(sd, ctx, tangents, seed, pass_idx, inv_spp, *,
                          if kind == "transient_prbvolpath" else sample_primal)
             film, L, _v, _r = sample_fn(
                 sdt, sampler, ray, pix, rw, film, film_cfg, icfg, inv_spp,
-                spp, bvh_mode)
+                spp, bvh_mode, polarized=variant.polarized,
+                cam_vertical=ctx.R[:, 1], spectral=variant.spectral)
         state = splat_steady(film, spp, L, rw)
         parts = [fwAD.unpack_dual(a) for a in state]
         primal = type(state)(*(x.primal.clone() for x in parts))
@@ -624,13 +635,14 @@ def render_forward(scene: Scene, tangent: dict, spp: int | None = None,
     ``'bsdf.alpha'``, ``'bsdf.textures'``, ``'medium.albedo'``,
     ``'medium.sigma_t'``) to tangent values.
 
-    ``transient_path`` takes the PRB forward replay, whose derivative
-    splats go into the film through K3; NLOS single and confocal captures
-    (and other integrators) take forward-mode AD through the whole primal.
+    Unpolarized, non-spectral ``transient_path`` takes the PRB forward
+    replay, whose derivative splats go into the film through K3; NLOS
+    single and confocal captures, volumetric scenes and every polarized or
+    spectral scene take forward-mode AD through the whole primal of the
+    scene's variant, as in the JAX package (its ``render.py:675-715``).
     An exhaustive capture is refused as in the reference
     (transientnlospath.py:729-731), and so are the refusals of
     :func:`_prb_setup` on every route, as in the JAX package."""
-    refuse_variant(scene.variant, "render_forward")
     cfg, icfg, film_cfg, spp, hw, spp_chunk, n_passes = _prb_setup(
         scene, spp, sensor, max_lanes)
     nlos = (cfg.kind == "nlos_capture_meter"
@@ -642,7 +654,9 @@ def render_forward(scene: Scene, tangent: dict, spp: int | None = None,
     def add_states(a, b):
         return b if a is None else type(b)(*(x + y for x, y in zip(a, b)))
 
-    if icfg.kind == "transient_path" and not nlos:
+    var = scene.variant
+    if (icfg.kind == "transient_path" and not nlos and not var.polarized
+            and not var.spectral):
         cam = build_camera(cfg, device=dev)
         dfilm = None
         for p in range(n_passes):
@@ -670,7 +684,7 @@ def render_forward(scene: Scene, tangent: dict, spp: int | None = None,
         s_p, t_p = _forward_pass_jvp(
             scene.data, ctx, tangents, seed, p, 1.0 / total_spp,
             film_cfg=film_cfg, icfg=icfg, spp=spp_chunk, hw=hw, kind=kind,
-            skip_le=skip_le, bvh_mode=bvh_mode)
+            skip_le=skip_le, bvh_mode=bvh_mode, variant=var)
         s_tot, t_tot = add_states(s_tot, s_p), add_states(t_tot, t_p)
     from torch.autograd import forward_ad as fwAD
 

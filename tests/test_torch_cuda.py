@@ -42,6 +42,7 @@ from torch_cases import (
     splat_events,
     VARIANT_CASES,
     VARIANT_REGEN,
+    run_variant_case,
     variant_render,
 )
 
@@ -670,3 +671,44 @@ def test_volumetric_render_and_gradients_on_cuda_match_cpu(cuda, name):
     for g, w in zip(videos[str(cuda)], videos["cpu"]):
         assert float((g.cpu() - w).abs().max()) <= 1e-4 * float(
             w.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind, name", [("nlos", "pol_gold"),
+                                        ("nlos", "spectral_polarized"),
+                                        ("vol", "rgb_polarized"),
+                                        ("vol", "spectral_grid")])
+def test_variant_nlos_and_volumetric_on_cuda_match_cpu(cuda, kind, name):
+    """A polarized and a spectral NLOS capture and volumetric render
+    (``torch_cases.variant_nlos_case`` / ``variant_vol_case``) on the card
+    are the CPU's bit for bit, with the same ray count; K3 launches once a
+    bounce (the volumetric bounce launches K1 five times, K2 never)."""
+    out = []
+    for dev in (cuda, "cpu"):
+        reset_launch_counts()
+        s, t, stats = run_variant_case(mt, kind, name, device=dev)
+        if dev == cuda:
+            counts = launch_counts()
+        out.append((s.cpu(), t.cpu(), int(stats["rays"])))
+    assert counts.get("splat_accumulate", 0) > 0
+    if kind == "vol":
+        assert counts["closest_hit"] == 5 * counts["splat_accumulate"]
+        assert "ray_test" not in counts
+    else:
+        assert counts["ray_test"] >= counts["splat_accumulate"]
+    assert out[0][2] == out[1][2]
+    assert torch.equal(out[0][0], out[1][0])
+    assert torch.equal(out[0][1], out[1][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["pol_nlos", "pol_fog", "spectral_fog"])
+def test_variant_gradients_on_cuda_match_cpu(cuda, name):
+    """Variant gradients (``torch_cases.variant_grad_case``: polarized NLOS
+    and fog through full AD, the spectral fog through the PRB replay) on
+    the card against the CPU, within 1e-4 of each table's largest value
+    (the table-gradient reductions add by atomics on the card)."""
+    grads = {str(dev): run_variant_case(mt, "grad", name, device=dev)
+             for dev in ("cpu", cuda)}
+    _tables_close(grads[str(cuda)]["__tables__"], grads["cpu"]["__tables__"],
+                  name)

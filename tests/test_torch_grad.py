@@ -39,6 +39,7 @@ from torch_cases import (
     nlos_exhaustive,
     nlos_scene,
     small_cbox,
+    spy_routes,
     splat_events,
     time_window_cbox,
 )
@@ -339,12 +340,15 @@ def test_refusals_match_jax(kind, call):
         assert hw == 64
 
 
-def test_unported_differentiation_is_refused():
-    """The polarized and spectral variants, which the JAX package
-    differentiates, load and render in the port, but render_backward and
-    render_forward refuse them, naming ROADMAP item 16b, volumetric scenes
-    among them.  Volumetric scenes themselves (item 15) load and
-    differentiate."""
+def test_unported_differentiation_is_refused(monkeypatch):
+    """The polarized and spectral variants, which the port once refused
+    here (ROADMAP item 16b), now differentiate: render_backward and
+    render_forward of a spectral volumetric scene, a polarized box and a
+    spectral box return finite results of the variant's shape, by the JAX
+    package's route (its render.py:376-396, 675-676): the spectral
+    volumetric scene through the (RGB) PRB replay, the others through full
+    AD, and forward mode through the whole primal.  Volumetric scenes
+    themselves (item 15) differentiate too."""
     d = small_cbox(mt, 8, 8, 20, 2)
     d["small-box"]["medium"] = {"type": "homogeneous", "sigma_t": 1.0}
     assert mt.load_dict(d, device="cpu").data.medium.sigma_t.tolist() == [1.0]
@@ -359,22 +363,28 @@ def test_unported_differentiation_is_refused():
     vol.integrator = sc.integrator._replace(kind="transient_prbvolpath")
     assert set(mt.render_backward(vol, (None, None), spp=1)) >= {
         "__tables__", "white.reflectance.value"}
-    for change, item in ((lambda s: setattr(s, "integrator", s.integrator.
-                                            _replace(kind="transient_prbvolpath"))
-                          or setattr(s, "variant", Variant(3, spectral=True)),
-                          "item 16b"),
-                         (lambda s: setattr(s, "variant",
-                                            Variant(3, polarized=True)),
-                          "item 16b"),
-                         (lambda s: setattr(s, "variant",
-                                            Variant(3, spectral=True)),
-                          "item 16b")):
+    seen = spy_routes(monkeypatch, mt)
+    for change, channels, route in (
+            (lambda s: setattr(s, "integrator", s.integrator.
+                               _replace(kind="transient_prbvolpath"))
+             or setattr(s, "variant", Variant(3, spectral=True)), 3,
+             "prb_vol"),
+            (lambda s: setattr(s, "variant", Variant(3, polarized=True)), 12,
+             "fullad"),
+            (lambda s: setattr(s, "variant", Variant(3, spectral=True)), 3,
+             "fullad")):
         scene = copy.copy(sc)
         change(scene)
-        for call in (lambda: mt.render_backward(scene, (None, None), spp=1),
-                     lambda: mt.render_forward(scene, {}, spp=1)):
-            with pytest.raises(NotImplementedError, match=item):
-                call()
+        seen.clear()
+        grads = mt.render_backward(scene, (None, None), spp=1)
+        assert set(grads) >= {"__tables__", "white.reflectance.value"}
+        assert all(torch.isfinite(v).all() for k, v in grads.items()
+                   if k != "__tables__")
+        steady, transient = mt.render_forward(scene, {}, spp=1)
+        assert steady.shape == (8, 8, channels)
+        assert transient.shape == (8, 8, 20, channels)
+        assert torch.isfinite(transient).all()
+        assert seen == [route, "jvp"]
 
 
 # The chunked routes of render_backward, as the JAX package dispatches them

@@ -9,8 +9,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = """
 import importlib, os, pkgutil, sys, tempfile
-sys.path.insert(0, {repo!r})
+sys.path[:0] = [{repo!r}, os.path.join({repo!r}, "tests")]
 import mitransient_tpu_torch as mt
+from mitransient_tpu_torch.io_exr import read_exr, write_exr
+import torch_cases
 for info in pkgutil.walk_packages(mt.__path__, "mitransient_tpu_torch."):
     importlib.import_module(info.name)
 with tempfile.TemporaryDirectory() as td:
@@ -23,6 +25,13 @@ with tempfile.TemporaryDirectory() as td:
     steady, _transient = mt.render(scene, spp=2, seed=0)
     assert steady.shape[-1] == 4
     mt.vis_polarized.polarization_generate_false_color(steady.numpy(), "aolp")
+    nlos = mt.load_dict(torch_cases.nlos_scene(sx=2, sy=2, bins=40),
+                        device="cpu")
+    mt.nlos.focus_emitter_at_relay_wall_pixel([1.0, 1.0], nlos)
+    _steady, transient = mt.render(nlos, spp=2, seed=0)
+    assert transient.shape == (2, 2, 40, 4)
+    write_exr(os.path.join(td, "f.exr"), transient[:, :, 0, :3].numpy())
+    assert read_exr(os.path.join(td, "f.exr"))[1] == ["B", "G", "R"]
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "mitransient_tpu."))
              or m == "mitransient_tpu")
@@ -48,9 +57,10 @@ _XML = """<scene version="3.0.0">
 
 def test_port_imports_without_jax():
     """Every module of the port, imported in a fresh process, a scene
-    loaded from an XML file, and its render under the mono_polarized
-    variant with a false-color map leave jax and mitransient_tpu out of
-    sys.modules."""
+    loaded from an XML file, its render under the mono_polarized variant
+    with a false-color map, a polarized NLOS capture and an EXR frame of
+    it written and read back by ``io_exr`` leave jax and mitransient_tpu
+    out of sys.modules."""
     res = subprocess.run([sys.executable, "-c",
                           _PROBE.format(repo=REPO, xml=_XML)],
                          capture_output=True, text=True, timeout=120)
@@ -64,8 +74,14 @@ def test_public_api():
                  "set_variant",
                  "variant", "save_film_state", "load_film_state",
                  "render_aovs", "render_backward", "render_forward",
-                 "traverse", "is_monochromatic", "is_polarized", "is_rgb"):
+                 "traverse", "is_monochromatic", "is_polarized", "is_rgb",
+                 "log", "set_log_level"):
         assert callable(getattr(mt, name)), name
+    assert isinstance(mt.__version__, str)
+    for name in ("tonemap_transient", "tonemap_grad_transient",
+                 "save_frames", "save_video", "show_video",
+                 "rainbow_visualization"):
+        assert callable(getattr(mt.vis, name)), name
     for name in ("degree_of_polarization", "tonemap_transient",
                  "polarization_generate_false_color",
                  "show_video_polarized"):

@@ -12,8 +12,9 @@
   through the regen loop and the multi-pass accumulator, per sample under
   the same rule with no element out and ray counts within 0.1 %.
 - The physics configurations of tests/test_polarized.py:32-92 on the port.
-- NLOS, volumetric and differentiable renders of a polarized scene raise
-  (ROADMAP item 16b).
+- NLOS, volumetric and differentiable renders of a polarized or spectral
+  scene run, by the JAX package's routes (``test_variant_refusals``;
+  per sample against the JAX package in tests/test_torch_variants_*.py).
 """
 import copy
 import os
@@ -40,6 +41,7 @@ from torch_cases import (
     golden_mismatch,
     nlos_scene,
     small_cbox,
+    spy_routes,
     stokes_checks,
     variant_render,
     vol_cbox,
@@ -502,26 +504,40 @@ def test_intensity_matches_unpolarized_render():
 
 
 @pytest.mark.parametrize("variant", ["mono_polarized", "spectral"])
-def test_variant_refusals(variant):
-    """NLOS, volumetric and differentiable renders are unpolarized RGB or
-    mono in the port: under a polarized or spectral variant they raise,
-    naming ROADMAP item 16b, and render nothing."""
+def test_variant_refusals(monkeypatch, variant):
+    """The calls the port once refused under a polarized or spectral
+    variant (ROADMAP item 16b) now render and differentiate: NLOS and
+    volumetric renders, and render_backward (default and full AD) and
+    render_forward of a box, a fog box and an NLOS capture, each finite
+    and of the variant's shape, by the JAX package's route: a polarized
+    fog and every NLOS capture through full AD, a spectral fog through
+    the PRB replay, forward mode through the whole primal."""
+    seen = spy_routes(monkeypatch, mt)
     with with_variant(mt, variant):
         nlos = mt.load_dict(nlos_scene(sx=2, sy=2), device="cpu")
         vol = mt.load_dict(vol_cbox(mt, sigma_t=2.0), device="cpu")
         box = mt.load_dict(small_cbox(mt, 4, 4, 10, 2), device="cpu")
     mt.nlos.focus_emitter_at_relay_wall_pixel([1.0, 1.0], nlos)
-    calls = [lambda: mt.render(nlos, spp=2),
-             lambda: mt.render(vol, spp=2),
-             lambda: mt.render(vol, spp=2, regenerate=False)]
-    for sc in (box, vol, nlos):
-        calls += [lambda sc=sc: mt.render_backward(sc, (None, None), spp=2),
-                  lambda sc=sc: mt.render_backward(sc, (None, None), spp=2,
-                                                   method="fullad"),
-                  lambda sc=sc: mt.render_forward(sc, {}, spp=2)]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="item 16b"):
-            call()
+    C = 4 if variant == "mono_polarized" else 3
+    for scene, hw, bins in ((nlos, (2, 2), 300), (vol, (8, 8), 100)):
+        for kw in ({}, {"regenerate": False}):
+            s, t = mt.render(scene, spp=2, **kw)
+            assert s.shape == hw + (C,) and t.shape == hw + (bins, C)
+            assert torch.isfinite(t).all() and float(s[..., 0].sum()) > 0
+    vol_route = "fullad" if variant == "mono_polarized" else "prb_vol"
+    for sc, route in ((box, "fullad"), (vol, vol_route), (nlos, "fullad")):
+        seen.clear()
+        g = mt.render_backward(sc, (None, None), spp=2)
+        g_ad = mt.render_backward(sc, (None, None), spp=2, method="fullad")
+        d_s, d_t = mt.render_forward(sc, {}, spp=2)
+        assert seen == [route, "fullad", "jvp"]
+        for grads in (g, g_ad):
+            assert "__tables__" in grads and all(
+                torch.isfinite(v).all() for k, v in grads.items()
+                if k != "__tables__")
+        fc = sc.sensors[0].film
+        assert d_t.shape == (fc.height, fc.width, fc.temporal_bins, C)
+        assert torch.isfinite(d_s).all() and torch.isfinite(d_t).all()
 
 
 @pytest.mark.parametrize("name, multipass", [

@@ -3,7 +3,8 @@ and grid media) against the JAX package on the CPU: the ``volumetric``
 golden, ``render`` of each ``torch_cases.VOL_CASES`` configuration, one
 wavefront per lane, the medium lookups (``density``, the shadow walk's
 ``transmittance``), the HG warp, the tracking streams, the media's scene
-tables (inline, ``.vol`` and XML) and the refusals of item 16.
+tables (inline, ``.vol`` and XML), and the variants' entry points (per
+sample against the JAX package in tests/test_torch_variants_vol.py).
 
 Both packages draw the same threefry streams, so the renders agree per
 sample.  Tolerances: test_golden's rule (rtol 5e-4, atol 5e-5 * max) with
@@ -429,14 +430,28 @@ def test_load_file_of_a_medium(tmp_path):
 
 @pytest.mark.parametrize("variant", ["polarized", "spectral"])
 def test_unported_volumetric_variants_raise(variant):
-    """A polarized or spectral volumetric scene, which the JAX package
-    renders, raises NotImplementedError naming ROADMAP item 16 in every
-    entry point of the port."""
+    """A polarized or spectral volumetric scene, which the port once
+    refused (ROADMAP item 16b), renders and differentiates in every entry
+    point, as the JAX package does: finite results of the variant's film
+    (12 Stokes channels for rgb_polarized); render_backward_volpath of the
+    polarized scene raises the JAX package's message and render_backward
+    sends it to full AD instead."""
+    from mitransient_tpu_torch.render import render_backward_volpath
+
     scene = mt.load_dict(golden_desc(mt), device="cpu")
     scene.variant = Variant(3, **{variant: True})
-    adj = (None, np.zeros((8, 8, 120, 3), np.float32))
-    for call in (lambda: mt.render(scene, spp=1),
-                 lambda: mt.render_backward(scene, adj, spp=1),
-                 lambda: mt.render_forward(scene, {}, spp=1)):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            call()
+    C = 12 if variant == "polarized" else 3
+    adj = (None, np.ones((8, 8, 120, C), np.float32))
+    s, t = mt.render(scene, spp=1)
+    assert s.shape == (8, 8, C) and t.shape == (8, 8, 120, C)
+    assert torch.isfinite(t).all() and float(s[..., :3].sum()) > 0
+    grads = mt.render_backward(scene, adj, spp=1)
+    assert torch.isfinite(grads["white.reflectance.value"]).all()
+    assert float(grads["white.reflectance.value"].abs().sum()) > 0
+    d_s, d_t = mt.render_forward(scene, {"white.reflectance.value":
+                                         np.ones(3, np.float32)}, spp=1)
+    assert d_t.shape == (8, 8, 120, C) and torch.isfinite(d_t).all()
+    assert float(d_s.abs().sum()) > 0
+    if variant == "polarized":
+        with pytest.raises(NotImplementedError, match="primal-only"):
+            render_backward_volpath(scene, adj, spp=1)

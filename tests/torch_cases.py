@@ -257,6 +257,43 @@ def nlos_scene(sx=4, sy=4, laser_sampling=True, hg_sampling=True,
     }
 
 
+def nlos_z_scene(sx, sy, bins=300, spp=64) -> dict:
+    """examples/transient_nlos/simple_nlos_scenes.py's capture (a copy
+    without jax): ``nlos_scene``'s relay wall, sensor and laser, with the
+    hidden Z of three diffuse bars at z = 1 for the hidden rectangle."""
+    def bar(translate, scale, angle=0.0):
+        return {"type": "rectangle",
+                "to_world": [{"translate": translate},
+                             {"rotate": {"axis": [0, 0, 1], "angle": angle}},
+                             {"rotate": {"axis": [0, 1, 0], "angle": 180}},
+                             {"scale": scale}],
+                "bsdf": {"type": "diffuse", "reflectance": {
+                    "type": "rgb", "value": [1.0, 1.0, 1.0]}}}
+
+    d = nlos_scene(sx, sy, bins=bins, spp=spp)
+    del d["hidden-target"]
+    d["z-top"] = bar([0.0, 0.35, 1.0], [0.35, 0.1, 1.0])
+    d["z-mid"] = bar([0.0, 0.0, 1.0], [0.38, 0.09, 1.0], angle=45.0)
+    d["z-bot"] = bar([0.0, -0.35, 1.0], [0.35, 0.1, 1.0])
+    return d
+
+
+# the polarimetric NLOS example (examples/polarization/
+# transient_nlos_polarization.py:31-43, BASELINE.md:22): mono_polarized, a
+# 64 x 64 scan of 300 bins, the hidden Z, a gold GGX relay wall of alpha
+# 0.3, the laser at wall pixel (32, 32); spp 65,536
+GOLD_GGX_WALL = {"type": "roughconductor", "material": "Au",
+                 "distribution": "ggx", "alpha": 0.3}
+
+
+def polarized_nlos(scan=64, bins=300) -> dict:
+    """The polarimetric NLOS scene (load it under ``mono_polarized`` and
+    focus the laser at pixel (scan / 2, scan / 2))."""
+    d = nlos_z_scene(scan, scan, bins)
+    d["relay_wall"]["bsdf"] = dict(GOLD_GGX_WALL)
+    return d
+
+
 def nlos_exhaustive(desc: dict, lw: int, lh: int) -> dict:
     """``desc`` (an nlos_scene) as an exhaustive capture with a lw x lh
     laser grid, in place."""
@@ -1077,3 +1114,262 @@ def stokes_checks(steady: np.ndarray) -> dict:
     return {"dop_q95": float(np.quantile(dop, 0.95)) if mask.any() else 0.0,
             "qu_share": float((np.abs(Q) + np.abs(U)).sum()
                               / max(float(np.abs(I).sum()), 1e-30))}
+
+
+# --------------------------------------------------------------------------
+# The variants through NLOS, volumetric and differentiable rendering
+# --------------------------------------------------------------------------
+
+GOLD_WALL = {"type": "roughconductor", "material": "Au", "alpha": 0.15}
+WHITE = {"type": "diffuse", "reflectance": {"type": "rgb", "value": 1.0}}
+
+# the variant NLOS configurations held per sample against the JAX package
+# and card against CPU
+VARIANT_NLOS_CASES = ("pol_gold", "pol_diffuse", "pol_hg_rr",
+                      "pol_plain_nee", "pol_exhaustive", "pol_scan_confocal",
+                      "rgb_pol_confocal", "spectral", "spectral_plain_nee",
+                      "spectral_polarized")
+
+
+def variant_nlos_case(pkg, name: str):
+    """Configuration ``name`` of VARIANT_NLOS_CASES -> (variant, scene
+    dict, run(scene) -> (steady, transient, stats)).
+
+    pol_gold: tests/test_polarized.py:123's capture (mono_polarized, a
+    4x4 scan of 200 bins, a rough gold relay wall of alpha 0.15, laser at
+    pixel (2, 2), spp 32); pol_diffuse: its intensity case (:142, the
+    diffuse wall, spp 48); pol_hg_rr: the gold wall with HG mixed with
+    BSDF sampling by RR from depth 1 (spp 16, seed 2); pol_plain_nee:
+    rgb_polarized, NEE toward a point laser without laser sampling, so
+    that the emitter-hit term stays (spp 16, seed 1); pol_exhaustive: the
+    exhaustive 2x2 x 2x2 capture of :164 (spp 8), which the variants take
+    point by point; pol_scan_confocal: tests/test_nlos.py:404's
+    ``scan_confocal`` over 2x2 (spp 256); rgb_pol_confocal: a 1x1
+    confocal capture over a 3x3 scan with the gold wall under
+    rgb_polarized (spp 32); spectral: tests/test_spectral.py:74's
+    unfocused 4x4 capture (spp 16); spectral_plain_nee: the plain-NEE
+    scene under spectral; spectral_polarized: :178's 2x2 capture focused
+    at (1, 1), spp 8."""
+    import importlib
+
+    def focused(pixel, **kw):
+        def run(scene):
+            pkg.nlos.focus_emitter_at_relay_wall_pixel(pixel, scene)
+            return pkg.render(scene, return_stats=True, **kw)
+        return run
+
+    def plain(**kw):
+        def run(scene):
+            return pkg.render(scene, return_stats=True, **kw)
+        return run
+
+    d = nlos_scene(sx=4, sy=4, bins=200, spp=32)
+    if name in ("pol_gold", "pol_hg_rr"):
+        d["relay_wall"]["bsdf"] = dict(GOLD_WALL)
+        run = focused([2.0, 2.0], spp=32, seed=0)
+        if name == "pol_hg_rr":
+            d["integrator"].update(
+                nlos_hidden_geometry_sampling_do_rroulette=True, rr_depth=1)
+            run = focused([1.0, 2.0], spp=16, seed=2)
+        return "mono_polarized", d, run
+    if name == "pol_diffuse":
+        d["relay_wall"]["bsdf"] = dict(WHITE)
+        return "mono_polarized", d, focused([2.0, 2.0], spp=48, seed=0)
+    if name in ("pol_plain_nee", "spectral_plain_nee"):
+        d = nlos_scene(laser_sampling=False, bins=200)
+        d["laser"] = {"type": "point",
+                      "to_world": {"translate": [-0.5, 0.0, 0.25]},
+                      "intensity": {"type": "rgb", "value": [1.0, 2.0, 3.0]}}
+        d["relay_wall"]["bsdf"] = dict(GOLD_WALL)
+        return ("rgb_polarized" if name == "pol_plain_nee" else "spectral",
+                d, plain(spp=16, seed=1))
+    if name == "pol_exhaustive":
+        d = nlos_exhaustive(nlos_scene(sx=2, sy=2, bins=200, spp=8), 2, 2)
+        mod = importlib.import_module(pkg.__name__ + ".integrators.nlos_path")
+
+        def run(scene):
+            return mod.render_nlos_exhaustive(scene, 8, seed=0,
+                                              return_stats=True)
+        return "mono_polarized", d, run
+    if name == "pol_scan_confocal":
+        d = nlos_confocal(nlos_scene(sx=1, sy=1), 2, 2)
+
+        def run(scene):
+            return pkg.nlos.scan_confocal(scene, spp=256, seed=0,
+                                          return_stats=True)
+        return "mono_polarized", d, run
+    if name == "rgb_pol_confocal":
+        d = nlos_confocal(nlos_scene(sx=1, sy=1, bins=200), 3, 3)
+        d["relay_wall"]["bsdf"] = dict(GOLD_WALL)
+        return "rgb_polarized", d, focused([1.0, 2.0], spp=32, seed=3)
+    if name == "spectral":
+        return "spectral", nlos_scene(sx=4, sy=4, bins=200, spp=16), plain(
+            spp=16, seed=0)
+    if name == "spectral_polarized":
+        return ("spectral_polarized", nlos_scene(sx=2, sy=2, spp=8),
+                focused([1.0, 1.0], spp=8, seed=0))
+    raise KeyError(name)
+
+
+# the variant volumetric configurations: the small box 2 mm off the floor
+# (VOL_LIFT), so that no path meets its coplanar bottom
+VARIANT_VOL_CASES = ("mono_polarized", "spectral", "rgb_polarized",
+                     "spectral_polarized", "spectral_grid", "pol_grid")
+
+
+def variant_vol_case(pkg, name: str):
+    """Configuration ``name`` of VARIANT_VOL_CASES -> (variant, scene dict,
+    render kwargs).  mono_polarized: tests/test_volumetric.py:159's fog
+    (12x12, sigma_t 2, albedo 0.8, g 0.3, depth 5, spp 48); spectral:
+    tests/test_spectral.py:101's (sigma_t 1.5, albedo 0.9, g 0.2, spp
+    48); rgb_polarized: test_prb_vol.py:111's fog (sigma_t 2, albedo 0.8,
+    g 0.2, depth 8, spp 16) with a gold GGX large box; spectral_polarized: tests/test_spectral.py:
+    178's (4x4, 32 bins, depth 4, sigma_t 1, spp 8); spectral_grid and
+    pol_grid (mono_polarized): ``vol_case``'s seeded 8^3 grid."""
+    if name == "mono_polarized":
+        return name, vol_cbox(pkg, 2.0, 0.8, 0.3, w=12, h=12, max_depth=5,
+                              lift=VOL_LIFT), dict(spp=48, seed=0)
+    if name == "spectral":
+        return name, vol_cbox(pkg, 1.5, 0.9, 0.2, lift=VOL_LIFT), dict(
+            spp=48, seed=0)
+    if name == "rgb_polarized":
+        d = vol_cbox(pkg, 2.0, 0.8, 0.2, max_depth=8, lift=VOL_LIFT)
+        d["large-box"]["bsdf"] = dict(GOLD_GGX_BOX)
+        return name, d, dict(spp=16, seed=0)
+    if name == "spectral_polarized":
+        return name, vol_cbox(pkg, 1.0, 0.8, 0.2, w=4, h=4, bins=32,
+                              max_depth=4, lift=VOL_LIFT), dict(spp=8, seed=0)
+    if name in ("spectral_grid", "pol_grid"):
+        d, kw = vol_case(pkg, "grid_random")
+        return ("spectral" if name == "spectral_grid" else "mono_polarized",
+                d, kw)
+    raise KeyError(name)
+
+
+# the variant gradient configurations (tables held within 1e-4 of each
+# table's largest value against the JAX package and card against CPU)
+VARIANT_GRAD_CASES = ("pol_cbox", "pol_nlos", "pol_fog", "spectral_fog",
+                      "spectral_cbox", "pol_vol_steady")
+
+
+def variant_grad_case(pkg, name: str):
+    """Configuration ``name`` of VARIANT_GRAD_CASES -> (variant, scene
+    dict, call(pkg, scene) -> gradients).  pol_cbox:
+    tests/test_polarized.py:188 (mono_polarized 8x8 box of 100 bins of
+    0.1, depth 3, rr_depth 99, the gold GGX small box, the S0 rows of the
+    transient as the adjoint, spp 16); pol_nlos: tests/test_fullad.py:92
+    (the 2x2 capture, rr_depth 99, laser at (1, 1), S0 adjoint, spp 16);
+    pol_fog: tests/test_prb_vol.py:111 (rgb_polarized fog of sigma_t 2,
+    albedo 0.8, g 0.2, depth 8, bins of 0.96, the S0 rows, spp 16);
+    spectral_fog: the fog at depth 5 under spectral through the PRB
+    replay (a seeded random transient adjoint, spp 8); spectral_cbox: the
+    8x8 box of 40 bins, depth 3, under spectral (full AD, a seeded random
+    transient adjoint, spp 8); pol_vol_steady: tests/test_volumetric.py:
+    196 (mono_polarized fog of sigma_t 1, 8x8, depth 3, the S0 steady
+    adjoint, spp 4)."""
+    def s0(channels, steady=False):
+        def call(pkg, scene):
+            fc = scene.sensors[0].film
+            shape = ((fc.height, fc.width) if steady
+                     else (fc.height, fc.width, fc.temporal_bins))
+            g = np.zeros(shape + (channels,), np.float32)
+            g[..., :channels // 4] = 1.0
+            adj = (g, None) if steady else (None, g)
+            return pkg.render_backward(scene, adj, spp=spp, seed=0)
+        return call
+
+    def rand(channels, spp_):
+        def call(pkg, scene):
+            fc = scene.sensors[0].film
+            g = np.random.default_rng(4).random(
+                (fc.height, fc.width, fc.temporal_bins, channels)).astype(
+                    np.float32)
+            return pkg.render_backward(scene, (None, g), spp=spp_, seed=0)
+        return call
+
+    spp = 16
+    if name == "pol_cbox":
+        d = small_cbox(pkg, 8, 8, 100, 3)
+        d["small-box"]["bsdf"] = dict(GOLD_GGX_BOX)
+        d["sensor"]["film"].update(start_opl=0.0, bin_width_opl=0.1)
+        d["integrator"]["rr_depth"] = 99
+        return "mono_polarized", d, s0(4)
+    if name == "pol_nlos":
+        d = nlos_scene(sx=2, sy=2)
+        d["integrator"]["rr_depth"] = 99
+        inner = s0(4)
+
+        def call(pkg, scene):
+            pkg.nlos.focus_emitter_at_relay_wall_pixel([1.0, 1.0], scene)
+            return inner(pkg, scene)
+        return "mono_polarized", d, call
+    if name == "pol_fog":
+        d = vol_cbox(pkg, 2.0, 0.8, 0.2, max_depth=8, lift=VOL_LIFT)
+        d["sensor"]["film"].update(start_opl=0.0, bin_width_opl=0.96)
+        return "rgb_polarized", d, s0(12)
+    if name == "spectral_fog":
+        d = vol_cbox(pkg, 2.0, 0.8, 0.2, lift=VOL_LIFT)
+        d["sensor"]["film"].update(start_opl=0.0, bin_width_opl=0.6)
+        return "spectral", d, rand(3, 8)
+    if name == "spectral_cbox":
+        return "spectral", small_cbox(pkg, 8, 8, 40, 3), rand(3, 8)
+    if name == "pol_vol_steady":
+        spp = 4
+        return ("mono_polarized", vol_cbox(pkg, 1.0, max_depth=3,
+                                           lift=VOL_LIFT), s0(4, True))
+    raise KeyError(name)
+
+
+def run_variant_case(pkg, kind: str, name: str, device=None):
+    """Load configuration ``name`` of the variant ``kind`` ("nlos", "vol"
+    or "grad") under its variant and run it on ``device``: (steady,
+    transient, stats) for the renders, the gradient dict for "grad"."""
+    make = {"nlos": variant_nlos_case, "vol": variant_vol_case,
+            "grad": variant_grad_case}[kind]
+    variant, desc, run = make(pkg, name)
+    import copy
+
+    with with_variant(pkg, variant):
+        scene = pkg.load_dict(copy.deepcopy(desc),
+                              **({} if device is None else {"device": device}))
+    if kind == "vol":
+        return pkg.render(scene, return_stats=True, **run)
+    return run(pkg, scene) if kind == "grad" else run(scene)
+
+
+# the film channels of each variant
+FILM_CHANNELS = {"mono": 1, "rgb": 3, "mono_polarized": 4, "rgb_polarized": 12,
+                 "spectral": 3, "spectral_polarized": 12}
+# the differentiation routes of both packages: (module under the package,
+# function, route name)
+DIFF_ROUTES = ((".render", "render_backward_volpath", "prb_vol"),
+               (".render", "_backward_pass", "prb"),
+               (".integrators.fullad", "render_backward_fullad", "fullad"),
+               (".render", "_forward_pass", "prb_forward"),
+               (".render", "_forward_pass_jvp", "jvp"))
+
+
+class Routed(Exception):
+    """Raised by a route that :func:`spy_routes` stops."""
+
+
+def spy_routes(monkeypatch, pkg, stop: bool = False) -> list:
+    """Wrap ``pkg``'s differentiation routes (``DIFF_ROUTES``) so that each
+    call appends the route's name to the returned list, then goes on, or
+    with ``stop`` raises :class:`Routed` (no gradient is computed)."""
+    import importlib
+
+    seen = []
+
+    def wrap(inner, name):
+        def f(*a, **k):
+            seen.append(name)
+            if stop:
+                raise Routed(name)
+            return inner(*a, **k)
+        return f
+
+    for mod, fn, name in DIFF_ROUTES:
+        m = importlib.import_module(pkg.__name__ + mod)
+        monkeypatch.setattr(m, fn, wrap(getattr(m, fn), name))
+    return seen
