@@ -268,6 +268,24 @@ Phases, each of which raises on failure:
     ``render_forward`` of the polarized cbox at 64x64, spp 64 (calls 1 and
     2); K3's autograd Function at 4 and 12 channels on seeded events, its
     backward and jvp bit-equal to the plain version's autograd.
+36. Multi-device rendering (``mitransient_tpu_torch.parallel``): a
+    one-process NCCL world on the card through ``init_distributed`` and
+    its ``global_mesh`` (one card: NCCL takes one rank a device, so only
+    a one-rank world is checked); the flagship through ``render_sharded``
+    (spp 1024: 32 passes of 32): K1-K3 once a bounce of every pass, the
+    physics checks, steady and transient within test_golden's rule of
+    phase 12's multi-pass render with the same ray count, rays/s, wall
+    and peak memory of a second render, and the time of one NCCL
+    all-reduce of its (3, 301, 65536) film; the small cbox, an 8x8 NLOS
+    capture, a fog and a mono_polarized cbox over 4 logical shards of the
+    card against 4 CPU shards, bit for bit with equal rays; the exhaustive
+    capture at phase 19's config over 4 logical shards, its transient bit
+    for bit the local capture's, with both rays/s; the flagship's PRB
+    replay through ``render_backward_sharded`` at 2^23 lanes against
+    ``render_backward`` (the same stream), and PRB and full-AD (NLOS,
+    volumetric tutorial at depth 4) cases over 4 shards card against CPU,
+    within 1e-4 of each table's largest value; ``dryrun_multichip`` on 8
+    logical shards of the card against 8 CPU shards.
 
 Kernel times (``_time_ms``) are means of launches made back to back, so
 that the wrapper's host work overlaps the card's as in a render.  It
@@ -295,7 +313,7 @@ capture's, ``pol_nlos_*``, and K3 on the variant tutorials' events,
 ``pol_nlos_launches``, ``spectral_nlos_launches``,
 ``pol_confocal_launches``, ``spectral_vol_launches``,
 ``pol_vol_launches`` and ``variant_fullad_launches`` (the polarized
-cbox's full AD); K3 also its Function's ``backward_max_abs_err``,
+cbox's full AD), and the sharded flagship's, ``sharded_launches``; K3 also its Function's ``backward_max_abs_err``,
 ``jvp_max_abs_err``, at 4 and 12 channels ``stokes_fn_*_max_abs_err``,
 and the backward gather's ``gather_*`` times), and
 ``{"ok": true,
@@ -1143,7 +1161,8 @@ def check_threefry(dev):
 
 def render_multipass_flagship(mt, cases, dev, threefry_ms):
     """Phase 12: the flagship through the multi-pass accumulator; returns
-    the launch counts of its first render."""
+    the launch counts of its first render and that render (host steady and
+    transient, rays) with render 2's rays/s, which phase 36 compares with."""
     import torch
 
     from mitransient_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -1184,7 +1203,8 @@ def render_multipass_flagship(mt, cases, dev, threefry_ms):
     print(f"multi-pass flagship render 2 (seed 1): {wall2:.3f} s, {rays} "
           f"rays -> {rays / wall2 / 1e6:.2f} M rays/s; threefry "
           f"{threefry_ms / 1e3:.3f} s of it ({threefry_ms / 1e3 / wall2:.3f})")
-    return counts
+    return counts, dict(steady=s, transient=t, rays=int(stats["rays"]),
+                        rays_per_s=rays / wall2)
 
 
 def render_multipass_goldens(mt, cases, dev):
@@ -3092,6 +3112,230 @@ def variant_gradients(mt, cases, dev):
     return counts, check_stokes_function(mt, cases, dev)
 
 
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _same_render(label, got, want, rays=None):
+    """Two sharded renders (steady, transient[, stats]), card and CPU, bit
+    for bit with equal ray counts."""
+    import torch
+
+    same = all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(got[:2],
+                                                               want[:2]))
+    r = (got[2]["rays"], want[2]["rays"]) if rays else None
+    print(f"{label}: bit for bit {same}" + (f", rays {r[0]} and {r[1]}"
+                                            if r else ""))
+    if not same or (r and r[0] != r[1]):
+        raise AssertionError(f"{label}: the renders differ")
+
+
+def multi_device_phase(mt, cases, dev, flagship):
+    """Phase 36: multi-device rendering (``mitransient_tpu_torch.parallel``)
+    on the card.  A one-process NCCL world through ``init_distributed``
+    and its ``global_mesh`` (one card: NCCL takes one rank a device, so a
+    larger world cannot be checked here); the flagship through
+    ``render_sharded`` (K1-K3 once a bounce of every pass, the physics
+    checks, test_golden's rule against phase 12's render with the same
+    rays; rays/s, wall and peak memory of a second render) and one
+    all-reduce of its film; 4 logical shards of the card against 4 CPU
+    shards, bit for bit; the sharded exhaustive capture at phase 19's
+    config against the local one, bit for bit; ``render_backward_sharded``
+    (the flagship's PRB replay at 2^23 lanes against ``render_backward``,
+    whose single chunk draws the same stream, and 4-shard PRB and full-AD
+    cases against the CPU, within ``GRAD_TABLE_ATOL``); the dry run on 8
+    logical shards of the card against 8 CPU shards.  Returns the
+    flagship's launches."""
+    import copy
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from mitransient_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from mitransient_tpu_torch.parallel import (
+        dryrun_multichip,
+        global_mesh,
+        init_distributed,
+        make_mesh,
+        render_backward_sharded,
+        render_sharded,
+        shutdown,
+    )
+
+    init_distributed(coordinator_address=f"localhost:{_free_port()}",
+                     num_processes=1, process_id=0)
+    try:
+        mesh = global_mesh()
+        print(f"process group: backend {dist.get_backend()}, world "
+              f"{dist.get_world_size()}, mesh {mesh.size} shard(s) on "
+              f"{[str(d) for d in mesh.devices]}")
+        if (dist.get_backend() != "nccl" or mesh.group is None
+                or mesh.devices != (dev,)):
+            raise AssertionError(f"not a one-rank NCCL mesh on {dev}: {mesh}")
+
+        # 1. the flagship over the NCCL mesh
+        scene = mt.load_dict(mt.cornell_box(), device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        s, t, stats = render_sharded(scene, mesh, return_stats=True,
+                                     **FLAGSHIP)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        n = MULTIPASS_PASSES * 8
+        print(f"sharded flagship render 1 (seed 0, {stats['devices']} "
+              f"shard, spp {stats['spp']}): launches {counts}, rays "
+              f"{stats['rays']} (phase 12: {flagship['rays']})")
+        if any(counts.get(k, 0) != n for k in ("closest_hit", "ray_test",
+                                                "splat_accumulate")):
+            raise AssertionError(f"sharded flagship: launches {counts}, "
+                                 f"expected {n} of each of K1-K3")
+        s, t = s.cpu().numpy(), t.cpu().numpy()
+        fails = cases.physics_checks(s, t)
+        for k, got in (("steady", s), ("transient", t)):
+            m = cases.golden_mismatch(got, flagship[k])
+            print(f"sharded flagship {k} against phase 12's multi-pass "
+                  f"render: {m}")
+            if not (m["shape_ok"] and m["n_bad"] == 0):
+                fails.append(f"{k} against the multi-pass render: {m}")
+        if fails or stats["rays"] != flagship["rays"]:
+            raise AssertionError(f"sharded flagship: {fails}, rays "
+                                 f"{stats['rays']}")
+        del s, t
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _s, _t, stats2 = render_sharded(scene, mesh, spp=FLAGSHIP["spp"],
+                                        seed=1, return_stats=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rate = stats2["rays"] / wall
+        print(f"sharded flagship render 2 (seed 1): {wall:.3f} s, "
+              f"{stats2['rays']} rays -> {rate / 1e6:.2f} M rays/s "
+              f"({rate / flagship['rays_per_s']:.4f} of phase 12's render 2); "
+              f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+              "GiB")
+        del _s, _t
+        film = torch.zeros((3, 301, 256 * 256), device=dev)
+        ms = _time_ms(lambda: dist.all_reduce(film, group=mesh.group))
+        print(f"one NCCL all-reduce of a (3, 301, 65536) f32 film "
+              f"({film.numel() * 4 / 1e6:.1f} MB, one rank): {ms:.4f} ms")
+        del film
+
+        # 2. 4 logical shards of the card against 4 CPU shards
+        shards = {d: make_mesh(devices=[d] * 4) for d in (dev, "cpu")}
+        nlos = cases.nlos_scene(sx=8, sy=8)
+        vol = cases.vol_cbox(mt, 2.0, w=16, h=16, bins=100,
+                             lift=cases.VOL_LIFT)
+        for name, desc, variant, spp in (
+                ("small cbox", cases.small_cbox(mt), "rgb", 16),
+                ("NLOS single 8x8", nlos, "rgb", 64),
+                ("volumetric fog", vol, "rgb", 16),
+                ("mono_polarized cbox", cases.small_cbox(mt, 8, 8, 60, 4),
+                 "mono_polarized", 16)):
+            out = {}
+            with cases.with_variant(mt, variant):
+                for d, m in shards.items():
+                    sc = mt.load_dict(copy.deepcopy(desc), device=d)
+                    if name.startswith("NLOS"):
+                        mt.nlos.focus_emitter_at_relay_wall_pixel([4, 4], sc)
+                    out[d] = render_sharded(sc, m, spp=spp, seed=0,
+                                            return_stats=True)
+            _same_render(f"4 shards {name} ({variant}), card against CPU",
+                         out[dev], out["cpu"], rays=True)
+
+        # 3. the exhaustive capture at phase 19's config over 4 shards
+        exh = cases.nlos_exhaustive(cases.nlos_scene(sx=NLOS_SCAN,
+                                                     sy=NLOS_SCAN),
+                                    EXHAUSTIVE["lasers"], EXHAUSTIVE["lasers"])
+        sc = mt.load_dict(exh, device=dev)
+        (s_loc, t_loc, st_loc), w_loc, _p = _timed(lambda: mt.render(
+            sc, spp=EXHAUSTIVE["spp"], seed=0, return_stats=True))
+        (s_sh, t_sh, st_sh), w_sh, peak = _timed(lambda: render_sharded(
+            sc, shards[dev], spp=EXHAUSTIVE["spp"], seed=0,
+            return_stats=True))
+        same = torch.equal(t_sh, t_loc)
+        rel = float(((s_sh - s_loc).abs() / s_loc.abs().clamp_min(1e-30))
+                    .max())
+        print(f"sharded exhaustive {NLOS_SCAN}x{NLOS_SCAN} x "
+              f"{EXHAUSTIVE['lasers']}x{EXHAUSTIVE['lasers']} lasers spp "
+              f"{EXHAUSTIVE['spp']} over 4 shards: {w_sh:.4f} s, "
+              f"{st_sh['rays']} rays -> {st_sh['rays'] / w_sh / 1e6:.2f} M "
+              f"rays/s, peak memory {peak:.2f} GiB (local: {w_loc:.4f} s, "
+              f"{int(st_loc['rays'])} rays -> "
+              f"{int(st_loc['rays']) / w_loc / 1e6:.2f} M rays/s); transient "
+              f"bit for bit {same}, steady within rtol {rel:.3g}")
+        if not same or rel > 1e-5:
+            raise AssertionError("sharded exhaustive capture differs from "
+                                 "the local one")
+        del s_loc, t_loc, s_sh, t_sh
+
+        # 4. render_backward_sharded
+        fc = scene.sensors[0].film
+        grad_in = _grad_in(fc, np.random.default_rng(36))
+        reset_launch_counts()
+        g_sh, w_sh, peak = _timed(lambda: render_backward_sharded(
+            scene, mesh, grad_in, **GRAD_FLAGSHIP))
+        counts_b = launch_counts()
+        g_1, w_1, _p = _timed(lambda: mt.render_backward(
+            scene, grad_in, **GRAD_FLAGSHIP))
+        worst = _tables_close("sharded flagship PRB backward against "
+                              "render_backward", g_sh["__tables__"],
+                              g_1["__tables__"])
+        print(f"sharded flagship render_backward (PRB, spp "
+              f"{GRAD_FLAGSHIP['spp']} = 2^23 lanes on the NCCL mesh): "
+              f"{w_sh:.3f} s, peak memory {peak:.2f} GiB, launches "
+              f"{counts_b}; render_backward {w_1:.3f} s; tables within "
+              f"{worst:.3g} of their largest value")
+        del g_sh, g_1
+        for name, desc, spp, focus in (
+                ("PRB small cbox", cases.grad_cbox(mt, 8, 8, 100, 3), 16,
+                 None),
+                ("full AD NLOS single 8x8", nlos, 64, [4, 4]),
+                ("full AD tutorial 16x16 depth 4",
+                 cases.tutorial_cbox(mt, res=16, bins=100, max_depth=4), 16,
+                 None)):
+            tabs = {}
+            for d, m in shards.items():
+                sc = mt.load_dict(copy.deepcopy(desc), device=d)
+                if focus:
+                    mt.nlos.focus_emitter_at_relay_wall_pixel(focus, sc)
+                adj = _grad_in(sc.sensors[0].film, np.random.default_rng(37),
+                               steady=True)
+                tabs[d] = render_backward_sharded(sc, m, adj, spp=spp,
+                                                  seed=0)["__tables__"]
+            worst = _tables_close(f"4 shards {name}", tabs[dev],
+                                  tabs["cpu"])
+            print(f"4 shards {name} backward, card against CPU: tables "
+                  f"within {worst:.3g} of their largest value")
+
+        # 5. the dry run on 8 logical shards of the card and of the CPU
+        runs = {d: dryrun_multichip(8, devices=[d] * 8) for d in (dev, "cpu")}
+        a, b = runs[dev], runs["cpu"]
+        for k in ("steady", "transient", "nlos_transient",
+                  "exhaustive_transient"):
+            m = cases.golden_mismatch(a[k], b[k])
+            if not (m["shape_ok"] and m["n_bad"] == 0):
+                raise AssertionError(f"dry run {k}: card against CPU {m}")
+        for k in ("grad_bsdf_reflectance", "grad_emitter_radiance",
+                  "nlos_grad_bsdf_reflectance"):
+            share = float(np.abs(a[k] - b[k]).max()) / max(
+                float(np.abs(b[k]).max()), 1e-30)
+            if not share <= GRAD_TABLE_ATOL:
+                raise AssertionError(f"dry run {k}: card against CPU "
+                                     f"{share:.3g}")
+        print("dry run on 8 shards of the card against 8 CPU shards: "
+              "renders within test_golden's rule, tables within "
+              f"{GRAD_TABLE_ATOL}")
+    finally:
+        shutdown()
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -3133,7 +3377,8 @@ def main() -> int:
     profile_mesh(mt, mesh)
     render_small_sphere(mt, cases, dev)
     threefry_ms = check_threefry(dev)
-    multipass = render_multipass_flagship(mt, cases, dev, threefry_ms)
+    multipass, multipass_ref = render_multipass_flagship(
+        mt, cases, dev, threefry_ms)
     render_multipass_goldens(mt, cases, dev)
     multipass_card_against_cpu(mt, cases, dev)
     check_resume(mt, cases, dev)
@@ -3167,6 +3412,8 @@ def main() -> int:
     phase_counts.update(counts34)
     phase_counts["variant_fullad"], fn_errs = variant_gradients(mt, cases,
                                                                 dev)
+    phase_counts["sharded"] = multi_device_phase(mt, cases, dev,
+                                                 multipass_ref)
     for r in rows:
         for phase, c in phase_counts.items():
             if r["name"] in ("closest_hit", "ray_test", "splat_accumulate"):

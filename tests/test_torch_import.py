@@ -32,6 +32,13 @@ with tempfile.TemporaryDirectory() as td:
     assert transient.shape == (2, 2, 40, 4)
     write_exr(os.path.join(td, "f.exr"), transient[:, :, 0, :3].numpy())
     assert read_exr(os.path.join(td, "f.exr"))[1] == ["B", "G", "R"]
+    mt.set_variant("rgb")
+    from mitransient_tpu_torch.parallel import make_mesh, render_sharded
+    box = mt.cornell_box()
+    box["sensor"]["film"].update(width=4, height=4, temporal_bins=8)
+    steady, _transient = render_sharded(mt.load_dict(box, device="cpu"),
+                                        make_mesh(devices=["cpu"] * 2), spp=2)
+    assert steady.shape == (4, 4, 3)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "mitransient_tpu."))
              or m == "mitransient_tpu")
@@ -58,9 +65,9 @@ _XML = """<scene version="3.0.0">
 def test_port_imports_without_jax():
     """Every module of the port, imported in a fresh process, a scene
     loaded from an XML file, its render under the mono_polarized variant
-    with a false-color map, a polarized NLOS capture and an EXR frame of
-    it written and read back by ``io_exr`` leave jax and mitransient_tpu
-    out of sys.modules."""
+    with a false-color map, a polarized NLOS capture, an EXR frame of
+    it written and read back by ``io_exr`` and a sharded render on 2 CPU
+    shards leave jax and mitransient_tpu out of sys.modules."""
     res = subprocess.run([sys.executable, "-c",
                           _PROBE.format(repo=REPO, xml=_XML)],
                          capture_output=True, text=True, timeout=120)
@@ -86,6 +93,13 @@ def test_public_api():
                  "polarization_generate_false_color",
                  "show_video_polarized"):
         assert callable(getattr(mt.vis_polarized, name)), name
+    from mitransient_tpu_torch import parallel
+
+    for name in ("make_mesh", "render_sharded",
+                 "render_nlos_exhaustive_sharded", "render_backward_sharded",
+                 "init_distributed", "global_mesh", "replicate", "fetch",
+                 "process_index", "process_count", "dryrun_multichip"):
+        assert callable(getattr(parallel, name)), name
     for name in ("focus_emitter_at_relay_wall_3dpoint",
                  "focus_emitter_at_relay_wall_uv",
                  "focus_emitter_at_relay_wall_pixel", "scan_confocal"):
