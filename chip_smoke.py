@@ -63,11 +63,13 @@ Phases, each of which raises on failure:
     against their goldens.
 14. Multi-pass renders on the card against the port on the host CPU: the
     small sphere config (through the BVH kernel) and a small config with
-    ``camera_unwarp``, the gaussian temporal filter, the gaussian rfilter
-    and a crop window; test_golden's rule, no element out.
+    ``camera_unwarp``, the gaussian temporal filter (through K3 at spp * K
+    lanes, once a bounce), the gaussian rfilter and a crop
+    window; test_golden's rule, no element out.
 15. Checkpoint/resume on the card: a render resumed from a pass's state,
     written and read back by ``save_film_state`` / ``load_film_state``, is
-    bit for bit the uninterrupted render.
+    bit for bit the uninterrupted render, with the box and with the
+    gaussian temporal filter.
 16. The NLOS single capture at full width: ``nlos_scene`` at a 32x32 scan
     (300 bins of 0.02, depth 4, laser and hidden-geometry sampling, the
     laser focused at wall pixel (16, 16)), spp 2048 = 2^21 lanes in one
@@ -146,10 +148,12 @@ Phases, each of which raises on failure:
     as in phase 16, each timed with its bound; wall and peak memory of a
     second call, the share of a third call spent
     in autograd's backward, and a fourth under torch.profiler with the
-    device time of the table-gradient reductions (``index_add_``); the
+    device time of the table-gradient reductions (K8, ``reduce_rows``;
+    no ``index_add_`` kernel may be left); the gradients golden and the
     4,512-triangle sphere config through the BVH kernel, card against CPU
-    (tables within 1e-4 of their largest value: the reductions add by
-    atomics on the card).
+    (tables within 1e-4 of their largest value, the difference printed
+    beside the 6.71e-6 the atomics left; 0 asserted where the card
+    equals the CPU).
 24. Forward mode: ``forward_time_gradients``' full configuration
     (128x128, 300 bins of 8/300 from 0, depth 4, spp 512 = 2^23 lanes)
     timed on a second call, K3 launching once a bounce for the
@@ -166,7 +170,8 @@ Phases, each of which raises on failure:
     ``render_backward`` (full AD) of the 32x32 single capture at spp 2048
     (2 chunks of 2^20 lanes; K3 once a bounce of each) with its wall and
     peak memory; the flip-free geometry scenes (``GEOMETRY_CASES``), the
-    GGX-alpha and texel cases (PRB and full AD) card against CPU.
+    GGX-alpha and texel cases (PRB and full AD) card against CPU (as
+    in phase 23).
 26. Volumetric rendering on the card: the ``volumetric`` golden config
     against ``tests/goldens/volumetric.npz`` within its coplanar ties
     (``torch_cases.VOLUMETRIC_TIES``, as on the CPU), then every
@@ -174,7 +179,7 @@ Phases, each of which raises on failure:
     ``camera_unwarp``, the null box, Russian roulette over two passes, a
     constant and a random 8^3 grid with a ``to_world``, a crop window with
     the gaussian filters) card against the
-    host CPU, test_golden's rule with none out (bit for bit is printed).
+    host CPU, each bit for bit.
 27. The volumetric tutorial at full size (``torch_cases.tutorial_cbox``:
     128x128, 400 bins, depth 64, spp 512 = 4 passes of 2^21 lanes; fog of
     sigma_t 1.8, albedo 0.9, HG g 0.3 in the small box): K1 launches 5
@@ -281,11 +286,26 @@ Phases, each of which raises on failure:
     card against 4 CPU shards, bit for bit with equal rays; the exhaustive
     capture at phase 19's config over 4 logical shards, its transient bit
     for bit the local capture's, with both rays/s; the flagship's PRB
-    replay through ``render_backward_sharded`` at 2^23 lanes against
-    ``render_backward`` (the same stream), and PRB and full-AD (NLOS,
+    replay through ``render_backward_sharded`` at 2^23 lanes equal to
+    ``render_backward`` bit for bit (the same stream), and PRB and full-AD (NLOS,
     volumetric tutorial at depth 4) cases over 4 shards card against CPU,
     within 1e-4 of each table's largest value; ``dryrun_multichip`` on 8
     logical shards of the card against 8 CPU shards.
+37. Reproducible results: K8 (``ops/gather.py:reduce_rows``, the table
+    gradients' fixed-order reduction) bit-equal to its plain version on
+    the host CPU on the cotangents and indices of the flagship backward's
+    replay bounce ``GRAD_HELD_BOUNCE`` (2^23 lanes onto the BSDF and
+    emitter tables) and on a texel case at the staircase example's size
+    (``TEXEL``: 2^18 lanes' four bilinear taps into a 5 x 512 x 512 RGB
+    atlas), each timed with its bound and ``index_add_``; two calls each
+    of the flagship ``render_backward`` (2^23 lanes), phase 25's NLOS full
+    AD, phase 28's volumetric PRB, phase 24's forward mode and the texel
+    case's PRB and full AD, their tables (or videos) bit-identical; the
+    gaussian temporal filter's splat (K3 at spp x K lanes) bit-equal to its
+    plain version on the host CPU on two 2^21-lane sets of 13 taps into
+    (3, 301, 65536), timed with its bound and ``index_add_``; the
+    gaussian-filtered ``torch_cases.flat_scene`` render bit for bit card
+    against CPU.
 
 Kernel times (``_time_ms``) are means of launches made back to back, so
 that the wrapper's host work overlaps the card's as in a render.  It
@@ -313,7 +333,10 @@ capture's, ``pol_nlos_*``, and K3 on the variant tutorials' events,
 ``pol_nlos_launches``, ``spectral_nlos_launches``,
 ``pol_confocal_launches``, ``spectral_vol_launches``,
 ``pol_vol_launches`` and ``variant_fullad_launches`` (the polarized
-cbox's full AD), and the sharded flagship's, ``sharded_launches``; K3 also its Function's ``backward_max_abs_err``,
+cbox's full AD), and the sharded flagship's, ``sharded_launches``; K8's
+in the flagship backward (``launches``) and the volumetric PRB backward,
+and on each held input, ``calls``; the gaussian splat's in phase 14's
+gaussian render; K3 also its Function's ``backward_max_abs_err``,
 ``jvp_max_abs_err``, at 4 and 12 channels ``stokes_fn_*_max_abs_err``,
 and the backward gather's ``gather_*`` times), and
 ``{"ok": true,
@@ -357,9 +380,26 @@ GRAD_FLAGSHIP = dict(spp=128, seed=0)  # render_backward: 2^23 lanes, 1 pass
 # the replay sweep's bounce whose K1 and K2 inputs (and, in forward mode,
 # whose derivative splat's events) phases 23 and 24 hold
 GRAD_HELD_BOUNCE = 1
-# card against CPU, gradient tables: the table-gradient reductions add by
-# atomics on the card, in lane order on the CPU
+# card against CPU, gradient tables: a sweep may round apart on the two
+# devices (the table-gradient reductions themselves add alike, K8)
 GRAD_TABLE_ATOL = 1e-4
+# the texel case of phase 37: optimize_staircase_texture's full run (64x64,
+# spp 64 = 2^18 lanes, four bilinear taps each) into the staircase's atlas
+# as tests/test_textures.py bounds it (5 textures of at most 512 x 512)
+TEXEL = dict(lanes=1 << 18, atlas=(5, 512, 512, 3))
+# the kernels of csrc/gather.cu (K8), as the profiler names them
+K8_KERNELS = ("tile_partials_kernel", "sum_tiles_kernel", "halve_kernel",
+              "run_tree_kernel")
+GAUSSIAN_SIGMA = 2.0  # 2 ceil(3 sigma) + 1 = 13 taps a lane
+# card-against-CPU gradient comparisons whose tables are bit for bit alike
+# (measured 0 on an H100; the others, within 1.12e-7 there, take a full-AD
+# sweep's or the BVH kernel's roundings)
+CARD_CPU_EXACT = frozenset({
+    "gradients golden", "geometry floor_point_steady", "ggx prb",
+    "texels prb", "variant gradients pol_cbox", "4 shards PRB small cbox"})
+# the largest card-against-CPU table share while the table-gradient
+# reductions added by atomics (index_add_) on the card
+ATOMICS_CARD_CPU = 6.71e-6
 # the volumetric tutorial's held bounce (K1's path and first shadow-walk
 # rays, K3's events) and its first-arrival bins (camera -> light)
 VOL_HELD_BOUNCE = 1
@@ -1242,7 +1282,8 @@ def render_multipass_goldens(mt, cases, dev):
 def multipass_card_against_cpu(mt, cases, dev):
     """Phase 14: multi-pass renders on the card against the CPU: the small
     sphere config (the BVH kernel twice a bounce, K1/K2 never) and one with
-    camera_unwarp, both gaussian filters and a crop window."""
+    camera_unwarp, both gaussian filters and a crop window.  Returns the
+    gaussian-filtered render's launches on the card."""
     import copy
 
     from mitransient_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -1265,11 +1306,12 @@ def multipass_card_against_cpu(mt, cases, dev):
             if d == dev:
                 counts, n = launch_counts(), stats["loop_iters"]
         passes = n // desc["integrator"]["max_depth"]
-        # the gaussian temporal filter splats by index_add_, not K3;
+        # the gaussian temporal filter splats through K3 at spp * K lanes;
         # camera_unwarp adds a closest-hit query a pass
         want = ({f"bvh_query_{bvh.BVH_MODE}": 2 * n, "splat_accumulate": n}
                 if name == "small sphere" else
-                {"closest_hit": n + passes, "ray_test": n})
+                {"closest_hit": n + passes, "ray_test": n,
+                 "splat_accumulate": n})
         print(f"multi-pass {name} on the card: launches {counts}")
         if counts != want:
             raise AssertionError(f"multi-pass {name}: launches {counts}, "
@@ -1280,30 +1322,37 @@ def multipass_card_against_cpu(mt, cases, dev):
             if not (m["shape_ok"] and m["n_bad"] == 0):
                 raise AssertionError(f"multi-pass {name} {k}: card and CPU "
                                      "disagree")
+    return counts
 
 
 def check_resume(mt, cases, dev):
     """Phase 15: a render resumed on the card from its second pass's state
     (through save_film_state / load_film_state) is bit for bit the
-    uninterrupted render."""
+    uninterrupted render, with the box and the gaussian temporal
+    filter."""
     import io
 
     import torch
 
-    scene = mt.load_dict(cases.small_cbox(mt), device=dev)
-    kw = dict(spp=12, seed=4, max_lanes=4 * 256, regenerate=False)
-    states = []
-    s0, t0 = mt.render(scene, checkpoint_callback=states.append, **kw)
-    buf = io.BytesIO()
-    mt.save_film_state(buf, states[1])
-    buf.seek(0)
-    s1, t1 = mt.render(scene, film_state=mt.load_film_state(buf), **kw)
-    same = torch.equal(s0, s1) and torch.equal(t0, t1)
-    print(f"resume on the card from pass {states[1][1]} of {len(states)}: "
-          f"bit-identical {same}")
-    if not same:
-        raise AssertionError("the resumed render differs from the "
-                             "uninterrupted one")
+    for tfilter in ("", "gaussian"):
+        desc = cases.small_cbox(mt)
+        desc["integrator"].update(temporal_filter=tfilter)
+        scene = mt.load_dict(desc, device=dev)
+        kw = dict(spp=12, seed=4, max_lanes=4 * 256, regenerate=False)
+        states = []
+        s0, t0 = mt.render(scene, checkpoint_callback=states.append, **kw)
+        buf = io.BytesIO()
+        mt.save_film_state(buf, states[1])
+        buf.seek(0)
+        s1, t1 = mt.render(scene, film_state=mt.load_film_state(buf), **kw)
+        same = torch.equal(s0, s1) and torch.equal(t0, t1)
+        print(f"resume on the card ({tfilter or 'box'} temporal filter) "
+              f"from pass {states[1][1]} of {len(states)}: bit-identical "
+              f"{same}")
+        if not same:
+            raise AssertionError(f"the resumed render ({tfilter or 'box'} "
+                                 "filter) differs from the uninterrupted "
+                                 "one")
 
 
 def _check_energy(name, s, t, first_bins=None):
@@ -1796,7 +1845,9 @@ def _tables_close(label, got, want, atol=GRAD_TABLE_ATOL):
     """Two DiffParams (card, CPU) field by field: within ``atol`` of each
     table's largest |value|, over the finite elements; a NaN must stand
     where the CPU has one (the polarized box's roughness and poses, ROADMAP
-    queue 3).  -> the largest such share."""
+    queue 3); the other elements bit for bit where ``label`` is in
+    ``CARD_CPU_EXACT`` (a NaN's payload may differ).  -> the largest such
+    share."""
     import torch
 
     worst = 0.0
@@ -1811,6 +1862,9 @@ def _tables_close(label, got, want, atol=GRAD_TABLE_ATOL):
         if not torch.equal(torch.isnan(g), nan):
             raise AssertionError(f"{label}: table {f} has NaN elsewhere")
         g, w = g[~nan], w[~nan]
+        if label in CARD_CPU_EXACT and not _bit_equal(g, w):
+            raise AssertionError(f"{label}: table {f} is not bit for bit the "
+                                 "CPU's")
         if w.numel() == 0:
             continue
         scale = max(float(w.abs().max()), 1e-30)
@@ -1820,6 +1874,25 @@ def _tables_close(label, got, want, atol=GRAD_TABLE_ATOL):
             raise AssertionError(f"{label}: table {f} differs by {share:.3g} "
                                  f"of its largest value (allowed {atol})")
     return worst
+
+
+def _bit_equal(a, b):
+    """Two float32 tensors of one shape hold the same bits (a NaN equals
+    a NaN of the same payload; -0 is not +0)."""
+    import torch
+
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def _tables_equal(label, got, want):
+    """Two DiffParams (or tuples of tensors) bit for bit, field by field,
+    on the host."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        if (g is None) != (w is None):
+            raise AssertionError(f"{label}: field {i} present on one side")
+        if g is not None and not _bit_equal(g.cpu(), w.cpu()):
+            raise AssertionError(f"{label}: field {i} differs")
 
 
 def _grad_in(film_cfg, rng, steady=False):
@@ -1875,6 +1948,9 @@ def prb_backward_phase(mt, cases, dev):
             print(f"gradients {k} on the card vs {label}: {m}")
             if not (m["shape_ok"] and m["n_bad"] == 0):
                 raise AssertionError(f"gradients {k}: card against {label}")
+    worst = _tables_close("gradients golden", tabs[str(dev)], tabs["cpu"])
+    print(f"gradients golden, card against CPU: tables within {worst:.3g} "
+          f"of their largest value (with atomics: {ATOMICS_CARD_CPU})")
 
     # 2. optimize_reflectance's full configuration, 3 Adam steps
     cfg = cases.OPTIMIZE_REFLECTANCE
@@ -1942,9 +2018,11 @@ def prb_backward_phase(mt, cases, dev):
           f"{peak1:.2f} GiB")
     if (counts.get("closest_hit") != 2 * depth
             or counts.get("ray_test") != 2 * depth
-            or "splat_accumulate" in counts):
+            or "splat_accumulate" in counts
+            or counts.get("reduce_rows", 0) < depth):
         raise AssertionError(f"flagship backward: launches {counts}, "
-                             f"expected K1 and K2 {2 * depth} times each")
+                             f"expected K1 and K2 {2 * depth} times each "
+                             "and K8 at least once a bounce")
     for f in g1["__tables__"]._fields:
         v = getattr(g1["__tables__"], f)
         if v is not None and not torch.isfinite(v).all():
@@ -1996,7 +2074,7 @@ def prb_backward_phase(mt, cases, dev):
     worst = _tables_close("sphere backward", tabs[str(dev)], tabs["cpu"])
     print(f"small sphere render_backward on the card: launches "
           f"{sphere_counts}; tables against the CPU within {worst:.3g} of "
-          "their largest value")
+          f"their largest value (with atomics: {ATOMICS_CARD_CPU})")
     if sphere_counts.get(f"bvh_query_{bvh.BVH_MODE}", 0) < 2 * 2 * 6:
         raise AssertionError(f"sphere backward: launches {sphere_counts}")
     return counts, held
@@ -2004,8 +2082,9 @@ def prb_backward_phase(mt, cases, dev):
 
 def _profile_backward(mt, scene, grad_in):
     """One flagship render_backward under torch.profiler: device time by
-    kernel group, the table-gradient reductions (``index_add_``'s
-    ``indexFunc*`` kernels: the backward of every table gather) apart."""
+    kernel group, the table-gradient reductions (K8's kernels: the
+    backward of every table gather) apart; no ``index_add_`` kernel
+    (``indexFunc*``) may be left."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2017,10 +2096,15 @@ def _profile_backward(mt, scene, grad_in):
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
-    groups, by_name = {}, {}
+    groups, by_name, k8 = {}, {}, {}
     for e in kernels:
         us = e.time_range.elapsed_us()
-        g = ("table_grad_reduction" if "indexFunc" in e.name
+        mine = [k for k in K8_KERNELS if k in e.name]
+        for k in mine:
+            n, t = k8.get(k, (0, 0.0))
+            k8[k] = (n + 1, t + us)
+        g = ("table_grad_reduction" if mine
+             else "index_add" if "indexFunc" in e.name
              else "ray_kernels" if ("hit_kernel" in e.name
                                     or "bvh_" in e.name) else "other")
         groups[g] = groups.get(g, 0.0) + us
@@ -2035,6 +2119,14 @@ def _profile_backward(mt, scene, grad_in):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     print("  largest kernels: " + "; ".join(
         f"{n[:60]} {t / 1e3:.2f} ms" for n, t in top))
+    print("  K8's kernels: " + ", ".join(
+        f"{k} {n} launches {t / 1e3:.3f} ms" for k, (n, t) in k8.items()))
+    # the flagship's tables are all regime (a): every call launches both
+    if "index_add" in groups or any(
+            k not in k8 for k in ("tile_partials_kernel", "sum_tiles_kernel")):
+        raise AssertionError(f"the profiled backward's groups {groups}, K8 "
+                             f"{k8}: expected K8's tile_partials_kernel and "
+                             "sum_tiles_kernel and no index_add_ kernel")
 
 
 def forward_mode_phase(mt, cases, dev):
@@ -2196,7 +2288,7 @@ def full_ad_phase(mt, cases, dev):
         worst = _tables_close(f"geometry {name}", tabs[str(dev)],
                               tabs["cpu"])
         print(f"geometry {name} full AD, card against CPU: tables within "
-              f"{worst:.3g} of their largest value")
+              f"{worst:.3g} of their largest value (with atomics: {ATOMICS_CARD_CPU})")
     for name in ("ggx", "texels"):
         for method in (None, "fullad"):
             tabs = {}
@@ -2209,7 +2301,8 @@ def full_ad_phase(mt, cases, dev):
             worst = _tables_close(f"{name} {method or 'prb'}",
                                   tabs[str(dev)], tabs["cpu"])
             print(f"{name} {method or 'prb'} backward, card against CPU: "
-                  f"tables within {worst:.3g} of their largest value")
+                  f"tables within {worst:.3g} of their largest value (with atomics: "
+                  f"{ATOMICS_CARD_CPU})")
     return k3fn, counts
 
 
@@ -2242,6 +2335,9 @@ def volumetric_card_against_cpu(mt, cases, dev):
                                      f"disagree ({m})")
         print(f"volumetric {name}, card against CPU: none out, bit-equal "
               f"{same}")
+        if not same:
+            raise AssertionError(f"volumetric {name}: card and CPU not bit "
+                                 "for bit")
 
 
 def render_volumetric_tutorial(mt, cases, dev):
@@ -2441,7 +2537,9 @@ def volumetric_gradients(mt, cases, dev):
           f"{wall:.3f} s, peak memory {peak:.2f} GiB, launches {counts}; "
           f"medium_albedo {tabs.medium_albedo.cpu().numpy()}")
     steps = 1 + volpath.TRANSMITTANCE_STEPS
-    if counts != {"closest_hit": 2 * steps * depth}:
+    if (counts.get("closest_hit") != 2 * steps * depth
+            or counts.get("reduce_rows", 0) < depth
+            or set(counts) != {"closest_hit", "reduce_rows"}):
         raise AssertionError(f"volumetric backward: launches {counts}")
     if not all(torch.isfinite(v).all() for v in tabs if v is not None):
         raise AssertionError("volumetric backward: non-finite tables")
@@ -3283,14 +3381,14 @@ def multi_device_phase(mt, cases, dev, flagship):
         counts_b = launch_counts()
         g_1, w_1, _p = _timed(lambda: mt.render_backward(
             scene, grad_in, **GRAD_FLAGSHIP))
-        worst = _tables_close("sharded flagship PRB backward against "
-                              "render_backward", g_sh["__tables__"],
-                              g_1["__tables__"])
+        _tables_equal("sharded flagship PRB backward against "
+                      "render_backward", g_sh["__tables__"],
+                      g_1["__tables__"])
         print(f"sharded flagship render_backward (PRB, spp "
               f"{GRAD_FLAGSHIP['spp']} = 2^23 lanes on the NCCL mesh): "
               f"{w_sh:.3f} s, peak memory {peak:.2f} GiB, launches "
-              f"{counts_b}; render_backward {w_1:.3f} s; tables within "
-              f"{worst:.3g} of their largest value")
+              f"{counts_b}; render_backward {w_1:.3f} s; tables bit for bit "
+              "equal")
         del g_sh, g_1
         for name, desc, spp, focus in (
                 ("PRB small cbox", cases.grad_cbox(mt, 8, 8, 100, 3), 16,
@@ -3334,6 +3432,273 @@ def multi_device_phase(mt, cases, dev, flagship):
     finally:
         shutdown()
     return counts
+
+
+def hold_reduce_rows(G, g, idx, rows, label):
+    """K8 on one call's cotangents ``g`` (N, C) and indices ``idx`` onto
+    ``rows`` rows against its plain version on the host CPU, bit for bit;
+    the kernel's, the plain version's (on the card) and one
+    ``index_add_``'s ms; the bound: the cotangents and indices read once
+    and the table written once, one add a cotangent element."""
+    import torch
+
+    out = G.reduce_rows(g, idx, rows)
+    torch.cuda.synchronize()
+    ref = G.reduce_rows(g.cpu(), idx.cpu(), rows)
+    err = float((out.cpu() - ref).abs().max())
+    if not _bit_equal(out.cpu(), ref):
+        raise AssertionError(f"K8 on {label} is not bit-equal to its plain "
+                             f"version on the CPU (max |d| {err})")
+    n, C = g.shape
+    bound = _bound(g.numel() * 4 + idx.numel() * idx.element_size()
+                   + rows * C * 4, g.numel())
+    r = dict(rows=rows, lanes=n, channels=C, max_abs_err=err, bound=bound,
+             ms=_time_ms(lambda: G.reduce_rows(g, idx, rows)),
+             plain_ms=_time_ms(lambda: G.reduce_rows_plain(g, idx, rows)),
+             library_ms=_time_ms(lambda: torch.zeros(
+                 (rows, C), device=g.device).index_add_(0, idx, g)))
+    print(f"K8 reduce_rows on {label} ({n} lanes x {C} channels onto {rows} "
+          f"rows): bit-equal to the plain version on the CPU; kernel "
+          f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, index_add_ "
+          f"{r['library_ms']:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+    return r
+
+
+def check_gaussian_splat(mt, tf, dev):
+    """The gaussian temporal filter's splat (K3 at spp * K lanes on
+    ``gaussian_taps``' layout) on two seeded 2^21-lane sets of 13 taps into
+    a (3, 301, 65536) film, bit-equal to its plain version on the host CPU;
+    the taps made on the card bit-equal to the CPU's; timed with its bound
+    (the film sectors the taps land in and the taps read once) and one
+    ``index_add_``."""
+    import numpy as np
+    import torch
+
+    cfg = mt.load_dict(mt.cornell_box(), device=dev).sensors[0].film
+    hw = cfg.width * cfg.height
+    n, t_pad = N_RAYS, cfg.temporal_bins + 1
+    rng = np.random.default_rng(38)
+    span = cfg.temporal_bins * cfg.bin_width_opl
+    taps, host = [], []
+    for _ in range(2):
+        dist = rng.uniform(cfg.start_opl - 0.05 * span,
+                           cfg.start_opl + 1.05 * span, n).astype(np.float32)
+        val = rng.random((n, 3), dtype=np.float32)
+        act = rng.random(n) > 0.3
+        args = [torch.from_numpy(a) for a in (dist, val, act)]
+        taps += tf.gaussian_taps(cfg, *(a.to(dev) for a in args),
+                                 GAUSSIAN_SIGMA, n // hw)
+        host += tf.gaussian_taps(cfg, *args, GAUSSIAN_SIGMA, n // hw)
+    if not all(_bit_equal(a.cpu(), b) for a, b in zip(taps, host)):
+        raise AssertionError("gaussian_taps differ between card and CPU")
+    lanes = taps[0].shape[0] // hw  # spp * K
+    k = lanes // (n // hw)
+    film = torch.zeros((3, t_pad, hw), device=dev)
+    tf.splat_accumulate(film, *taps, spp=lanes)
+    ref = torch.zeros(film.shape)
+    tf.splat_accumulate(ref, *host, spp=lanes)
+    err = float((film.cpu() - ref).abs().max())
+    if not _bit_equal(film.cpu(), ref):
+        raise AssertionError(f"the gaussian splat is not bit-equal to its "
+                             f"plain version on the CPU (max |d| {err})")
+    del ref, host
+    sectors, bound = splat_bound(taps, hw, t_pad)
+    # the library call: one index_add_ of both sets' taps into the flat
+    # film, with the flat cell indices made beforehand
+    ch = torch.arange(3, device=dev)[:, None] * (t_pad * hw)
+    cells = torch.cat([(ch + tf.gather_index(b, film.shape)[0][None])
+                       .reshape(-1) for b in taps[0::2]])
+    vals = torch.cat([v.T.reshape(-1) for v in taps[1::2]])
+    flat = film.view(-1)
+
+    def plain():
+        for b, v in zip(taps[0::2], taps[1::2]):
+            tf._scatter_layout(film, hw, b, v)
+
+    r = dict(max_abs_err=err, bound=bound, sectors=sectors, taps=k,
+             ms=_time_ms(lambda: tf.splat_accumulate(film, *taps,
+                                                     spp=lanes)),
+             plain_ms=_time_ms(plain),
+             library_ms=_time_ms(lambda: flat.index_add_(0, cells, vals)))
+    print(f"gaussian splat (K3 at {lanes} lanes) on two {n}-lane sets of {k} "
+          f"taps into (3, {t_pad}, {hw}): bit-equal to the plain version on "
+          f"the CPU, taps bit-equal card against CPU; kernel "
+          f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, index_add_ "
+          f"{r['library_ms']:.4f} ms; {sectors} film sectors touched -> "
+          f"bound {bound[0]:.4f} ms ({bound[1]})")
+    return r
+
+
+def reproducibility_phase(mt, cases, dev):
+    """Phase 37: reproducible results.  Returns the K8 row's measurements
+    (on the flagship backward's held bounce and the texel case) and the
+    gaussian splat's."""
+    import numpy as np
+    import torch
+
+    from mitransient_tpu_torch.film import transient_film as tf
+    from mitransient_tpu_torch.integrators import prb
+    from mitransient_tpu_torch.ops import gather as G
+    from mitransient_tpu_torch.scene.scene import atlas_lookup
+
+    # 1. K8 on the flagship backward's replay bounce GRAD_HELD_BOUNCE, and
+    # the flagship backward twice
+    scene = mt.load_dict(mt.cornell_box(), device=dev)
+    grad_in = _grad_in(scene.sensors[0].film, np.random.default_rng(11),
+                       steady=True)
+    bounce, held = [-1], []
+    table_grads, reduce_rows = prb.table_grads, G.reduce_rows
+
+    def counting_table_grads(obj, leaves):
+        bounce[0] += 1
+        return table_grads(obj, leaves)
+
+    def capture(g, idx, rows):
+        if bounce[0] == GRAD_HELD_BOUNCE:
+            held.append((g.clone(), idx.clone(), rows))
+        return reduce_rows(g, idx, rows)
+
+    prb.table_grads, G.reduce_rows = counting_table_grads, capture
+    try:
+        g1, wall1, _p = _timed(lambda: mt.render_backward(
+            scene, grad_in, **GRAD_FLAGSHIP)["__tables__"])
+    finally:
+        prb.table_grads, G.reduce_rows = table_grads, reduce_rows
+    g2, wall2, _p = _timed(lambda: mt.render_backward(
+        scene, grad_in, **GRAD_FLAGSHIP)["__tables__"])
+    _tables_equal("flagship render_backward, two calls", g1, g2)
+    print(f"flagship render_backward twice ({wall1:.3f} s with the capture, "
+          f"{wall2:.3f} s): tables bit-identical; bounce "
+          f"{GRAD_HELD_BOUNCE} reduced {len(held)} tables")
+    if not held:
+        raise AssertionError("no K8 call captured in the flagship backward")
+    calls = [hold_reduce_rows(G, g, idx, rows, f"flagship backward bounce "
+                              f"{GRAD_HELD_BOUNCE} table {i}")
+             for i, (g, idx, rows) in enumerate(held)]
+    del held, g1, g2
+
+    # 2. K8 on the texel case's four taps (regime (b)), and the texture
+    # gradients twice
+    nt, th, tw, C = TEXEL["atlas"]
+    n = TEXEL["lanes"]
+    rng = np.random.default_rng(37)
+    atlas = torch.from_numpy(rng.random(TEXEL["atlas"], dtype=np.float32)
+                             ).to(dev).requires_grad_()
+    tid = torch.from_numpy(rng.integers(0, nt, n).astype(np.int32)).to(dev)
+    uv = torch.from_numpy(rng.random((n, 2), dtype=np.float32)).to(dev)
+    size = torch.full((n,), float(th), device=dev)
+    tuv = torch.tensor([1.0, 1.0, 0.0, 0.0], device=dev).expand(n, 4)
+    cot = torch.from_numpy(rng.random((n, C), dtype=np.float32)).to(dev)
+    taps = []
+
+    def capture_all(g, idx, rows):
+        taps.append((g.clone(), idx.clone(), rows))
+        return reduce_rows(g, idx, rows)
+
+    G.reduce_rows = capture_all
+    try:
+        torch.autograd.grad(atlas_lookup(atlas, tid, size, size, tuv, uv),
+                            atlas, cot)
+    finally:
+        G.reduce_rows = reduce_rows
+    if len(taps) != 4:
+        raise AssertionError(f"the texel lookup reduced {len(taps)} taps")
+    texel = [hold_reduce_rows(G, g, idx, rows, f"texel tap {i}")
+             for i, (g, idx, rows) in enumerate(taps)]
+    del taps, atlas
+    for method in (None, "fullad"):
+        sc = mt.load_dict(cases.diff_case(mt, "texels"), device=dev)
+        adj = _grad_in(sc.sensors[0].film, np.random.default_rng(15))
+        a, b = (mt.render_backward(sc, adj, spp=16, seed=0,
+                                   method=method)["__tables__"]
+                for _ in range(2))
+        _tables_equal(f"texel {method or 'prb'} backward, two calls", a, b)
+    print("texel case render_backward (PRB and full AD) twice: tables "
+          "bit-identical")
+
+    # 3. phase 25's NLOS full AD, phase 28's volumetric PRB and phase 24's
+    # forward mode, twice each
+    nlos = mt.load_dict(cases.nlos_scene(sx=NLOS_SCAN, sy=NLOS_SCAN),
+                        device=dev)
+    mt.nlos.focus_emitter_at_relay_wall_pixel([NLOS_SCAN / 2] * 2, nlos)
+    adj = _grad_in(nlos.sensors[0].film, np.random.default_rng(14))
+    runs = [_timed(lambda: mt.render_backward(
+        nlos, adj, spp=NLOS["spp"], seed=0)["__tables__"]) for _ in range(2)]
+    _tables_equal("NLOS full AD, two calls", runs[0][0], runs[1][0])
+    print(f"NLOS single {NLOS_SCAN}x{NLOS_SCAN} full AD twice ("
+          f"{runs[0][1]:.3f} s, {runs[1][1]:.3f} s): tables bit-identical")
+    tut = mt.load_dict(cases.tutorial_cbox(mt), device=dev)
+    adj = _grad_in(tut.sensors[0].film, np.random.default_rng(21),
+                   steady=True)
+    runs = [_timed(lambda: mt.render_backward(
+        tut, adj, spp=VOL_GRAD["spp"], seed=0)["__tables__"])
+        for _ in range(2)]
+    _tables_equal("volumetric PRB, two calls", runs[0][0], runs[1][0])
+    print(f"volumetric tutorial PRB backward twice ({runs[0][1]:.3f} s, "
+          f"{runs[1][1]:.3f} s): tables bit-identical")
+    cfg = cases.FORWARD_TIME_GRADIENTS
+    fwd = mt.load_dict(cases.time_window_cbox(mt, cfg["res"], cfg["bins"]),
+                       device=dev)
+    tangent = {"green.reflectance.value": [1.0, 1.0, 1.0]}
+    runs = [_timed(lambda: mt.render_forward(fwd, tangent, spp=cfg["spp"],
+                                             seed=0)) for _ in range(2)]
+    _tables_equal("forward mode, two calls", runs[0][0], runs[1][0])
+    print(f"forward_time_gradients render_forward twice ({runs[0][1]:.3f} s, "
+          f"{runs[1][1]:.3f} s): videos bit-identical")
+    del runs
+
+    # 4. the gaussian temporal filter: its splat against its plain version,
+    # and flat_scene's gaussian-filtered renders card against CPU
+    gauss = check_gaussian_splat(mt, tf, dev)
+    for light in ("point", "area"):
+        out = [mt.render(mt.load_dict(cases.flat_scene(light), device=d),
+                         spp=64, seed=0) for d in (dev, "cpu")]
+        _tables_equal(f"flat_scene ({light}) gaussian render, card against "
+                      "CPU", out[0], out[1])
+        print(f"flat_scene ({light} light, gaussian temporal filter) render, "
+              "card against CPU: bit for bit")
+    return dict(calls=calls, texel=texel), gauss
+
+
+def port_only_rows(k8, gauss, phase_counts, gauss_counts):
+    """The kernels line's rows of K8 and the gaussian splat, the port's
+    own kernels: K8's launches in the flagship backward (phase 23), the
+    splat's in phase 14's gaussian-filtered render; each must have
+    launched there."""
+    def times(r, prefix=""):
+        return {f"{prefix}ms": r["ms"], f"{prefix}plain_ms": r["plain_ms"],
+                f"{prefix}bound_ms": r["bound"][0],
+                f"{prefix}bound_by": r["bound"][1],
+                f"{prefix}library_ms": r["library_ms"]}
+
+    def call(r):
+        return {"rows": r["rows"], "lanes": r["lanes"],
+                "channels": r["channels"], **times(r)}
+
+    # the row's own numbers: the held bounce's call onto the most rows
+    main = max(k8["calls"], key=lambda c: c["rows"])
+    tex = k8["texel"][0]
+    rows = [dict(
+        name="reduce_rows", route="cuda",
+        source="mitransient_tpu_torch/csrc/gather.cu",
+        replaces="mitransient_tpu/ops/gather.py:39",
+        launches=phase_counts["prb_backward"].get("reduce_rows", 0),
+        max_abs_err=max(c["max_abs_err"] for c in k8["calls"] + k8["texel"]),
+        **times(main),
+        volumetric_prb_backward_launches=phase_counts[
+            "volumetric_prb_backward"].get("reduce_rows", 0),
+        calls=[call(c) for c in k8["calls"]],
+        **times(tex, "texel_"), texel_calls=[call(c) for c in k8["texel"]]),
+        dict(name="splat_gaussian", route="cuda",
+             source="mitransient_tpu_torch/csrc/splat.cu",
+             replaces="mitransient_tpu/film/transient_film.py:213",
+             launches=gauss_counts.get("splat_accumulate", 0),
+             max_abs_err=gauss["max_abs_err"], **times(gauss),
+             sectors=gauss["sectors"], taps=gauss["taps"])]
+    for r in rows:
+        if not r["launches"]:
+            raise AssertionError(f"{r['name']} never launched on its path")
+    return rows
 
 
 def main() -> int:
@@ -3380,7 +3745,7 @@ def main() -> int:
     multipass, multipass_ref = render_multipass_flagship(
         mt, cases, dev, threefry_ms)
     render_multipass_goldens(mt, cases, dev)
-    multipass_card_against_cpu(mt, cases, dev)
+    gauss_counts = multipass_card_against_cpu(mt, cases, dev)
     check_resume(mt, cases, dev)
     nlos, nlos_held = render_nlos_single(mt, cases, dev)
     render_nlos_golden(mt, cases, dev)
@@ -3414,6 +3779,7 @@ def main() -> int:
                                                                 dev)
     phase_counts["sharded"] = multi_device_phase(mt, cases, dev,
                                                  multipass_ref)
+    k8, gauss = reproducibility_phase(mt, cases, dev)
     for r in rows:
         for phase, c in phase_counts.items():
             if r["name"] in ("closest_hit", "ray_test", "splat_accumulate"):
@@ -3472,6 +3838,7 @@ def main() -> int:
             if "library_ms" in h:
                 r.update({f"{prefix}_library_ms": h["library_ms"],
                           f"{prefix}_sectors": h["sectors"]})
+    rows += port_only_rows(k8, gauss, phase_counts, gauss_counts)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi.splitlines()[0])

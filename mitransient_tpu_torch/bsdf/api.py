@@ -33,6 +33,7 @@ from ..core.math import (
     stable_normalize,
 )
 from ..core.records import BSDFSample
+from ..ops.gather import gather_rows
 from ..core.warp import (
     square_to_cosine_hemisphere,
     square_to_cosine_hemisphere_pdf,
@@ -59,6 +60,8 @@ _COLUMNS = (
     ("eta_ratio", (BSDF_DIELECTRIC, BSDF_ROUGH_PLASTIC)),
     ("alpha_v", (BSDF_ROUGH_CONDUCTOR, BSDF_ROUGH_PLASTIC)),
 )
+# the columns that are DiffParams tables (read through ops.gather)
+_PARAM_COLUMNS = ("reflectance", "alpha", "alpha_v")
 
 
 class LaneBSDF(NamedTuple):
@@ -84,17 +87,20 @@ def gather_lane_bsdf(bp: BSDFParams, bsdf_id: torch.Tensor,
     skips the lookup."""
     i = torch.clamp_min(bsdf_id, 0)
 
-    def col(a):
-        return a.index_select(0, i)
+    def col(name):
+        a = getattr(bp, name)
+        # the parameter tables' gradients add in a fixed order (K8)
+        return (gather_rows(a, i) if name in _PARAM_COLUMNS
+                else a.index_select(0, i))
 
-    cols = {name: col(getattr(bp, name)) for name, kinds in _COLUMNS
+    cols = {name: col(name) for name, kinds in _COLUMNS
             if any(ks.has(k) for k in kinds)}
     if ks.any_two_sided:
-        cols["two_sided"] = col(bp.two_sided)
-    refl = col(bp.reflectance)
+        cols["two_sided"] = col("two_sided")
+    refl = col("reflectance")
     if uv is not None and bp.textures is not None:
         refl = _apply_texture(bp, i, refl, uv)
-    return LaneBSDF(kind=torch.where(bsdf_id >= 0, col(bp.kind), -1),
+    return LaneBSDF(kind=torch.where(bsdf_id >= 0, col("kind"), -1),
                     reflectance=refl, ks=ks, **cols)
 
 

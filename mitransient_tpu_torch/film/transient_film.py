@@ -22,12 +22,16 @@ kernel ``ops/splat_pallas.py``.
   into a film whose pixel axis is any flat layout of slots (the exhaustive
   NLOS capture's laser x scan-pixel slots).
 * ``temporal_filter='gaussian'`` spreads each event over a +-3 sigma window
-  of bins with normalized Gaussian weights (:func:`_splat_gaussian`); like
-  the JAX package, which takes its XLA scatter for it on every backend, it
-  adds through a plain ``index_add_``, which autograd differentiates.
+  of K bins with normalized Gaussian weights (:func:`gaussian_taps`), laid
+  out as spp * K lanes of K3's events, and adds them through
+  :class:`SplatEvents`: every film cell adds its taps in lane order, a
+  lane's in tap order, as the JAX package's XLA scatter and the plain
+  version's ``index_add_`` on the CPU do; so this film too is the same on
+  every run and on both devices.
 * The steady image accumulates the per-lane total L once per pass as a
   dense spp-axis reduction (:func:`splat_steady`), or under a gaussian
-  spatial filter (:func:`splat_steady_gaussian`).
+  spatial filter (:func:`splat_steady_gaussian`), both in the fixed order
+  of :func:`sum_rows`.
 * ``*_any`` dispatch on the film kind: the transient histogram here, the
   phasor film of ``film/phasor_film.py``.
 """
@@ -40,8 +44,9 @@ from typing import NamedTuple
 import torch
 from torch.autograd.graph import increment_version
 
-from ..core.math import divide
+from ..core.math import divide, exp
 from ..kernels import _build
+from ..ops.gather import sum_rows
 from ..scene.schema import FilmConfig
 
 
@@ -98,11 +103,14 @@ def splat_transient_pair(
     if cfg.warn_negative or cfg.warn_invalid:
         state = _count_suspect(state, cfg, val_a, val_b, active)
     if temporal_filter == "gaussian":
-        for dist, val in ((dist_a, val_a), (dist_b, val_b)):
-            if dist is not None:
-                _splat_gaussian(state.transient, cfg, dist, val, active,
-                                gaussian_stddev)
-        return state
+        taps = [gaussian_taps(cfg, dist, val, active, gaussian_stddev, spp)
+                for dist, val in ((dist_a, val_a), (dist_b, val_b))
+                if dist is not None]
+        (bins_a, vals_a), (bins_b, vals_b) = (taps + [(None, None)])[:2]
+        lanes = bins_a.shape[0] // state.transient.shape[-1]  # spp * K
+        film = SplatEvents.apply(state.transient, bins_a, vals_a, bins_b,
+                                 vals_b, lanes)
+        return state._replace(transient=film)
     bins_a, _ = time_bin(cfg, dist_a)
     va = torch.where(active[:, None], val_a, 0.0)
     bins_b = vb = None
@@ -133,29 +141,33 @@ def splat_transient_flat(
     return state._replace(transient=film)
 
 
-def _splat_gaussian(film, cfg: FilmConfig, distance, value, active,
-                    sigma) -> None:
-    """Add one event set into ``film`` (C, T + 1, HW) in place, each event
-    spread over the bins within ``ceil(3 sigma)`` of its own with
-    normalized Gaussian weights; bins outside the film go to the overflow
-    bin T.  A plain ``index_add_``: on the CPU it adds in index order, on
-    the card by atomics, so there this film is not bit-reproducible."""
-    value = torch.where(active[:, None], value, 0.0)
+def gaussian_taps(cfg: FilmConfig, distance, value, active, sigma,
+                  spp: int):
+    """One event set (N = spp * HW spp-major lanes) under the gaussian
+    temporal filter, as K3's events: each event spread over the K = 2
+    ceil(3 sigma) + 1 bins around its own with normalized Gaussian
+    weights, bins outside the film sent to the overflow bin T -> (bins
+    (spp * K * HW,) int32, values (spp * K * HW, C)), where lane (s * K +
+    k) * HW + p holds tap k of lane s of pixel p.  K3 at spp * K lanes
+    therefore adds each film cell's taps in lane order and a lane's in tap
+    order, the order of the JAX package's scatter.  The weights go through
+    ``core.math.exp`` and are normalized by a :func:`sum_rows` over the
+    taps, so that they round alike on the card and on the CPU."""
+    n, C = value.shape
+    hw = n // spp
+    value = torch.where(active[:, None], value, 0.0).reshape(spp, 1, hw, C)
     radius = max(1, int(math.ceil(3.0 * sigma)))
-    pos = divide(distance - cfg.start_opl, cfg.bin_width_opl)
+    pos = divide(distance - cfg.start_opl, cfg.bin_width_opl).reshape(
+        spp, 1, hw)
     offs = torch.arange(-radius, radius + 1, dtype=torch.float32,
-                        device=film.device)
-    b = torch.floor(pos)[:, None] + offs[None, :]
-    w = torch.exp(-0.5 * divide(b + 0.5 - pos[:, None], sigma) ** 2)
-    w = w / torch.clamp_min(w.sum(dim=-1, keepdim=True), 1e-20)
+                        device=value.device)
+    b = torch.floor(pos) + offs[None, :, None]  # (spp, K, HW)
+    x = divide(b + 0.5 - pos, sigma)
+    w = exp(-0.5 * (x * x))
+    w = w / torch.clamp_min(sum_rows(w.transpose(0, 1)), 1e-20)[:, None]
     ok = (b >= 0) & (b < cfg.temporal_bins)
-    bins = torch.where(ok, b, float(cfg.temporal_bins)).to(torch.int64)
-    n, k = bins.shape
-    pix = (torch.arange(n, device=film.device)
-           % film.shape[-1])[:, None].expand(n, k)
-    vals = value[:, None, :] * w[:, :, None]  # (N, K, C)
-    _scatter_cells(film, pix.reshape(-1), bins.reshape(-1),
-                   vals.reshape(n * k, -1))
+    bins = torch.where(ok, b, float(cfg.temporal_bins)).to(torch.int32)
+    return bins.reshape(-1), (value * w[..., None]).reshape(-1, C)
 
 
 def splat_pair_any(state, cfg: FilmConfig, spp, dist_a, val_a, dist_b, val_b,
@@ -354,18 +366,6 @@ def check_pixel_slab(channels: int, t_pad: int) -> None:
             "bytes of shared memory")
 
 
-def sum_rows(x: torch.Tensor) -> torch.Tensor:
-    """The sum over the leading axis of ``x`` in a fixed pairwise order,
-    the same on every device: ``torch.sum``'s order depends on the device
-    and the shape, which parts the card's steady image from the CPU's in
-    the last bits."""
-    while x.shape[0] > 1:
-        h = x.shape[0] // 2
-        y = x[:h] + x[h:2 * h]
-        x = torch.cat([y, x[2 * h:]]) if x.shape[0] % 2 else y
-    return x[0]
-
-
 def splat_steady(state, spp: int, value: torch.Tensor, weight: torch.Tensor):
     """Add a pass's per-lane radiance ``value`` (N, C), spp-major, with
     filter weights ``weight`` (N,) (box: 1) into the steady image: a dense
@@ -384,8 +384,9 @@ def splat_steady_gaussian(state, h: int, w: int, spp: int,
     (Mitsuba's ``gaussian`` rfilter: exp(-x^2/2s^2) - exp(-r^2/2s^2), radius
     r = 4s).  ``jitter`` (N, 2) is each lane's position inside its pixel.
     For each integer pixel offset the pass's weighted contributions are
-    reduced over the spp axis, then added into the image shifted by that
-    offset."""
+    reduced over the spp axis (:func:`sum_rows`), then added into the
+    image shifted by that offset.  The weights go through
+    ``core.math.exp``, so that they round alike on the card and the CPU."""
     radius = max(1, int(math.ceil(4.0 * stddev)))
     C = value.shape[-1]
     v = (value * weight[:, None]).reshape(spp, h, w, C)
@@ -401,11 +402,11 @@ def splat_steady_gaussian(state, h: int, w: int, spp: int,
             # from the sample (px + jx) to the centre of pixel px + dx
             ox = (dx + 0.5) - jx
             oy = (dy + 0.5) - jy
-            fx = torch.clamp_min(torch.exp(-ox * ox / two_s2) - cut, 0.0)
-            fy = torch.clamp_min(torch.exp(-oy * oy / two_s2) - cut, 0.0)
+            fx = torch.clamp_min(exp(divide(-ox * ox, two_s2)) - cut, 0.0)
+            fy = torch.clamp_min(exp(divide(-oy * oy, two_s2)) - cut, 0.0)
             f = fx * fy
-            contrib = (v * f[..., None]).sum(dim=0)  # (h, w, C)
-            wsum = (wg * f).sum(dim=0)
+            contrib = sum_rows(v * f[..., None])  # (h, w, C)
+            wsum = sum_rows(wg * f)
             ys = slice(max(dy, 0), h + min(dy, 0))
             yd = slice(max(-dy, 0), h + min(-dy, 0))
             xs = slice(max(dx, 0), w + min(dx, 0))

@@ -24,10 +24,11 @@ vertex at ``bin(distance)`` for the whole Lo; sampling is detached (delta
 lobes get no gradient through the indirect term); ``L_rest`` is peeled
 per vertex.
 
-The table gradients are the backward of ``index_select`` (the BSDF, emitter
-and texture gathers): on the card an ``index_add_`` of every lane onto a
-few table rows, by atomics, so not bit-reproducible there.  The JAX
-package transposes a one-hot matmul instead (its ``prb.py:20-22``).
+The table gradients are the backward of ``ops.gather.gather_rows`` (the
+BSDF, emitter and texture gathers): every lane's cotangent summed onto its
+table row in a fixed order, by kernel K8 on the card, so that they are the
+same on every run and the card's equal the CPU's wherever the sweeps do.
+The JAX package transposes a one-hot matmul instead (its ``prb.py:20-22``).
 """
 from __future__ import annotations
 

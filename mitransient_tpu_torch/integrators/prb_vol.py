@@ -34,6 +34,7 @@ from ..core.math import dot, replace_grad
 from ..core.records import Ray
 from ..core.rng import draw_bounce_block
 from ..ops.bvh import BVH_MODE
+from ..ops.gather import gather_rows
 from ..scene.scene import SceneData, emitter_eval_direction, emitter_eval_hit
 from ..scene.schema import FilmConfig, IntegratorConfig
 from .prb import (
@@ -118,13 +119,13 @@ def sample_volpath_adjoint(
                                            sd.bsdf_kinds)
             albedo = torch.where(
                 v.in_medium[:, None],
-                theta.medium_albedo.index_select(0, m_idx), 1.0)
+                gather_rows(theta.medium_albedo, m_idx), 1.0)
             beta_evt = torch.where(ms[:, None], beta_pre * albedo, beta_pre)
             if grids:  # the tracking chain stays detached
                 trans = v.trans
             else:
                 sigma_t = torch.where(
-                    v.in_medium, theta.medium_sigma_t.index_select(0, m_idx),
+                    v.in_medium, gather_rows(theta.medium_sigma_t, m_idx),
                     0.0)
                 ff_ratio = survival_ratio(sigma_t, v.t_event, ms,
                                           v.in_medium, v.hit)

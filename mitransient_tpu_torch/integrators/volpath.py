@@ -46,7 +46,8 @@ the NEE transmittance is attached through sigma_t.  The JAX loop counts
 rays in float32; this one counts them in int64, by the same rule (1 +
 ``TRANSMITTANCE_STEPS`` per active lane a bounce).  Where the JAX
 package gathers table rows by one-hot matmuls (``columns_lookup``),
-this uses ``index_select``.
+this uses ``index_select``, and ``ops.gather.gather_rows`` for the
+albedo and extinction tables, whose gradients it adds in a fixed order.
 """
 from __future__ import annotations
 
@@ -69,6 +70,7 @@ from ..core.spectra import N_WL, SpectralCtx
 from ..core.warp import hg_pdf, square_to_hg
 from ..film.transient_film import splat_pair_any
 from ..ops.bvh import BVH_MODE
+from ..ops.gather import gather_rows
 from ..scene.scene import (
     BSDF_NULL,
     SceneData,
@@ -181,7 +183,7 @@ def delta_track_flight(sd: SceneData, key, tag: int, med_id, in_medium, o,
     n = med_id.shape[0]
     m = torch.clamp_min(med_id, 0)
     maj = torch.where(in_medium, sd.medium.majorant.index_select(0, m), 0.0)
-    scale = sd.medium.sigma_t.index_select(0, m)
+    scale = gather_rows(sd.medium.sigma_t, m)
     walk = active & in_medium & (maj > 0.0)
     inf = torch.full((n,), float("inf"), dtype=torch.float32,
                      device=o.device)
@@ -210,7 +212,7 @@ def segment_transmittance(sd: SceneData, key, tag: int, med_id, o, d, seg,
     m = torch.clamp_min(med_id, 0)
     in_medium = med_id >= 0
     if not has_grids(sd):
-        sigma_t = torch.where(in_medium, sd.medium.sigma_t.index_select(0, m),
+        sigma_t = torch.where(in_medium, gather_rows(sd.medium.sigma_t, m),
                               0.0)
         return exp(-sigma_t * torch.where(active, seg, 0.0))
     n = med_id.shape[0]
@@ -219,7 +221,7 @@ def segment_transmittance(sd: SceneData, key, tag: int, med_id, o, d, seg,
     ones = torch.ones((n,), dtype=torch.float32, device=o.device)
     if not bool(walk.any()):
         return ones
-    scale = sd.medium.sigma_t.index_select(0, m)
+    scale = gather_rows(sd.medium.sigma_t, m)
     u = tracking_draw(key, tag, n, (RATIO_STEPS,), o.device)
     t = torch.zeros((n,), dtype=torch.float32, device=o.device)
     T = ones
@@ -240,8 +242,8 @@ def medium_lookup(sd: SceneData, med_id: torch.Tensor):
     med = sd.medium
     i = torch.clamp_min(med_id, 0)
     in_medium = med_id >= 0
-    sigma_t = torch.where(in_medium, med.sigma_t.index_select(0, i), 0.0)
-    return (sigma_t, med.albedo.index_select(0, i), med.g.index_select(0, i),
+    sigma_t = torch.where(in_medium, gather_rows(med.sigma_t, i), 0.0)
+    return (sigma_t, gather_rows(med.albedo, i), med.g.index_select(0, i),
             in_medium)
 
 
@@ -303,7 +305,7 @@ def segments_transmittance(sigma_t_table: torch.Tensor, segs) -> torch.Tensor:
     T = None
     for med, seg, walking in segs:
         sigma_t = torch.where(
-            med >= 0, sigma_t_table.index_select(0, torch.clamp_min(med, 0)),
+            med >= 0, gather_rows(sigma_t_table, torch.clamp_min(med, 0)),
             0.0)
         T_seg = torch.where(walking, exp(-sigma_t * torch.where(walking, seg,
                                                                  0.0)), 1.0)

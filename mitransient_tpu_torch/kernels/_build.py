@@ -42,11 +42,14 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_int64
 # C entry points of csrc/*.cu: name -> argtypes (all return int cudaError_t)
 _SIGNATURES = {
     "mitr_closest_hit": (_P, _I, _P, _P, _P, _P, _I, _P, _P, _P),
     "mitr_ray_test": (_P, _I, _P, _P, _P, _P, _I, _P, _P),
     "mitr_splat_accumulate": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+    "mitr_reduce_rows_tiles": (_P, _P, _L, _I, _I, _P, _P, _P, _P),
+    "mitr_reduce_rows_runs": (_P, _P, _I, _L, _P, _I, _P, _P),
     "mitr_bvh_query": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                        _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
 }

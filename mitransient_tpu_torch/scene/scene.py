@@ -5,9 +5,12 @@ the chunked acceleration structure of ``ops/accel.py`` above 4096
 triangles, the BSDF table with its texture and bump-map atlases, and the
 area, angulararea, projector and point emitters.  Everything the device
 touches lives in :class:`SceneData`, a NamedTuple of flat tensors on one
-device.  Row lookups are plain ``index_select`` gathers; the JAX package's
-one-hot matmuls (``ops/gather.py``) were a TPU workaround and give the
-same values.  The emitter queries compute only the branches of the emitter
+device.  Row lookups of the tables that carry a gradient (the BSDF
+reflectance, texels, emitter radiance and position, shape poses) go
+through ``ops.gather.gather_rows``, whose backward adds the lanes onto the
+rows in a fixed order (kernel K8 on the card); the other tables' are
+plain ``index_select`` gathers.  The JAX package's one-hot matmuls
+(``ops/gather.py``) were a TPU workaround and give the same values.  The emitter queries compute only the branches of the emitter
 kinds the scene holds (``SceneData.emitter_kinds``), and the BSDF code only
 the lobes of the BSDF kinds it holds (``SceneData.bsdf_kinds``): the JAX
 package's static ``KindsStatic``.
@@ -42,6 +45,7 @@ from ..core.math import (
 from ..core.records import DirectionSample, Ray, SurfaceInteraction
 from ..ops.bvh import BVH_MODE
 from ..ops.accel import TREE_FIELDS, Accel
+from ..ops.gather import gather_rows
 from ..ops.intersect import closest_hit as _closest_hit_q
 from ..ops.intersect import ray_test as _ray_test_q
 
@@ -268,7 +272,7 @@ def geom_delta_of(geom: GeomParams, shape_ids: torch.Tensor) -> GeomDelta:
     lane.  The angle is clamped at 1e-6 and small angles take the Taylor
     forms, so the gradient stays finite at zero."""
     idx = torch.clamp_min(shape_ids, 0)
-    w = geom.rotate.index_select(0, idx)
+    w = gather_rows(geom.rotate, idx)
     theta2 = dot(w, w)
     theta = sqrt(torch.clamp_min(theta2, 1e-12))
     cos_t, sin_t = cos_sin(theta)
@@ -276,7 +280,7 @@ def geom_delta_of(geom: GeomParams, shape_ids: torch.Tensor) -> GeomDelta:
     a = torch.where(small, 1.0 - divide(theta2, 6.0), sin_t / theta)
     b = torch.where(small, 0.5 - divide(theta2, 24.0),
                     (1.0 - cos_t) / torch.clamp_min(theta2, 1e-12))
-    return GeomDelta(w=w, a=a, b=b, tr=geom.translate.index_select(0, idx),
+    return GeomDelta(w=w, a=a, b=b, tr=gather_rows(geom.translate, idx),
                      piv=geom.pivot.index_select(0, idx))
 
 
@@ -397,7 +401,7 @@ def atlas_lookup(atlas: torch.Tensor, tid: torch.Tensor, h: torch.Tensor,
         # floor modulo (jnp.mod): the to_uv offsets give negative texels
         xi = torch.remainder(xi, w).to(torch.int64)
         yi = torch.remainder(yi, h).to(torch.int64)
-        return flat.index_select(0, (base + yi) * tw + xi)
+        return gather_rows(flat, (base + yi) * tw + xi)
 
     c00 = tap(x0, y0)
     c10 = tap(x0 + 1.0, y0)
@@ -552,7 +556,7 @@ def sample_emitter_direction(
     sel_pdf = 1.0 / E
     if has_delta:
         is_delta = is_delta_kind(em.kind.index_select(0, em_idx))
-        p_delta = em.position.index_select(0, em_idx)
+        p_delta = gather_rows(em.position, em_idx)
         n_delta = -em.direction.index_select(0, em_idx)
     else:
         is_delta = torch.zeros((n,), dtype=torch.bool, device=dev)
@@ -609,7 +613,7 @@ def emitter_eval_direction(sd: SceneData, em_idx: torch.Tensor,
     frustum; a point's intensity / dist^2.  (N, C).  ``p`` and ``n_em``
     are unused by these kinds; they keep the JAX signature."""
     em = sd.emitter
-    rad = em.radiance.index_select(0, em_idx)
+    rad = gather_rows(em.radiance, em_idx)
     front = (cos_em > 0.0)[:, None]
     branches = []  # (kind code, value)
     if _has(sd, EM_AREA):

@@ -1,5 +1,5 @@
-"""CUDA kernels of the PyTorch port (K1-K3 and the BVH kernel) against
-their plain versions.
+"""CUDA kernels of the PyTorch port (K1-K3, the BVH kernel, K8 and the
+gaussian temporal filter's splat) against their plain versions.
 
 Every test is marked ``cuda`` and skips without an NVIDIA GPU.  This file
 imports neither jax nor the JAX package, so on a machine with only PyTorch
@@ -14,7 +14,11 @@ rays overflow the queue in either mode, and on an Accel with more chunks
 than super mode once staged in shared memory).  The plain splat adds with
 atomics on the card (order varies), so against it the film is held to
 1e-6 of its maximum; against the plain version on the host CPU, which adds
-in lane order as K3 does, it must be bit-equal.
+in lane order as K3 does, it must be bit-equal.  K8 (the table-gradient
+reduction) and the gaussian splat follow their plain versions' order, so
+against them run on the host CPU they must be bit-equal too, and two
+``render_backward`` calls on the card must give the same tables bit for
+bit.
 """
 import numpy as np
 import pytest
@@ -602,8 +606,8 @@ def _tables_close(got, want, what):
 def test_differentiation_on_cuda_matches_cpu(cuda, method):
     """render_backward (PRB and full AD) and render_forward of the test_grad
     box on the card against the CPU: the table gradients within 1e-4 of
-    their largest value (the table-gradient reductions add by atomics on
-    the card), the derivative video under the golden rule; K1 and K2 run
+    their largest value (the card and the CPU may round a sweep apart),
+    the derivative video under the golden rule; K1 and K2 run
     in both sweeps, and K3 wherever a film is splatted (full AD's film,
     the forward replay's derivative film)."""
     from torch_cases import grad_cbox
@@ -707,8 +711,146 @@ def test_variant_gradients_on_cuda_match_cpu(cuda, name):
     """Variant gradients (``torch_cases.variant_grad_case``: polarized NLOS
     and fog through full AD, the spectral fog through the PRB replay) on
     the card against the CPU, within 1e-4 of each table's largest value
-    (the table-gradient reductions add by atomics on the card)."""
+    (the card and the CPU may round a sweep apart)."""
     grads = {str(dev): run_variant_case(mt, "grad", name, device=dev)
              for dev in ("cpu", cuda)}
     _tables_close(grads[str(cuda)]["__tables__"], grads["cpu"]["__tables__"],
                   name)
+
+
+def _bit_equal(a, b):
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows, lanes, channels, one_row", [
+    (1, 5, 3, False), (8, 1 << 20, 3, False), (27, 200003, 1, True),
+    (128, 3 * 1024 + 5, 12, False), (129, 100000, 4, False),
+    (4096, 1 << 20, 3, False), (65536, 1 << 22, 3, False),
+    (4096, 300000, 3, True),
+    (2, 13_000_000, 1, False)])  # more tiles than one block sums at once
+def test_reduce_rows_kernel_is_bit_equal_to_cpu_plain(cuda, rows, lanes,
+                                                       channels, one_row):
+    """K8 in both regimes (up to 128 rows: tiles; above: sorted runs) is
+    bit-equal to its plain version on the host CPU; one launch a call."""
+    from mitransient_tpu_torch.ops import gather as G
+
+    rng = np.random.default_rng(rows + lanes + channels)
+    g = torch.from_numpy(rng.normal(size=(lanes, channels)).astype(np.float32))
+    idx = torch.from_numpy((np.full(lanes, rows // 2) if one_row else
+                            rng.integers(0, rows, lanes)).astype(np.int64))
+    reset_launch_counts()
+    got = G.reduce_rows(g.to(cuda), idx.to(cuda), rows)
+    torch.cuda.synchronize()
+    assert launch_counts() == {"reduce_rows": 1}
+    assert _bit_equal(got.cpu(), G.reduce_rows(g, idx, rows))
+
+
+@pytest.mark.cuda
+def test_gather_rows_backward_launches_k8(cuda):
+    """gather_rows' backward on the card goes through K8 and equals the
+    CPU's bit for bit; its forward and jvp launch nothing."""
+    from mitransient_tpu_torch.ops import gather as G
+
+    rng = np.random.default_rng(4)
+    table = torch.from_numpy(rng.normal(size=(6, 3)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(0, 6, 5000))
+    g = torch.from_numpy(rng.normal(size=(5000, 3)).astype(np.float32))
+    grads = []
+    for dev in ("cpu", cuda):
+        t = table.to(dev).requires_grad_()
+        reset_launch_counts()
+        out = G.gather_rows(t, idx.to(dev))
+        assert launch_counts() == {}
+        grads.append(torch.autograd.grad(out, t, g.to(dev))[0].cpu())
+    assert launch_counts() == {"reduce_rows": 1}
+    assert _bit_equal(grads[1], grads[0])
+
+
+@pytest.mark.cuda
+def test_render_backward_on_cuda_is_reproducible(cuda):
+    """Two render_backward calls on the card give the same tables bit for
+    bit (PRB, full AD) and forward mode the same video; the PRB backward
+    launches K8 and no table gradient reaches index_add_."""
+    from torch_cases import grad_cbox
+
+    adjoint = (None, np.random.default_rng(3).uniform(
+        0.0, 1.0, (8, 8, 100, 3)).astype(np.float32))
+    scene = mt.load_dict(grad_cbox(mt, 8, 8, 100, 3), device=cuda)
+    for method in (None, "fullad"):
+        runs = []
+        for _ in range(2):
+            reset_launch_counts()
+            runs.append(mt.render_backward(scene, adjoint, spp=8, seed=0,
+                                           method=method)["__tables__"])
+            assert launch_counts().get("reduce_rows", 0) > 0, method
+        for f in runs[0]._fields:
+            a, b = getattr(runs[0], f), getattr(runs[1], f)
+            assert (a is None) == (b is None)
+            if a is not None:
+                assert _bit_equal(a, b), (method, f)
+    videos = [mt.render_forward(scene, {"white.reflectance.value":
+                                        [1.0, 0.5, 0.25]}, spp=8, seed=0)
+              for _ in range(2)]
+    for a, b in zip(*videos):
+        assert _bit_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sigma, channels, two_sets", [
+    (2.0, 3, True), (0.5, 1, False), (1.5, 4, True)])
+def test_gaussian_splat_kernel_is_bit_equal_to_cpu_plain(cuda, sigma,
+                                                         channels, two_sets):
+    """The gaussian temporal filter's splat (``gaussian_taps`` through K3 at
+    spp * K lanes, one launch for both tap sets) is bit-equal to its plain
+    version on the host CPU, taps made on the card included; SplatEvents'
+    backward and jvp on the card equal the CPU's."""
+    from torch.autograd import forward_ad as fwAD
+
+    from mitransient_tpu_torch.scene.schema import FilmConfig
+
+    rng = np.random.default_rng(int(sigma * 10) + channels)
+    spp, hw, T = 6, 1000, 120
+    cfg = FilmConfig(width=hw, height=1, temporal_bins=T, start_opl=1.0,
+                     bin_width_opl=0.02)
+    n = spp * hw
+    taps, dev_taps = [], []
+    for _ in range(2 if two_sets else 1):
+        dist = torch.from_numpy(rng.uniform(0.9, 3.6, n).astype(np.float32))
+        val = torch.from_numpy(rng.random((n, channels)).astype(np.float32))
+        act = torch.from_numpy(rng.random(n) > 0.1)
+        taps += list(tf.gaussian_taps(cfg, dist, val, act, sigma, spp))
+        dev_taps += list(tf.gaussian_taps(
+            cfg, dist.to(cuda), val.to(cuda), act.to(cuda), sigma, spp))
+    assert all(_bit_equal(a.cpu(), b) for a, b in zip(dev_taps, taps))
+    taps += [None] * (4 - len(taps))
+    dev_taps += [None] * (4 - len(dev_taps))
+    lanes = taps[0].shape[0] // hw
+    shape = (channels, T + 1, hw)
+    ref = torch.zeros(shape)
+    tf.splat_accumulate(ref, *taps, spp=lanes)
+    reset_launch_counts()
+    film = torch.zeros(shape, device=cuda)
+    tf.splat_accumulate(film, *dev_taps, spp=lanes)
+    torch.cuda.synchronize()
+    assert launch_counts() == {"splat_accumulate": 1}
+    assert _bit_equal(film.cpu(), ref)
+    # the Function's rules, card against CPU
+    w = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    grads = []
+    for dev, tp in (("cpu", taps), (cuda, dev_taps)):
+        v = tp[1].clone().requires_grad_()
+        out = tf.SplatEvents.apply(torch.zeros(shape, device=dev), tp[0],
+                                   v * 1.0, tp[2], tp[3], lanes)
+        grads.append(torch.autograd.grad((out * w.to(dev)).sum(), v)[0].cpu())
+    assert _bit_equal(grads[1], grads[0])
+    tan = torch.from_numpy(rng.normal(size=taps[1].shape).astype(np.float32))
+    tangents = []
+    with fwAD.dual_level():
+        for dev, tp in (("cpu", taps), (cuda, dev_taps)):
+            out = tf.SplatEvents.apply(
+                torch.zeros(shape, device=dev), tp[0],
+                fwAD.make_dual(tp[1], tan.to(dev)), tp[2], tp[3], lanes)
+            tangents.append(fwAD.unpack_dual(out).tangent.cpu())
+    assert _bit_equal(tangents[1], tangents[0])

@@ -122,7 +122,7 @@ def test_kernel_library_name_tracks_sources():
     from mitransient_tpu_torch.kernels import _build
 
     names = sorted(p.name for p in _build.sources())
-    assert names == ["bvh.cu", "intersect.cu", "splat.cu"]
+    assert names == ["bvh.cu", "gather.cu", "intersect.cu", "splat.cu"]
     p1 = _build.library_path()
     assert p1 == _build.library_path()
     assert p1.parent == _build.BUILD_DIR and p1.suffix == ".so"
