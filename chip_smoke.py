@@ -301,9 +301,19 @@ Phases, each of which raises on failure:
     of the flagship ``render_backward`` (2^23 lanes), phase 25's NLOS full
     AD, phase 28's volumetric PRB, phase 24's forward mode and the texel
     case's PRB and full AD, their tables (or videos) bit-identical; the
-    gaussian temporal filter's splat (K3 at spp x K lanes) bit-equal to its
-    plain version on the host CPU on two 2^21-lane sets of 13 taps into
-    (3, 301, 65536), timed with its bound and ``index_add_``; the
+    textured flagship backward (``cornell_box()`` with
+    ``torch_cases.CHECKER_FLOOR`` as the floor's BSDF, at ``GRAD_FLAGSHIP``)
+    twice, its tables bit-identical, and K8 on its replay bounce's four
+    atlas taps (the untextured lanes all read row 0: one run of millions),
+    each with its runs (rows hit, the longest run, the share of lanes in
+    runs longer than ``K8_LONG_RUN``); K8's worst cases ``K8_WORST``
+    (2^23 lanes x 3 onto 4,096 rows, 3/4 of them on one row, against the
+    same lanes uniform; onto 128 rows uniform, about 32 rows a warp), each
+    bit-equal to its plain version on the host CPU, timed with its bound
+    and ``index_add_``; the gaussian temporal filter's splat (K3 at spp x
+    K lanes) bit-equal to its plain version on the host CPU on two
+    2^21-lane sets of 13 taps into (3, 301, 65536), timed with its bound
+    and ``index_add_``; the
     gaussian-filtered ``torch_cases.flat_scene`` render bit for bit card
     against CPU.
 
@@ -335,9 +345,12 @@ capture's, ``pol_nlos_*``, and K3 on the variant tutorials' events,
 ``pol_vol_launches`` and ``variant_fullad_launches`` (the polarized
 cbox's full AD), and the sharded flagship's, ``sharded_launches``; K8's
 in the flagship backward (``launches``) and the volumetric PRB backward,
-and on each held input, ``calls``; the gaussian splat's in phase 14's
-gaussian render; K3 also its Function's ``backward_max_abs_err``,
-``jvp_max_abs_err``, at 4 and 12 channels ``stokes_fn_*_max_abs_err``,
+and on each held input, ``calls``, the textured backward's taps,
+``textured_calls``, and ``K8_WORST``, ``worst_calls`` (each with its
+runs and its time as a CUDA graph, ``device_ms``), and both backwards'
+walls, ``backward_s`` and ``textured_backward_s``; the gaussian
+splat's in phase 14's gaussian render; K3 also its Function's
+``backward_max_abs_err``, ``jvp_max_abs_err``, at 4 and 12 channels ``stokes_fn_*_max_abs_err``,
 and the backward gather's ``gather_*`` times), and
 ``{"ok": true,
 "device": {...}}``.  Without a CUDA device, or without the
@@ -387,9 +400,19 @@ GRAD_TABLE_ATOL = 1e-4
 # spp 64 = 2^18 lanes, four bilinear taps each) into the staircase's atlas
 # as tests/test_textures.py bounds it (5 textures of at most 512 x 512)
 TEXEL = dict(lanes=1 << 18, atlas=(5, 512, 512, 3))
+# K8's worst cases (phase 37): regime (b) with one long run (a share of
+# the lanes on row 0, the rest uniform), the same lanes uniform, and
+# regime (a) at its most rows, uniform
+K8_WORST = (dict(name="long run", lanes=1 << 23, channels=3, rows=4096,
+                 share=0.75),
+            dict(name="uniform", lanes=1 << 23, channels=3, rows=4096,
+                 share=0.0),
+            dict(name="many rows", lanes=1 << 23, channels=3, rows=128,
+                 share=0.0))
+K8_LONG_RUN = 1024  # phase 37's run statistics: the lanes in longer runs
 # the kernels of csrc/gather.cu (K8), as the profiler names them
 K8_KERNELS = ("tile_partials_kernel", "sum_tiles_kernel", "halve_kernel",
-              "run_tree_kernel")
+              "run_bounds_kernel", "run_chunks_kernel", "run_levels_kernel")
 GAUSSIAN_SIGMA = 2.0  # 2 ceil(3 sigma) + 1 = 13 taps a lane
 # card-against-CPU gradient comparisons whose tables are bit for bit alike
 # (measured 0 on an H100; the others, within 1.12e-7 there, take a full-AD
@@ -470,6 +493,51 @@ def _time_ms(fn, reps=TIMING_REPS, warmup=3, batches=TIMING_BATCHES):
         b.synchronize()
         times.append(a.elapsed_time(b) / reps)
     return statistics.median(times)
+
+
+def _graph_ms(fn):
+    """Milliseconds of the card's work in one call of ``fn``: ``fn``
+    captured in a CUDA graph and the graph replayed as ``_time_ms`` calls
+    a function, so that no host work of the call is timed."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # the allocator's warm-up, as torch asks
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return _time_ms(graph.replay)
+
+
+def _device_times(fn, reps=10):
+    """{kernel: ms} of the card's time one call of ``fn`` spends in each
+    kernel (torch.profiler over ``reps`` calls), largest first.  Profiled
+    twice and the first session dropped: the first session after the
+    profiles of earlier phases was seen to miss most kernels (one of
+    three on an H100)."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    by = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            m = re.search(r"([A-Za-z_]\w*)\s*[<(]",
+                          e.name.replace("void ", ""))
+            name = m.group(1) if m else e.name[:40]
+            by[name] = by.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return {k: v / reps for k, v in sorted(by.items(), key=lambda kv: -kv[1])}
 
 
 def _bound(n_bytes, n_ops):
@@ -3434,34 +3502,229 @@ def multi_device_phase(mt, cases, dev, flagship):
     return counts
 
 
-def hold_reduce_rows(G, g, idx, rows, label):
+def run_stats(idx, rows):
+    """The runs of one K8 call's indices: the rows hit, the longest run
+    and the share of the lanes in runs longer than ``K8_LONG_RUN``."""
+    import torch
+
+    counts = torch.bincount(idx.to(torch.int64), minlength=rows)
+    return dict(rows_hit=int((counts > 0).sum()), longest=int(counts.max()),
+                long_share=float(counts[counts > K8_LONG_RUN].sum())
+                / idx.numel())
+
+
+def hold_reduce_rows(G, g, idx, rows, label, check=True, reps=None,
+                     breakdown=False):
     """K8 on one call's cotangents ``g`` (N, C) and indices ``idx`` onto
-    ``rows`` rows against its plain version on the host CPU, bit for bit;
-    the kernel's, the plain version's (on the card) and one
-    ``index_add_``'s ms; the bound: the cotangents and indices read once
-    and the table written once, one add a cotangent element."""
+    ``rows`` rows against its plain version on the host CPU, bit for bit
+    (unless ``check`` is false); the kernel's, the plain version's (on the
+    card) and one ``index_add_``'s ms (the last two ``reps`` calls a batch
+    where given); the bound: the cotangents and indices read once
+    and the table written once, one add a cotangent element; with
+    ``breakdown``, the card's time of a call by kernel."""
     import torch
 
     out = G.reduce_rows(g, idx, rows)
     torch.cuda.synchronize()
-    ref = G.reduce_rows(g.cpu(), idx.cpu(), rows)
-    err = float((out.cpu() - ref).abs().max())
-    if not _bit_equal(out.cpu(), ref):
-        raise AssertionError(f"K8 on {label} is not bit-equal to its plain "
-                             f"version on the CPU (max |d| {err})")
+    err = None
+    if check:
+        ref = G.reduce_rows(g.cpu(), idx.cpu(), rows)
+        err = float((out.cpu() - ref).abs().max())
+        if not _bit_equal(out.cpu(), ref):
+            raise AssertionError(f"K8 on {label} is not bit-equal to its "
+                                 f"plain version on the CPU (max |d| {err})")
+        del ref
     n, C = g.shape
     bound = _bound(g.numel() * 4 + idx.numel() * idx.element_size()
                    + rows * C * 4, g.numel())
+    few = {} if reps is None else dict(reps=reps, warmup=1, batches=3)
     r = dict(rows=rows, lanes=n, channels=C, max_abs_err=err, bound=bound,
              ms=_time_ms(lambda: G.reduce_rows(g, idx, rows)),
-             plain_ms=_time_ms(lambda: G.reduce_rows_plain(g, idx, rows)),
+             device_ms=_graph_ms(lambda: G.reduce_rows(g, idx, rows)),
+             plain_ms=_time_ms(lambda: G.reduce_rows_plain(g, idx, rows),
+                               **few),
              library_ms=_time_ms(lambda: torch.zeros(
-                 (rows, C), device=g.device).index_add_(0, idx, g)))
+                 (rows, C), device=g.device).index_add_(0, idx, g), **few),
+             **run_stats(idx, rows))
+    sort = ""
+    if rows > G.TILE_MAX_ROWS:  # regime (b): the stable sort alone
+        idx32 = idx.to(torch.int32)
+        r["sort_ms"] = _time_ms(lambda: torch.sort(idx32, stable=True))
+        sort = f" (a stable sort of int32 keys {r['sort_ms']:.4f}"
+        if rows <= 1 << 15:
+            idx16 = idx.to(torch.int16)
+            r["sort16_ms"] = _time_ms(lambda: torch.sort(idx16, stable=True))
+            sort += f", of int16 keys {r['sort16_ms']:.4f}"
+        sort += ")"
+    if breakdown:
+        r["kernels_ms"] = _device_times(lambda: G.reduce_rows(g, idx, rows))
+        sort += "; by kernel " + ", ".join(
+            f"{k} {v:.4f}" for k, v in r["kernels_ms"].items())
     print(f"K8 reduce_rows on {label} ({n} lanes x {C} channels onto {rows} "
-          f"rows): bit-equal to the plain version on the CPU; kernel "
-          f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, index_add_ "
-          f"{r['library_ms']:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+          f"rows; {r['rows_hit']} rows hit, longest run {r['longest']}, "
+          f"{r['long_share']:.4f} of the lanes in runs over {K8_LONG_RUN}): "
+          + ("bit-equal to the plain version on the CPU; " if check else "")
+          + f"kernel {r['ms']:.4f} ms (as a CUDA graph "
+          f"{r['device_ms']:.4f}){sort}, plain {r['plain_ms']:.4f} ms, "
+          f"index_add_ {r['library_ms']:.4f} ms, bound {bound[0]:.4f} ms "
+          f"({bound[1]})")
     return r
+
+
+def backward_calls(mt, scene, grad_in, keep=lambda rows: True):
+    """Two flagship-sized ``render_backward`` calls of ``scene``, their
+    tables bit-identical; the first keeps the K8 calls of replay bounce
+    ``GRAD_HELD_BOUNCE`` onto tables of ``keep(rows)``.
+    -> (held [(g, idx, rows)], the two walls in s)"""
+    from mitransient_tpu_torch.integrators import prb
+    from mitransient_tpu_torch.ops import gather as G
+
+    bounce, held = [-1], []
+    table_grads, reduce_rows = prb.table_grads, G.reduce_rows
+
+    def counting_table_grads(obj, leaves):
+        bounce[0] += 1
+        return table_grads(obj, leaves)
+
+    def capture(g, idx, rows):
+        if bounce[0] == GRAD_HELD_BOUNCE and keep(rows):
+            held.append((g.clone(), idx.clone(), rows))
+        return reduce_rows(g, idx, rows)
+
+    def call():
+        return mt.render_backward(scene, grad_in,
+                                  **GRAD_FLAGSHIP)["__tables__"]
+
+    prb.table_grads, G.reduce_rows = counting_table_grads, capture
+    try:
+        first, wall, _p = _timed(call)
+    finally:
+        prb.table_grads, G.reduce_rows = table_grads, reduce_rows
+    again, wall2, _p = _timed(call)
+    _tables_equal("render_backward, two calls", again, first)
+    if not held:
+        raise AssertionError("no K8 call captured in the backward's bounce "
+                             f"{GRAD_HELD_BOUNCE}")
+    return held, [wall, wall2]
+
+
+def textured_cbox(mt):
+    """``cornell_box()`` with ``torch_cases.CHECKER_FLOOR`` (a 64 x 64
+    checkerboard atlas) as the floor's BSDF."""
+    import torch_cases as cases
+
+    desc = mt.cornell_box()
+    desc["floor"] = dict(desc["floor"], bsdf=dict(cases.CHECKER_FLOOR))
+    return desc
+
+
+def texel_taps(mt, dev):
+    """The texel case's four taps (``TEXEL``: uniform texture slots and
+    uvs), as ``atlas_lookup``'s backward hands them to K8."""
+    import numpy as np
+    import torch
+
+    from mitransient_tpu_torch.ops import gather as G
+    from mitransient_tpu_torch.scene.scene import atlas_lookup
+
+    nt, th, tw, C = TEXEL["atlas"]
+    n = TEXEL["lanes"]
+    rng = np.random.default_rng(37)
+    atlas = torch.from_numpy(rng.random(TEXEL["atlas"], dtype=np.float32)
+                             ).to(dev).requires_grad_()
+    tid = torch.from_numpy(rng.integers(0, nt, n).astype(np.int32)).to(dev)
+    uv = torch.from_numpy(rng.random((n, 2), dtype=np.float32)).to(dev)
+    size = torch.full((n,), float(th), device=dev)
+    tuv = torch.tensor([1.0, 1.0, 0.0, 0.0], device=dev).expand(n, 4)
+    cot = torch.from_numpy(rng.random((n, C), dtype=np.float32)).to(dev)
+    taps, reduce_rows = [], G.reduce_rows
+
+    def capture_all(g, idx, rows):
+        taps.append((g.clone(), idx.clone(), rows))
+        return reduce_rows(g, idx, rows)
+
+    G.reduce_rows = capture_all
+    try:
+        torch.autograd.grad(atlas_lookup(atlas, tid, size, size, tuv, uv),
+                            atlas, cot)
+    finally:
+        G.reduce_rows = reduce_rows
+    if len(taps) != 4:
+        raise AssertionError(f"the texel lookup reduced {len(taps)} taps")
+    return taps
+
+
+def k8_worst_case(case, dev):
+    """(g, idx, rows) of one of ``K8_WORST``, made by numpy from a seed:
+    uniform cotangents; ``share`` of the lanes on row 0, in random lane
+    order, the rest uniform over the rows."""
+    import numpy as np
+    import torch
+
+    n, rows = case["lanes"], case["rows"]
+    rng = np.random.default_rng(rows + n)
+    g = rng.random((n, case["channels"]), dtype=np.float32)
+    idx = rng.integers(0, rows, n).astype(np.int32)
+    idx[rng.random(n) < case["share"]] = 0
+    return torch.from_numpy(g).to(dev), torch.from_numpy(idx).to(dev), rows
+
+
+K8_PARTS = ("flagship", "textured", "texel", *(c["name"] for c in K8_WORST))
+
+
+def k8_cases(mt, dev, check=True, parts=K8_PARTS):
+    """K8 on the flagship backward's held bounce (and the backward's
+    walls), on the textured flagship backward's held taps (and its walls),
+    on the texel case's taps and on ``K8_WORST`` (those of ``parts``);
+    each call held against its plain version on the host CPU where
+    ``check``."""
+    import numpy as np
+
+    from mitransient_tpu_torch.ops import gather as G
+
+    out = dict(calls=[], walls=[], textured=[], textured_walls=[], texel=[],
+               worst={})
+    scene = mt.load_dict(mt.cornell_box(), device=dev)
+    grad_in = _grad_in(scene.sensors[0].film, np.random.default_rng(11),
+                       steady=True)
+    if "flagship" in parts:
+        held, out["walls"] = backward_calls(mt, scene, grad_in)
+        walls = out["walls"]
+        print(f"flagship render_backward twice ({walls[0]:.3f} s with the "
+              f"capture, {walls[1]:.3f} s): tables bit-identical; bounce "
+              f"{GRAD_HELD_BOUNCE} reduced {len(held)} tables")
+        out["calls"] = [hold_reduce_rows(
+            G, g, idx, rows, f"flagship backward bounce {GRAD_HELD_BOUNCE} "
+            f"table {i}", check, breakdown=i == len(held) - 1)
+            for i, (g, idx, rows) in enumerate(held)]
+        del held
+    del scene
+    if "textured" in parts:
+        tex_scene = mt.load_dict(textured_cbox(mt), device=dev)
+        held, out["textured_walls"] = backward_calls(
+            mt, tex_scene, grad_in, lambda rows: rows > G.TILE_MAX_ROWS)
+        walls = out["textured_walls"]
+        print(f"textured flagship render_backward (checkerboard floor) twice "
+              f"({walls[0]:.3f} s with the capture, {walls[1]:.3f} s): tables "
+              f"bit-identical; bounce {GRAD_HELD_BOUNCE} reduced {len(held)} "
+              "atlas taps")
+        if len(held) != 4:
+            raise AssertionError(f"the textured backward's bounce reduced "
+                                 f"{len(held)} atlas taps, expected 4")
+        out["textured"] = [hold_reduce_rows(
+            G, g, idx, rows, f"textured flagship backward bounce "
+            f"{GRAD_HELD_BOUNCE} tap {i}", check, reps=5,
+            breakdown=i == 0) for i, (g, idx, rows) in enumerate(held)]
+        del held, tex_scene
+    if "texel" in parts:
+        out["texel"] = [hold_reduce_rows(G, g, idx, rows, f"texel tap {i}",
+                                         check, breakdown=i == 0)
+                        for i, (g, idx, rows) in enumerate(texel_taps(mt,
+                                                                      dev))]
+    out["worst"] = {c["name"]: hold_reduce_rows(
+        G, *k8_worst_case(c, dev), f"worst case {c['name']}", check,
+        reps=5) for c in K8_WORST if c["name"] in parts}
+    return out
 
 
 def check_gaussian_splat(mt, tf, dev):
@@ -3537,75 +3800,13 @@ def reproducibility_phase(mt, cases, dev):
     import torch
 
     from mitransient_tpu_torch.film import transient_film as tf
-    from mitransient_tpu_torch.integrators import prb
-    from mitransient_tpu_torch.ops import gather as G
-    from mitransient_tpu_torch.scene.scene import atlas_lookup
 
-    # 1. K8 on the flagship backward's replay bounce GRAD_HELD_BOUNCE, and
-    # the flagship backward twice
-    scene = mt.load_dict(mt.cornell_box(), device=dev)
-    grad_in = _grad_in(scene.sensors[0].film, np.random.default_rng(11),
-                       steady=True)
-    bounce, held = [-1], []
-    table_grads, reduce_rows = prb.table_grads, G.reduce_rows
+    # 1. K8 on the flagship backward's replay bounce GRAD_HELD_BOUNCE, on
+    # the textured flagship backward's atlas taps, on the texel case's taps
+    # and on its worst cases; both backwards twice
+    k8 = k8_cases(mt, dev)
 
-    def counting_table_grads(obj, leaves):
-        bounce[0] += 1
-        return table_grads(obj, leaves)
-
-    def capture(g, idx, rows):
-        if bounce[0] == GRAD_HELD_BOUNCE:
-            held.append((g.clone(), idx.clone(), rows))
-        return reduce_rows(g, idx, rows)
-
-    prb.table_grads, G.reduce_rows = counting_table_grads, capture
-    try:
-        g1, wall1, _p = _timed(lambda: mt.render_backward(
-            scene, grad_in, **GRAD_FLAGSHIP)["__tables__"])
-    finally:
-        prb.table_grads, G.reduce_rows = table_grads, reduce_rows
-    g2, wall2, _p = _timed(lambda: mt.render_backward(
-        scene, grad_in, **GRAD_FLAGSHIP)["__tables__"])
-    _tables_equal("flagship render_backward, two calls", g1, g2)
-    print(f"flagship render_backward twice ({wall1:.3f} s with the capture, "
-          f"{wall2:.3f} s): tables bit-identical; bounce "
-          f"{GRAD_HELD_BOUNCE} reduced {len(held)} tables")
-    if not held:
-        raise AssertionError("no K8 call captured in the flagship backward")
-    calls = [hold_reduce_rows(G, g, idx, rows, f"flagship backward bounce "
-                              f"{GRAD_HELD_BOUNCE} table {i}")
-             for i, (g, idx, rows) in enumerate(held)]
-    del held, g1, g2
-
-    # 2. K8 on the texel case's four taps (regime (b)), and the texture
-    # gradients twice
-    nt, th, tw, C = TEXEL["atlas"]
-    n = TEXEL["lanes"]
-    rng = np.random.default_rng(37)
-    atlas = torch.from_numpy(rng.random(TEXEL["atlas"], dtype=np.float32)
-                             ).to(dev).requires_grad_()
-    tid = torch.from_numpy(rng.integers(0, nt, n).astype(np.int32)).to(dev)
-    uv = torch.from_numpy(rng.random((n, 2), dtype=np.float32)).to(dev)
-    size = torch.full((n,), float(th), device=dev)
-    tuv = torch.tensor([1.0, 1.0, 0.0, 0.0], device=dev).expand(n, 4)
-    cot = torch.from_numpy(rng.random((n, C), dtype=np.float32)).to(dev)
-    taps = []
-
-    def capture_all(g, idx, rows):
-        taps.append((g.clone(), idx.clone(), rows))
-        return reduce_rows(g, idx, rows)
-
-    G.reduce_rows = capture_all
-    try:
-        torch.autograd.grad(atlas_lookup(atlas, tid, size, size, tuv, uv),
-                            atlas, cot)
-    finally:
-        G.reduce_rows = reduce_rows
-    if len(taps) != 4:
-        raise AssertionError(f"the texel lookup reduced {len(taps)} taps")
-    texel = [hold_reduce_rows(G, g, idx, rows, f"texel tap {i}")
-             for i, (g, idx, rows) in enumerate(taps)]
-    del taps, atlas
+    # 2. the texture gradients twice
     for method in (None, "fullad"):
         sc = mt.load_dict(cases.diff_case(mt, "texels"), device=dev)
         adj = _grad_in(sc.sensors[0].film, np.random.default_rng(15))
@@ -3657,7 +3858,7 @@ def reproducibility_phase(mt, cases, dev):
                       "CPU", out[0], out[1])
         print(f"flat_scene ({light} light, gaussian temporal filter) render, "
               "card against CPU: bit for bit")
-    return dict(calls=calls, texel=texel), gauss
+    return k8, gauss
 
 
 def port_only_rows(k8, gauss, phase_counts, gauss_counts):
@@ -3673,22 +3874,33 @@ def port_only_rows(k8, gauss, phase_counts, gauss_counts):
 
     def call(r):
         return {"rows": r["rows"], "lanes": r["lanes"],
-                "channels": r["channels"], **times(r)}
+                "channels": r["channels"], "device_ms": r["device_ms"],
+                **times(r)}
+
+    def stats(r):
+        return {k: r[k] for k in ("rows_hit", "longest", "long_share")}
 
     # the row's own numbers: the held bounce's call onto the most rows
     main = max(k8["calls"], key=lambda c: c["rows"])
     tex = k8["texel"][0]
+    held = k8["calls"] + k8["textured"] + k8["texel"] + list(
+        k8["worst"].values())
     rows = [dict(
         name="reduce_rows", route="cuda",
         source="mitransient_tpu_torch/csrc/gather.cu",
         replaces="mitransient_tpu/ops/gather.py:39",
         launches=phase_counts["prb_backward"].get("reduce_rows", 0),
-        max_abs_err=max(c["max_abs_err"] for c in k8["calls"] + k8["texel"]),
+        max_abs_err=max(c["max_abs_err"] for c in held),
         **times(main),
         volumetric_prb_backward_launches=phase_counts[
             "volumetric_prb_backward"].get("reduce_rows", 0),
         calls=[call(c) for c in k8["calls"]],
-        **times(tex, "texel_"), texel_calls=[call(c) for c in k8["texel"]]),
+        **times(tex, "texel_"), texel_calls=[call(c) for c in k8["texel"]],
+        backward_s=k8["walls"], textured_backward_s=k8["textured_walls"],
+        **times(k8["textured"][0], "textured_"),
+        textured_calls=[dict(call(c), **stats(c)) for c in k8["textured"]],
+        worst_calls={name: dict(call(c), **stats(c))
+                     for name, c in k8["worst"].items()}),
         dict(name="splat_gaussian", route="cuda",
              source="mitransient_tpu_torch/csrc/splat.cu",
              replaces="mitransient_tpu/film/transient_film.py:213",

@@ -49,7 +49,8 @@ _SIGNATURES = {
     "mitr_ray_test": (_P, _I, _P, _P, _P, _P, _I, _P, _P),
     "mitr_splat_accumulate": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
     "mitr_reduce_rows_tiles": (_P, _P, _L, _I, _I, _P, _P, _P, _P),
-    "mitr_reduce_rows_runs": (_P, _P, _I, _L, _P, _I, _P, _P),
+    "mitr_reduce_rows_runs": (_P, _P, _I, _P, _L, _I, _L, _I, _P, _P, _P,
+                              _P, _P),
     "mitr_bvh_query": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                        _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
 }

@@ -39,6 +39,20 @@ On the CPU (and in the tests) the plain PyTorch version below computes
 that order; on the card the wrapper launches K8 (``csrc/gather.cu``),
 which adds in exactly the same order, so that the two are bit-equal.
 There is no fallback: a K8 build or launch failure raises.
+
+How the card reaches that order, in work proportional to the lanes:
+(a) a block a tile stages its lanes in shared memory, every channel of a
+block of up to 4 in one pass, and one thread a (group, row, channel)
+evaluates ``tree32`` in registers (the other rows' lanes as +0), so a
+group's cost grows by one tree a row.  (b) after the sort (on int16 keys
+up to :data:`SHORT_KEY_ROWS` rows: the same permutation), one pass finds
+each nonempty run by comparing sorted neighbours (no search over the
+rows); a run of at most 32 lanes is summed by its first lane in
+registers; a longer one is cut into chunks of 1024 lanes from its start
+(a chunk's two levels of ``tree32`` are one tile's), a block a chunk, so
+a run of millions spreads over the card; a block a long run then sums
+its chunk sums level by level.  No host sync: the workspaces are sized by
+``n`` alone.
 """
 from __future__ import annotations
 
@@ -53,6 +67,7 @@ from ..kernels import _build
 TILE_MAX_ROWS = 128
 TILE = 1024  # lanes of a tile in regime (a): 32 groups of 32
 GROUP = 32  # a warp: the tree32 width
+SHORT_KEY_ROWS = 1 << 15  # regime (b) sorts int16 keys up to this many rows
 
 
 def sum_rows(x: torch.Tensor) -> torch.Tensor:
@@ -155,11 +170,11 @@ def reduce_rows(g: torch.Tensor, idx: torch.Tensor,
     out = torch.zeros((rows, C), dtype=torch.float32, device=dev)
     if n == 0 or rows == 0 or C == 0:
         return out
-    idx32 = idx.to(torch.int32).contiguous()
     lib = _build.library()
     stream = _build.stream_of(dev)
     with torch.cuda.device(dev):
         if rows <= TILE_MAX_ROWS:
+            idx32 = idx.to(torch.int32).contiguous()
             tiles = -(-n // TILE)
             part = torch.empty((tiles, rows * C), dtype=torch.float32,
                                device=dev)
@@ -170,12 +185,22 @@ def reduce_rows(g: torch.Tensor, idx: torch.Tensor,
                 scratch.data_ptr(), out.data_ptr(), stream)
             _build.check(err, kernel)
         else:
-            sidx, perm = torch.sort(idx32, stable=True)
-            start = torch.searchsorted(
-                sidx, torch.arange(rows + 1, dtype=torch.int32, device=dev))
+            # the same permutation on int16 keys where the rows fit: half
+            # the radix passes
+            key = torch.int16 if rows <= SHORT_KEY_ROWS else torch.int32
+            sidx, perm = torch.sort(idx.to(key), stable=True)
+            # one workspace the kernel fills before it reads it: each run's
+            # bounds, the long runs' rows, their chunk sums (two buffers)
+            slots = 3 * -(-n // TILE) + 2
+            runs = n // (TILE + 1) + 2
+            work = torch.empty(2 * rows + runs + slots * C, dtype=torch.int64,
+                               device=dev)
+            level = work[2 * rows + runs:].view(torch.float32)
             err = lib.mitr_reduce_rows_runs(
-                g.data_ptr(), perm.data_ptr(), C, rows, start.data_ptr(),
-                run_levels(n), out.data_ptr(), stream)
+                g.data_ptr(), sidx.data_ptr(), sidx.element_size(),
+                perm.data_ptr(), n, C, rows, run_levels(n), work.data_ptr(),
+                level.data_ptr(), work[2 * rows:].data_ptr(), out.data_ptr(),
+                stream)
             _build.check(err, kernel)
     _build.count_launch(kernel)
     return out

@@ -748,6 +748,34 @@ def test_reduce_rows_kernel_is_bit_equal_to_cpu_plain(cuda, rows, lanes,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows, others, run, channels", [
+    (4096, 1 << 18, 3 << 19, 3), (4096, 10000, 30000, 12),
+    (200, 500, 1023, 2), (200, 500, 1024, 5), (200, 500, 1025, 1),
+    (4096, 3000, 32 * 1024 + 1, 3), (1310720, 1 << 18, 0, 3)])
+def test_reduce_rows_kernel_long_runs(cuda, rows, others, run, channels):
+    """K8's sorted runs with one run of ``run`` lanes (at random lanes)
+    beside ``others`` uniform lanes: runs across the 1024-lane chunks, a
+    run of millions, 5 and 12 channels (blocks of 4), -0 cotangents among
+    them; bit-equal to the plain version on the host CPU, one launch a
+    call, and the same bits on a second call."""
+    from mitransient_tpu_torch.ops import gather as G
+
+    rng = np.random.default_rng(rows + others + run + channels)
+    n = others + run
+    g = rng.random((n, channels), dtype=np.float32)
+    g[rng.random(n) < 0.05] = -0.0
+    idx = rng.integers(0, rows, n)
+    idx[rng.permutation(n)[:run]] = 7
+    g, idx = torch.from_numpy(g), torch.from_numpy(idx)
+    reset_launch_counts()
+    got = [G.reduce_rows(g.to(cuda), idx.to(cuda), rows) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert launch_counts() == {"reduce_rows": 2}
+    assert _bit_equal(got[0].cpu(), G.reduce_rows(g, idx, rows))
+    assert _bit_equal(got[1].cpu(), got[0].cpu())
+
+
+@pytest.mark.cuda
 def test_gather_rows_backward_launches_k8(cuda):
     """gather_rows' backward on the card goes through K8 and equals the
     CPU's bit for bit; its forward and jvp launch nothing."""

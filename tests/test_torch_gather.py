@@ -4,9 +4,12 @@ temporal filter's splat (``gaussian_taps`` through K3's ``SplatEvents``)
 on the CPU.
 
 * ``gather_rows``' forward is ``index_select`` bit for bit.
-* Its backward is bit-equal to a numpy emulator of K8's order, written
-  from ``csrc/gather.cu`` (a warp's ``__shfl_down_sync`` tree, lane by
-  lane; the tiles' sum and the runs' levels level by level).
+* Its backward is bit-equal to a numpy emulator of K8's order (a warp's
+  ``__shfl_down_sync`` tree, lane by lane; the tiles' sum and the runs'
+  levels level by level), and in regime (b) to a second emulator of the
+  way ``csrc/gather.cu`` reaches it (runs found by comparing neighbours,
+  chunks of 1024 lanes from a run's start, a long run's chunk sums level
+  by level).
 * Against the JAX package's ``jax.vjp`` of ``table_lookup`` on the CPU
   (an XLA scatter that adds one lane at a time): rtol 1e-6 beyond the
   JAX side's own measured distance from a float64 sum.  K8's tree is
@@ -103,6 +106,41 @@ def _emulate_runs(g, idx, rows):
         src, start = sums, gstart
 
 
+def _emulate_runs_chunked(g, idx, rows):
+    """K8 regime (b) as run_chunks_kernel and run_levels_kernel reach it:
+    the runs found by comparing sorted neighbours; a run of at most 32 by
+    one thread's tree; a longer run cut into chunks of 1024 from its start,
+    each by two levels of tree32; a long run's chunk sums by tree32 level
+    by level; + 0 where a run ends as one value before the last level."""
+    n, C = g.shape
+    perm = np.argsort(idx, kind="stable")
+    sidx, x = idx[perm], g[perm]
+    levels = G.run_levels(n)
+    starts = np.flatnonzero(np.r_[True, sidx[1:] != sidx[:-1]])
+    out = np.zeros((rows, C), np.float32)
+    for s, e in zip(starts, np.r_[starts[1:], n]):
+        length = e - s
+        if length <= 32:
+            v = np.zeros((32, C), np.float32)
+            v[:length] = x[s:e]
+            val, own = _shfl_tree(v.T), 1
+        else:
+            m = -(-length // TILE)
+            buf = np.zeros((m * TILE, C), np.float32)
+            buf[:length] = x[s:e]
+            group = _shfl_tree(np.moveaxis(buf.reshape(m, 32, 32, C), 2, -1))
+            val, own = _shfl_tree(np.moveaxis(group, 1, -1)), 2
+            while val.shape[0] > 1:
+                k = -(-val.shape[0] // 32)
+                pad = np.zeros((k * 32, C), np.float32)
+                pad[:val.shape[0]] = val
+                val = _shfl_tree(np.moveaxis(pad.reshape(k, 32, C), 1, -1))
+                own += 1
+            val = val[0]
+        out[sidx[s]] = val + np.float32(0.0) if levels > own else val
+    return out
+
+
 def emulate_k8(g, idx, rows):
     if rows <= G.TILE_MAX_ROWS:
         return _emulate_tiles(g, idx, rows)
@@ -166,6 +204,147 @@ def test_gather_rows_backward_all_lanes_on_one_row(rows):
     assert not grad.numpy()[np.arange(rows) != rows // 2].any()
     np.testing.assert_allclose(grad.numpy()[rows // 2],
                                g.astype(np.float64).sum(0), rtol=1e-6)
+
+
+def _hold_long_runs(g, idx, rows):
+    """reduce_rows of ``g`` onto ``rows`` rows (regime (b)) bit-equal to
+    both emulators, within rtol 1e-6 of a float64 sum, and within rtol
+    1e-6 of the JAX package's vjp beyond that sum's own distance."""
+    table = np.zeros((rows, g.shape[1]), np.float32)
+    _, grad = _grad(table, idx, g)
+    grad = grad.numpy()
+    np.testing.assert_array_equal(_bits(grad),
+                                  _bits(emulate_k8(g, idx, rows)))
+    np.testing.assert_array_equal(_bits(grad),
+                                  _bits(_emulate_runs_chunked(g, idx, rows)))
+    exact = np.zeros((rows, g.shape[1]))
+    np.add.at(exact, idx, g.astype(np.float64))
+    np.testing.assert_allclose(grad, exact, rtol=1e-6, atol=0)
+    _, vjp = jax.vjp(lambda t: table_lookup(t, jnp.asarray(idx)),
+                     jnp.asarray(table))
+    g_jax = np.asarray(vjp(jnp.asarray(g))[0])
+    own = np.abs(g_jax - exact)
+    assert np.all(np.abs(grad - g_jax) <= 1e-6 * np.abs(g_jax) + own)
+
+
+@pytest.mark.parametrize("channels", [1, 3, 4, 12])
+def test_reduce_rows_long_run_in_regime_b(channels):
+    """40,000 lanes (four levels) onto 4,096 rows, 3/4 of them on one row
+    in random lane order, the rest uniform: the run of ~30,000 lanes is
+    cut into 30 chunks of 1024 whose sums take two more levels."""
+    rng = np.random.default_rng(40000 + channels)
+    n, rows = 40000, 4096
+    g = rng.random((n, channels), dtype=np.float32)
+    idx = rng.integers(0, rows, n).astype(np.int32)
+    idx[rng.random(n) < 0.75] = 17
+    assert G.run_levels(n) == 4 and (idx == 17).sum() > 29000
+    _hold_long_runs(g, idx, rows)
+
+
+@pytest.mark.parametrize("length", [1023, 1024, 1025, 32 * 1024 + 1])
+def test_reduce_rows_runs_across_chunks(length):
+    """A run whose length straddles the 1024-lane chunks (one chunk just
+    short, exactly full, one lane over; 32 chunks and one lane, so that
+    the chunk sums take a level of their own and a second one), beside
+    runs of a few lanes; cotangents in [0, 1) with -0 among them (a run
+    of -0 only must end as +0, as the plain version's trees give)."""
+    rng = np.random.default_rng(length)
+    rows, others = 4096, 3000
+    n = length + others
+    g = rng.random((n, 3), dtype=np.float32)
+    g[rng.random(n) < 0.05] = -0.0
+    idx = np.concatenate([np.full(length, 1000),
+                          rng.integers(0, rows, others)]).astype(np.int32)
+    idx[length:][idx[length:] == 1000] = 1001
+    order = rng.permutation(n)
+    g, idx = g[order], idx[order]
+    _hold_long_runs(g, idx, rows)
+
+
+@pytest.mark.parametrize("runs, want", [((32,), 0x80000000),
+                                         ((32, 1024, 2048), 0)])
+def test_reduce_rows_runs_of_negative_zero(runs, want):
+    """Runs of -0 only (onto 200 rows, regime (b)): a run that ends as one
+    value at the last level keeps -0; one that ends before it takes the
+    further levels' + 0 and gives +0, in both emulators and the plain
+    version alike."""
+    idx = np.concatenate([np.full(k, 5 + i) for i, k in enumerate(runs)])
+    idx = idx.astype(np.int32)
+    g = np.full((idx.size, 2), -0.0, np.float32)
+    table = np.zeros((200, 2), np.float32)
+    _, grad = _grad(table, idx, g)
+    bits = _bits(grad.numpy())
+    for emulate in (emulate_k8, _emulate_runs_chunked):
+        np.testing.assert_array_equal(bits, _bits(emulate(g, idx, 200)))
+    assert np.all(bits[5:5 + len(runs)] == want)
+
+
+def test_atlas_lookup_backward_with_untextured_lanes():
+    """The texture atlas' gradient when most lanes are untextured (tid -1:
+    slot 0, a 1 x 1 texture, so all four taps of such a lane land on row
+    0 with a +0 cotangent): each tap's reduction bit-equal to both
+    emulators, and the atlas gradient against the JAX package's vjp of
+    ``gather_lane_bsdf``'s reflectance, rtol 1e-6 beyond the JAX side's own
+    distance from a float64 sum of the same taps."""
+    from mitransient_tpu.bsdf import api as jb
+    from mitransient_tpu.scene import scene as jscene
+    from mitransient_tpu_torch.bsdf import api as tb
+    from mitransient_tpu_torch.scene import scene as tscene
+
+    rng = np.random.default_rng(64)
+    n = 20000
+    atlas = rng.uniform(0.0, 1.0, (1, 64, 64, 3)).astype(np.float32)
+    table = dict(kind=np.zeros(3, np.int32), two_sided=np.zeros(3, bool),
+                 reflectance=np.full((3, 3), 0.5, np.float32),
+                 eta_re=np.zeros((3, 3), np.float32),
+                 eta_im=np.zeros((3, 3), np.float32),
+                 alpha=np.zeros(3, np.float32),
+                 eta_ratio=np.full(3, 1.5, np.float32),
+                 alpha_v=np.zeros(3, np.float32),
+                 tex_id=np.array([0, -1, -1], np.int32),
+                 tex_hw=np.array([[64, 64], [1, 1], [1, 1]], np.float32),
+                 tex_uv=np.array([[1, 1, 0, 0]] * 3, np.float32),
+                 textures=atlas)
+    ids = np.where(rng.random(n) < 0.2, 0, rng.integers(1, 3, n))
+    ids = ids.astype(np.int32)
+    uv = rng.uniform(0.0, 1.0, (n, 2)).astype(np.float32)
+    cot = rng.random((n, 3), dtype=np.float32)
+    tbp = tscene.BSDFParams(**{k: torch.from_numpy(v)
+                               for k, v in table.items()})
+    tex = tbp.textures.clone().requires_grad_()
+    taps, reduce_rows = [], G.reduce_rows
+
+    def capture(g, idx, rows):
+        taps.append((g.numpy().copy(), idx.numpy().copy(), rows))
+        return reduce_rows(g, idx, rows)
+
+    G.reduce_rows = capture
+    try:
+        refl = tb.gather_lane_bsdf(tbp._replace(textures=tex),
+                                   torch.from_numpy(ids),
+                                   torch.from_numpy(uv)).reflectance
+        (grad,) = torch.autograd.grad(refl, tex, torch.from_numpy(cot))
+    finally:
+        G.reduce_rows = reduce_rows
+    assert len(taps) == 4
+    exact = np.zeros((64 * 64, 3))
+    for g, idx, rows in taps:
+        assert rows == 64 * 64 and (idx == 0).mean() > 0.75
+        assert not g[ids != 0].any()  # the untextured lanes' +0
+        got = G.reduce_rows(torch.from_numpy(g), torch.from_numpy(idx), rows)
+        for emulate in (emulate_k8, _emulate_runs_chunked):
+            np.testing.assert_array_equal(_bits(got.numpy()),
+                                          _bits(emulate(g, idx, rows)))
+        np.add.at(exact, idx, g.astype(np.float64))
+    jbp = jscene.BSDFParams(**{k: jnp.asarray(v) for k, v in table.items()})
+    _, vjp = jax.vjp(lambda t: jb.gather_lane_bsdf(
+        jbp._replace(textures=t), jnp.asarray(ids),
+        jnp.asarray(uv)).reflectance, jnp.asarray(atlas))
+    g_jax = np.asarray(vjp(jnp.asarray(cot))[0]).reshape(-1, 3)
+    grad = grad.numpy().reshape(-1, 3)
+    own = np.abs(g_jax - exact)
+    assert np.all(np.abs(grad - g_jax) <= 1e-6 * np.abs(g_jax) + own)
+    np.testing.assert_allclose(grad, exact, rtol=1e-6, atol=1e-12)
 
 
 @pytest.mark.parametrize("rows", [3, 4096])
