@@ -41,9 +41,10 @@ media albedo and extinction, shape poses).  Scenes load onto the card unless the
 On a CUDA device the ray queries and the film splat run in the kernels of
 ``csrc/``; on the CPU they run their plain PyTorch versions.  ``vis`` and
 ``io_exr`` tonemap transient videos and write them as EXR frames; ``log``
-is the leveled logger.
+is the leveled logger; ``trace`` holds the spans and counters that a
+``torch.profiler`` session records.
 """
-from . import nlos, vis, vis_polarized  # noqa: F401
+from . import nlos, trace, vis, vis_polarized  # noqa: F401
 from .log import LogLevel, log, set_log_level  # noqa: F401
 from .core.spectrum import (  # noqa: F401
     is_monochromatic,

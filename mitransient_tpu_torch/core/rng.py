@@ -23,6 +23,8 @@ from __future__ import annotations
 
 import torch
 
+from .. import trace
+
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _KS_PARITY = 0x1BD11BDA
@@ -72,12 +74,14 @@ def uniform(key: tuple[int, int], shape, device="cpu",
     for s in shape[1:]:
         row *= s
     r0, r1 = rows if rows is not None else (0, shape[0] if shape else 1)
-    i = torch.arange(r0 * row, r1 * row, dtype=torch.int64, device=device)
-    a, b = threefry2x32(key[0], key[1], i >> 32, i & _M32)
-    bits = (((a ^ b) >> 9) | 0x3F800000).to(torch.int32)
-    u = bits.view(torch.float32) - 1.0
-    return torch.clamp_min(u, 0.0).reshape((r1 - r0,) + shape[1:] if shape
-                                           else ())
+    with trace.span("mitr:rng"):
+        i = torch.arange(r0 * row, r1 * row, dtype=torch.int64,
+                         device=device)
+        a, b = threefry2x32(key[0], key[1], i >> 32, i & _M32)
+        bits = (((a ^ b) >> 9) | 0x3F800000).to(torch.int32)
+        u = bits.view(torch.float32) - 1.0
+        return torch.clamp_min(u, 0.0).reshape(
+            (r1 - r0,) + shape[1:] if shape else ())
 
 
 class Sampler:

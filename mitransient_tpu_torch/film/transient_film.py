@@ -44,6 +44,7 @@ from typing import NamedTuple
 import torch
 from torch.autograd.graph import increment_version
 
+from .. import trace
 from ..core.math import divide, exp
 from ..kernels import _build
 from ..ops.gather import sum_rows
@@ -305,7 +306,7 @@ def splat_accumulate(film: torch.Tensor, bins_a: torch.Tensor,
             vals_b.data_ptr() if vals_b is not None else None,
             _build.stream_of(dev))
     _build.check(err, kernel)
-    _build.count_launch(kernel)
+    trace.count_launch(kernel)
     # the kernel wrote through a raw pointer: bump the film's version as an
     # in-place torch op would, which forward-mode AD checks for in
     # SplatEvents.jvp's in-place update of the film's tangent
@@ -425,8 +426,9 @@ def surface_sample_validation(film, film_cfg) -> dict:
         return {}
     if not hasattr(film, "n_negative"):  # the phasor film has no counters
         return {}
-    neg = float(film.n_negative)
-    inv = float(film.n_invalid)
+    with trace.span("mitr:sync"):
+        neg = float(film.n_negative)
+        inv = float(film.n_invalid)
     log = logging.getLogger("mitransient_tpu_torch")
     if neg > 0:
         log.warning("Negative sample values: %d splats below -1e-5 "

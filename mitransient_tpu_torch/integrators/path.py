@@ -30,6 +30,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import trace
 from ..bsdf import api as bsdf_api
 from ..bsdf.polarized import (
     polarization_factor_col0_soa,
@@ -165,8 +166,9 @@ def sample_primal(
         pend=pend0,
     )
     for it in range(icfg.max_depth):
-        st = _bounce(sd, key, it, n, st, film_cfg, icfg, spp, splat_w,
-                     bvh_mode, enable_film, polarized, sctx)
+        with trace.span("mitr:bounce"):
+            st = _bounce(sd, key, it, n, st, film_cfg, icfg, spp, splat_w,
+                         bvh_mode, enable_film, polarized, sctx)
     L = sctx.to_film_any(st.L, polarized) if spectral else st.L
     return st.film, L, st.depth > 0, st.n_rays
 
@@ -332,6 +334,9 @@ def _bounce(sd, key, it, n, st: PathState, film_cfg, icfg, spp, splat_w,
         (st.prev_p, st.prev_pdf, st.prev_delta), it, icfg, rnd1(5),
         mueller=(lb, st.d, st.pend) if polarized else None)
 
+    n_active = active.sum()
+    trace.count("lanes.launched", n)
+    trace.count("lanes.active", n_active)
     return PathState(
         o=o,
         d=d_world,
@@ -345,7 +350,7 @@ def _bounce(sd, key, it, n, st: PathState, film_cfg, icfg, spp, splat_w,
         prev_pdf=prev[1],
         prev_delta=prev[2],
         film=film,
-        n_rays=st.n_rays + active.sum() + active_em.sum(),
+        n_rays=st.n_rays + n_active + active_em.sum(),
         pend=pend,
     )
 

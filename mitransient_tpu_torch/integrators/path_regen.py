@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import trace
 from ..bsdf import api as bsdf_api
 from ..bsdf.polarized import sensor_alignment_angles
 from ..core.math import divide, mis_weight, normalize
@@ -71,8 +72,10 @@ def hash_uniform(seed, sample_id, dim) -> torch.Tensor:
 
     Like the JAX version, an h close to 2^32 rounds to exactly 1.0 in the
     float32 conversion."""
-    h = _pcg((sample_id & _M32) ^ _pcg((dim & _M32) ^ _pcg(seed & _M32)))
-    return h.to(torch.float32) * (1.0 / 4294967296.0)
+    with trace.span("mitr:rng"):
+        h = _pcg((sample_id & _M32)
+                 ^ _pcg((dim & _M32) ^ _pcg(seed & _M32)))
+        return h.to(torch.float32) * (1.0 / 4294967296.0)
 
 
 def sample_primal_regen(
@@ -153,107 +156,115 @@ def sample_primal_regen(
                  + icfg.max_depth + 1)
     it = 0
     while it < max_iters:
-        if it % LIVE_CHECK_EVERY == 0 and not bool(lane_live.any()):
-            break
-        iters = iters + lane_live.any()
-        it += 1
+        if it % LIVE_CHECK_EVERY == 0:
+            with trace.span("mitr:sync"):
+                live = bool(lane_live.any())
+            if not live:
+                break
+        with trace.span("mitr:bounce"):
+            iters = iters + lane_live.any()
+            it += 1
+            active = path_active & lane_live
+            sid = sample_idx * hw + pix
+            dim0 = 2 + depth * DIMS_PER_BOUNCE
 
-        active = path_active & lane_live
-        sid = sample_idx * hw + pix
-        dim0 = 2 + depth * DIMS_PER_BOUNCE
+            def rnd1(k):
+                return hash_uniform(seed, sid, dim0 + k)
 
-        def rnd1(k):
-            return hash_uniform(seed, sid, dim0 + k)
+            def rnd2(k):
+                return torch.stack([rnd1(k), rnd1(k + 1)], dim=-1)
 
-        def rnd2(k):
-            return torch.stack([rnd1(k), rnd1(k + 1)], dim=-1)
+            si = ray_intersect(sd, Ray.make(o, d), active, bvh_mode)
+            hit = active & si.valid
+            distance_hit = distance + torch.where(hit, si.t, 0.0) * eta
 
-        si = ray_intersect(sd, Ray.make(o, d), active, bvh_mode)
-        hit = active & si.valid
-        distance_hit = distance + torch.where(hit, si.t, 0.0) * eta
+            lb = bsdf_api.gather_lane_bsdf(sd.bsdf, si.bsdf_id, si.uv,
+                                           sd.bsdf_kinds)
+            pdf_em_hit = pdf_emitter_direction(sd, prev_p, si)
+            pdf_em_hit = torch.where(prev_delta, 0.0, pdf_em_hit)
+            mis = mis_weight(prev_pdf, pdf_em_hit)
+            le_mask = hit & (not icfg.discard_direct_light)
+            Le_raw = emitter_eval_hit(sd, si, d)
+            if polarized:
+                Le = pack_stokes(beta[:, 0] * (mis[:, None] * Le_raw))
+            else:
+                Le = beta * mis[:, None] * Le_raw
+            Le = torch.where(le_mask[:, None], Le, 0.0)
 
-        lb = bsdf_api.gather_lane_bsdf(sd.bsdf, si.bsdf_id, si.uv,
-                                       sd.bsdf_kinds)
-        pdf_em_hit = pdf_emitter_direction(sd, prev_p, si)
-        pdf_em_hit = torch.where(prev_delta, 0.0, pdf_em_hit)
-        mis = mis_weight(prev_pdf, pdf_em_hit)
-        le_mask = hit & (not icfg.discard_direct_light)
-        Le_raw = emitter_eval_hit(sd, si, d)
-        if polarized:
-            Le = pack_stokes(beta[:, 0] * (mis[:, None] * Le_raw))
-        else:
-            Le = beta * mis[:, None] * Le_raw
-        Le = torch.where(le_mask[:, None], Le, 0.0)
+            cont = active & (depth + 1 < icfg.max_depth) & si.valid
+            active_em = cont & bsdf_api.is_smooth(lb)
+            ds, em_weight = sample_emitter_direction(sd, si.p, rnd2(0), True,
+                                                     active_em, bvh_mode)
+            active_em = active_em & (ds.pdf > 0.0)
+            wo_em = si.frame.to_local(ds.d)
+            f_em, pdf_bsdf_em = bsdf_api.eval_pdf(lb, si.wi, wo_em,
+                                                  active_em)
+            mis_em = torch.where(ds.delta, 1.0,
+                                 mis_weight(ds.pdf, pdf_bsdf_em))
+            if polarized:
+                col = polarized_nee(lb, si, wo_em, ds.d, d, pend, beta, f_em)
+                Lr_dir = pack_stokes(col * (mis_em[:, None] * em_weight))
+            else:
+                Lr_dir = beta * mis_em[:, None] * f_em * em_weight
+            Lr_dir = torch.where(active_em[:, None], Lr_dir, 0.0)
 
-        cont = active & (depth + 1 < icfg.max_depth) & si.valid
-        active_em = cont & bsdf_api.is_smooth(lb)
-        ds, em_weight = sample_emitter_direction(sd, si.p, rnd2(0), True,
-                                                 active_em, bvh_mode)
-        active_em = active_em & (ds.pdf > 0.0)
-        wo_em = si.frame.to_local(ds.d)
-        f_em, pdf_bsdf_em = bsdf_api.eval_pdf(lb, si.wi, wo_em, active_em)
-        mis_em = torch.where(ds.delta, 1.0, mis_weight(ds.pdf, pdf_bsdf_em))
-        if polarized:
-            col = polarized_nee(lb, si, wo_em, ds.d, d, pend, beta, f_em)
-            Lr_dir = pack_stokes(col * (mis_em[:, None] * em_weight))
-        else:
-            Lr_dir = beta * mis_em[:, None] * f_em * em_weight
-        Lr_dir = torch.where(active_em[:, None], Lr_dir, 0.0)
+            film = splat_pair_any(
+                film, film_cfg, L,
+                distance_hit, Le * splat_scale,
+                distance_hit + ds.dist * eta, Lr_dir * splat_scale,
+                active, icfg.temporal_filter, icfg.gaussian_stddev,
+            )
 
-        film = splat_pair_any(
-            film, film_cfg, L,
-            distance_hit, Le * splat_scale,
-            distance_hit + ds.dist * eta, Lr_dir * splat_scale,
-            active, icfg.temporal_filter, icfg.gaussian_stddev,
-        )
+            bs = bsdf_api.sample(lb, si.wi, rnd1(2), rnd2(3), cont)
+            d_world = si.frame.to_world(bs.wo)
+            new_ray = si.spawn_ray(d_world)
 
-        bs = bsdf_api.sample(lb, si.wi, rnd1(2), rnd2(3), cont)
-        d_world = si.frame.to_world(bs.wo)
-        new_ray = si.spawn_ray(d_world)
+            L_acc = L_path + Le + Lr_dir
+            if polarized:
+                beta, pend = polarized_update(si, bs, lb, d, d_world, beta,
+                                              pend, cont)
+            else:
+                beta = torch.where(cont[:, None], beta * bs.weight, beta)
+            eta = torch.where(cont, eta * bs.eta, eta)
+            beta, cont = rr_step(beta, eta, cont, depth >= icfg.rr_depth,
+                                 rnd1(5), polarized)
 
-        L_acc = L_path + Le + Lr_dir
-        if polarized:
-            beta, pend = polarized_update(si, bs, lb, d, d_world, beta, pend,
-                                          cont)
-        else:
-            beta = torch.where(cont[:, None], beta * bs.weight, beta)
-        eta = torch.where(cont, eta * bs.eta, eta)
-        beta, cont = rr_step(beta, eta, cont, depth >= icfg.rr_depth,
-                             rnd1(5), polarized)
+            # ---- regeneration: finished paths bank their L and start the
+            # lane's next sample
+            finished = active & ~cont
+            steady = steady + torch.where(finished[:, None], L_acc, 0.0)
+            next_sample = sample_idx + L
+            has_more = next_sample < spp_total
+            regen = finished & has_more
+            lane_live = lane_live & ~(finished & ~has_more)
+            sample_idx = torch.where(regen, next_sample, sample_idx)
+            o_new, d_new = gen_ray(sample_idx)
 
-        # ---- regeneration: finished paths bank their L and start the
-        # lane's next sample
-        finished = active & ~cont
-        steady = steady + torch.where(finished[:, None], L_acc, 0.0)
-        next_sample = sample_idx + L
-        has_more = next_sample < spp_total
-        regen = finished & has_more
-        lane_live = lane_live & ~(finished & ~has_more)
-        sample_idx = torch.where(regen, next_sample, sample_idx)
-        o_new, d_new = gen_ray(sample_idx)
-
-        if polarized:
-            # a fresh sample: the identity, with the new ray's alignment
-            # rotator pending
-            beta = torch.where(regen[:, None], beta0, beta)
-            npc2, nps2 = sensor_alignment_angles(d_new, cam_vert)
-            pend = (torch.where(regen, npc2, pend[0]),
-                    torch.where(regen, nps2, pend[1]))
-        else:
-            beta = torch.where(regen[:, None], 1.0, beta)
-        o = torch.where(regen[:, None], o_new, new_ray.o)
-        d = torch.where(regen[:, None], d_new, d_world)
-        L_path = torch.where((finished | regen)[:, None], 0.0, L_acc)
-        eta = torch.where(regen, 1.0, eta)
-        distance = torch.where(regen, 0.0, distance_hit)
-        depth = torch.where(regen, 0, depth + 1)
-        path_active = torch.where(regen, True, cont) & lane_live
-        prev_p = torch.where(regen[:, None], o_new,
-                             torch.where(hit[:, None], si.p, prev_p))
-        prev_pdf = torch.where(regen, 1.0,
-                               torch.where(cont, bs.pdf, prev_pdf))
-        prev_delta = torch.where(regen, True,
-                                 torch.where(cont, bs.delta, prev_delta))
-        n_rays = n_rays + active.sum() + active_em.sum()
+            if polarized:
+                # a fresh sample: the identity, with the new ray's alignment
+                # rotator pending
+                beta = torch.where(regen[:, None], beta0, beta)
+                npc2, nps2 = sensor_alignment_angles(d_new, cam_vert)
+                pend = (torch.where(regen, npc2, pend[0]),
+                        torch.where(regen, nps2, pend[1]))
+            else:
+                beta = torch.where(regen[:, None], 1.0, beta)
+            o = torch.where(regen[:, None], o_new, new_ray.o)
+            d = torch.where(regen[:, None], d_new, d_world)
+            L_path = torch.where((finished | regen)[:, None], 0.0, L_acc)
+            eta = torch.where(regen, 1.0, eta)
+            distance = torch.where(regen, 0.0, distance_hit)
+            depth = torch.where(regen, 0, depth + 1)
+            path_active = torch.where(regen, True, cont) & lane_live
+            prev_p = torch.where(regen[:, None], o_new,
+                                 torch.where(hit[:, None], si.p, prev_p))
+            prev_pdf = torch.where(regen, 1.0,
+                                   torch.where(cont, bs.pdf, prev_pdf))
+            prev_delta = torch.where(regen, True,
+                                     torch.where(cont, bs.delta, prev_delta))
+            n_active = active.sum()
+            n_rays = n_rays + n_active + active_em.sum()
+            trace.count("lanes.launched", n)
+            trace.count("lanes.active", n_active)
 
     return film, steady, n_rays, iters, it

@@ -36,6 +36,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import trace
 from ..bsdf import api as bsdf_api
 from ..core.math import dot, mis_weight, replace_grad
 from ..core.records import Ray
@@ -262,90 +263,96 @@ def sample_adjoint(
     active = ones
     prev = (ray.o, torch.ones((n,), dtype=f32, device=dev), ones)
     for it in range(icfg.max_depth):
-        ub = draw_bounce_block(sampler_key, it, n, DIMS_PER_BOUNCE, dev)
-        si = ray_intersect(sd, Ray.make(o, d), active, bvh_mode)
-        hit = active & si.valid
-        distance = distance + torch.where(hit, si.t, 0.0) * eta
-        lb_det = bsdf_api.gather_lane_bsdf(sd.bsdf, si.bsdf_id, si.uv,
-                                           sd.bsdf_kinds)
+        with trace.span("mitr:bounce"):
+            trace.count("lanes.launched", n)
+            trace.count("lanes.active", active)
+            ub = draw_bounce_block(sampler_key, it, n, DIMS_PER_BOUNCE, dev)
+            si = ray_intersect(sd, Ray.make(o, d), active, bvh_mode)
+            hit = active & si.valid
+            distance = distance + torch.where(hit, si.t, 0.0) * eta
+            lb_det = bsdf_api.gather_lane_bsdf(sd.bsdf, si.bsdf_id, si.uv,
+                                               sd.bsdf_kinds)
 
-        # detached MIS weights and NEE sample (as the primal sweep)
-        pdf_em_hit = torch.where(prev[2], 0.0,
-                                 pdf_emitter_direction(sd, prev[0], si))
-        mis = mis_weight(prev[1], pdf_em_hit)
-        active_next = active & si.valid
-        if it + 1 >= icfg.max_depth:
-            active_next = torch.zeros_like(active)
-        active_em0 = active_next & bsdf_api.is_smooth(lb_det)
-        ds, em_weight_det = sample_emitter_direction(
-            sd, si.p, ub[:, 0:2], True, active_em0, bvh_mode)
-        active_em = active_em0 & (ds.pdf > 0.0)
-        wo_em = si.frame.to_local(ds.d)
-        _f, pdf_bsdf_em = bsdf_api.eval_pdf(lb_det, si.wi, wo_em, active_em)
-        mis_em = torch.where(ds.delta, 1.0, mis_weight(ds.pdf, pdf_bsdf_em))
-        # detached BSDF sample (the same dimensions as the primal)
-        bs = bsdf_api.sample(lb_det, si.wi, ub[:, 2], ub[:, 3:5],
-                             active_next)
-        f_det_sampled = bs.weight * bs.pdf[:, None]  # f * cos, detached
-        nee_vis = (em_weight_det.sum(dim=-1) != 0.0) & active_em
-        em_idx = torch.clamp_min(ds.emitter_id, 0)
-        cos_em = dot(ds.n, -ds.d)
-        inv_f_det = torch.where(
-            f_det_sampled != 0.0,
-            1.0 / torch.where(f_det_sampled != 0.0, f_det_sampled, 1.0), 0.0)
-        le_mask = (hit & (not icfg.discard_direct_light))[:, None]
-        beta_det, L_rest_det, d_cur = beta, L_rest, d
+            # detached MIS weights and NEE sample (as the primal sweep)
+            pdf_em_hit = torch.where(prev[2], 0.0,
+                                     pdf_emitter_direction(sd, prev[0], si))
+            mis = mis_weight(prev[1], pdf_em_hit)
+            active_next = active & si.valid
+            if it + 1 >= icfg.max_depth:
+                active_next = torch.zeros_like(active)
+            active_em0 = active_next & bsdf_api.is_smooth(lb_det)
+            ds, em_weight_det = sample_emitter_direction(
+                sd, si.p, ub[:, 0:2], True, active_em0, bvh_mode)
+            active_em = active_em0 & (ds.pdf > 0.0)
+            wo_em = si.frame.to_local(ds.d)
+            _f, pdf_bsdf_em = bsdf_api.eval_pdf(lb_det, si.wi, wo_em,
+                                                active_em)
+            mis_em = torch.where(ds.delta, 1.0,
+                                 mis_weight(ds.pdf, pdf_bsdf_em))
+            # detached BSDF sample (the same dimensions as the primal)
+            bs = bsdf_api.sample(lb_det, si.wi, ub[:, 2], ub[:, 3:5],
+                                 active_next)
+            f_det_sampled = bs.weight * bs.pdf[:, None]  # f * cos, detached
+            nee_vis = (em_weight_det.sum(dim=-1) != 0.0) & active_em
+            em_idx = torch.clamp_min(ds.emitter_id, 0)
+            cos_em = dot(ds.n, -ds.d)
+            inv_f_det = torch.where(
+                f_det_sampled != 0.0,
+                1.0 / torch.where(f_det_sampled != 0.0, f_det_sampled, 1.0),
+                0.0)
+            le_mask = (hit & (not icfg.discard_direct_light))[:, None]
+            beta_det, L_rest_det, d_cur = beta, L_rest, d
 
-        def contributions(theta: DiffParams):
-            sdt = insert_params(sd, theta)
-            lb = bsdf_api.gather_lane_bsdf(sdt.bsdf, si.bsdf_id, si.uv,
-                                           sd.bsdf_kinds)
-            # Le: the attached emitter radiance at the hit
-            Le = torch.where(le_mask, beta_det * mis[:, None]
-                             * emitter_eval_hit(sdt, si, d_cur), 0.0)
-            # Lr_dir: attached BSDF value and emitter radiance, detached
-            # pdf and visibility (transientpath.py:196-213)
-            f_em, _ = bsdf_api.eval_pdf(lb, si.wi, wo_em, active_em)
-            em_val = emitter_eval_direction(sdt, em_idx, ds.p, ds.n, ds.d,
-                                            ds.dist, cos_em)
-            em_weight = torch.where(
-                nee_vis[:, None],
-                em_val / torch.clamp_min(ds.pdf, 1e-30)[:, None], 0.0)
-            Lr_dir = torch.where(active_em[:, None], beta_det
-                                 * mis_em[:, None] * f_em * em_weight, 0.0)
-            # Lr_ind: the re-attached sampled BSDF value scales the rest of
-            # the path without this vertex's own Le + Lr_dir (:230 -> :290)
-            f_cur, _ = bsdf_api.eval_pdf(lb, si.wi, bs.wo, active_next)
-            ratio = replace_grad(torch.ones_like(f_cur), f_cur * inv_f_det)
-            Lr_ind = (L_rest_det - Le - Lr_dir).detach() * ratio
-            return Le + Lr_dir + Lr_ind, (Le, Lr_dir)
+            def contributions(theta: DiffParams):
+                sdt = insert_params(sd, theta)
+                lb = bsdf_api.gather_lane_bsdf(sdt.bsdf, si.bsdf_id, si.uv,
+                                               sd.bsdf_kinds)
+                # Le: the attached emitter radiance at the hit
+                Le = torch.where(le_mask, beta_det * mis[:, None]
+                                 * emitter_eval_hit(sdt, si, d_cur), 0.0)
+                # Lr_dir: attached BSDF value and emitter radiance, detached
+                # pdf and visibility (transientpath.py:196-213)
+                f_em, _ = bsdf_api.eval_pdf(lb, si.wi, wo_em, active_em)
+                em_val = emitter_eval_direction(sdt, em_idx, ds.p, ds.n, ds.d,
+                                                ds.dist, cos_em)
+                em_weight = torch.where(
+                    nee_vis[:, None],
+                    em_val / torch.clamp_min(ds.pdf, 1e-30)[:, None], 0.0)
+                Lr_dir = torch.where(active_em[:, None], beta_det
+                                     * mis_em[:, None] * f_em * em_weight, 0.0)
+                # Lr_ind: the re-attached sampled BSDF value scales the rest of
+                # the path without this vertex's own Le + Lr_dir (:230 -> :290)
+                f_cur, _ = bsdf_api.eval_pdf(lb, si.wi, bs.wo, active_next)
+                ratio = replace_grad(torch.ones_like(f_cur), f_cur * inv_f_det)
+                Lr_ind = (L_rest_det - Le - Lr_dir).detach() * ratio
+                return Le + Lr_dir + Lr_ind, (Le, Lr_dir)
 
-        if mode == "backward":
-            dL_read = read_adjoint(grad_tr_flat, grad_st_flat, film_cfg, pix,
-                                   distance)
-            weight_lane = torch.where(active, splat_w, 0.0)
-            leaves = as_leaves(theta0)
-            with torch.enable_grad():
-                Lo, (Le, Lr_dir) = contributions(leaves)
-                obj = (dL_read * Lo * weight_lane[:, None]).sum()
-                grads = add_params(grads, table_grads(obj, leaves))
-            del obj, Lo
-        else:
-            def lo_only(*tables):
-                return contributions(
-                    theta0._replace(**dict(zip(fields, tables))))
+            if mode == "backward":
+                dL_read = read_adjoint(grad_tr_flat, grad_st_flat, film_cfg,
+                                       pix, distance)
+                weight_lane = torch.where(active, splat_w, 0.0)
+                leaves = as_leaves(theta0)
+                with torch.enable_grad():
+                    Lo, (Le, Lr_dir) = contributions(leaves)
+                    obj = (dL_read * Lo * weight_lane[:, None]).sum()
+                    grads = add_params(grads, table_grads(obj, leaves))
+                del obj, Lo
+            else:
+                def lo_only(*tables):
+                    return contributions(
+                        theta0._replace(**dict(zip(fields, tables))))
 
-            _Lo, dLo, (Le, Lr_dir) = torch.func.jvp(lo_only, primals, tans,
-                                                   has_aux=True)
-            fwd_vals.append(torch.where(active[:, None],
-                                        dLo * splat_w[:, None], 0.0))
-            fwd_dists.append(distance)
-        Le, Lr_dir = Le.detach(), Lr_dir.detach()
+                _Lo, dLo, (Le, Lr_dir) = torch.func.jvp(lo_only, primals, tans,
+                                                       has_aux=True)
+                fwd_vals.append(torch.where(active[:, None],
+                                            dLo * splat_w[:, None], 0.0))
+                fwd_dists.append(distance)
+            Le, Lr_dir = Le.detach(), Lr_dir.detach()
 
-        # ---- state update: the primal sweep's own
-        o, d, beta, eta, active, prev, _ = next_vertex(
-            si, bs, hit, active_next, beta, eta, prev, it, icfg, ub[:, 5])
-        L_rest = L_rest - Le - Lr_dir
+            # ---- state update: the primal sweep's own
+            o, d, beta, eta, active, prev, _ = next_vertex(
+                si, bs, hit, active_next, beta, eta, prev, it, icfg, ub[:, 5])
+            L_rest = L_rest - Le - Lr_dir
 
     if mode == "backward":
         return grads

@@ -1,7 +1,4 @@
-"""Hand-written CUDA kernels of the port: build, load and launch counts."""
-from ._build import (  # noqa: F401
-    build,
-    launch_counts,
-    library,
-    reset_launch_counts,
-)
+"""Hand-written CUDA kernels of the port: build, load and launch counts
+(kept in ``trace.py``)."""
+from ..trace import launch_counts, reset_launch_counts  # noqa: F401
+from ._build import build, library  # noqa: F401

@@ -11,7 +11,7 @@ Flags: ``--fmad=false`` keeps ``a*b + c`` as two rounded operations, the
 arithmetic of the plain PyTorch versions; ``-prec-div`` stays at its IEEE
 default, and ``--use_fast_math`` is never used.
 
-Wrappers that launch a kernel call :func:`count_launch` once per launch;
+Wrappers that launch a kernel call ``trace.count_launch`` once per launch;
 ``chip_smoke.py`` reads the counts to show that a run went through the
 kernels.
 """
@@ -64,7 +64,6 @@ class BuildInfo(NamedTuple):
 
 _lib: ctypes.CDLL | None = None
 _build_info: BuildInfo | None = None
-_launches: dict[str, int] = {}
 
 
 def find_nvcc() -> str:
@@ -151,18 +150,6 @@ def check(err: int, kernel: str) -> None:
     if err != 0:
         msg = library().mitr_error_string(err).decode()
         raise RuntimeError(f"{kernel}: CUDA launch failed: {msg} ({err})")
-
-
-def count_launch(kernel: str) -> None:
-    _launches[kernel] = _launches.get(kernel, 0) + 1
-
-
-def launch_counts() -> dict[str, int]:
-    return dict(_launches)
-
-
-def reset_launch_counts() -> None:
-    _launches.clear()
 
 
 def require(kernel: str, name: str, t, dtype, shape, device) -> None:

@@ -53,6 +53,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import trace
 from ..kernels import _build
 from .accel import SUPER_CHUNKS, Accel
 
@@ -318,5 +319,5 @@ def query_kernel(accel: Accel, ray_o, ray_d, maxt, active, n_closest: int,
             None if stats is None else stats.data_ptr(),
             _build.stream_of(dev))
     _build.check(err, kernel)
-    _build.count_launch(kernel)
+    trace.count_launch(kernel)
     return t_out, prim

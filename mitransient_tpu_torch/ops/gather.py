@@ -60,6 +60,7 @@ import math
 
 import torch
 
+from .. import trace
 from ..kernels import _build
 
 # the JAX package's ONEHOT_MAX_ROWS: above it the tiles' partials, one per
@@ -202,7 +203,7 @@ def reduce_rows(g: torch.Tensor, idx: torch.Tensor,
                 level.data_ptr(), work[2 * rows:].data_ptr(), out.data_ptr(),
                 stream)
             _build.check(err, kernel)
-    _build.count_launch(kernel)
+    trace.count_launch(kernel)
     return out
 
 

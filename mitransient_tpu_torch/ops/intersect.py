@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import trace
 from ..kernels import _build
 from . import bvh
 
@@ -173,5 +174,5 @@ def _soup_kernel(kernel, table, m, ray_o, ray_d, maxt, active):
                 maxt.data_ptr(), active.data_ptr(), n, occ.data_ptr(), stream)
             out = occ
     _build.check(err, kernel)
-    _build.count_launch(kernel)
+    trace.count_launch(kernel)
     return out

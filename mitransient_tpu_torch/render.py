@@ -37,6 +37,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import trace
 from .core.rng import Sampler
 from .core.math import divide
 from .film.transient_film import (
@@ -171,68 +172,70 @@ def render(
     spectral scene raises ``NotImplementedError``: the JAX package renders
     it as plain RGB there.
     """
-    cfg = scene.sensors[sensor]
-    icfg = scene.integrator
-    var = scene.variant
-    if cfg.kind == "nlos_capture_meter" or icfg.kind == "transient_nlos_path":
-        from .integrators.nlos_path import render_nlos
+    with trace.span("mitr:render"):
+        cfg = scene.sensors[sensor]
+        icfg = scene.integrator
+        var = scene.variant
+        if (cfg.kind == "nlos_capture_meter"
+                or icfg.kind == "transient_nlos_path"):
+            from .integrators.nlos_path import render_nlos
 
-        return render_nlos(scene, spp=spp, seed=seed, sensor=sensor,
-                           max_lanes=max_lanes,
-                           progress_callback=progress_callback,
-                           return_stats=return_stats, bvh_mode=bvh_mode)
-    film_cfg = cfg.film
-    spp = spp if spp is not None else cfg.spp
-    dw, dh = film_cfg.data_width, film_cfg.data_height
-    hw = dw * dh
-    C = film_channels(var)
-    dev = scene.device
+            return render_nlos(scene, spp=spp, seed=seed, sensor=sensor,
+                               max_lanes=max_lanes,
+                               progress_callback=progress_callback,
+                               return_stats=return_stats, bvh_mode=bvh_mode)
+        film_cfg = cfg.film
+        spp = spp if spp is not None else cfg.spp
+        dw, dh = film_cfg.data_width, film_cfg.data_height
+        hw = dw * dh
+        C = film_channels(var)
+        dev = scene.device
 
-    if bvh_mode not in MODES:
-        raise ValueError(f"bvh_mode {bvh_mode!r}: expected one of {MODES}")
-    if regenerate is None:
-        regenerate = (
-            icfg.kind == "transient_path"
-            and not icfg.camera_unwarp
-            and not var.spectral
-            and icfg.temporal_filter != "gaussian"
-            and film_cfg.rfilter == "box"
-            and not film_cfg.is_cropped
-            and spp >= 8
-        )
-    if film_state is not None:
-        regenerate = False  # resuming implies the multi-pass accumulator
-    if regenerate and var.spectral:
-        raise NotImplementedError(
-            "the regen loop has no spectral branch (the JAX package's "
-            "renders RGB there); render spectral scenes with "
-            "regenerate=None or False")
-    cam = build_camera(cfg, device=dev)
-    sd = primal_sd(scene.data)
-    if regenerate:
-        lanes_per_pixel = max(1, min(spp, max_lanes // max(hw, 1)))
-        film = film_init_any(film_cfg, C, device=dev)
-        film, n_rays, iters, loop_iters = _regen_render(
-            sd, cam, film, seed, film_cfg=film_cfg, icfg=icfg,
-            spp_total=spp, lanes_per_pixel=lanes_per_pixel,
-            bvh_mode=bvh_mode, polarized=var.polarized)
-        if progress_callback is not None:
-            progress_callback(1.0)
-        stats = {"rays": n_rays, "spp": spp, "iters": iters,
-                 "loop_iters": loop_iters}
-    else:
-        film, n_rays, spp, loop_iters = _multipass_render(
-            sd, cam, seed, spp, film_cfg=film_cfg, icfg=icfg, channels=C,
-            max_lanes=max_lanes, film_state=film_state,
-            progress_callback=progress_callback,
-            checkpoint_callback=checkpoint_callback, bvh_mode=bvh_mode,
-            variant=var)
-        stats = {"rays": n_rays, "spp": spp, "loop_iters": loop_iters}
-    steady, transient = develop_any(film, film_cfg, shape_hw=(dh, dw))
-    stats.update(surface_sample_validation(film, film_cfg))
-    if return_stats:
-        return steady, transient, stats
-    return steady, transient
+        if bvh_mode not in MODES:
+            raise ValueError(f"bvh_mode {bvh_mode!r}: expected one of {MODES}")
+        if regenerate is None:
+            regenerate = (
+                icfg.kind == "transient_path"
+                and not icfg.camera_unwarp
+                and not var.spectral
+                and icfg.temporal_filter != "gaussian"
+                and film_cfg.rfilter == "box"
+                and not film_cfg.is_cropped
+                and spp >= 8
+            )
+        if film_state is not None:
+            regenerate = False  # resuming implies the multi-pass accumulator
+        if regenerate and var.spectral:
+            raise NotImplementedError(
+                "the regen loop has no spectral branch (the JAX package's "
+                "renders RGB there); render spectral scenes with "
+                "regenerate=None or False")
+        cam = build_camera(cfg, device=dev)
+        sd = primal_sd(scene.data)
+        if regenerate:
+            lanes_per_pixel = max(1, min(spp, max_lanes // max(hw, 1)))
+            film = film_init_any(film_cfg, C, device=dev)
+            film, n_rays, iters, loop_iters = _regen_render(
+                sd, cam, film, seed, film_cfg=film_cfg, icfg=icfg,
+                spp_total=spp, lanes_per_pixel=lanes_per_pixel,
+                bvh_mode=bvh_mode, polarized=var.polarized)
+            if progress_callback is not None:
+                progress_callback(1.0)
+            stats = {"rays": n_rays, "spp": spp, "iters": iters,
+                     "loop_iters": loop_iters}
+        else:
+            film, n_rays, spp, loop_iters = _multipass_render(
+                sd, cam, seed, spp, film_cfg=film_cfg, icfg=icfg, channels=C,
+                max_lanes=max_lanes, film_state=film_state,
+                progress_callback=progress_callback,
+                checkpoint_callback=checkpoint_callback, bvh_mode=bvh_mode,
+                variant=var)
+            stats = {"rays": n_rays, "spp": spp, "loop_iters": loop_iters}
+        steady, transient = develop_any(film, film_cfg, shape_hw=(dh, dw))
+        stats.update(surface_sample_validation(film, film_cfg))
+        if return_stats:
+            return steady, transient, stats
+        return steady, transient
 
 
 def _multipass_render(sd, cam, seed, spp, *, film_cfg, icfg, channels,
@@ -389,9 +392,11 @@ def _backward_pass(sd, cam, grad_st_flat, grad_tr_flat, seed, pass_idx,
     _f, L, _v, _r = sample_primal(
         sd, sampler, ray, pix, ray_weight, None, film_cfg, icfg,
         sample_scale=inv_spp, spp=spp, bvh_mode=bvh_mode, enable_film=False)
-    return sample_adjoint(
-        sd, sampler.key, ray, pix, ray_weight, L, grad_tr_flat, grad_st_flat,
-        film_cfg, icfg, inv_spp, mode="backward", bvh_mode=bvh_mode)
+    with trace.span("mitr:adjoint"):
+        return sample_adjoint(
+            sd, sampler.key, ray, pix, ray_weight, L, grad_tr_flat,
+            grad_st_flat, film_cfg, icfg, inv_spp, mode="backward",
+            bvh_mode=bvh_mode)
 
 
 @torch.no_grad()
@@ -424,35 +429,36 @@ def render_backward(scene: Scene, grad_in, spp: int | None = None,
     in full AD, and wavefronts of more than 2^32 lanes in the PRB replay
     of ``transient_path`` (:func:`_prb_setup`): the chunked routes never
     build one wavefront."""
-    cfg = scene.sensors[sensor]
-    icfg = scene.integrator
-    var = scene.variant
-    _refuse_film(cfg.film)
-    if (icfg.kind == "transient_prbvolpath" and method != "fullad"
-            and not var.polarized):
-        return render_backward_volpath(scene, grad_in, spp=spp, seed=seed,
-                                       sensor=sensor, bvh_mode=bvh_mode)
-    if (icfg.kind in ("transient_nlos_path", "transient_prbvolpath")
-            or var.polarized or var.spectral or method == "fullad"):
-        from .integrators.fullad import render_backward_fullad
+    with trace.span("mitr:render_backward"):
+        cfg = scene.sensors[sensor]
+        icfg = scene.integrator
+        var = scene.variant
+        _refuse_film(cfg.film)
+        if (icfg.kind == "transient_prbvolpath" and method != "fullad"
+                and not var.polarized):
+            return render_backward_volpath(scene, grad_in, spp=spp, seed=seed,
+                                           sensor=sensor, bvh_mode=bvh_mode)
+        if (icfg.kind in ("transient_nlos_path", "transient_prbvolpath")
+                or var.polarized or var.spectral or method == "fullad"):
+            from .integrators.fullad import render_backward_fullad
 
-        return render_backward_fullad(scene, grad_in, spp=spp, seed=seed,
-                                      sensor=sensor, bvh_mode=bvh_mode)
-    cfg, icfg, film_cfg, spp, hw, spp_chunk, n_passes = _prb_setup(
-        scene, spp, sensor, max_lanes)
-    gs, gt = adjoint_images(grad_in, film_cfg, scene.variant.color_channels,
-                            scene.device)
-    cam = build_camera(cfg, device=scene.device)
-    sd = primal_sd(scene.data)
-    total_spp = spp_chunk * n_passes
-    grads = None
-    for p in range(n_passes):
-        grads = add_params(grads, _backward_pass(
-            sd, cam, gs, gt.reshape(hw * film_cfg.temporal_bins, -1), seed,
-            p, 1.0 / total_spp, film_cfg=film_cfg,
-            icfg=icfg, width=film_cfg.width, height=film_cfg.height,
-            spp=spp_chunk, bvh_mode=bvh_mode))
-    return grads_to_named(scene, grads)
+            return render_backward_fullad(scene, grad_in, spp=spp, seed=seed,
+                                          sensor=sensor, bvh_mode=bvh_mode)
+        cfg, icfg, film_cfg, spp, hw, spp_chunk, n_passes = _prb_setup(
+            scene, spp, sensor, max_lanes)
+        gs, gt = adjoint_images(grad_in, film_cfg,
+                                scene.variant.color_channels, scene.device)
+        cam = build_camera(cfg, device=scene.device)
+        sd = primal_sd(scene.data)
+        total_spp = spp_chunk * n_passes
+        grads = None
+        for p in range(n_passes):
+            grads = add_params(grads, _backward_pass(
+                sd, cam, gs, gt.reshape(hw * film_cfg.temporal_bins, -1), seed,
+                p, 1.0 / total_spp, film_cfg=film_cfg,
+                icfg=icfg, width=film_cfg.width, height=film_cfg.height,
+                spp=spp_chunk, bvh_mode=bvh_mode))
+        return grads_to_named(scene, grads)
 
 
 def _backward_pass_vol(sd, cam, grad_st_flat, grad_tr_flat, seed, pass_idx,

@@ -43,6 +43,7 @@ import os
 import numpy as np
 import torch
 
+from .. import trace
 from ..core.spectrum import Variant, variant
 from ..core.transform import Transform4, from_spec
 from ..ops.accel import ACCEL_MIN_TRIS, build_accel
@@ -1131,7 +1132,8 @@ def load_dict(desc: dict, device="cuda", base_dir: str = ".") -> Scene:
 def _host(value) -> np.ndarray:
     """A parameter value (tensor, array or number) as a host float64 array."""
     if isinstance(value, torch.Tensor):
-        value = value.detach().cpu().numpy()
+        with trace.span("mitr:sync"):
+            value = value.detach().cpu().numpy()
     return np.asarray(value, np.float64)
 
 

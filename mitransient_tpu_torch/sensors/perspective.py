@@ -16,6 +16,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import trace
 from ..core.math import divide, normalize
 from ..core.records import Ray
 from ..core.rng import Sampler
@@ -42,11 +43,12 @@ def build_camera(cfg: SensorConfig, device="cpu") -> CameraArrays:
         axis = "x" if w >= h else "y"
     tx, ty = (t, t / aspect) if axis == "x" else (t * aspect, t)
     f32 = torch.float32
-    return CameraArrays(
-        R=torch.tensor(m[:3, :3], dtype=f32, device=device),
-        origin=torch.tensor(m[:3, 3], dtype=f32, device=device),
-        tan_half=torch.tensor([tx, ty], dtype=f32, device=device),
-    )
+    with trace.span("mitr:sync"):  # copies from pageable host memory
+        return CameraArrays(
+            R=torch.tensor(m[:3, :3], dtype=f32, device=device),
+            origin=torch.tensor(m[:3, 3], dtype=f32, device=device),
+            tan_half=torch.tensor([tx, ty], dtype=f32, device=device),
+        )
 
 
 def sample_rays(
