@@ -51,13 +51,22 @@ Phases, each of which raises on failure:
 10. The small sphere config (``small_cbox`` with a 4,512-triangle sphere)
     on the card against the port on the host CPU, under test_golden's rule
     with no element out.
-11. The threefry sample streams: ``draw_bounce_block`` at (2^21, 6) and
-    ``Sampler.eval_2d`` at 2^21 lanes on the card, each bit-equal to the
-    same draw on the host CPU, timed, and their time per multi-pass
-    flagship render (32 passes of 8 bounce blocks and one jitter draw).
+11. The threefry kernel (``csrc/rng.cu``) on the draws of a multi-pass
+    flagship pass and of a gradient step: a bounce block at (2^21, 6) and
+    (2^23, 6) and a 2^21 camera draw, each bit-equal to the plain int64
+    chain on the card (the (2^21, 6) block also to the host CPU's draw),
+    timed beside that chain and beside the bound by operations, from the
+    instructions a number in the kernel's loop, read from its SASS
+    (``cuobjdump -sass``), at the card's highest SM clock: the rotations
+    and xors, which only the INT32 pipe runs, at 64 lanes a clock on each
+    SM, or all of them at the 128 lanes a clock an SM dispatches, whichever
+    takes longer (``torch.rand`` is Philox, not this function: no library
+    column); and their time per multi-pass flagship render (32 passes of 8
+    bounce blocks and the camera's two draws).
 12. The flagship through the multi-pass accumulator (``regenerate=False``,
     spp 1024: 32 passes of spp 32 at 2^21 lanes): each of K1-K3 launches
-    once per bounce of every pass, the physics checks pass; peak memory and
+    once per bounce of every pass, the threefry kernel once per draw (10
+    a pass), the physics checks pass; peak memory and
     the rays/s of a second render (seed 1).
 13. The ``cbox_rgb_multipass`` and ``phasor`` golden configs on the card
     against their goldens.
@@ -361,6 +370,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -461,10 +471,25 @@ CROSSOVER = ((3, 16), (5, 16), (9, 16), (9, 32), (17, 32), (17, 64),
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and FP32 (non-tensor) ops/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# an H100 SM dispatches one warp instruction a clock on each of its 4
+# sub-partitions, of which the INT32 (ALU) pipe takes 16 lanes a clock;
+# integer adds may also go to the FMA pipe (IMAD.IADD, VIADD), but the
+# funnel-shift rotations and the xors (SHF, LOP3) run on the ALU pipe alone
+DISPATCH_LANES_PER_SM = 128
+INT32_LANES_PER_SM = 64
+ALU_ONLY = ("SHF", "LOP3")
+THREEFRY_DRAWS_PER_PASS = 10  # 8 bounce blocks and the camera's two draws
 # FP32 operations of one test, as the kernels write them
 MT_OPS = 46  # Moller-Trumbore: 2 crosses, 3 dots, 4 subs, 1 div, u + v
 SLAB_OPS = 23  # 6 subs, 6 muls, 6 min/max per axis pair, 5 min/max
 WOOP_OPS = 40  # 6 dots of 3, 3 subs, neg, div, 2 mul-adds, u + v
+
+
+def without_draws(counts):
+    """Launch counts without the threefry kernel's, which phases 11 and 12
+    hold on their own: what the other phases' exact checks of the ray,
+    splat and gather kernels compare."""
+    return {k: v for k, v in counts.items() if k != "threefry_uniform"}
 
 
 def _run(cmd):
@@ -1149,7 +1174,7 @@ def render_mesh(mt, cases, dev, scene):
               f"iterations {n}, peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         want = {f"bvh_query_{mode}": 2 * n, "splat_accumulate": n}
-        if n == 0 or c != want:
+        if n == 0 or without_draws(c) != want:
             raise AssertionError(f"cbox_mesh {mode}: launches {c}, expected "
                                  f"{want}")
         s, t = s.cpu().numpy(), t.cpu().numpy()
@@ -1236,35 +1261,116 @@ def render_small_sphere(mt, cases, dev):
             raise AssertionError(f"small sphere {k}: card and CPU disagree")
 
 
+def threefry_sass(lib_path):
+    """The SASS of the threefry kernel's grid-stride loop (the longest
+    backward branch's body in ``cuobjdump -sass``), which draws 4 numbers a
+    pass: ({opcode: count}, instructions a number that only the ALU pipe
+    runs, all instructions a number)."""
+    import re
+
+    from mitransient_tpu_torch.kernels import _build
+
+    nvcc = _build.find_nvcc()
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    sass = _run([cuobjdump, "-sass", str(lib_path)])
+    body, inside = [], False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = "threefry_uniform_kernel" in line
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if inside and m:
+            body.append((int(m.group(1), 16), m.group(2)))
+    loops = []
+    for addr, text in body:
+        m = re.search(r"BRA\s+0x([0-9a-f]+)", text)
+        if m and int(m.group(1), 16) < addr:
+            loops.append((int(m.group(1), 16), addr))
+    if not loops:
+        raise AssertionError("threefry SASS: no loop found")
+    lo, hi = max(loops, key=lambda r: r[1] - r[0])
+    ops = {}
+    for addr, text in body:
+        if lo <= addr <= hi:
+            words = [w for w in text.split() if not w.startswith("@")]
+            ops[words[0]] = ops.get(words[0], 0) + 1
+    alu = sum(c for op, c in ops.items() if op.split(".")[0] in ALU_ONLY)
+    return ops, alu / 4, sum(ops.values()) / 4
+
+
 def check_threefry(dev):
-    """Phase 11: the threefry draws of a multi-pass flagship pass on the
-    card, bit-equal to the host CPU's, and their time per render."""
+    """Phase 11: the threefry kernel on the draws of a multi-pass flagship
+    pass and of a gradient step, bit-equal to the plain chain, timed beside
+    it and beside its bound by operations; returns its time per multi-pass
+    flagship render and the kernel's row of the kernels line."""
     import torch
 
     from mitransient_tpu_torch.core import rng
+    from mitransient_tpu_torch.kernels import _build
 
+    ops, alu, dispatched = threefry_sass(_build.build().path)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    mhz = float(_run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                      "--format=csv,noheader,nounits"]).splitlines()[0])
+    int_rate = sms * INT32_LANES_PER_SM * mhz * 1e6
+    dispatch_rate = sms * DISPATCH_LANES_PER_SM * mhz * 1e6
+    print(f"threefry SASS loop (4 numbers): {dict(sorted(ops.items()))}; "
+          f"a number: {alu:.2f} ALU-only instructions ({'+'.join(ALU_ONLY)}"
+          f") at the INT32 rate {int_rate / 1e12:.2f} T/s, {dispatched:.2f} "
+          f"instructions at the dispatch rate {dispatch_rate / 1e12:.2f} T/s ("
+          f"{sms} SMs x {INT32_LANES_PER_SM} / {DISPATCH_LANES_PER_SM} lanes x "
+          f"{mhz:.0f} MHz)")
     key = rng.Sampler(0, N_RAYS, stream=5).key
-    draws = {
-        "draw_bounce_block (2^21, 6)":
-            lambda d: rng.draw_bounce_block(key, 3, N_RAYS, 6, d),
-        "Sampler.eval_2d (2^21 lanes)":
-            lambda d: rng.Sampler(7, N_RAYS, 2, device=d).eval_2d(0),
-    }
-    ms = {}
-    for name, draw in draws.items():
-        got, want = draw(dev).cpu(), draw("cpu")
-        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+    block = rng.fold_in(key, rng.BOUNCE_STREAM_TAG + 3)
+    draws = {"bounce block (2^21, 6)": (block, (N_RAYS, 6)),
+             "bounce block (2^23, 6)": (block, (4 * N_RAYS, 6)),
+             "camera draw (2^21)": (rng.fold_in(key, 0), (N_RAYS,))}
+    rows = {}
+    for name, (k, shape) in draws.items():
+        n = math.prod(shape)
+        got = rng.uniform(k, shape, dev)
+        plain = rng._uniform_plain(k, 0, n, dev).reshape(shape)
+        if not torch.equal(got.view(torch.int32), plain.view(torch.int32)):
+            raise AssertionError(f"threefry {name}: the kernel's draw "
+                                 "differs from the plain chain's")
+        if n == N_RAYS * 6 and not torch.equal(
+                got.cpu().view(torch.int32),
+                rng.uniform(k, shape).view(torch.int32)):
             raise AssertionError(f"threefry {name}: the card's draw differs "
                                  "from the CPU's")
-        ms[name] = _time_ms(lambda: draw(dev), reps=5, warmup=1, batches=3)
-        print(f"threefry {name}: bit-equal to the CPU; {ms[name]:.4f} ms a "
-              "draw on the card")
-    block, jitter = ms.values()
-    passes, depth = MULTIPASS_PASSES, 8
-    per_render = passes * (depth * block + jitter)
+        ms = _time_ms(lambda: rng.uniform(k, shape, dev))
+        device_ms = _graph_ms(lambda: rng.uniform(k, shape, dev))
+        plain_ms = _time_ms(lambda: rng._uniform_plain(k, 0, n, dev),
+                            reps=5, warmup=1, batches=3)
+        t_bytes = 4 * n / HBM_BYTES_PER_S * 1e3
+        t_ops = n * max(alu / int_rate, dispatched / dispatch_rate) * 1e3
+        bound = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes,
+                                                                "bytes")
+        rows[name] = dict(n=n, ms=ms, plain_ms=plain_ms, bound=bound,
+                          device_ms=device_ms)
+        print(f"threefry {name}: bit-equal to the plain chain; kernel "
+              f"{ms:.4f} ms a draw (card alone {device_ms:.4f}), "
+              f"plain chain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms "
+              f"({bound[1]}; bytes {t_bytes:.4f} ms)")
+    block_ms = rows["bounce block (2^21, 6)"]["ms"]
+    camera_ms = rows["camera draw (2^21)"]["ms"]
+    passes = MULTIPASS_PASSES
+    per_render = passes * (8 * block_ms + 2 * camera_ms)
     print(f"threefry per multi-pass flagship render ({passes} passes x "
-          f"({depth} bounce blocks + 1 jitter draw)): {per_render:.1f} ms")
-    return per_render
+          f"(8 bounce blocks + 2 camera draws)): {per_render:.1f} ms")
+    main = rows["bounce block (2^21, 6)"]
+    row = dict(name="threefry_uniform", route="cuda",
+               source="mitransient_tpu_torch/csrc/rng.cu",
+               replaces="none: jax.random.uniform (XLA's threefry2x32)",
+               launches=0, max_abs_err=0.0, ms=main["ms"],
+               plain_ms=main["plain_ms"], bound_ms=main["bound"][0],
+               bound_by=main["bound"][1], library_ms=None,
+               alu_ops_per_number=alu, ops_per_number=dispatched,
+               int32_ops_per_s=int_rate, dispatch_ops_per_s=dispatch_rate,
+               calls={k: dict(n=r["n"], ms=r["ms"], device_ms=r["device_ms"],
+                              plain_ms=r["plain_ms"], bound_ms=r["bound"][0])
+                      for k, r in rows.items()})
+    return per_render, row
 
 
 def render_multipass_flagship(mt, cases, dev, threefry_ms):
@@ -1294,6 +1400,11 @@ def render_multipass_flagship(mt, cases, dev, threefry_ms):
         if counts.get(name, 0) != n:
             raise AssertionError(f"{name} launched {counts.get(name, 0)} "
                                  f"times in {n} bounces")
+    draws = MULTIPASS_PASSES * THREEFRY_DRAWS_PER_PASS
+    if counts.get("threefry_uniform", 0) != draws:
+        raise AssertionError(f"threefry_uniform launched "
+                             f"{counts.get('threefry_uniform', 0)} times, "
+                             f"not once in each of {draws} draws")
     s, t = s.cpu().numpy(), t.cpu().numpy()
     fails = cases.physics_checks(s, t)
     prof = t.sum(axis=(0, 1, 3))
@@ -1381,7 +1492,7 @@ def multipass_card_against_cpu(mt, cases, dev):
                 {"closest_hit": n + passes, "ray_test": n,
                  "splat_accumulate": n})
         print(f"multi-pass {name} on the card: launches {counts}")
-        if counts != want:
+        if without_draws(counts) != want:
             raise AssertionError(f"multi-pass {name}: launches {counts}, "
                                  f"expected {want}")
         for k, got, ref in zip(("steady", "transient"), out[0], out[1]):
@@ -1566,7 +1677,8 @@ def render_nlos_single(mt, cases, dev):
           "bounces")
     want = {k: n + prep.get(k, 0) for k in ("closest_hit", "ray_test",
                                             "splat_accumulate")}
-    if n != 4 or counts != want or len(kept) != 3 or len(kept["events"]) != 2:
+    if (n != 4 or without_draws(counts) != want or len(kept) != 3
+            or len(kept["events"]) != 2):
         raise AssertionError(f"NLOS single: launches {counts}, expected "
                              f"{want} (one event set a splat)")
     _check_energy("NLOS single", s.cpu().numpy(), t.cpu().numpy(),
@@ -2226,8 +2338,9 @@ def forward_mode_phase(mt, cases, dev):
           f"{wall1:.3f} s, launches {counts}; call 2 (seed 1) {wall2:.3f} s, "
           f"peak memory {peak2:.2f} GiB; d_steady sum {float(ds.sum()):.6g}, "
           f"d_transient sum {float(dt.sum()):.6g}")
-    if counts != {"closest_hit": 2 * depth, "ray_test": 2 * depth,
-                  "splat_accumulate": depth}:
+    if without_draws(counts) != {"closest_hit": 2 * depth,
+                                 "ray_test": 2 * depth,
+                                 "splat_accumulate": depth}:
         raise AssertionError(f"forward replay: launches {counts}, expected "
                              f"K3 once a bounce ({depth})")
     if not (np.isfinite(dt.cpu().numpy()).all() and float(dt.sum()) > 0):
@@ -2440,7 +2553,8 @@ def render_volumetric_tutorial(mt, cases, dev):
           f"bins, depth {cfg['max_depth']}, spp {cfg['spp']} ({passes} "
           f"passes of {lanes} lanes) render 1 (seed 0, its kernel inputs "
           f"captured): launches {counts} in {n} bounces")
-    if counts != {"closest_hit": steps * n, "splat_accumulate": n}:
+    if without_draws(counts) != {"closest_hit": steps * n,
+                                 "splat_accumulate": n}:
         raise AssertionError(f"volumetric tutorial: launches {counts}, "
                              f"expected K1 {steps} and K3 1 a bounce, K2 "
                              "never")
@@ -2497,7 +2611,8 @@ def render_volumetric_tutorial(mt, cases, dev):
     _s, t1, st1 = mt.render(grid, spp=g["spp"], seed=0, return_stats=True)
     gcounts = launch_counts()
     ng = st1["loop_iters"]
-    if gcounts != {"closest_hit": steps * ng, "splat_accumulate": ng}:
+    if without_draws(gcounts) != {"closest_hit": steps * ng,
+                                  "splat_accumulate": ng}:
         raise AssertionError(f"volumetric grid: launches {gcounts}")
     _check_energy("volumetric grid", _s.cpu().numpy(), t1.cpu().numpy(),
                   VOL_FIRST_BINS)
@@ -2607,7 +2722,8 @@ def volumetric_gradients(mt, cases, dev):
     steps = 1 + volpath.TRANSMITTANCE_STEPS
     if (counts.get("closest_hit") != 2 * steps * depth
             or counts.get("reduce_rows", 0) < depth
-            or set(counts) != {"closest_hit", "reduce_rows"}):
+            or set(without_draws(counts)) != {"closest_hit",
+                                               "reduce_rows"}):
         raise AssertionError(f"volumetric backward: launches {counts}")
     if not all(torch.isfinite(v).all() for v in tabs if v is not None):
         raise AssertionError("volumetric backward: non-finite tables")
@@ -2977,7 +3093,7 @@ def render_polarized_nlos(mt, cases, dev):
           f"render 1 (seed 0, its kernel inputs captured): {wall1:.3f} s, "
           f"launches {counts['pol_nlos']} in {n} bounces")
     want = {"closest_hit": n + 1, "ray_test": n + 1, "splat_accumulate": n}
-    if counts["pol_nlos"] != want or len(kept) != 3:
+    if without_draws(counts["pol_nlos"]) != want or len(kept) != 3:
         raise AssertionError(f"polarized NLOS: launches {counts['pol_nlos']}"
                              f", expected {want}")
     s_np, t_np = s.cpu().numpy(), t.cpu().numpy()
@@ -3110,7 +3226,8 @@ def render_variant_tutorial(mt, cases, dev):
               f"(seed 0): {wall1:.3f} s, launches {c} in {n} bounces; film "
               f"{t_np.shape}, first arrival bin {first}"
               + (f", Stokes {pol}" if pol else ""))
-        if (c != {"closest_hit": steps * n, "splat_accumulate": n}
+        if (without_draws(c) != {"closest_hit": steps * n,
+                                 "splat_accumulate": n}
                 or t_np.shape[-1] != C or not np.isfinite(t_np).all()
                 or not VOL_FIRST_BINS[0] <= first <= VOL_FIRST_BINS[1]
                 or (pol and pol["dop_q95"] > cases.DOP_Q95_MAX)):
@@ -3953,9 +4070,10 @@ def main() -> int:
     counts.update(render_mesh(mt, cases, dev, mesh))
     profile_mesh(mt, mesh)
     render_small_sphere(mt, cases, dev)
-    threefry_ms = check_threefry(dev)
+    threefry_ms, threefry_row = check_threefry(dev)
     multipass, multipass_ref = render_multipass_flagship(
         mt, cases, dev, threefry_ms)
+    threefry_row["launches"] = multipass["threefry_uniform"]
     render_multipass_goldens(mt, cases, dev)
     gauss_counts = multipass_card_against_cpu(mt, cases, dev)
     check_resume(mt, cases, dev)
@@ -4051,6 +4169,7 @@ def main() -> int:
                 r.update({f"{prefix}_library_ms": h["library_ms"],
                           f"{prefix}_sectors": h["sectors"]})
     rows += port_only_rows(k8, gauss, phase_counts, gauss_counts)
+    rows.append(threefry_row)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi.splitlines()[0])

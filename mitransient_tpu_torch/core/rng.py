@@ -14,16 +14,19 @@ and ``jax_threefry_partitionable`` on:
   in [1, 2), minus 1.
 
 Keys are pairs of Python ints, derived on the host; only the draws run on
-the device.  PyTorch has no uint32 shifts on the CPU, so the 32-bit words
-of a draw are held in int64 and masked to 32 bits, as the regen loop's PCG
-hash is (``integrators/path_regen.py``).  On the card a draw is a chain of
-about 150 eager int64 operations.
+the device.  A draw on the CPU is the plain version (``_uniform_plain``):
+PyTorch has no uint32 shifts there, so the 32-bit words are held in int64
+and masked to 32 bits, as the regen loop's PCG hash is
+(``integrators/path_regen.py``).  A draw on the card is one launch of the
+hand-written kernel ``csrc/rng.cu`` (``_uniform_kernel``), with the keys as
+two ``uint32`` arguments, or raises.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import trace
+from ..kernels import _build
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -68,20 +71,52 @@ def uniform(key: tuple[int, int], shape, device="cpu",
     ``rows=(r0, r1)`` draws only rows ``[r0, r1)`` of the leading axis,
     the same bits as those rows of the whole draw (they are the flat
     counters ``[r0 * k, r1 * k)``, k the size of a row), so that a large
-    draw can be made in slices."""
+    draw can be made in slices.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel."""
     shape = tuple(shape)
     row = 1
     for s in shape[1:]:
         row *= s
     r0, r1 = rows if rows is not None else (0, shape[0] if shape else 1)
+    dev = torch.device(device)
+    trace.count("rng.draws", 1)
     with trace.span("mitr:rng"):
-        i = torch.arange(r0 * row, r1 * row, dtype=torch.int64,
-                         device=device)
-        a, b = threefry2x32(key[0], key[1], i >> 32, i & _M32)
-        bits = (((a ^ b) >> 9) | 0x3F800000).to(torch.int32)
-        u = bits.view(torch.float32) - 1.0
-        return torch.clamp_min(u, 0.0).reshape(
-            (r1 - r0,) + shape[1:] if shape else ())
+        if dev.type == "cpu":
+            u = _uniform_plain(key, r0 * row, r1 * row, dev)
+        elif dev.type == "cuda":
+            u = _uniform_kernel(key, r0 * row, r1 * row, dev)
+        else:
+            raise ValueError(f"uniform: device {dev}; expected cpu or cuda")
+        return u.reshape((r1 - r0,) + shape[1:] if shape else ())
+
+
+def _uniform_plain(key: tuple[int, int], c0: int, c1: int,
+                   device) -> torch.Tensor:
+    """Numbers ``[c0, c1)`` of the flat draw under ``key``, as a chain of
+    eager int64 operations on ``device``: the CPU's path, and on the card
+    the kernel's yardstick."""
+    i = torch.arange(c0, c1, dtype=torch.int64, device=device)
+    a, b = threefry2x32(key[0], key[1], i >> 32, i & _M32)
+    bits = (((a ^ b) >> 9) | 0x3F800000).to(torch.int32)
+    return torch.clamp_min(bits.view(torch.float32) - 1.0, 0.0)
+
+
+def _uniform_kernel(key: tuple[int, int], c0: int, c1: int,
+                    device) -> torch.Tensor:
+    """Numbers ``[c0, c1)`` of the flat draw under ``key``: one launch of
+    ``csrc/rng.cu`` on ``device`` (none for an empty range)."""
+    kernel = "threefry_uniform"
+    out = torch.empty((c1 - c0,), dtype=torch.float32, device=device)
+    if c1 == c0:
+        return out
+    lib = _build.library()
+    with torch.cuda.device(device):
+        err = lib.mitr_threefry_uniform(out.data_ptr(), c1 - c0, c0, key[0],
+                                        key[1], _build.stream_of(device))
+    _build.check(err, kernel)
+    trace.count_launch(kernel)
+    trace.count("rng.draws_kernel", 1)
+    return out
 
 
 class Sampler:

@@ -43,6 +43,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
+_U = ctypes.c_uint32
 # C entry points of csrc/*.cu: name -> argtypes (all return int cudaError_t)
 _SIGNATURES = {
     "mitr_closest_hit": (_P, _I, _P, _P, _P, _P, _I, _P, _P, _P),
@@ -53,6 +54,7 @@ _SIGNATURES = {
                               _P, _P),
     "mitr_bvh_query": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                        _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
+    "mitr_threefry_uniform": (_P, _L, _L, _U, _U, _P),
 }
 
 

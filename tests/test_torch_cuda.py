@@ -1,5 +1,6 @@
-"""CUDA kernels of the PyTorch port (K1-K3, the BVH kernel, K8 and the
-gaussian temporal filter's splat) against their plain versions.
+"""CUDA kernels of the PyTorch port (K1-K3, the BVH kernel, K8, the
+gaussian temporal filter's splat and the threefry draw) against their
+plain versions.
 
 Every test is marked ``cuda`` and skips without an NVIDIA GPU.  This file
 imports neither jax nor the JAX package, so on a machine with only PyTorch
@@ -18,13 +19,17 @@ in lane order as K3 does, it must be bit-equal.  K8 (the table-gradient
 reduction) and the gaussian splat follow their plain versions' order, so
 against them run on the host CPU they must be bit-equal too, and two
 ``render_backward`` calls on the card must give the same tables bit for
-bit.
+bit.  The threefry kernel's draws are integers turned into floats
+exactly: bit-equal to the plain path on the host CPU, one launch a draw.
 """
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 import mitransient_tpu_torch as mt
+from mitransient_tpu_torch import trace
+from mitransient_tpu_torch.core import rng as trng
 from mitransient_tpu_torch.convert import scene_data_from_numpy, scene_data_to_numpy
 from mitransient_tpu_torch.film import transient_film as tf
 from mitransient_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -327,21 +332,23 @@ def test_small_render_on_cuda_goes_through_the_kernels(cuda):
 @pytest.mark.cuda
 def test_multipass_render_on_cuda_goes_through_the_kernels(cuda):
     """The cbox_rgb config through the multi-pass accumulator (3 passes):
-    each kernel launches once per bounce of each pass, the images agree
+    each kernel launches once per bounce of each pass and the threefry
+    kernel once for each draw the CPU's render makes, the images agree
     with the CPU under the golden rule, and a resumed render is bit for
     bit the uninterrupted one; the threefry draw is bit-equal to the
     CPU's."""
-    from mitransient_tpu_torch.core import rng
-
     kw = dict(spp=12, seed=1, max_lanes=4 * 256, regenerate=False)
     out = {}
     for dev in ("cpu", cuda):
         scene = mt.load_dict(small_cbox(mt), device=dev)
         states = []
         reset_launch_counts()
-        s, t, stats = mt.render(scene, return_stats=True,
-                                checkpoint_callback=states.append, **kw)
+        (s, t, stats), draws = _with_draws(lambda: mt.render(
+            scene, return_stats=True, checkpoint_callback=states.append,
+            **kw))
         counts = launch_counts()
+        if dev == "cpu":
+            cpu_draws = draws
         s2, t2 = mt.render(scene, film_state=states[1], **kw)
         assert torch.equal(s2, s) and torch.equal(t2, t)
         out[str(dev)] = (s.cpu().numpy(), t.cpu().numpy(), stats, counts)
@@ -349,13 +356,83 @@ def test_multipass_render_on_cuda_goes_through_the_kernels(cuda):
     s_g, t_g, stats_g, counts_g = out[str(cuda)]
     n = stats_g["loop_iters"]
     assert counts_c == {} and n == 3 * 6
-    assert counts_g == {"closest_hit": n, "ray_test": n, "splat_accumulate": n}
+    # a bounce block a bounce and the camera's two draws a pass
+    assert cpu_draws == n + 3 * 2
+    assert counts_g == {"closest_hit": n, "ray_test": n, "splat_accumulate": n,
+                        "threefry_uniform": cpu_draws}
     for got, want in ((s_g, s_c), (t_g, t_c)):
         m = golden_mismatch(got, want)
         assert m["shape_ok"] and m["n_bad"] == 0, m
-    key = rng.Sampler(3, 1, 2).key
-    assert torch.equal(rng.draw_bounce_block(key, 5, 4099, 6, cuda).cpu(),
-                       rng.draw_bounce_block(key, 5, 4099, 6))
+    key = trng.Sampler(3, 1, 2).key
+    assert torch.equal(trng.draw_bounce_block(key, 5, 4099, 6, cuda).cpu(),
+                       trng.draw_bounce_block(key, 5, 4099, 6))
+
+
+def _with_draws(fn):
+    """``fn()`` and the threefry draws it made: the ``rng.draws`` counter
+    of a profiler session of its own."""
+    with trace.span("mitr:render"):  # no profiler: the next span starts anew
+        pass
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = fn()
+    return out, trace.summary()["counters"].get("rng.draws", 0)
+
+
+def _same_draw(got, want, launches):
+    """A draw on the card bit-equal to the host CPU's, made in
+    ``launches`` launches of the threefry kernel."""
+    assert got.device.type == "cuda" and want.device.type == "cpu"
+    assert got.dtype == want.dtype == torch.float32
+    assert got.shape == want.shape
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    assert launch_counts().get("threefry_uniform", 0) == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3, 4099, 1 << 21])
+@pytest.mark.parametrize("dims", [1, 6, 8, 10])
+def test_threefry_kernel_bounce_blocks_are_bit_equal_to_cpu_plain(cuda, n,
+                                                                   dims):
+    key = trng.Sampler(2**32 - 1, 1, 3).key
+    reset_launch_counts()
+    got = trng.draw_bounce_block(key, 5, n, dims, cuda)
+    _same_draw(got, trng.draw_bounce_block(key, 5, n, dims), 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3, 4099])
+def test_threefry_kernel_sampler_draws_are_bit_equal_to_cpu_plain(cuda, n):
+    """eval_1d, eval_2d (two draws), a fork's eval_2d and next_2d."""
+    for seed, stream in ((0, 0), (7, 2), (2**32 - 1, 5)):
+        card = trng.Sampler(seed, n, stream, device=cuda)
+        host = trng.Sampler(seed, n, stream)
+        reset_launch_counts()
+        _same_draw(card.eval_1d(3), host.eval_1d(3), 1)
+        _same_draw(card.eval_2d(4), host.eval_2d(4), 3)
+        _same_draw(card.fork(9).eval_2d(0), host.fork(9).eval_2d(0), 5)
+        _same_draw(card.next_2d(), host.next_2d(), 7)
+        assert card.dim == host.dim == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, rows", [
+    ((4099, 6), (1, 4098)),  # an unaligned r0 and a partial last vector
+    ((1000, 3), (7, 8)),
+    ((1 << 21, 32, 2), (3, 70003)),  # a tracking draw's slice
+    # counters 2^32 - 8 .. 2^32 + 2039: the high word turns from 0 to 1
+    ((2**31, 4), (2**30 - 2, 2**30 + 510)),
+    ((10, 6), (4, 4)),  # no rows: no launch
+    ((0, 6), None),
+    ((), None),
+    ((5,), None),
+])
+def test_threefry_kernel_rows_slices_are_bit_equal_to_cpu_plain(cuda, shape,
+                                                                rows):
+    key = trng.fold_in(trng.make_key(12345), 0x6D50)
+    reset_launch_counts()
+    got = trng.uniform(key, shape, cuda, rows=rows)
+    want = trng.uniform(key, shape, rows=rows)
+    _same_draw(got, want, 1 if want.numel() else 0)
 
 
 def _sphere_rays(scene, dev, n=1 << 14, seed=5):
@@ -656,10 +733,15 @@ def test_volumetric_render_and_gradients_on_cuda_match_cpu(cuda, name):
     out = {}
     for dev in ("cpu", cuda):
         reset_launch_counts()
-        out[str(dev)] = mt.render(mt.load_dict(desc, device=dev), **kw)
+        out[str(dev)], draws = _with_draws(
+            lambda: mt.render(mt.load_dict(desc, device=dev), **kw))
         counts = launch_counts()
+        if dev == "cpu":
+            cpu_draws = draws
     depth = desc["integrator"]["max_depth"]
-    assert counts == {"closest_hit": 5 * depth, "splat_accumulate": depth}
+    assert cpu_draws >= depth + 2  # bounce blocks, the camera's two draws
+    assert counts == {"closest_hit": 5 * depth, "splat_accumulate": depth,
+                      "threefry_uniform": cpu_draws}
     for g, w in zip(out[str(cuda)], out["cpu"]):
         assert torch.equal(g.cpu(), w)
     adjoint = (None, np.random.default_rng(5).uniform(

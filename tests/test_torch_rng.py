@@ -1,18 +1,26 @@
 """The port's random streams are bit-equal to the JAX package's: the
 stateless PCG hash of the regen loop (integrators/path_regen.py:45-57) and
 the threefry streams of core/rng.py (``Sampler``, ``draw_bounce_block``,
-drawn by ``jax.random`` with ``jax_threefry_partitionable`` on).
+drawn by ``jax.random`` with ``jax_threefry_partitionable`` on).  Past
+2^32 counters, where no test can afford a JAX draw, the plain path is held
+to ``threefry2x32`` on Python ints, as the card's kernel is
+(tests/test_torch_cuda.py).
 Tolerance: none, integers and the float32 conversion must be identical."""
+import struct
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from mitransient_tpu.core import rng as jrng
 from mitransient_tpu.integrators import path_regen as jreg
 from mitransient_tpu_torch.core import rng as trng
+from mitransient_tpu_torch import trace
 from mitransient_tpu_torch.integrators import path_regen as treg
+from mitransient_tpu_torch.kernels import _build
 
 torch.set_num_threads(1)
 
@@ -131,3 +139,52 @@ def test_uniform_is_in_the_unit_interval():
     u = trng.uniform(trng.fold_in(trng.make_key(3), 1), (1 << 16,))
     assert float(u.min()) >= 0.0 and float(u.max()) < 1.0
     assert abs(float(u.mean()) - 0.5) < 0.01
+
+
+def _python_uniform(key, counters):
+    """``uniform``'s numbers at the flat counters, on Python ints."""
+    out = []
+    for i in counters:
+        a, b = trng.threefry2x32(key[0], key[1], i >> 32, i & 0xFFFFFFFF)
+        bits = ((a ^ b) >> 9) | 0x3F800000
+        out.append(struct.unpack("<f", struct.pack("<I", bits))[0] - 1.0)
+    return np.asarray(out, dtype=np.float32)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_plain_path_past_2_32_counters(seed):
+    """A ``rows=`` slice of a (2^31, 4) draw whose counters cross 2^32:
+    the high word of the counter turns from 0 to 1 at row 2^30."""
+    key = trng.fold_in(trng.make_key(seed), 11)
+    r0, r1 = 2**30 - 2, 2**30 + 510
+    got = trng.uniform(key, (2**31, 4), rows=(r0, r1))
+    assert got.shape == (r1 - r0, 4)
+    want = _python_uniform(key, range(4 * r0, 4 * r1))
+    np.testing.assert_array_equal(got.reshape(-1).numpy().view(np.uint32),
+                                  want.view(np.uint32))
+
+
+def test_cpu_draw_never_loads_the_kernel_library(monkeypatch):
+    def refuse():
+        raise AssertionError("a CPU draw asked for the CUDA kernels")
+
+    monkeypatch.setattr(_build, "library", refuse)
+    key = trng.Sampler(3, 1, 2).key
+    assert trng.draw_bounce_block(key, 1, 4099, 6).shape == (4099, 6)
+    assert trng.Sampler(3, 17, 2).fork(4).eval_2d(5).shape == (17, 2)
+    assert trng.uniform(key, (9, 2), rows=(3, 3)).shape == (0, 2)
+    assert trng.uniform(key, ()).shape == ()
+
+
+def test_draws_are_counted_and_none_launches_on_the_cpu():
+    with trace.span("mitr:render"):  # a session of its own
+        pass
+    with profile(activities=[ProfilerActivity.CPU]):
+        s = trng.Sampler(0, 64, 1)
+        s.next_2d()
+        s.next_1d()
+        trng.draw_bounce_block(s.key, 0, 64, 6)
+    summary = trace.summary()
+    assert summary["counters"]["rng.draws"] == 4
+    assert summary["spans"]["mitr:rng"]["count"] == 4
+    assert "rng.draws_kernel" not in summary["counters"]
