@@ -1,12 +1,14 @@
-"""Whole runs of the harness on the CPU at a tiny size (the card's look
-skipped): the last line's schema, ``correct`` true on the program, false
-on the bfloat16 control and with the timed path broken underneath, no
-result without a card, and no module of JAX or the JAX package loaded."""
+"""Whole runs of the harness on the CPU at each cell's tiny size,
+``tests/tiny/<cell>.json`` (the card's look skipped): the last line's
+schema, ``correct`` true on the program, false on the bfloat16 control
+and with the timed path broken underneath, no result without a card,
+and no module of JAX or the JAX package loaded."""
 import json
 import os
 import subprocess
 import sys
 import types
+from pathlib import Path
 
 import pytest
 import torch
@@ -16,21 +18,34 @@ import run
 from harness import spec
 
 SEED = 2**31 + 4242
-TINY = {
-    "cbox.render": {"film": {"width": 16, "height": 16},
-                    "traffic": {"spp": 16}},
-    "cbox.multipass": {"film": {"width": 16, "height": 16},
-                       "traffic": {"spp": 16}},
-    "cbox.grad": {"film": {"width": 16, "height": 16},
-                  "traffic": {"spp": 8, "target_spp": 8}},
-}
+TINY_DIR = Path(__file__).resolve().parent / "tiny"
+# the manifest's cells that have a CPU-test size; test_portbench_spec
+# asks one of every cell, so a cell without it fails there, by name
 CELLS = [w["name"] for w in spec.load_json(
-    spec.ROOT / "BENCHMARK.json")["workloads"]]
+    spec.ROOT / "BENCHMARK.json")["workloads"]
+    if (TINY_DIR / f"{w['name']}.json").is_file()]
+
+
+def tiny(cell):
+    """The cell's CPU-test size, ``tests/tiny/<cell>.json``: the film,
+    traffic and focus-pixel overrides that ``run_cell`` takes as
+    ``shrink``."""
+    path = TINY_DIR / f"{cell}.json"
+    if not path.is_file():
+        raise FileNotFoundError(f"cell {cell!r} has no CPU-test size: add "
+                                f"{path.relative_to(spec.ROOT)}")
+    return spec.load_json(path)
+
+
+def cells_of(entry):
+    """The cells whose ``cells/<cell>.json`` names ``entry``."""
+    return [c for c in CELLS if spec.load_json(
+        spec.BENCH_DIR / "cells" / f"{c}.json")["entry"] == entry]
 
 
 def _run(cell, trace=False, program=mt, control=False):
     return run.run_cell(cell, SEED, 0.2, trace, device="cpu", mt=program,
-                        shrink=TINY[cell], control=control,
+                        shrink=tiny(cell), control=control,
                         log=lambda _m: None)
 
 
@@ -87,7 +102,7 @@ def _render_fault(kind):
     return render
 
 
-@pytest.mark.parametrize("cell", ["cbox.render", "cbox.multipass"])
+@pytest.mark.parametrize("cell", cells_of("render"))
 @pytest.mark.parametrize("kind", ["unchanged", "half", "altered"])
 def test_render_faults_are_caught(cell, kind):
     res = _run(cell, program=_faulty(render=_render_fault(kind)))
@@ -99,8 +114,9 @@ def _half_backward(scene, grad_in, spp=None, seed=0, **kw):
     return mt.render_backward(scene, grad_in, spp=spp // 2, seed=seed, **kw)
 
 
+@pytest.mark.parametrize("cell", cells_of("grad_step"))
 @pytest.mark.parametrize("kind", ["unchanged", "half", "altered"])
-def test_grad_faults_are_caught(kind, monkeypatch):
+def test_grad_faults_are_caught(cell, kind, monkeypatch):
     if kind == "unchanged":  # the step leaves its state as it was
         monkeypatch.setattr(torch.optim.Adam, "step",
                             lambda self, closure=None: None)
@@ -109,7 +125,7 @@ def test_grad_faults_are_caught(kind, monkeypatch):
         program = _faulty(render_backward=_half_backward)
     else:
         program = _faulty(render=_render_fault("altered"))
-    assert _run("cbox.grad", program=program)["correct"] is False
+    assert _run(cell, program=program)["correct"] is False
 
 
 def test_no_card_no_result():

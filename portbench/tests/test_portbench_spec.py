@@ -1,18 +1,22 @@
 """The manifest and the files it names: every cell, configuration,
-traffic mix, entry and metric is found by name, and the manifest keeps to
-the benchmark's contract on names, keys and bounds."""
+traffic mix, entry, metric and CPU-test size is found by name, and the
+manifest keeps to the benchmark's contract on names, keys and bounds."""
 import json
 import re
 
 import pytest
 
+from entries.render import film_of
 from harness import spec
+from test_portbench_run import tiny
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 MANIFEST = spec.load_json(spec.ROOT / "BENCHMARK.json")
 CELLS = [w["name"] for w in MANIFEST["workloads"]]
 METRICS = MANIFEST["end_to_end"] + MANIFEST["per_layer"]
+TINY_KEYS = {"film", "traffic", "focus_pixel"}
+TINY_FILM = 64  # the widest side a CPU-test film may have
 
 
 def test_manifest_keys():
@@ -37,6 +41,27 @@ def test_cell_found_by_name(cell):
     assert moved <= e2e
     assert set(c.cell["check"]["limits"]) and all(
         v > 0 for v in c.cell["check"]["limits"].values())
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_cell_has_tiny_size(cell):
+    """``tests/tiny/<cell>.json`` shrinks the cell's film to at most
+    ``TINY_FILM`` pixels a side and none of its traffic's numbers, and
+    names only keys that the cell's configuration and traffic have."""
+    size = tiny(cell)
+    assert set(size) <= TINY_KEYS, set(size) - TINY_KEYS
+    c = spec.load_cell(cell)
+    full = film_of(c.config["scene"])
+    film = size.get("film", {})
+    assert {"width", "height"} <= set(film)
+    assert set(film) <= set(full), set(film) - set(full)
+    for key in ("width", "height"):
+        assert 0 < film[key] <= min(full[key], TINY_FILM), (key, film[key])
+    traffic = size.get("traffic", {})
+    assert set(traffic) <= set(c.traffic), set(traffic) - set(c.traffic)
+    for key, val in traffic.items():
+        if isinstance(val, (int, float)):
+            assert val <= c.traffic[key], (key, val, c.traffic[key])
 
 
 @pytest.mark.parametrize("metric", [m["name"] for m in METRICS])
