@@ -53,6 +53,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import trace
 from ..bsdf import api as bsdf_api
 from ..bsdf.polarized import (
     polarization_factor_col0_soa,
@@ -240,8 +241,9 @@ def prepare_nlos(scene: Scene, sensor_cfg: SensorConfig,
         laser_target = np.asarray(o[0] + d[0] * float(t[0]), np.float32)
 
     # hidden-geometry triangle tables
-    areas = sd.tri.area.cpu().numpy()
-    shape_ids = sd.tri.shape_id.cpu().numpy()
+    with trace.span("mitr:sync"):  # the scene's device tables, read back
+        areas = sd.tri.area.cpu().numpy()
+        shape_ids = sd.tri.shape_id.cpu().numpy()
     mask = np.ones_like(areas, bool)
     if not icfg.nlos_hidden_geometry_sampling_includes_relay_wall:
         mask &= shape_ids != wall_shape_index
@@ -258,19 +260,23 @@ def prepare_nlos(scene: Scene, sensor_cfg: SensorConfig,
     cdf = np.cumsum(hg_areas / total).astype(np.float32)
 
     # the wall vertex of the laser NEE and the wall -> laser segment
-    epos = sd.emitter.position[0].cpu().numpy().astype(np.float32)
+    with trace.span("mitr:sync"):
+        epos = sd.emitter.position[0].cpu().numpy().astype(np.float32)
     to_wall = laser_target - epos
     dist_ew = float(np.linalg.norm(to_wall))
     d_ew = to_wall / max(dist_ew, 1e-12)
 
     def dev_t(a, dtype=torch.float32):
-        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+        with trace.span("mitr:sync"):  # a copy from pageable host memory
+            return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
 
     one = torch.ones((1,), dtype=torch.bool, device=dev)
     si_w = ray_intersect(sd, Ray.make(dev_t(epos).reshape(1, 3),
                                       dev_t(d_ew).reshape(1, 3)), one,
                          bvh_mode)
-    if not bool(si_w.valid[0]):
+    with trace.span("mitr:sync"):
+        wall_hit = bool(si_w.valid[0])
+    if not wall_hit:
         raise ValueError("The emitter is not pointing at the scene! "
                          "(transientnlospath.py:334)")
     d2 = -d_ew
@@ -279,7 +285,8 @@ def prepare_nlos(scene: Scene, sensor_cfg: SensorConfig,
                     torch.full((1,), dist_ew - 2e-4, device=dev), one,
                     bvh_mode)
     edir = sd.emitter.direction[0]
-    cos_em = float(np.dot(-d2, edir.cpu().numpy()))
+    with trace.span("mitr:sync"):
+        cos_em = float(np.dot(-d2, edir.cpu().numpy()))
     em_val = emitter_eval_direction(
         sd, torch.zeros((1,), dtype=torch.int32, device=dev),
         dev_t(epos).reshape(1, 3), -edir.reshape(1, 3), d2_t,
@@ -597,63 +604,68 @@ def sample_nlos_primal(
         return v if sctx is None else sctx.to_film_any(v, polarized)
 
     for it in range(icfg.max_depth):
-        ub = draw_bounce_block(key, it, n, NLOS_DIMS_PER_BOUNCE, dev)
-        si = ray_intersect(sd, Ray.make(o, d), active, bvh_mode)
-        hit = active & si.valid
-        if account or it > 0:  # the sensor->wall segment (:751-752)
-            distance = distance + torch.where(hit, si.t, 0.0) * eta
-        lb = bsdf_api.gather_lane_bsdf(sd.bsdf, si.bsdf_id, si.uv,
-                                       sd.bsdf_kinds)
-        if sctx is not None:
-            lb = sctx.uplift_lb(lb)
-
-        if not skip_le:
-            pdf_em_hit = torch.where(prev_delta, 0.0,
-                                     pdf_emitter_direction(sd, prev_p, si))
-            mis = mis_weight(prev_pdf, pdf_em_hit)
-            Le_raw = emitter_eval_hit(sd, si, d)
+        with trace.span("mitr:bounce"):
+            ub = draw_bounce_block(key, it, n, NLOS_DIMS_PER_BOUNCE, dev)
+            si = ray_intersect(sd, Ray.make(o, d), active, bvh_mode)
+            hit = active & si.valid
+            if account or it > 0:  # the sensor->wall segment (:751-752)
+                distance = distance + torch.where(hit, si.t, 0.0) * eta
+            lb = bsdf_api.gather_lane_bsdf(sd.bsdf, si.bsdf_id, si.uv,
+                                           sd.bsdf_kinds)
             if sctx is not None:
-                Le_raw = sctx.emission(Le_raw)
-            if polarized:  # unpolarized emission: column 0 of beta
-                Le = pack_stokes(beta[:, 0] * (mis[:, None] * Le_raw))
+                lb = sctx.uplift_lb(lb)
+
+            if not skip_le:
+                pdf_em_hit = torch.where(prev_delta, 0.0,
+                                         pdf_emitter_direction(sd, prev_p, si))
+                mis = mis_weight(prev_pdf, pdf_em_hit)
+                Le_raw = emitter_eval_hit(sd, si, d)
+                if sctx is not None:
+                    Le_raw = sctx.emission(Le_raw)
+                if polarized:  # unpolarized emission: column 0 of beta
+                    Le = pack_stokes(beta[:, 0] * (mis[:, None] * Le_raw))
+                else:
+                    Le = beta * mis[:, None] * Le_raw
+                Le = torch.where(hit[:, None], Le, 0.0)
+
+            active_next = active & si.valid
+            if it + 1 >= icfg.max_depth:
+                active_next = torch.zeros_like(active)
+            active_em = active_next & bsdf_api.is_smooth(lb)
+            d_in = d if polarized else None
+            if icfg.nlos_laser_sampling:
+                with trace.span("mitr:laser_nee"):
+                    Lr, nee_dist = _laser_nee(
+                        sd, ctx, icfg, si, lb, beta, distance, eta, it,
+                        active_em, account, lanes, bvh_mode, d_in, sctx)
             else:
-                Le = beta * mis[:, None] * Le_raw
-            Le = torch.where(hit[:, None], Le, 0.0)
+                Lr, nee_dist = _plain_nee(
+                    sd, ctx, icfg, si, lb, beta, distance, eta, it,
+                    active_em, account, bvh_mode, d_in, sctx)
+            if skip_le:
+                film = splat_transient_pair(
+                    film, film_cfg, spp, nee_dist, to_film(Lr) * splat_w, None,
+                    None, active, icfg.temporal_filter, icfg.gaussian_stddev)
+                L = L + Lr
+            else:
+                film = splat_transient_pair(
+                    film, film_cfg, spp, distance, to_film(Le) * splat_w,
+                    nee_dist, to_film(Lr) * splat_w, active,
+                    icfg.temporal_filter, icfg.gaussian_stddev)
+                L = L + Le + Lr
 
-        active_next = active & si.valid
-        if it + 1 >= icfg.max_depth:
-            active_next = torch.zeros_like(active)
-        active_em = active_next & bsdf_api.is_smooth(lb)
-        d_in = d if polarized else None
-        if icfg.nlos_laser_sampling:
-            Lr, nee_dist = _laser_nee(sd, ctx, icfg, si, lb, beta, distance,
-                                      eta, it, active_em, account, lanes,
-                                      bvh_mode, d_in, sctx)
-        else:
-            Lr, nee_dist = _plain_nee(sd, ctx, icfg, si, lb, beta, distance,
-                                      eta, it, active_em, account, bvh_mode,
-                                      d_in, sctx)
-        if skip_le:
-            film = splat_transient_pair(
-                film, film_cfg, spp, nee_dist, to_film(Lr) * splat_w, None,
-                None, active, icfg.temporal_filter, icfg.gaussian_stddev)
-            L = L + Lr
-        else:
-            film = splat_transient_pair(
-                film, film_cfg, spp, distance, to_film(Le) * splat_w,
-                nee_dist, to_film(Lr) * splat_w, active,
-                icfg.temporal_filter, icfg.gaussian_stddev)
-            L = L + Le + Lr
-
-        o, d, beta, eta, active_next, pdf_dir, delta = _continue(
-            sd, ctx, icfg, si, lb, ub, it, active_next, beta, eta, d_in)
-        if not skip_le:
-            prev_p = torch.where(hit[:, None], si.p, prev_p)
-            prev_pdf = torch.where(active_next, pdf_dir, prev_pdf)
-            prev_delta = torch.where(active_next, delta, prev_delta)
-        depth = depth + hit.to(torch.int32)
-        n_rays = n_rays + active.sum() * 2
-        active = active_next
+            o, d, beta, eta, active_next, pdf_dir, delta = _continue(
+                sd, ctx, icfg, si, lb, ub, it, active_next, beta, eta, d_in)
+            if not skip_le:
+                prev_p = torch.where(hit[:, None], si.p, prev_p)
+                prev_pdf = torch.where(active_next, pdf_dir, prev_pdf)
+                prev_delta = torch.where(active_next, delta, prev_delta)
+            depth = depth + hit.to(torch.int32)
+            n_active = active.sum()
+            n_rays = n_rays + n_active * 2
+            trace.count("lanes.launched", n)
+            trace.count("lanes.active", n_active)
+            active = active_next
     return film, to_film(L), depth > 0, n_rays
 
 

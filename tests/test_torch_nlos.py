@@ -13,6 +13,7 @@ compose a few float32 operations, rtol 1e-5 / atol 1e-6; integers and
 discrete choices exactly.
 """
 import copy
+import json
 import os
 
 import jax.numpy as jnp
@@ -47,6 +48,7 @@ from torch_cases import (
     nlos_exhaustive,
     nlos_perspective,
     nlos_scene,
+    nlos_z_scene,
     small_cbox,
     uv_sphere,
 )
@@ -100,6 +102,34 @@ def test_nlos_scene_is_the_jax_fixture(kw):
     from test_nlos import nlos_scene as jax_nlos_scene
 
     assert nlos_scene(**kw) == jax_nlos_scene(**kw)
+
+
+def _shape_triangles(scene, key):
+    """(v0, e1, e2) of the shape ``key``'s triangles, float64 on the host."""
+    tri = scene.data.tri
+    mine = tri.shape_id == scene.shape_index(key)
+    return [getattr(tri, f)[mine].double().numpy() for f in ("v0", "e1", "e2")]
+
+
+def test_benchmark_z_is_the_examples_z():
+    """The benchmark's NLOS configuration writes each bar of the hidden Z
+    as one dict of ops (the middle bar's two turns as the one half-turn
+    they compose); the port loads the triangles of the example's chained
+    lists from it."""
+    path = os.path.join(os.path.dirname(os.path.dirname(__file__)),
+                        "portbench", "configs", "nlos_z.json")
+    with open(path) as f:
+        desc = json.load(f)["scene"]
+    for bar in ("z-top", "z-mid", "z-bot"):
+        assert isinstance(desc[bar]["to_world"], dict)
+    mine = mt.load_dict(copy.deepcopy(desc), device="cpu")
+    theirs = mt.load_dict(nlos_z_scene(4, 4), device="cpu")
+    assert mine.data.tri.v0.shape[0] == 8
+    for key in ("z-top", "z-mid", "z-bot", "relay_wall"):
+        for a, b in zip(_shape_triangles(mine, key),
+                        _shape_triangles(theirs, key)):
+            assert a.shape == b.shape == (2, 3)
+            np.testing.assert_allclose(a, b, rtol=0, atol=1e-6, err_msg=key)
 
 
 @pytest.mark.parametrize("name", ["single", "confocal", "exhaustive",

@@ -12,7 +12,7 @@ from torch.profiler import ProfilerActivity, profile
 import mitransient_tpu_torch as mt
 from mitransient_tpu_torch import kernels, trace
 from mitransient_tpu_torch.kernels import _build
-from torch_cases import small_cbox
+from torch_cases import nlos_z_scene, small_cbox
 
 torch.set_num_threads(1)
 
@@ -68,6 +68,34 @@ def test_render_records_its_bounces_streams_and_lanes(scene, regenerate):
     counters = trace.summary()["counters"]
     assert counters["lanes.launched"] == stats["loop_iters"] * hw * 16
     assert hw * spp <= counters["lanes.active"] <= counters["lanes.launched"]
+
+
+def test_nlos_capture_records_its_bounces_laser_nee_and_lanes():
+    sc = mt.load_dict(nlos_z_scene(8, 8), device="cpu")
+    mt.nlos.focus_emitter_at_relay_wall_pixel([4, 4], sc)
+    hw, spp, per_pass = 64, 16, 8  # two passes of 8 spp
+    kw = dict(spp=spp, seed=7, max_lanes=hw * per_pass, return_stats=True)
+    plain = mt.render(sc, **kw)
+    traced, _prof = _profiled(lambda: mt.render(sc, **kw))
+    for a, b in zip(plain[:2], traced[:2]):
+        assert torch.equal(a, b)
+    stats = traced[2]
+    recs = trace.records()
+    (root,) = _by_name(recs, "mitr:render")
+    bounces = _by_name(recs, "mitr:bounce")
+    assert len(bounces) == stats["loop_iters"] == 2 * sc.integrator.max_depth
+    assert all(recs[b].parent == root for b in bounces)
+    nee = _by_name(recs, "mitr:laser_nee")
+    assert sorted(recs[i].parent for i in nee) == bounces
+    assert all(any(r.name == "mitr:rng" and r.parent == b for r in recs)
+               for b in bounces)
+    # prepare_nlos's reads of the device tables and its uploads
+    assert any(recs[i].parent == root for i in _by_name(recs, "mitr:sync"))
+    counters = trace.summary()["counters"]
+    assert counters["lanes.launched"] == stats["loop_iters"] * hw * per_pass
+    assert hw * spp <= counters["lanes.active"] <= counters["lanes.launched"]
+    # a closest hit and a shadow ray counted for each active lane
+    assert 2 * counters["lanes.active"] == int(stats["rays"])
 
 
 def test_summary_times_and_self_times(scene):
