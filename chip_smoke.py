@@ -18,8 +18,10 @@ Phases, each of which raises on failure:
    count the tests and the ray bytes of the active rays only.  K3's
    film must be bit-equal to the plain version run on a copy on the host
    CPU (sequential adds), on random events and on the events of the same
-   loop iteration, and is timed on both; its bound on each counts the film
-   sectors those events touch.
+   loop iteration, launched with the film's address as an argument and
+   read from a device slot (as the multi-pass pass graph splats), and is
+   timed both ways on both; its bound on each counts the film sectors
+   those events touch.
 3. The flagship transient Cornell box (256x256, 300 bins, max_depth 8,
    spp 1024) on the card: each of K1-K3 launches once per loop iteration,
    the physics checks pass; rays/s of a second render.
@@ -53,10 +55,13 @@ Phases, each of which raises on failure:
     with no element out.
 11. The threefry kernel (``csrc/rng.cu``) on the draws of a multi-pass
     flagship pass and of a gradient step: a bounce block at (2^21, 6) and
-    (2^23, 6) and a 2^21 camera draw, each bit-equal to the plain int64
-    chain on the card (the (2^21, 6) block also to the host CPU's draw),
-    timed beside that chain and beside the bound by operations, from the
-    instructions a number in the kernel's loop, read from its SASS
+    (2^23, 6) and a 2^21 camera draw, each through the kernel's argument
+    entry point and through its keyed one (the key read from a device
+    slot, as the multi-pass pass graph's replays draw), each bit-equal to
+    the plain int64 chain on the card (the (2^21, 6) block also to the
+    host CPU's draw), each entry point timed beside that chain and beside
+    its bound by operations, from the instructions a number in its
+    kernel's loop, read from its SASS
     (``cuobjdump -sass``), at the card's highest SM clock: the rotations
     and xors, which only the INT32 pipe runs, at 64 lanes a clock on each
     SM, or all of them at the 128 lanes a clock an SM dispatches, whichever
@@ -66,7 +71,8 @@ Phases, each of which raises on failure:
 12. The flagship through the multi-pass accumulator (``regenerate=False``,
     spp 1024: 32 passes of spp 32 at 2^21 lanes): each of K1-K3 launches
     once per bounce of every pass, the threefry kernel once per draw (10
-    a pass), the physics checks pass; peak memory and
+    a pass; the passes replayed in the pass graph through its keyed entry
+    point), the physics checks pass; peak memory and
     the rays/s of a second render (seed 1).
 13. The ``cbox_rgb_multipass`` and ``phasor`` golden configs on the card
     against their goldens.
@@ -485,11 +491,15 @@ SLAB_OPS = 23  # 6 subs, 6 muls, 6 min/max per axis pair, 5 min/max
 WOOP_OPS = 40  # 6 dots of 3, 3 subs, neg, div, 2 mul-adds, u + v
 
 
+DRAW_KERNELS = ("threefry_uniform", "threefry_uniform_keyed")
+
+
 def without_draws(counts):
-    """Launch counts without the threefry kernel's, which phases 11 and 12
-    hold on their own: what the other phases' exact checks of the ray,
-    splat and gather kernels compare."""
-    return {k: v for k, v in counts.items() if k != "threefry_uniform"}
+    """Launch counts without the threefry kernel's (its argument and its
+    keyed entry points), which phases 11 and 12 hold on their own: what the
+    other phases' exact checks of the ray, splat and gather kernels
+    compare."""
+    return {k: v for k, v in counts.items() if k not in DRAW_KERNELS}
 
 
 def _run(cmd):
@@ -681,7 +691,8 @@ def check_kernels(mt, cases, dev):
         ("random", random_events), ("flagship", events))}
     for name, r in k3.items():
         print(f"K3 splat_accumulate on {name} events: bit-equal to the plain "
-              f"version on the CPU; kernel {r['ms']:.4f} ms, plain "
+              f"version on the CPU, also through a film slot; kernel "
+              f"{r['ms']:.4f} ms (through the slot {r['at_ms']:.4f}), plain "
               f"{r['plain_ms']:.4f} ms, index_add_ {r['library_ms']:.4f} ms; "
               f"{r['sectors']} of {3 * (SPLAT_BINS + 1) * hw // 8} film "
               f"sectors touched -> bound {r['bound'][0]:.4f} ms "
@@ -695,8 +706,9 @@ def check_kernels(mt, cases, dev):
         replaces="mitransient_tpu/ops/splat_pallas.py:36",
         max_abs_err=max(rnd["max_abs_err"], flag["max_abs_err"]),
         ms=rnd["ms"], plain_ms=rnd["plain_ms"],
-        sectors=rnd["sectors"],
-        flagship_ms=flag["ms"], flagship_plain_ms=flag["plain_ms"],
+        sectors=rnd["sectors"], at_ms=rnd["at_ms"],
+        flagship_ms=flag["ms"], flagship_at_ms=flag["at_ms"],
+        flagship_plain_ms=flag["plain_ms"],
         flagship_library_ms=flag["library_ms"],
         flagship_bound_ms=flag["bound"][0], flagship_bound_by=flag["bound"][1],
         flagship_sectors=flag["sectors"]))
@@ -819,7 +831,8 @@ def check_splat(tf, events, hw, dev, t_pad=SPLAT_BINS + 1):
     the host CPU (which adds in lane order).  -> the largest |film
     difference|, the kernel's, the plain version's (on the card, where
     index_add_ uses atomics) and one index_add_'s ms, and the bound on
-    these events (``splat_bound``)."""
+    these events (``splat_bound``); the kernel's ms through a film slot
+    (``at_ms``)."""
     import torch
 
     sets = list(zip(events[0::2], events[1::2]))
@@ -835,6 +848,18 @@ def check_splat(tf, events, hw, dev, t_pad=SPLAT_BINS + 1):
     if not torch.equal(film_k.cpu(), film_c):
         raise AssertionError(f"K3 is not bit-equal to its plain version "
                              f"(max |dfilm| {err})")
+    # the film's address read from a device slot (mitr_splat_accumulate_at)
+    film_a = torch.zeros_like(film_k)
+    slot = torch.tensor([film_a.data_ptr()], dtype=torch.int64, device=dev)
+
+    def splat_at():
+        with tf.splatting_at(film_a, slot):
+            tf.splat_accumulate(film_a, *flat, spp=lanes)
+
+    splat_at()
+    if not torch.equal(film_a.cpu(), film_c):
+        raise AssertionError("K3 through a film slot is not bit-equal to its "
+                             "plain version")
     sectors, bound = splat_bound(events, hw, t_pad)
     film_p = torch.zeros_like(film_k)
 
@@ -853,6 +878,7 @@ def check_splat(tf, events, hw, dev, t_pad=SPLAT_BINS + 1):
     return dict(
         max_abs_err=err, sectors=sectors, bound=bound,
         ms=_time_ms(lambda: tf.splat_accumulate(film_k, *flat, spp=lanes)),
+        at_ms=_time_ms(splat_at),
         plain_ms=_time_ms(plain),
         library_ms=_time_ms(lambda: film_l.index_add_(0, cells, vals)))
 
@@ -1261,8 +1287,8 @@ def render_small_sphere(mt, cases, dev):
             raise AssertionError(f"small sphere {k}: card and CPU disagree")
 
 
-def threefry_sass(lib_path):
-    """The SASS of the threefry kernel's grid-stride loop (the longest
+def threefry_sass(lib_path, kernel="threefry_uniform_kernel"):
+    """The SASS of a threefry kernel's grid-stride loop (the longest
     backward branch's body in ``cuobjdump -sass``), which draws 4 numbers a
     pass: ({opcode: count}, instructions a number that only the ALU pipe
     runs, all instructions a number)."""
@@ -1276,7 +1302,7 @@ def threefry_sass(lib_path):
     body, inside = [], False
     for line in sass.splitlines():
         if "Function :" in line:
-            inside = "threefry_uniform_kernel" in line
+            inside = kernel in line
             continue
         m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
         if inside and m:
@@ -1300,77 +1326,99 @@ def threefry_sass(lib_path):
 
 def check_threefry(dev):
     """Phase 11: the threefry kernel on the draws of a multi-pass flagship
-    pass and of a gradient step, bit-equal to the plain chain, timed beside
-    it and beside its bound by operations; returns its time per multi-pass
-    flagship render and the kernel's row of the kernels line."""
+    pass and of a gradient step, through its argument entry point and
+    through its keyed one (the key read from a device slot, as the pass
+    graph's replays draw), each bit-equal to the plain chain, timed beside
+    it and beside its bound by operations; returns the argument kernel's
+    time per multi-pass flagship render and the two kernels' rows of the
+    kernels line."""
+    import numpy as np
     import torch
 
     from mitransient_tpu_torch.core import rng
     from mitransient_tpu_torch.kernels import _build
 
-    ops, alu, dispatched = threefry_sass(_build.build().path)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     mhz = float(_run(["nvidia-smi", "--query-gpu=clocks.max.sm",
                       "--format=csv,noheader,nounits"]).splitlines()[0])
     int_rate = sms * INT32_LANES_PER_SM * mhz * 1e6
     dispatch_rate = sms * DISPATCH_LANES_PER_SM * mhz * 1e6
-    print(f"threefry SASS loop (4 numbers): {dict(sorted(ops.items()))}; "
-          f"a number: {alu:.2f} ALU-only instructions ({'+'.join(ALU_ONLY)}"
-          f") at the INT32 rate {int_rate / 1e12:.2f} T/s, {dispatched:.2f} "
-          f"instructions at the dispatch rate {dispatch_rate / 1e12:.2f} T/s ("
-          f"{sms} SMs x {INT32_LANES_PER_SM} / {DISPATCH_LANES_PER_SM} lanes x "
-          f"{mhz:.0f} MHz)")
+    sass = {}
+    for kernel in ("threefry_uniform_kernel", "threefry_uniform_keyed_kernel"):
+        ops, alu, dispatched = threefry_sass(_build.build().path, kernel)
+        sass[kernel] = (alu, dispatched)
+        print(f"{kernel} SASS loop (4 numbers): {dict(sorted(ops.items()))}; "
+              f"a number: {alu:.2f} ALU-only instructions "
+              f"({'+'.join(ALU_ONLY)}) at the INT32 rate "
+              f"{int_rate / 1e12:.2f} T/s, {dispatched:.2f} instructions at "
+              f"the dispatch rate {dispatch_rate / 1e12:.2f} T/s ({sms} SMs x "
+              f"{INT32_LANES_PER_SM} / {DISPATCH_LANES_PER_SM} lanes x "
+              f"{mhz:.0f} MHz)")
     key = rng.Sampler(0, N_RAYS, stream=5).key
     block = rng.fold_in(key, rng.BOUNCE_STREAM_TAG + 3)
     draws = {"bounce block (2^21, 6)": (block, (N_RAYS, 6)),
              "bounce block (2^23, 6)": (block, (4 * N_RAYS, 6)),
              "camera draw (2^21)": (rng.fold_in(key, 0), (N_RAYS,))}
-    rows = {}
+    rows = {"threefry_uniform_kernel": {}, "threefry_uniform_keyed_kernel": {}}
     for name, (k, shape) in draws.items():
         n = math.prod(shape)
-        got = rng.uniform(k, shape, dev)
+        slot = torch.from_numpy(np.array(k, np.uint32).view(np.int32)).to(dev)
+        entries = {
+            "threefry_uniform_kernel": lambda: rng.uniform(k, shape, dev),
+            "threefry_uniform_keyed_kernel": lambda: rng._uniform_keyed(
+                slot.data_ptr(), 0, n, dev).reshape(shape)}
         plain = rng._uniform_plain(k, 0, n, dev).reshape(shape)
-        if not torch.equal(got.view(torch.int32), plain.view(torch.int32)):
-            raise AssertionError(f"threefry {name}: the kernel's draw "
-                                 "differs from the plain chain's")
-        if n == N_RAYS * 6 and not torch.equal(
-                got.cpu().view(torch.int32),
-                rng.uniform(k, shape).view(torch.int32)):
-            raise AssertionError(f"threefry {name}: the card's draw differs "
-                                 "from the CPU's")
-        ms = _time_ms(lambda: rng.uniform(k, shape, dev))
-        device_ms = _graph_ms(lambda: rng.uniform(k, shape, dev))
         plain_ms = _time_ms(lambda: rng._uniform_plain(k, 0, n, dev),
                             reps=5, warmup=1, batches=3)
         t_bytes = 4 * n / HBM_BYTES_PER_S * 1e3
-        t_ops = n * max(alu / int_rate, dispatched / dispatch_rate) * 1e3
-        bound = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes,
-                                                                "bytes")
-        rows[name] = dict(n=n, ms=ms, plain_ms=plain_ms, bound=bound,
-                          device_ms=device_ms)
-        print(f"threefry {name}: bit-equal to the plain chain; kernel "
-              f"{ms:.4f} ms a draw (card alone {device_ms:.4f}), "
-              f"plain chain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms "
-              f"({bound[1]}; bytes {t_bytes:.4f} ms)")
-    block_ms = rows["bounce block (2^21, 6)"]["ms"]
-    camera_ms = rows["camera draw (2^21)"]["ms"]
+        for kernel, draw in entries.items():
+            got = draw()
+            if not torch.equal(got.view(torch.int32), plain.view(torch.int32)):
+                raise AssertionError(f"threefry {name}: {kernel}'s draw "
+                                     "differs from the plain chain's")
+            if n == N_RAYS * 6 and not torch.equal(
+                    got.cpu().view(torch.int32),
+                    rng.uniform(k, shape).view(torch.int32)):
+                raise AssertionError(f"threefry {name}: {kernel}'s draw on "
+                                     "the card differs from the CPU's")
+            alu, dispatched = sass[kernel]
+            t_ops = n * max(alu / int_rate, dispatched / dispatch_rate) * 1e3
+            bound = ((t_ops, "operations") if t_ops >= t_bytes
+                     else (t_bytes, "bytes"))
+            r = rows[kernel][name] = dict(
+                n=n, ms=_time_ms(draw), device_ms=_graph_ms(draw),
+                plain_ms=plain_ms, bound=bound)
+            print(f"threefry {name}, {kernel}: bit-equal to the plain chain; "
+                  f"kernel {r['ms']:.4f} ms a draw (card alone "
+                  f"{r['device_ms']:.4f}), plain chain {plain_ms:.4f} ms, "
+                  f"bound {bound[0]:.4f} ms ({bound[1]}; bytes "
+                  f"{t_bytes:.4f} ms)")
+    args = rows["threefry_uniform_kernel"]
+    block_ms = args["bounce block (2^21, 6)"]["ms"]
+    camera_ms = args["camera draw (2^21)"]["ms"]
     passes = MULTIPASS_PASSES
     per_render = passes * (8 * block_ms + 2 * camera_ms)
     print(f"threefry per multi-pass flagship render ({passes} passes x "
           f"(8 bounce blocks + 2 camera draws)): {per_render:.1f} ms")
-    main = rows["bounce block (2^21, 6)"]
-    row = dict(name="threefry_uniform", route="cuda",
-               source="mitransient_tpu_torch/csrc/rng.cu",
-               replaces="none: jax.random.uniform (XLA's threefry2x32)",
-               launches=0, max_abs_err=0.0, ms=main["ms"],
-               plain_ms=main["plain_ms"], bound_ms=main["bound"][0],
-               bound_by=main["bound"][1], library_ms=None,
-               alu_ops_per_number=alu, ops_per_number=dispatched,
-               int32_ops_per_s=int_rate, dispatch_ops_per_s=dispatch_rate,
-               calls={k: dict(n=r["n"], ms=r["ms"], device_ms=r["device_ms"],
-                              plain_ms=r["plain_ms"], bound_ms=r["bound"][0])
-                      for k, r in rows.items()})
-    return per_render, row
+    out = []
+    for kernel, name in (("threefry_uniform_kernel", "threefry_uniform"),
+                         ("threefry_uniform_keyed_kernel",
+                          "threefry_uniform_keyed")):
+        main = rows[kernel]["bounce block (2^21, 6)"]
+        alu, dispatched = sass[kernel]
+        out.append(dict(
+            name=name, route="cuda",
+            source="mitransient_tpu_torch/csrc/rng.cu",
+            replaces="none: jax.random.uniform (XLA's threefry2x32)",
+            launches=0, max_abs_err=0.0, ms=main["ms"],
+            plain_ms=main["plain_ms"], bound_ms=main["bound"][0],
+            bound_by=main["bound"][1], library_ms=None,
+            alu_ops_per_number=alu, ops_per_number=dispatched,
+            int32_ops_per_s=int_rate, dispatch_ops_per_s=dispatch_rate,
+            calls={k: dict(n=r["n"], ms=r["ms"], device_ms=r["device_ms"],
+                           plain_ms=r["plain_ms"], bound_ms=r["bound"][0])
+                   for k, r in rows[kernel].items()}))
+    return per_render, out
 
 
 def render_multipass_flagship(mt, cases, dev, threefry_ms):
@@ -1400,11 +1448,12 @@ def render_multipass_flagship(mt, cases, dev, threefry_ms):
         if counts.get(name, 0) != n:
             raise AssertionError(f"{name} launched {counts.get(name, 0)} "
                                  f"times in {n} bounces")
+    # the pass graph's replays draw through the keyed entry point
     draws = MULTIPASS_PASSES * THREEFRY_DRAWS_PER_PASS
-    if counts.get("threefry_uniform", 0) != draws:
-        raise AssertionError(f"threefry_uniform launched "
-                             f"{counts.get('threefry_uniform', 0)} times, "
-                             f"not once in each of {draws} draws")
+    if sum(counts.get(k, 0) for k in DRAW_KERNELS) != draws:
+        raise AssertionError(f"the threefry kernel launched "
+                             f"{[counts.get(k, 0) for k in DRAW_KERNELS]} "
+                             f"times, not once in each of {draws} draws")
     s, t = s.cpu().numpy(), t.cpu().numpy()
     fails = cases.physics_checks(s, t)
     prof = t.sum(axis=(0, 1, 3))
@@ -4070,10 +4119,11 @@ def main() -> int:
     counts.update(render_mesh(mt, cases, dev, mesh))
     profile_mesh(mt, mesh)
     render_small_sphere(mt, cases, dev)
-    threefry_ms, threefry_row = check_threefry(dev)
+    threefry_ms, threefry_rows = check_threefry(dev)
     multipass, multipass_ref = render_multipass_flagship(
         mt, cases, dev, threefry_ms)
-    threefry_row["launches"] = multipass["threefry_uniform"]
+    for r in threefry_rows:
+        r["launches"] = multipass.get(r["name"], 0)
     render_multipass_goldens(mt, cases, dev)
     gauss_counts = multipass_card_against_cpu(mt, cases, dev)
     check_resume(mt, cases, dev)
@@ -4169,7 +4219,7 @@ def main() -> int:
                 r.update({f"{prefix}_library_ms": h["library_ms"],
                           f"{prefix}_sectors": h["sectors"]})
     rows += port_only_rows(k8, gauss, phase_counts, gauss_counts)
-    rows.append(threefry_row)
+    rows += threefry_rows
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi.splitlines()[0])

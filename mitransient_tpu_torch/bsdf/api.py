@@ -216,6 +216,12 @@ def _unit(v: torch.Tensor) -> torch.Tensor:
     return v / torch.clamp_min(norm(v), 1e-12)[:, None]
 
 
+def _axis(like: torch.Tensor, k: int) -> torch.Tensor:
+    """The unit vector along axis ``k``, (3,), made on ``like``'s device:
+    no upload from the host, which a CUDA graph capture refuses."""
+    return torch.eye(3, dtype=like.dtype, device=like.device)[k]
+
+
 def _ggx_sample_vndf(wi: torch.Tensor, au: torch.Tensor, av: torch.Tensor,
                      u: torch.Tensor) -> torch.Tensor:
     """Heitz 2018 visible-normal sampling; ``wi`` must have wi.z > 0."""
@@ -228,7 +234,7 @@ def _ggx_sample_vndf(wi: torch.Tensor, au: torch.Tensor, av: torch.Tensor,
         (lensq > 1e-12)[:, None],
         torch.stack([-vh[:, 1] * inv_len, vh[:, 0] * inv_len,
                      torch.zeros_like(inv_len)], dim=-1),
-        vh.new_tensor([1.0, 0.0, 0.0]))
+        _axis(vh, 0))
     t2 = cross(vh, t1)
     r = sqrt(torch.clamp_min(u[:, 0], 0.0))
     phi = 2.0 * math.pi * u[:, 1]
@@ -356,7 +362,7 @@ def sample(lb: LaneBSDF, wi: torch.Tensor, u1: torch.Tensor, u2: torch.Tensor,
         # GGX VNDF microfacet sample, shared by the rough conductor and
         # the plastic; lanes with wi.z <= 0 sample about +z (masked later)
         wi_v = torch.where((wi_l[:, 2] > 1e-6)[:, None], wi_l,
-                           wi_l.new_tensor([0.0, 0.0, 1.0]))
+                           _axis(wi_l, 2))
         m = _ggx_sample_vndf(wi_v, lb.alpha, lb.alpha_v, u2)
         wo_rough = _reflect(wi_l, m)
         d_ndf = _ggx_ndf(m, lb.alpha, lb.alpha_v)

@@ -17,7 +17,7 @@ otherwise part between the devices.
 """
 from __future__ import annotations
 
-import functools
+import contextlib
 
 import torch
 
@@ -29,9 +29,36 @@ def sqrt(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x)
 
 
-@functools.lru_cache(maxsize=64)
+_SCALARS: dict = {}  # (c, dtype, device) -> 0-dim tensor, at most 64
+_kept: list | None = None  # what a CUDA graph capture reads (keeping)
+
+
 def _scalar(c: float, dtype: torch.dtype, device: torch.device):
-    return torch.full((), c, dtype=dtype, device=device)
+    key = (c, dtype, device)
+    s = _SCALARS.get(key)
+    if s is None:
+        s = torch.full((), c, dtype=dtype, device=device)
+        # one made inside a capture is filled only when the graph runs
+        if _kept is None:
+            if len(_SCALARS) >= 64:
+                _SCALARS.clear()
+            _SCALARS[key] = s
+    if _kept is not None:
+        _kept.append(s)
+    return s
+
+
+@contextlib.contextmanager
+def keeping(kept: list):
+    """Inside, every scalar :func:`divide` divides by is appended to
+    ``kept``, and none is cached: a CUDA graph captured there reads them,
+    so its owner keeps them alive as long as the graph."""
+    global _kept
+    _kept = kept
+    try:
+        yield kept
+    finally:
+        _kept = None
 
 
 def divide(x: torch.Tensor, c: float) -> torch.Tensor:

@@ -20,9 +20,24 @@ and masked to 32 bits, as the regen loop's PCG hash is
 (``integrators/path_regen.py``).  A draw on the card is one launch of the
 hand-written kernel ``csrc/rng.cu`` (``_uniform_kernel``), with the keys as
 two ``uint32`` arguments, or raises.
+
+A pass body captured into a CUDA graph (``passgraph.py``) cannot take its
+keys as arguments, which the graph would freeze.  While a
+:class:`KeyRecorder` records (:func:`recording`), each draw on the card
+instead takes the next row of the recorder's device buffer of key slots
+and launches the kernel's keyed entry point, which reads the key from that
+row when it runs; the recorder notes which dimension of the pass's stream
+the draw's key folds in.  :func:`pass_key_table` derives every pass's keys
+for those dimensions on the host, as :class:`Sampler` and
+:func:`draw_bounce_block` do, and the graph's owner copies a pass's row
+into the slots before each replay.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
+
+import numpy as np
 import torch
 
 from .. import trace
@@ -32,6 +47,9 @@ _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _KS_PARITY = 0x1BD11BDA
 BOUNCE_STREAM_TAG = 0x42000000  # disambiguates bounce blocks from scalar dims
+SCALAR_DIMS = 64  # the Sampler dimensions a KeyRecorder looks among
+
+_local = threading.local()  # .recorder: the KeyRecorder recording, or None
 
 
 def _rotl(x, r: int):
@@ -84,7 +102,9 @@ def uniform(key: tuple[int, int], shape, device="cpu",
         if dev.type == "cpu":
             u = _uniform_plain(key, r0 * row, r1 * row, dev)
         elif dev.type == "cuda":
-            u = _uniform_kernel(key, r0 * row, r1 * row, dev)
+            rec = getattr(_local, "recorder", None)
+            u = (_uniform_kernel(key, r0 * row, r1 * row, dev) if rec is None
+                 else _uniform_keyed(rec.slot(key), r0 * row, r1 * row, dev))
         else:
             raise ValueError(f"uniform: device {dev}; expected cpu or cuda")
         return u.reshape((r1 - r0,) + shape[1:] if shape else ())
@@ -117,6 +137,87 @@ def _uniform_kernel(key: tuple[int, int], c0: int, c1: int,
     trace.count_launch(kernel)
     trace.count("rng.draws_kernel", 1)
     return out
+
+
+def _uniform_keyed(slot: int, c0: int, c1: int, device) -> torch.Tensor:
+    """Numbers ``[c0, c1)`` of the flat draw under the key held by the two
+    ``uint32`` words at device address ``slot`` when the launch runs: the
+    keyed entry point of ``csrc/rng.cu``, the same bits as
+    :func:`_uniform_kernel` under that key."""
+    kernel = "threefry_uniform_keyed"
+    out = torch.empty((c1 - c0,), dtype=torch.float32, device=device)
+    if c1 == c0:
+        return out
+    lib = _build.library()
+    with torch.cuda.device(device):
+        err = lib.mitr_threefry_uniform_keyed(out.data_ptr(), c1 - c0, c0,
+                                              slot, _build.stream_of(device))
+    _build.check(err, kernel)
+    trace.count_launch(kernel)
+    trace.count("rng.draws_kernel", 1)
+    return out
+
+
+class GraphRefusal(Exception):
+    """A pass body drew under a key that the pass graph cannot derive."""
+
+
+class KeyRecorder:
+    """The key slots of a pass body being captured into a CUDA graph.
+
+    ``base`` is the key of the pass's stream (``Sampler.key``), ``slots`` an
+    (S, 2) int32 tensor on the card.  Draw j of the body reads its key from
+    row j of ``slots``; :attr:`dims` lists the dimension each draw's key
+    folds into ``base``, among the sampler dimensions below
+    :data:`SCALAR_DIMS` and the bounce blocks of ``max_depth`` bounces.  A
+    key outside them, or more draws than rows, raises
+    :class:`GraphRefusal`."""
+
+    def __init__(self, base: tuple[int, int], slots: torch.Tensor,
+                 max_depth: int):
+        dims = list(range(SCALAR_DIMS)) + [BOUNCE_STREAM_TAG + it
+                                           for it in range(max_depth)]
+        self.fold = {fold_in(base, d): d for d in dims}
+        self.slots = slots
+        self.dims: list[int] = []
+
+    def slot(self, key: tuple[int, int]) -> int:
+        """The device address of the next draw's slot, for ``key``."""
+        d = self.fold.get(tuple(key))
+        if d is None:
+            raise GraphRefusal(f"a draw under {key}: not a dimension of the "
+                               "pass's stream")
+        j = len(self.dims)
+        if j >= self.slots.shape[0]:
+            raise GraphRefusal(f"more than {j} draws in a pass")
+        self.dims.append(d)
+        return self.slots.data_ptr() + j * 2 * self.slots.element_size()
+
+
+@contextlib.contextmanager
+def recording(rec: KeyRecorder):
+    """Draws on the card take their keys from ``rec``'s slots inside."""
+    _local.recorder = rec
+    try:
+        yield rec
+    finally:
+        _local.recorder = None
+
+
+def pass_key_table(seed: int, passes, dims) -> np.ndarray:
+    """The keys of the multi-pass render's passes ``passes`` for the draw
+    dimensions ``dims`` (a :attr:`KeyRecorder.dims`): (P, D, 2) uint32,
+    row ``[i, j]`` = ``fold_in(fold_in(make_key(seed), passes[i]),
+    dims[j])``, the key of ``Sampler(seed, n, stream=passes[i])``'s
+    dimension ``dims[j]`` (or of its bounce block ``dims[j] -
+    BOUNCE_STREAM_TAG``).  The same chain as :func:`fold_in`, on numpy
+    words."""
+    k0, k1 = make_key(seed)
+    p = np.asarray(list(passes), np.uint64)[:, None]
+    d = np.asarray(list(dims), np.uint64)[None, :]
+    b0, b1 = threefry2x32(k0, k1, np.zeros_like(p), p & _M32)
+    a, b = threefry2x32(b0, b1, np.zeros_like(d), d & _M32)
+    return np.stack(np.broadcast_arrays(a, b), axis=-1).astype(np.uint32)
 
 
 class Sampler:

@@ -25,6 +25,13 @@
 // i = 2^32 is exact.  A `rows=` slice moves only `base`: the output is the
 // wrapper's own 16-byte aligned allocation, so only its last vector can be
 // partial, and that one is stored number by number.
+//
+// Two entry points share that body.  mitr_threefry_uniform takes the key as
+// two uint32 arguments, for every eager draw.  mitr_threefry_uniform_keyed
+// reads it from two uint32 words in device memory: a draw captured into a
+// CUDA graph keeps its arguments, so the multi-pass render's pass graph
+// (passgraph.py) draws each pass under the keys it copies into those words
+// before the replay.  Both give the same bits for the same key.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -75,9 +82,10 @@ __device__ __forceinline__ float draw(uint32_t k0, uint32_t k1, uint32_t k2,
   return __uint_as_float(((x0 ^ x1) >> 9) | 0x3F800000u) - 1.0f;
 }
 
-__global__ void __launch_bounds__(BLOCK)
-threefry_uniform_kernel(float* __restrict__ out, int64_t n, uint64_t base,
-                        uint32_t k0, uint32_t k1) {
+// Numbers base .. base + n - 1 of the draw under (k0, k1) into out.
+__device__ __forceinline__ void fill(float* __restrict__ out, int64_t n,
+                                     uint64_t base, uint32_t k0,
+                                     uint32_t k1) {
   const uint32_t k2 = k0 ^ k1 ^ KS_PARITY;
   const int64_t slots = (n + VEC - 1) / VEC;
   const int64_t stride = (int64_t)gridDim.x * BLOCK;
@@ -100,6 +108,34 @@ threefry_uniform_kernel(float* __restrict__ out, int64_t n, uint64_t base,
   }
 }
 
+__global__ void __launch_bounds__(BLOCK)
+threefry_uniform_kernel(float* __restrict__ out, int64_t n, uint64_t base,
+                        uint32_t k0, uint32_t k1) {
+  fill(out, n, base, k0, k1);
+}
+
+__global__ void __launch_bounds__(BLOCK)
+threefry_uniform_keyed_kernel(float* __restrict__ out, int64_t n,
+                              uint64_t base,
+                              const uint32_t* __restrict__ key) {
+  fill(out, n, base, __ldg(key), __ldg(key + 1));
+}
+
+// The grid of a launch over n numbers: one thread a vector, at most WAVES
+// waves of the card's resident blocks.
+cudaError_t grid_for(int64_t n, int* grid) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int64_t slots = (n + VEC - 1) / VEC;
+  const int64_t most = (int64_t)sms * (THREADS_PER_SM / BLOCK) * WAVES;
+  const int64_t need = (slots + BLOCK - 1) / BLOCK;
+  *grid = (int)(need < most ? need : most);
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
@@ -110,17 +146,27 @@ int mitr_threefry_uniform(float* out, int64_t n, int64_t base, uint32_t k0,
                           uint32_t k1, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
   if (reinterpret_cast<uintptr_t>(out) % 16) return (int)cudaErrorInvalidValue;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int grid = 0;
+  const cudaError_t err = grid_for(n, &grid);
   if (err != cudaSuccess) return (int)err;
-  const int64_t slots = (n + VEC - 1) / VEC;
-  const int64_t most = (int64_t)sms * (THREADS_PER_SM / BLOCK) * WAVES;
-  const int64_t need = (slots + BLOCK - 1) / BLOCK;
-  const int grid = (int)(need < most ? need : most);
   threefry_uniform_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
       out, n, (uint64_t)base, k0, k1);
+  return (int)cudaGetLastError();
+}
+
+// The same draw under the key (key[0], key[1]) read from device memory
+// when the kernel runs (4-byte aligned).
+int mitr_threefry_uniform_keyed(float* out, int64_t n, int64_t base,
+                                const uint32_t* key, void* stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  if (reinterpret_cast<uintptr_t>(out) % 16 ||
+      reinterpret_cast<uintptr_t>(key) % 4)
+    return (int)cudaErrorInvalidValue;
+  int grid = 0;
+  const cudaError_t err = grid_for(n, &grid);
+  if (err != cudaSuccess) return (int)err;
+  threefry_uniform_keyed_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
+      out, n, (uint64_t)base, key);
   return (int)cudaGetLastError();
 }
 

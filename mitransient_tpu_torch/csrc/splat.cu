@@ -27,7 +27,10 @@
 // 115.6 KB, at 3 x 301 bins: whole 128-byte rows), and at least one pixel.
 //
 // The film is updated IN PLACE (the JAX version donated the buffer and
-// returned a new one).  Bins outside [0, t_pad) are dropped, like the
+// returned a new one).  mitr_splat_accumulate takes the film's address as
+// an argument; mitr_splat_accumulate_at reads it from device memory when
+// the kernel runs, for a splat captured into a CUDA graph.  Both launch the
+// same kernel.  Bins outside [0, t_pad) are dropped, like the
 // scatter's mode="drop"; the film's overflow bin t_pad - 1 is kept and
 // sliced away by develop().
 #include <cuda_runtime.h>
@@ -37,6 +40,7 @@ namespace {
 
 constexpr int BLOCK = 256;
 constexpr int UNROLL = 8;
+constexpr int STAGE = 8;
 constexpr int MAX_PIXELS = 32;
 constexpr int SLAB_BYTES = 128 * 1024;
 constexpr int MAX_SHARED_BYTES = 232448;
@@ -64,38 +68,58 @@ __device__ __forceinline__ void add_events(float* col, int P, int C, int c,
   }
 }
 
-// Copies the slab rows r = 0..rows-1 (P floats at film + r * hw) between
-// the film and shared memory, np of them real; P divides BLOCK.
-template <bool LOAD>
-__device__ __forceinline__ void copy_slab(float* __restrict__ film,
-                                          float* slab, int rows, int P,
-                                          int np, int hw, bool vec) {
-  if (vec) {  // np == P, P % 4 == 0, rows 16-byte aligned
-    const int q = P / 4;
-    const int j = threadIdx.x % q;
-    for (int r = threadIdx.x / q; r < rows; r += BLOCK / q) {
-      float4* g = reinterpret_cast<float4*>(film + (int64_t)r * hw) + j;
-      float4* sh = reinterpret_cast<float4*>(slab + r * P) + j;
-      if (LOAD)
-        *sh = *g;
-      else
-        *g = *sh;
+// Moves rows r0, r0 + step, ... < rows of one thread's column between the
+// film (row k at film[k * fstride]) and the slab (slab[k * sstride]),
+// STAGE rows at once: their loads are issued before their stores, so that
+// STAGE loads are in flight even where the compiler cannot tell the film
+// from the slab (a film address read from memory is a generic pointer,
+// which may alias shared memory).
+template <bool LOAD, typename T>
+__device__ __forceinline__ void copy_rows(T* film, T* slab, int rows, int r0,
+                                          int step, int64_t fstride,
+                                          int sstride) {
+  for (int r = r0; r < rows; r += STAGE * step) {
+    T v[STAGE];
+#pragma unroll
+    for (int u = 0; u < STAGE; ++u) {
+      const int k = r + u * step;
+      if (k < rows) v[u] = LOAD ? film[k * fstride] : slab[k * sstride];
     }
-  } else {
-    const int j = threadIdx.x % P;
-    for (int r = threadIdx.x / P; r < rows; r += BLOCK / P) {
-      if (j >= np) continue;
+#pragma unroll
+    for (int u = 0; u < STAGE; ++u) {
+      const int k = r + u * step;
+      if (k >= rows) continue;
       if (LOAD)
-        slab[r * P + j] = film[(int64_t)r * hw + j];
+        slab[k * sstride] = v[u];
       else
-        film[(int64_t)r * hw + j] = slab[r * P + j];
+        film[k * fstride] = v[u];
     }
   }
 }
 
+// Copies the slab rows r = 0..rows-1 (P floats at film + r * hw) between
+// the film and shared memory, np of them real; P divides BLOCK.
+template <bool LOAD>
+__device__ __forceinline__ void copy_slab(float* film, float* slab, int rows,
+                                          int P, int np, int hw, bool vec) {
+  if (vec) {  // np == P, P % 4 == 0, rows 16-byte aligned
+    const int q = P / 4;
+    const int j = threadIdx.x % q;
+    copy_rows<LOAD>(reinterpret_cast<float4*>(film) + j,
+                    reinterpret_cast<float4*>(slab) + j, rows,
+                    threadIdx.x / q, BLOCK / q, hw / 4, q);
+  } else {
+    const int j = threadIdx.x % P;
+    if (j < np)
+      copy_rows<LOAD>(film + j, slab + j, rows, threadIdx.x / P, BLOCK / P,
+                      hw, P);
+  }
+}
+
 __global__ void __launch_bounds__(BLOCK)
-splat_kernel(float* __restrict__ film, int C, int t_pad, int hw, int lanes,
-             int P, const int32_t* __restrict__ bins_a,
+splat_kernel(float* __restrict__ film, float* const* film_at, int C,
+             int t_pad, int hw, int lanes, int P,
+             const int32_t* __restrict__ bins_a,
              const float* __restrict__ vals_a,
              const int32_t* __restrict__ bins_b,
              const float* __restrict__ vals_b) {
@@ -103,7 +127,7 @@ splat_kernel(float* __restrict__ film, int C, int t_pad, int hw, int lanes,
   const int p0 = blockIdx.x * P;
   const int np = min(P, hw - p0);
   const int rows = C * t_pad;
-  float* base = film + p0;
+  float* base = (film_at != nullptr ? *film_at : film) + p0;
   const bool vec = np == P && P % 4 == 0 && hw % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(base) % 16 == 0;
   copy_slab<true>(base, slab, rows, P, np, hw, vec);
@@ -119,6 +143,29 @@ splat_kernel(float* __restrict__ film, int C, int t_pad, int hw, int lanes,
   copy_slab<false>(base, slab, rows, P, np, hw, vec);
 }
 
+// Launches K3 on the film at `film`, or, where `film_at` is not null, on
+// the film whose address `film_at` holds when the kernel runs.
+cudaError_t launch(float* film, float* const* film_at, int C, int t_pad,
+                   int hw, int lanes, const int32_t* bins_a,
+                   const float* vals_a, const int32_t* bins_b,
+                   const float* vals_b, void* stream) {
+  if (hw <= 0 || lanes <= 0) return cudaGetLastError();
+  const int64_t pixel_bytes = (int64_t)4 * C * t_pad;
+  if (pixel_bytes > MAX_SHARED_BYTES) return cudaErrorInvalidValue;
+  int P = 1;
+  while (P < MAX_PIXELS && 2 * P * pixel_bytes <= SLAB_BYTES) P *= 2;
+  const int64_t smem = pixel_bytes * P;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        splat_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const int grid = (hw + P - 1) / P;
+  splat_kernel<<<grid, BLOCK, (size_t)smem, (cudaStream_t)stream>>>(
+      film, film_at, C, t_pad, hw, lanes, P, bins_a, vals_a, bins_b, vals_b);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -130,21 +177,22 @@ int mitr_splat_accumulate(float* film, int C, int t_pad, int hw, int lanes,
                           const int32_t* bins_a, const float* vals_a,
                           const int32_t* bins_b, const float* vals_b,
                           void* stream) {
-  if (hw <= 0 || lanes <= 0) return (int)cudaGetLastError();
-  const int64_t pixel_bytes = (int64_t)4 * C * t_pad;
-  if (pixel_bytes > MAX_SHARED_BYTES) return (int)cudaErrorInvalidValue;
-  int P = 1;
-  while (P < MAX_PIXELS && 2 * P * pixel_bytes <= SLAB_BYTES) P *= 2;
-  const int64_t smem = pixel_bytes * P;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        splat_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int grid = (hw + P - 1) / P;
-  splat_kernel<<<grid, BLOCK, (size_t)smem, (cudaStream_t)stream>>>(
-      film, C, t_pad, hw, lanes, P, bins_a, vals_a, bins_b, vals_b);
-  return (int)cudaGetLastError();
+  return (int)launch(film, nullptr, C, t_pad, hw, lanes, bins_a, vals_a,
+                     bins_b, vals_b, stream);
+}
+
+// The same splat into the film whose address the 8 bytes at `film_at` hold
+// when the kernel runs (8-byte aligned): a splat captured into a CUDA graph
+// keeps its arguments, so the multi-pass render's pass graph
+// (passgraph.py) writes each render's own film's address there.
+int mitr_splat_accumulate_at(float* const* film_at, int C, int t_pad, int hw,
+                             int lanes, const int32_t* bins_a,
+                             const float* vals_a, const int32_t* bins_b,
+                             const float* vals_b, void* stream) {
+  if (reinterpret_cast<uintptr_t>(film_at) % 8)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch(nullptr, film_at, C, t_pad, hw, lanes, bins_a, vals_a,
+                     bins_b, vals_b, stream);
 }
 
 }  // extern "C"

@@ -34,11 +34,17 @@ kernel ``ops/splat_pallas.py``.
   of :func:`sum_rows`.
 * ``*_any`` dispatch on the film kind: the transient histogram here, the
   phasor film of ``film/phasor_film.py``.
+* Inside :func:`splatting_at` (a pass captured into a CUDA graph,
+  ``passgraph.py``) K3's launches on the film named there read the film's
+  address from a device slot when they run, so that every render replays
+  the graph into a film of its own.
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import math
+import threading
 from typing import NamedTuple
 
 import torch
@@ -49,6 +55,8 @@ from ..core.math import divide, exp
 from ..kernels import _build
 from ..ops.gather import sum_rows
 from ..scene.schema import FilmConfig
+
+_local = threading.local()  # .film_at: (film, its address slot), or None
 
 
 class TransientFilmState(NamedTuple):
@@ -298,9 +306,14 @@ def splat_accumulate(film: torch.Tensor, bins_a: torch.Tensor,
         _build.require(kernel, f"vals[{k}]", v, torch.float32, (n, C), dev)
     check_pixel_slab(C, t_pad)
     lib = _build.library()
+    at = getattr(_local, "film_at", None)
+    if at is not None and at[0].data_ptr() == film.data_ptr():
+        entry, where = lib.mitr_splat_accumulate_at, at[1].data_ptr()
+    else:
+        entry, where = lib.mitr_splat_accumulate, film.data_ptr()
     with torch.cuda.device(dev):
-        err = lib.mitr_splat_accumulate(
-            film.data_ptr(), C, t_pad, hw, spp,
+        err = entry(
+            where, C, t_pad, hw, spp,
             bins_a.data_ptr(), vals_a.data_ptr(),
             bins_b.data_ptr() if bins_b is not None else None,
             vals_b.data_ptr() if vals_b is not None else None,
@@ -311,6 +324,18 @@ def splat_accumulate(film: torch.Tensor, bins_a: torch.Tensor,
     # in-place torch op would, which forward-mode AD checks for in
     # SplatEvents.jvp's in-place update of the film's tangent
     increment_version(film)
+
+
+@contextlib.contextmanager
+def splatting_at(film: torch.Tensor, slot: torch.Tensor):
+    """Inside, K3's launches on ``film`` (a (C, T + 1, HW) CUDA tensor)
+    splat into the film whose address the one int64 of ``slot`` holds when
+    they run, which must have ``film``'s shape and layout."""
+    _local.film_at = (film, slot)
+    try:
+        yield
+    finally:
+        _local.film_at = None
 
 
 class SplatEvents(torch.autograd.Function):

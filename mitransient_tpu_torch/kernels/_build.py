@@ -49,12 +49,14 @@ _SIGNATURES = {
     "mitr_closest_hit": (_P, _I, _P, _P, _P, _P, _I, _P, _P, _P),
     "mitr_ray_test": (_P, _I, _P, _P, _P, _P, _I, _P, _P),
     "mitr_splat_accumulate": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+    "mitr_splat_accumulate_at": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
     "mitr_reduce_rows_tiles": (_P, _P, _L, _I, _I, _P, _P, _P, _P),
     "mitr_reduce_rows_runs": (_P, _P, _I, _P, _L, _I, _L, _I, _P, _P, _P,
                               _P, _P),
     "mitr_bvh_query": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                        _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
     "mitr_threefry_uniform": (_P, _L, _L, _U, _U, _P),
+    "mitr_threefry_uniform_keyed": (_P, _L, _L, _P, _P),
 }
 
 

@@ -9,7 +9,9 @@ A render takes one of two branches, chosen as the JAX package chooses:
 * the multi-pass accumulator otherwise: the spp budget is split into
   passes of at most ``max_lanes`` lanes, each an independently seeded
   threefry stream (``Sampler(seed, n, stream=pass)``) traced by
-  ``integrators/path.py``, accumulated into one film.
+  ``integrators/path.py``, accumulated into one film.  On the card a
+  ``transient_path`` pass is captured once as a CUDA graph and replayed
+  (``passgraph.py``); elsewhere it runs eagerly.
 
 The ``transient_prbvolpath`` integrator (participating media) always
 takes the multi-pass branch, each pass traced by
@@ -34,10 +36,12 @@ take the JAX package's route for every integrator and variant.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
-from . import trace
+from . import passgraph, trace
 from .core.rng import Sampler
 from .core.math import divide
 from .film.transient_film import (
@@ -97,7 +101,9 @@ def _perspective_pass(sd, cam, film, seed, pass_idx, inv_total_spp, *,
                       film_cfg, icfg, width, height, spp_chunk, bvh_mode,
                       variant):
     """One pass of ``spp_chunk`` samples a pixel over the data window
-    (``width`` x ``height``); returns (film, n_rays)."""
+    (``width`` x ``height``); returns (film, n_rays).  ``inv_total_spp``
+    is a Python number, or a 0-dim float32 tensor of the same value (the
+    pass graph's scale, ``passgraph.py``)."""
     n = width * height * spp_chunk
     dev = cam.origin.device
     sampler = Sampler(seed, n, stream=pass_idx, device=dev)
@@ -262,11 +268,22 @@ def _multipass_render(sd, cam, seed, spp, *, film_cfg, icfg, channels,
                              scan_pixels=hw if film_cfg.is_cropped else None,
                              device=dev)
         done_passes, total_rays = 0, 0
+    body = functools.partial(
+        _perspective_pass, film_cfg=film_cfg, icfg=icfg, width=dw, height=dh,
+        spp_chunk=spp_chunk, bvh_mode=bvh_mode, variant=variant)
+    graph = passgraph.route(
+        sd, cam, film, film_cfg=film_cfg, icfg=icfg, variant=variant,
+        width=dw, height=dh, spp_chunk=spp_chunk, bvh_mode=bvh_mode)
+    if graph is not None:
+        film = graph.begin(sd, cam, film, 1.0 / total_spp, seed,
+                           range(done_passes, n_passes))
     for p in range(done_passes, n_passes):
-        film, n_rays = _perspective_pass(
-            sd, cam, film, seed, p, 1.0 / total_spp, film_cfg=film_cfg,
-            icfg=icfg, width=dw, height=dh, spp_chunk=spp_chunk,
-            bvh_mode=bvh_mode, variant=variant)
+        if graph is None:
+            film, n_rays = body(sd, cam, film, seed, p, 1.0 / total_spp)
+            passgraph.count("eager_passes")
+        else:
+            n_rays = graph.run(body, p, more=p + 1 < n_passes)
+        # before the next replay overwrites the graph's n_rays
         total_rays = total_rays + n_rays
         if progress_callback is not None:
             progress_callback((p + 1) / n_passes)

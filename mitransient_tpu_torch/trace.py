@@ -29,9 +29,19 @@ intervals), and the counters.
 
 The kernels' launch counts (:func:`count_launch`) live here too, in a
 tally of the same kind, and are counted always, profiler or not.
+
+A pass body captured into a CUDA graph (``passgraph.py``) runs inside
+:func:`capturing`: there no span is opened (a span records CUDA events,
+which a capture cannot hold), and counts and launches go to a
+:class:`CaptureSink` instead, whatever the profiler: a tensor count
+becomes a device accumulator that the graph fills on every replay, a
+Python count and a launch a number the graph stands for.
+:func:`replay_counts` adds them after each replay, as the body's eager
+run would have.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from typing import NamedTuple
@@ -179,12 +189,64 @@ class _Span:
                 ses.root = None
 
 
+class CaptureSink:
+    """What a pass body counted while it was captured into a CUDA graph:
+    per counter a Python int or a device accumulator (allocated in the
+    capture, so that each replay sets it anew), and the hand-written
+    kernels' launches."""
+
+    def __init__(self):
+        self.ints: dict[str, int] = {}
+        self.tensors: dict[str, torch.Tensor] = {}
+        self.launches: dict[str, int] = {}
+
+    def add(self, name: str, value) -> None:
+        if not isinstance(value, torch.Tensor):
+            self.ints[name] = self.ints.get(name, 0) + value
+            return
+        if value.dtype == torch.bool:
+            value = value.sum()
+        acc = self.tensors.get(name)
+        if acc is None:
+            self.tensors[name] = value.clone()
+        else:
+            acc.add_(value)
+
+
+def _sink() -> CaptureSink | None:
+    return getattr(_local, "sink", None)
+
+
+@contextlib.contextmanager
+def capturing(sink: CaptureSink):
+    """Spans are no-ops, and counts and launches go to ``sink``, inside."""
+    _local.sink = sink
+    try:
+        yield sink
+    finally:
+        _local.sink = None
+
+
+def replay_counts(sink: CaptureSink) -> None:
+    """Count one replay of the graph whose capture filled ``sink``: its
+    launches always, its counters while a profiler records (a copy of
+    each accumulator, which the next replay overwrites)."""
+    for kernel, n in sink.launches.items():
+        _launches.add(kernel, n)
+    if not _enabled():
+        return
+    for name, n in sink.ints.items():
+        count(name, n)
+    for name, acc in sink.tensors.items():
+        count(name, acc.clone())
+
+
 def span(name: str):
     """A context manager that records the span ``name`` while a profiler
-    records, else the shared no-op."""
+    records, else the shared no-op (always inside :func:`capturing`)."""
     global _stale
     if _enabled():
-        return _Span(name)
+        return _NOOP if _sink() is not None else _Span(name)
     _stale = True
     return _NOOP
 
@@ -192,7 +254,12 @@ def span(name: str):
 def count(name: str, value) -> None:
     """Add ``value`` to the counter ``name`` while a profiler records: a
     Python int, a device tensor (kept, and read by :func:`summary`) or a
-    bool mask (its true lanes, summed on the device).  Never synchronises."""
+    bool mask (its true lanes, summed on the device).  Never synchronises.
+    Inside :func:`capturing` the sink takes it, profiler or not."""
+    sink = _sink()
+    if sink is not None:
+        sink.add(name, value)
+        return
     if not _enabled():
         return
     if isinstance(value, torch.Tensor) and value.dtype == torch.bool:
@@ -265,7 +332,12 @@ _launches = _Tally()
 
 
 def count_launch(kernel: str) -> None:
-    """Count one launch of the hand-written kernel ``kernel`` (always)."""
+    """Count one launch of the hand-written kernel ``kernel`` (always; in
+    a capture, one launch of each replay)."""
+    sink = _sink()
+    if sink is not None:
+        sink.launches[kernel] = sink.launches.get(kernel, 0) + 1
+        return
     _launches.add(kernel, 1)
 
 

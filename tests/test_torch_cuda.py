@@ -21,14 +21,21 @@ against them run on the host CPU they must be bit-equal too, and two
 ``render_backward`` calls on the card must give the same tables bit for
 bit.  The threefry kernel's draws are integers turned into floats
 exactly: bit-equal to the plain path on the host CPU, one launch a draw.
+The multi-pass render's pass graph (``passgraph.py``) replays the eager
+pass body's kernels with its arguments, so its films must be bit-equal to
+that body's called directly, and its keyed threefry draw to the argument
+version's.
 """
+import copy
+import importlib
+
 import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 import mitransient_tpu_torch as mt
-from mitransient_tpu_torch import trace
+from mitransient_tpu_torch import passgraph, trace
 from mitransient_tpu_torch.core import rng as trng
 from mitransient_tpu_torch.convert import scene_data_from_numpy, scene_data_to_numpy
 from mitransient_tpu_torch.film import transient_film as tf
@@ -37,11 +44,14 @@ from mitransient_tpu_torch.ops import bvh
 from mitransient_tpu_torch.ops import intersect as isect
 from mitransient_tpu_torch.ops import accel as TA
 from mitransient_tpu_torch.ops.accel import build_accel
+from mitransient_tpu_torch.integrators.nlos_path import film_channels
+from mitransient_tpu_torch.scene.scene import primal_sd
 from mitransient_tpu_torch.sensors.perspective import build_camera
 from torch_cases import (
     box_rays,
     golden_mismatch,
     material_case,
+    materials_cbox,
     overlapping_rays,
     overlapping_soup,
     random_rays,
@@ -52,7 +62,9 @@ from torch_cases import (
     VARIANT_CASES,
     VARIANT_REGEN,
     run_variant_case,
+    variant_case,
     variant_render,
+    with_variant,
 )
 
 
@@ -333,7 +345,9 @@ def test_small_render_on_cuda_goes_through_the_kernels(cuda):
 def test_multipass_render_on_cuda_goes_through_the_kernels(cuda):
     """The cbox_rgb config through the multi-pass accumulator (3 passes):
     each kernel launches once per bounce of each pass and the threefry
-    kernel once for each draw the CPU's render makes, the images agree
+    kernel once for each draw the CPU's render makes (through its argument
+    or its keyed entry point: passes replayed in the pass graph draw
+    through the keyed one), the images agree
     with the CPU under the golden rule, and a resumed render is bit for
     bit the uninterrupted one; the threefry draw is bit-equal to the
     CPU's."""
@@ -358,8 +372,10 @@ def test_multipass_render_on_cuda_goes_through_the_kernels(cuda):
     assert counts_c == {} and n == 3 * 6
     # a bounce block a bounce and the camera's two draws a pass
     assert cpu_draws == n + 3 * 2
-    assert counts_g == {"closest_hit": n, "ray_test": n, "splat_accumulate": n,
-                        "threefry_uniform": cpu_draws}
+    draws_g = (counts_g.pop("threefry_uniform", 0)
+               + counts_g.pop("threefry_uniform_keyed", 0))
+    assert counts_g == {"closest_hit": n, "ray_test": n, "splat_accumulate": n}
+    assert draws_g == cpu_draws
     for got, want in ((s_g, s_c), (t_g, t_c)):
         m = golden_mismatch(got, want)
         assert m["shape_ok"] and m["n_bad"] == 0, m
@@ -964,3 +980,281 @@ def test_gaussian_splat_kernel_is_bit_equal_to_cpu_plain(cuda, sigma,
                 fwAD.make_dual(tp[1], tan.to(dev)), tp[2], tp[3], lanes)
             tangents.append(fwAD.unpack_dual(out).tangent.cpu())
     assert _bit_equal(tangents[1], tangents[0])
+
+
+# --------------------------------------------------------------------------
+# The multi-pass render's pass graph (passgraph.py)
+# --------------------------------------------------------------------------
+
+_render_mod = importlib.import_module("mitransient_tpu_torch.render")
+
+
+@pytest.fixture
+def graphs(cuda):
+    """No pass graph before the test; -> the graph counts made since."""
+    passgraph.clear()
+    before = dict(passgraph.STATS)
+    yield lambda: {k: passgraph.STATS[k] - before[k] for k in before}
+    passgraph.clear()
+
+
+def _eager_render(scene, spp, seed, max_lanes, film_state=None,
+                  checkpoint_callback=None):
+    """``render(regenerate=False)`` with the pass body called directly and
+    eagerly, as ``_multipass_render`` runs it without a graph ->
+    (steady, transient, rays)."""
+    cfg, icfg, var = scene.sensors[0], scene.integrator, scene.variant
+    fc = cfg.film
+    dw, dh = fc.data_width, fc.data_height
+    chunk = max(1, min(spp, max_lanes // (dw * dh)))
+    n_passes = -(-spp // chunk)
+    chunk = -(-spp // n_passes)
+    total = chunk * n_passes
+    dev = scene.device
+    sd, cam = primal_sd(scene.data), build_camera(cfg, device=dev)
+    if film_state is None:
+        film = tf.film_init_any(
+            fc, film_channels(var),
+            scan_pixels=dw * dh if fc.is_cropped else None, device=dev)
+        done, rays = 0, 0
+    else:
+        film, done, rays = film_state
+        film = type(film)(*(torch.as_tensor(a).to(dev, copy=True)
+                            for a in film))
+    for p in range(done, n_passes):
+        film, n = _render_mod._perspective_pass(
+            sd, cam, film, seed, p, 1.0 / total, film_cfg=fc, icfg=icfg,
+            width=dw, height=dh, spp_chunk=chunk, bvh_mode=bvh.BVH_MODE,
+            variant=var)
+        rays = rays + n
+        if checkpoint_callback is not None:
+            checkpoint_callback((type(film)(*(a.cpu().numpy().copy()
+                                              for a in film)),
+                                 p + 1, int(rays)))
+    s, t = tf.develop_any(film, fc, shape_hw=(dh, dw))
+    return s, t, int(rays)
+
+
+def _graph_render(scene, **kw):
+    """``render(regenerate=False)`` -> (steady, transient, rays)."""
+    s, t, stats = mt.render(scene, regenerate=False, return_stats=True, **kw)
+    return s, t, int(stats["rays"])
+
+
+def _same_render(got, want):
+    for a, b in zip(got[:2], want[:2]):
+        assert a.device == b.device and a.shape == b.shape
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert got[2] == want[2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", ["tiny", "full"])
+def test_pass_graph_renders_two_seeds_bit_for_bit_like_the_eager_body(
+        cuda, graphs, size):
+    """Two seeds in a row through one graph: 3 passes each, of 4 samples
+    on the 16x16 cbox_rgb config, of 32 on the 256x256 cbox (2^21 lanes,
+    depth 8, 300 bins).  The first pass runs eagerly and draws through the
+    threefry kernel's argument entry point; the replays draw through its
+    keyed one."""
+    desc, kw = ((small_cbox(mt), dict(spp=12, max_lanes=4 * 256))
+                if size == "tiny" else
+                (mt.cornell_box(), dict(spp=96, max_lanes=1 << 21)))
+    scene = mt.load_dict(desc, device=cuda)
+    depth = scene.integrator.max_depth
+    for seed, eager in ((3, 1), (2**32 - 1, 0)):
+        reset_launch_counts()
+        got = _graph_render(scene, seed=seed, **kw)
+        counts = launch_counts()
+        _same_render(got, _eager_render(scene, seed=seed, **kw))
+        # each kernel launched once a bounce, replays included; a draw a
+        # bounce and the camera's two draws a pass
+        n = 3 * depth
+        assert counts.pop("threefry_uniform", 0) == eager * (depth + 2)
+        assert counts == {
+            "closest_hit": n, "ray_test": n, "splat_accumulate": n,
+            "threefry_uniform_keyed": (3 - eager) * (depth + 2)}
+    assert graphs() == {"captures": 1, "replays": 2 + 3, "eager_passes": 1,
+                        "refusals": 0}
+
+
+@pytest.mark.cuda
+def test_pass_graph_takes_a_new_reflectance_without_a_capture(cuda, graphs):
+    """A ``white.reflectance`` update between renders reaches the graph
+    through its copy of the scene, as in an optimisation loop."""
+    scene = mt.load_dict(small_cbox(mt), device=cuda)
+    params = mt.traverse(scene)
+    kw = dict(spp=12, seed=7, max_lanes=4 * 256)
+    for value in ([0.15, 0.6, 0.25], [0.9, 0.1, 0.3]):
+        params["white.reflectance.value"] = torch.tensor(value, device=cuda)
+        params.update()
+        _same_render(_graph_render(scene, **kw), _eager_render(scene, **kw))
+    assert graphs()["captures"] == 1
+
+
+@pytest.mark.cuda
+def test_pass_graph_checkpoints_and_resumes_like_the_eager_body(cuda,
+                                                                 graphs):
+    """``checkpoint_callback`` gets each replayed pass's film; a render
+    resumed from ``film_state`` through the graph is the uninterrupted
+    one, and the eager resume."""
+    scene = mt.load_dict(small_cbox(mt), device=cuda)
+    kw = dict(spp=12, seed=4, max_lanes=4 * 256)
+    states, eager_states = [], []
+    got = _graph_render(scene, checkpoint_callback=states.append, **kw)
+    _same_render(got, _eager_render(scene, checkpoint_callback=eager_states
+                                  .append, **kw))
+    assert [s[1:] for s in states] == [s[1:] for s in eager_states]
+    for (film, _, _), (want, _, _) in zip(states, eager_states):
+        for a, b in zip(film, want):
+            assert np.array_equal(a.view(np.int32), b.view(np.int32))
+    resumed = _graph_render(scene, film_state=states[1], **kw)
+    _same_render(resumed, got)
+    _same_render(resumed, _eager_render(scene, film_state=states[1], **kw))
+    assert graphs() == {"captures": 1, "replays": 2 + 1, "eager_passes": 1,
+                        "refusals": 0}
+
+
+@pytest.mark.cuda
+def test_pass_graph_captures_again_for_a_new_spp_chunk(cuda, graphs):
+    """A new spp chunk changes the lanes: a new capture."""
+    scene = mt.load_dict(small_cbox(mt), device=cuda)
+    for lanes in (4 * 256, 2 * 256):
+        kw = dict(spp=12, seed=5, max_lanes=lanes)
+        _same_render(_graph_render(scene, **kw), _eager_render(scene, **kw))
+    assert graphs()["captures"] == 2
+
+
+@pytest.mark.cuda
+def test_pass_graph_leaves_a_kept_output_as_it_was(cuda, graphs):
+    """Every render splats into a film of its own: outputs kept across
+    the next renders (``s, t = render(...)`` in a loop) stay as they were,
+    through one capture."""
+    scene = mt.load_dict(small_cbox(mt), device=cuda)
+    kw = dict(spp=12, max_lanes=2 * 256)
+    kept = {seed: _graph_render(scene, seed=seed, **kw) for seed in (8, 9, 10)}
+    for seed, got in kept.items():
+        _same_render(got, _eager_render(scene, seed=seed, **kw))
+    assert graphs() == {"captures": 1, "replays": 3 * 6 - 1,
+                        "eager_passes": 1, "refusals": 0}
+
+
+def _graph_case(name):
+    if name == "rgb_polarized":
+        with with_variant(mt, name):
+            return mt.load_dict(variant_case(mt, name), device="cuda")
+    desc = small_cbox(mt)
+    if name == "filters":  # chip_smoke.py phase 14's
+        desc["integrator"].update(camera_unwarp=True,
+                                  temporal_filter="gaussian",
+                                  gaussian_stddev=1.5)
+        desc["sensor"]["film"].update(
+            rfilter={"type": "gaussian", "stddev": 0.6}, crop_offset_x=3,
+            crop_offset_y=2, crop_width=10, crop_height=12)
+    elif name == "warn":
+        desc["sensor"]["film"].update(warn_negative=True, warn_invalid=True)
+    elif name == "sphere":
+        desc = small_sphere_cbox(mt)
+    elif name == "materials":
+        desc = materials_cbox(mt, 16, 16, 120, 6)
+    return mt.load_dict(copy.deepcopy(desc), device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rgb_polarized", "filters", "warn",
+                                  "sphere", "materials"])
+def test_pass_graph_takes_the_other_multipass_configs(cuda, graphs, name):
+    """The polarized variant (a gold GGX box), camera_unwarp with both
+    gaussian filters and a crop, the opt-in sample validation, a scene with
+    an accel (the BVH kernel) and the materials flagship's gold GGX and
+    glass boxes take the graph, bit for bit the eager body."""
+    scene = _graph_case(name)
+    fc = scene.sensors[0].film
+    kw = dict(spp=6, max_lanes=2 * fc.data_width * fc.data_height)
+    for seed in (1, 2):
+        _same_render(_graph_render(scene, seed=seed, **kw),
+                   _eager_render(scene, seed=seed, **kw))
+    assert graphs()["captures"] == 1 and graphs()["replays"] > 0
+    assert graphs()["refusals"] == 0
+
+
+@pytest.mark.cuda
+def test_pass_graph_refusal_is_counted_and_other_errors_are_raised(
+        cuda, graphs, monkeypatch):
+    """A capture refused (here: more draws than key slots) leaves the
+    structure to the eager body, bit for bit, and is counted; an error that
+    is no refusal, raised in the capture, reaches the caller, on the
+    stream it called on."""
+    scene = mt.load_dict(small_cbox(mt), device=cuda)
+    kw = dict(spp=12, seed=6, max_lanes=4 * 256)
+    monkeypatch.setattr(passgraph, "MAX_DRAWS", 2)
+    for _ in range(2):
+        _same_render(_graph_render(scene, **kw), _eager_render(scene, **kw))
+    assert graphs() == {"captures": 0, "replays": 0, "eager_passes": 6,
+                        "refusals": 1}
+    monkeypatch.undo()
+    passgraph.clear()
+
+    def fail(*a):
+        raise RuntimeError("a wrapper's error")
+
+    monkeypatch.setattr(trng, "_uniform_keyed", fail)
+    stream = torch.cuda.current_stream()
+    with pytest.raises(RuntimeError, match="a wrapper's error"):
+        _graph_render(scene, **kw)
+    assert torch.cuda.current_stream() == stream
+    assert graphs()["refusals"] == 1 and graphs()["captures"] == 0
+
+
+@pytest.mark.cuda
+def test_keyed_threefry_kernel_matches_the_argument_version(cuda):
+    """At (2^21, 6), from a device slot or through a KeyRecorder."""
+    n, dims = 1 << 21, 6
+    base = trng.Sampler(7, 1, 3).key
+    key = trng.fold_in(base, trng.BOUNCE_STREAM_TAG + 2)
+    slots = torch.zeros((4, 2), dtype=torch.int32)
+    slots[1] = torch.from_numpy(np.array(key, np.uint32).view(np.int32))
+    slots = slots.to(cuda)
+    want = trng._uniform_kernel(key, 0, n * dims, cuda)
+    got = trng._uniform_keyed(slots.data_ptr() + 8, 0, n * dims, cuda)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    part = trng._uniform_keyed(slots.data_ptr() + 8, 5, 4099, cuda)
+    assert torch.equal(part.view(torch.int32), want[5:4099].view(torch.int32))
+    rec = trng.KeyRecorder(base, slots[1:], 8)
+    reset_launch_counts()
+    with trng.recording(rec):
+        block = trng.draw_bounce_block(base, 2, n, dims, cuda)
+    assert rec.dims == [trng.BOUNCE_STREAM_TAG + 2]
+    assert torch.equal(block.reshape(-1).view(torch.int32),
+                       want.view(torch.int32))
+    assert launch_counts() == {"threefry_uniform_keyed": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels, hw, lanes, bins", [
+    (3, 256 * 256, 32, 300),  # the flagship's film and a pass's lanes
+    (1, 301, 5, 40),  # rows not 16-byte aligned: no float4
+    (12, 1000, 4, 400)])  # rgb_polarized
+def test_splat_through_a_film_slot_matches_the_direct_launch(
+        cuda, channels, hw, lanes, bins):
+    """K3 reading the film's address from a device slot (as the pass
+    graph's replays splat) is bit-equal to the launch that takes it as an
+    argument, one ``splat_accumulate`` launch; a launch on another film
+    inside ``splatting_at`` takes its own address."""
+    rng = np.random.default_rng(channels + hw)
+    ev = [torch.from_numpy(a).to(cuda) for _ in range(2)
+          for a in splat_events(rng, lanes, hw, bins, channels)]
+    init = torch.from_numpy(
+        rng.random((channels, bins + 1, hw)).astype(np.float32)).to(cuda)
+    want, got, other = init.clone(), init.clone(), init.clone()
+    tf.splat_accumulate(want, *ev, spp=lanes)
+    slot = torch.tensor([got.data_ptr()], dtype=torch.int64, device=cuda)
+    placeholder = torch.full_like(got, float("nan"))  # what a capture names
+    reset_launch_counts()
+    with tf.splatting_at(placeholder, slot):
+        tf.splat_accumulate(placeholder, *ev, spp=lanes)
+        tf.splat_accumulate(other, *ev, spp=lanes)
+    assert launch_counts() == {"splat_accumulate": 2}
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(other.view(torch.int32), want.view(torch.int32))
+    assert bool(placeholder.isnan().all())
