@@ -55,13 +55,13 @@ Phases, each of which raises on failure:
     with no element out.
 11. The threefry kernel (``csrc/rng.cu``) on the draws of a multi-pass
     flagship pass and of a gradient step: a bounce block at (2^21, 6) and
-    (2^23, 6) and a 2^21 camera draw, each through the kernel's argument
-    entry point and through its keyed one (the key read from a device
-    slot, as the multi-pass pass graph's replays draw), each bit-equal to
-    the plain int64 chain on the card (the (2^21, 6) block also to the
-    host CPU's draw), each entry point timed beside that chain and beside
-    its bound by operations, from the instructions a number in its
-    kernel's loop, read from its SASS
+    (2^23, 6), a 2^21 camera draw and a (2^21, 6) draw at the last uint32
+    dimension, each under a row of a pass key table on the card, each
+    bit-equal to the plain int64 chain on the card (the (2^21, 6) draws
+    also to the host CPU's), each timed beside that chain and beside its
+    bound by operations, from the instructions a number in the kernel's
+    loop and a block's fold of the dimension into the key before it (one
+    warp a block), read from its SASS
     (``cuobjdump -sass``), at the card's highest SM clock: the rotations
     and xors, which only the INT32 pipe runs, at 64 lanes a clock on each
     SM, or all of them at the 128 lanes a clock an SM dispatches, whichever
@@ -71,8 +71,8 @@ Phases, each of which raises on failure:
 12. The flagship through the multi-pass accumulator (``regenerate=False``,
     spp 1024: 32 passes of spp 32 at 2^21 lanes): each of K1-K3 launches
     once per bounce of every pass, the threefry kernel once per draw (10
-    a pass; the passes replayed in the pass graph through its keyed entry
-    point), the physics checks pass; peak memory and
+    a pass, the passes replayed in the pass graph included), the physics
+    checks pass; peak memory and
     the rays/s of a second render (seed 1).
 13. The ``cbox_rgb_multipass`` and ``phasor`` golden configs on the card
     against their goldens.
@@ -491,15 +491,14 @@ SLAB_OPS = 23  # 6 subs, 6 muls, 6 min/max per axis pair, 5 min/max
 WOOP_OPS = 40  # 6 dots of 3, 3 subs, neg, div, 2 mul-adds, u + v
 
 
-DRAW_KERNELS = ("threefry_uniform", "threefry_uniform_keyed")
+DRAW_KERNEL = "threefry_uniform"
 
 
 def without_draws(counts):
-    """Launch counts without the threefry kernel's (its argument and its
-    keyed entry points), which phases 11 and 12 hold on their own: what the
-    other phases' exact checks of the ray, splat and gather kernels
-    compare."""
-    return {k: v for k, v in counts.items() if k not in DRAW_KERNELS}
+    """Launch counts without the threefry kernel's, which phases 11 and 12
+    hold on their own: what the other phases' exact checks of the ray,
+    splat and gather kernels compare."""
+    return {k: v for k, v in counts.items() if k != DRAW_KERNEL}
 
 
 def _run(cmd):
@@ -1288,10 +1287,12 @@ def render_small_sphere(mt, cases, dev):
 
 
 def threefry_sass(lib_path, kernel="threefry_uniform_kernel"):
-    """The SASS of a threefry kernel's grid-stride loop (the longest
-    backward branch's body in ``cuobjdump -sass``), which draws 4 numbers a
-    pass: ({opcode: count}, instructions a number that only the ALU pipe
-    runs, all instructions a number)."""
+    """The SASS of the threefry kernel: its grid-stride loop (the longest
+    backward branch's body in ``cuobjdump -sass``), which draws 4 numbers
+    a pass, and what runs before it, the fold of the dimension into the
+    key that one warp of each block makes.  -> ({opcode: count} of the
+    loop, instructions a number that only the ALU pipe runs, all
+    instructions a number, the same two before the loop)."""
     import re
 
     from mitransient_tpu_torch.kernels import _build
@@ -1315,24 +1316,29 @@ def threefry_sass(lib_path, kernel="threefry_uniform_kernel"):
     if not loops:
         raise AssertionError("threefry SASS: no loop found")
     lo, hi = max(loops, key=lambda r: r[1] - r[0])
-    ops = {}
-    for addr, text in body:
-        if lo <= addr <= hi:
-            words = [w for w in text.split() if not w.startswith("@")]
-            ops[words[0]] = ops.get(words[0], 0) + 1
-    alu = sum(c for op, c in ops.items() if op.split(".")[0] in ALU_ONLY)
-    return ops, alu / 4, sum(ops.values()) / 4
+
+    def count(keep):
+        ops = {}
+        for addr, text in body:
+            if keep(addr):
+                words = [w for w in text.split() if not w.startswith("@")]
+                ops[words[0]] = ops.get(words[0], 0) + 1
+        alu = sum(c for op, c in ops.items() if op.split(".")[0] in ALU_ONLY)
+        return ops, alu, sum(ops.values())
+
+    ops, alu, dispatched = count(lambda addr: lo <= addr <= hi)
+    _, fold_alu, fold_all = count(lambda addr: addr < lo)
+    return ops, alu / 4, dispatched / 4, fold_alu, fold_all
 
 
 def check_threefry(dev):
     """Phase 11: the threefry kernel on the draws of a multi-pass flagship
-    pass and of a gradient step, through its argument entry point and
-    through its keyed one (the key read from a device slot, as the pass
-    graph's replays draw), each bit-equal to the plain chain, timed beside
-    it and beside its bound by operations; returns the argument kernel's
-    time per multi-pass flagship render and the two kernels' rows of the
-    kernels line."""
-    import numpy as np
+    pass and of a gradient step, and at the last uint32 dimension, under
+    row 1 of a pass key table on the card (read 8 bytes into the table, as
+    a render's passes and the pass graph's key are), each bit-equal to the
+    plain chain under the host's fold of the same key, timed beside it and
+    beside its bound by operations; returns the kernel's time per
+    multi-pass flagship render and its row of the kernels line."""
     import torch
 
     from mitransient_tpu_torch.core import rng
@@ -1343,82 +1349,76 @@ def check_threefry(dev):
                       "--format=csv,noheader,nounits"]).splitlines()[0])
     int_rate = sms * INT32_LANES_PER_SM * mhz * 1e6
     dispatch_rate = sms * DISPATCH_LANES_PER_SM * mhz * 1e6
-    sass = {}
-    for kernel in ("threefry_uniform_kernel", "threefry_uniform_keyed_kernel"):
-        ops, alu, dispatched = threefry_sass(_build.build().path, kernel)
-        sass[kernel] = (alu, dispatched)
-        print(f"{kernel} SASS loop (4 numbers): {dict(sorted(ops.items()))}; "
-              f"a number: {alu:.2f} ALU-only instructions "
-              f"({'+'.join(ALU_ONLY)}) at the INT32 rate "
-              f"{int_rate / 1e12:.2f} T/s, {dispatched:.2f} instructions at "
-              f"the dispatch rate {dispatch_rate / 1e12:.2f} T/s ({sms} SMs x "
-              f"{INT32_LANES_PER_SM} / {DISPATCH_LANES_PER_SM} lanes x "
-              f"{mhz:.0f} MHz)")
-    key = rng.Sampler(0, N_RAYS, stream=5).key
-    block = rng.fold_in(key, rng.BOUNCE_STREAM_TAG + 3)
+    ops, alu, dispatched, fold_alu, fold_all = threefry_sass(
+        _build.build().path)
+    print(f"threefry_uniform_kernel SASS loop (4 numbers): "
+          f"{dict(sorted(ops.items()))}; a number: {alu:.2f} ALU-only "
+          f"instructions ({'+'.join(ALU_ONLY)}) at the INT32 rate "
+          f"{int_rate / 1e12:.2f} T/s, {dispatched:.2f} instructions at the "
+          f"dispatch rate {dispatch_rate / 1e12:.2f} T/s ({sms} SMs x "
+          f"{INT32_LANES_PER_SM} / {DISPATCH_LANES_PER_SM} lanes x "
+          f"{mhz:.0f} MHz); before the loop (the fold, one warp a block): "
+          f"{fold_alu} ALU-only, {fold_all} instructions")
+    key = rng.pass_keys(0, [4, 5], dev)[1]
+    cpu_key = rng.pass_keys(0, [4, 5])[1]
+    host = rng.fold_in(rng.make_key(0), 5)
+    block = rng.BOUNCE_STREAM_TAG + 3
     draws = {"bounce block (2^21, 6)": (block, (N_RAYS, 6)),
              "bounce block (2^23, 6)": (block, (4 * N_RAYS, 6)),
-             "camera draw (2^21)": (rng.fold_in(key, 0), (N_RAYS,))}
-    rows = {"threefry_uniform_kernel": {}, "threefry_uniform_keyed_kernel": {}}
-    for name, (k, shape) in draws.items():
+             "camera draw (2^21)": (0, (N_RAYS,)),
+             "last dimension (2^21, 6)": (2**32 - 1, (N_RAYS, 6))}
+    most_threads = sms * (2048 // 256) * 4 * 256  # rng.cu's grid_for
+    rows = {}
+    for name, (d, shape) in draws.items():
         n = math.prod(shape)
-        slot = torch.from_numpy(np.array(k, np.uint32).view(np.int32)).to(dev)
-        entries = {
-            "threefry_uniform_kernel": lambda: rng.uniform(k, shape, dev),
-            "threefry_uniform_keyed_kernel": lambda: rng._uniform_keyed(
-                slot.data_ptr(), 0, n, dev).reshape(shape)}
+        k = rng.fold_in(host, d)
         plain = rng._uniform_plain(k, 0, n, dev).reshape(shape)
         plain_ms = _time_ms(lambda: rng._uniform_plain(k, 0, n, dev),
                             reps=5, warmup=1, batches=3)
         t_bytes = 4 * n / HBM_BYTES_PER_S * 1e3
-        for kernel, draw in entries.items():
-            got = draw()
-            if not torch.equal(got.view(torch.int32), plain.view(torch.int32)):
-                raise AssertionError(f"threefry {name}: {kernel}'s draw "
-                                     "differs from the plain chain's")
-            if n == N_RAYS * 6 and not torch.equal(
-                    got.cpu().view(torch.int32),
-                    rng.uniform(k, shape).view(torch.int32)):
-                raise AssertionError(f"threefry {name}: {kernel}'s draw on "
-                                     "the card differs from the CPU's")
-            alu, dispatched = sass[kernel]
-            t_ops = n * max(alu / int_rate, dispatched / dispatch_rate) * 1e3
-            bound = ((t_ops, "operations") if t_ops >= t_bytes
-                     else (t_bytes, "bytes"))
-            r = rows[kernel][name] = dict(
-                n=n, ms=_time_ms(draw), device_ms=_graph_ms(draw),
-                plain_ms=plain_ms, bound=bound)
-            print(f"threefry {name}, {kernel}: bit-equal to the plain chain; "
-                  f"kernel {r['ms']:.4f} ms a draw (card alone "
-                  f"{r['device_ms']:.4f}), plain chain {plain_ms:.4f} ms, "
-                  f"bound {bound[0]:.4f} ms ({bound[1]}; bytes "
-                  f"{t_bytes:.4f} ms)")
-    args = rows["threefry_uniform_kernel"]
-    block_ms = args["bounce block (2^21, 6)"]["ms"]
-    camera_ms = args["camera draw (2^21)"]["ms"]
+        draw = lambda: rng.uniform(key, d, shape)  # noqa: E731
+        got = draw()
+        if not torch.equal(got.view(torch.int32), plain.view(torch.int32)):
+            raise AssertionError(f"threefry {name}: the kernel's draw "
+                                 "differs from the plain chain's")
+        if shape == (N_RAYS, 6) and not torch.equal(
+                got.cpu().view(torch.int32),
+                rng.uniform(cpu_key, d, shape).view(torch.int32)):
+            raise AssertionError(f"threefry {name}: the kernel's draw on "
+                                 "the card differs from the CPU's")
+        fold_lanes = 32 * -(-min(-(-n // 4), most_threads) // 256)
+        t_ops = (n * max(alu / int_rate, dispatched / dispatch_rate)
+                 + fold_lanes * max(fold_alu / int_rate,
+                                    fold_all / dispatch_rate)) * 1e3
+        bound = ((t_ops, "operations") if t_ops >= t_bytes
+                 else (t_bytes, "bytes"))
+        r = rows[name] = dict(n=n, ms=_time_ms(draw),
+                              device_ms=_graph_ms(draw), plain_ms=plain_ms,
+                              bound=bound)
+        print(f"threefry {name}: bit-equal to the plain chain; kernel "
+              f"{r['ms']:.4f} ms a draw (card alone {r['device_ms']:.4f}), "
+              f"plain chain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms "
+              f"({bound[1]}; bytes {t_bytes:.4f} ms)")
+    block_ms = rows["bounce block (2^21, 6)"]["ms"]
+    camera_ms = rows["camera draw (2^21)"]["ms"]
     passes = MULTIPASS_PASSES
     per_render = passes * (8 * block_ms + 2 * camera_ms)
     print(f"threefry per multi-pass flagship render ({passes} passes x "
           f"(8 bounce blocks + 2 camera draws)): {per_render:.1f} ms")
-    out = []
-    for kernel, name in (("threefry_uniform_kernel", "threefry_uniform"),
-                         ("threefry_uniform_keyed_kernel",
-                          "threefry_uniform_keyed")):
-        main = rows[kernel]["bounce block (2^21, 6)"]
-        alu, dispatched = sass[kernel]
-        out.append(dict(
-            name=name, route="cuda",
-            source="mitransient_tpu_torch/csrc/rng.cu",
-            replaces="none: jax.random.uniform (XLA's threefry2x32)",
-            launches=0, max_abs_err=0.0, ms=main["ms"],
-            plain_ms=main["plain_ms"], bound_ms=main["bound"][0],
-            bound_by=main["bound"][1], library_ms=None,
-            alu_ops_per_number=alu, ops_per_number=dispatched,
-            int32_ops_per_s=int_rate, dispatch_ops_per_s=dispatch_rate,
-            calls={k: dict(n=r["n"], ms=r["ms"], device_ms=r["device_ms"],
-                           plain_ms=r["plain_ms"], bound_ms=r["bound"][0])
-                   for k, r in rows[kernel].items()}))
-    return per_render, out
+    main = rows["bounce block (2^21, 6)"]
+    return per_render, [dict(
+        name="threefry_uniform", route="cuda",
+        source="mitransient_tpu_torch/csrc/rng.cu",
+        replaces="none: jax.random.uniform (XLA's threefry2x32)",
+        launches=0, max_abs_err=0.0, ms=main["ms"],
+        plain_ms=main["plain_ms"], bound_ms=main["bound"][0],
+        bound_by=main["bound"][1], library_ms=None,
+        alu_ops_per_number=alu, ops_per_number=dispatched,
+        fold_alu_ops_per_block=fold_alu, fold_ops_per_block=fold_all,
+        int32_ops_per_s=int_rate, dispatch_ops_per_s=dispatch_rate,
+        calls={k: dict(n=r["n"], ms=r["ms"], device_ms=r["device_ms"],
+                       plain_ms=r["plain_ms"], bound_ms=r["bound"][0])
+               for k, r in rows.items()})]
 
 
 def render_multipass_flagship(mt, cases, dev, threefry_ms):
@@ -1448,12 +1448,12 @@ def render_multipass_flagship(mt, cases, dev, threefry_ms):
         if counts.get(name, 0) != n:
             raise AssertionError(f"{name} launched {counts.get(name, 0)} "
                                  f"times in {n} bounces")
-    # the pass graph's replays draw through the keyed entry point
+    # the pass graph's replays included
     draws = MULTIPASS_PASSES * THREEFRY_DRAWS_PER_PASS
-    if sum(counts.get(k, 0) for k in DRAW_KERNELS) != draws:
+    if counts.get(DRAW_KERNEL, 0) != draws:
         raise AssertionError(f"the threefry kernel launched "
-                             f"{[counts.get(k, 0) for k in DRAW_KERNELS]} "
-                             f"times, not once in each of {draws} draws")
+                             f"{counts.get(DRAW_KERNEL, 0)} times, not once "
+                             f"in each of {draws} draws")
     s, t = s.cpu().numpy(), t.cpu().numpy()
     fails = cases.physics_checks(s, t)
     prof = t.sum(axis=(0, 1, 3))
@@ -1746,10 +1746,10 @@ def render_nlos_single(mt, cases, dev):
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
     rays = int(stats2["rays"])
-    key = rng.Sampler(1, lanes).key
+    key = rng.Sampler(1, lanes, device=dev).key
     draw_ms = _time_ms(lambda: rng.draw_bounce_block(
-        key, 2, lanes, nlos_path.NLOS_DIMS_PER_BOUNCE, dev), reps=5,
-        warmup=1, batches=3)
+        key, 2, lanes, nlos_path.NLOS_DIMS_PER_BOUNCE), reps=5, warmup=1,
+        batches=3)
     share = n * draw_ms / 1e3 / wall
     print(f"NLOS single render 2 (seed 1): {wall:.4f} s, {rays} rays -> "
           f"{rays / wall / 1e6:.2f} M rays/s, peak memory {peak:.2f} GiB; "
@@ -2636,9 +2636,9 @@ def render_volumetric_tutorial(mt, cases, dev):
     (_s, _t, stats2), wall, peak = _timed(lambda: mt.render(
         scene, spp=cfg["spp"], seed=1, return_stats=True))
     rays = int(stats2["rays"])
-    key = rng.Sampler(1, lanes).key
+    key = rng.Sampler(1, lanes, device=dev).key
     draw_ms = _time_ms(lambda: rng.draw_bounce_block(
-        key, 2, lanes, volpath.VOL_DIMS_PER_BOUNCE, dev), reps=5, warmup=1,
+        key, 2, lanes, volpath.VOL_DIMS_PER_BOUNCE), reps=5, warmup=1,
         batches=3)
     share = n * draw_ms / 1e3 / wall
     kern = n * (steps * held["closest_hit"]["ms"]
@@ -2669,10 +2669,10 @@ def render_volumetric_tutorial(mt, cases, dev):
         grid, spp=g["spp"], seed=1, return_stats=True))
     grays = int(st2["rays"])
     track_ms = _time_ms(lambda: volpath.tracking_draw(
-        key, 3, lanes, (volpath.DELTA_STEPS, 2), dev), reps=2, warmup=1,
+        key, 3, lanes, (volpath.DELTA_STEPS, 2)), reps=2, warmup=1,
         batches=3)
     ratio_ms = _time_ms(lambda: volpath.tracking_draw(
-        key, 1000, lanes, (volpath.RATIO_STEPS,), dev), reps=2, warmup=1,
+        key, 1000, lanes, (volpath.RATIO_STEPS,)), reps=2, warmup=1,
         batches=3)
     print(f"volumetric grid ({g['n']}^3 density, scale 3; {cfg['res']}x"
           f"{cfg['res']}, depth {g['max_depth']}, spp {g['spp']} = {lanes} "
@@ -2953,7 +2953,7 @@ def spectral_conversion_ms(scene, key, dev):
     from mitransient_tpu_torch.bsdf import api as bsdf_api
     from mitransient_tpu_torch.core.spectra import N_WL, SpectralCtx
 
-    sctx = SpectralCtx.make(key, N_RAYS, dev)
+    sctx = SpectralCtx.make(key, N_RAYS)
     gen = torch.Generator(device=dev).manual_seed(0)
     bp = scene.data.bsdf
     ids = torch.randint(0, bp.kind.shape[0], (N_RAYS,), generator=gen,
@@ -3010,12 +3010,12 @@ def render_spectral(mt, cases, dev):
     (_s, _t, stats2), wall2, _p = _timed(lambda: mt.render(
         scene, return_stats=True, spp=SPECTRAL["spp"], seed=1))
     rays = int(stats2["rays"])
-    key = rng.Sampler(0, N_RAYS, stream=5).key
-    block = _time_ms(lambda: rng.draw_bounce_block(key, 3, N_RAYS, 6, dev),
+    key = rng.Sampler(0, N_RAYS, stream=5, device=dev).key
+    block = _time_ms(lambda: rng.draw_bounce_block(key, 3, N_RAYS, 6),
                      reps=5, warmup=1, batches=3)
     jitter = _time_ms(lambda: rng.Sampler(7, N_RAYS, 2, device=dev)
                       .eval_2d(0), reps=5, warmup=1, batches=3)
-    wl = _time_ms(lambda: spectra.SpectralCtx.make(key, N_RAYS, dev),
+    wl = _time_ms(lambda: spectra.SpectralCtx.make(key, N_RAYS),
                   reps=5, warmup=1, batches=3)
     draws = passes * (depth * block + jitter + wl) / 1e3
     conv = spectral_conversion_ms(scene, key, dev)
@@ -3222,7 +3222,7 @@ def vol_spectral_conversion_ms(scene, key, dev):
     from mitransient_tpu_torch.bsdf import api as bsdf_api
     from mitransient_tpu_torch.core.spectra import N_WL, SpectralCtx
 
-    sctx = SpectralCtx.make(key, N_RAYS, dev)
+    sctx = SpectralCtx.make(key, N_RAYS)
     gen = torch.Generator(device=dev).manual_seed(1)
     bp = scene.data.bsdf
     ids = torch.randint(0, bp.kind.shape[0], (N_RAYS,), generator=gen,
@@ -3297,8 +3297,8 @@ def render_variant_tutorial(mt, cases, dev):
                 f"rays -> {rays / wall / 1e6:.2f} M rays/s, peak memory "
                 f"{peak:.2f} GiB")
         if variant == "spectral":
-            conv = vol_spectral_conversion_ms(scene, rng.Sampler(1, 1 << 21)
-                                              .key, dev)
+            conv = vol_spectral_conversion_ms(
+                scene, rng.Sampler(1, 1 << 21, device=dev).key, dev)
             line += (f"; the spectral conversions {conv:.3f} ms a bounce x "
                      f"{n} bounces = {n * conv / 1e3 / wall:.3f} of the wall")
         print(line)

@@ -260,11 +260,11 @@ class SpectralCtx:
         self.wl_pdf = wl_pdf
 
     @staticmethod
-    def make(key, n: int, device="cpu") -> "SpectralCtx":
-        """The wavelengths of ``n`` lanes from the sampler key ``key``:
-        ``jax.random.uniform(fold_in(key, 0x57AC), (n,))``, bit for bit."""
-        u_wl = rng.uniform(rng.fold_in(key, SPECTRAL_STREAM_TAG), (n,),
-                           device)
+    def make(key, n: int) -> "SpectralCtx":
+        """The wavelengths of ``n`` lanes from the sampler key ``key``, on
+        its device: ``jax.random.uniform(fold_in(key, 0x57AC), (n,))``,
+        bit for bit."""
+        u_wl = rng.uniform(key, SPECTRAL_STREAM_TAG, (n,))
         return SpectralCtx(*sample_shifted(u_wl))
 
     @staticmethod

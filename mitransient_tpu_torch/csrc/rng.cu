@@ -26,12 +26,15 @@
 // wrapper's own 16-byte aligned allocation, so only its last vector can be
 // partial, and that one is stored number by number.
 //
-// Two entry points share that body.  mitr_threefry_uniform takes the key as
-// two uint32 arguments, for every eager draw.  mitr_threefry_uniform_keyed
-// reads it from two uint32 words in device memory: a draw captured into a
-// CUDA graph keeps its arguments, so the multi-pass render's pass graph
-// (passgraph.py) draws each pass under the keys it copies into those words
-// before the replay.  Both give the same bits for the same key.
+// The key.  A draw is uniform(fold_in(K, dim), ...), K the stream key of a
+// pass (core/rng.py:pass_keys), read from two uint32 words in device memory
+// when the kernel runs, and dim an argument.  So a launch captured into a
+// CUDA graph draws under whatever key its owner copies into those words
+// before a replay (passgraph.py).  The first thread of a block folds dim
+// into K, one threefry of the counter (0, dim) under K, and shares the
+// result through shared memory before the grid-stride loop: at the draws
+// of a pass a thread draws only ~3 vectors, and a fold in every thread
+// added ~10 % to the kernel's time (one warp of eight folds instead).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -60,10 +63,13 @@ __device__ __forceinline__ void rounds(uint32_t& x0, uint32_t& x1, int a,
   x1 = rotl(x1, d) ^ x0;
 }
 
-__device__ __forceinline__ float draw(uint32_t k0, uint32_t k1, uint32_t k2,
-                                      uint64_t i) {
-  uint32_t x0 = (uint32_t)(i >> 32) + k0;
-  uint32_t x1 = (uint32_t)i + k1;
+// Threefry-2x32, 20 rounds, of the counter (x0, x1) under the key schedule
+// (k0, k1, k2) into (x0, x1).
+__device__ __forceinline__ void threefry(uint32_t k0, uint32_t k1,
+                                         uint32_t k2, uint32_t& x0,
+                                         uint32_t& x1) {
+  x0 += k0;
+  x1 += k1;
   rounds(x0, x1, 13, 15, 26, 6);
   x0 += k1;
   x1 += k2 + 1u;
@@ -79,13 +85,30 @@ __device__ __forceinline__ float draw(uint32_t k0, uint32_t k1, uint32_t k2,
   rounds(x0, x1, 13, 15, 26, 6);
   x0 += k2;
   x1 += k0 + 5u;
+}
+
+__device__ __forceinline__ float draw(uint32_t k0, uint32_t k1, uint32_t k2,
+                                      uint64_t i) {
+  uint32_t x0 = (uint32_t)(i >> 32);
+  uint32_t x1 = (uint32_t)i;
+  threefry(k0, k1, k2, x0, x1);
   return __uint_as_float(((x0 ^ x1) >> 9) | 0x3F800000u) - 1.0f;
 }
 
-// Numbers base .. base + n - 1 of the draw under (k0, k1) into out.
-__device__ __forceinline__ void fill(float* __restrict__ out, int64_t n,
-                                     uint64_t base, uint32_t k0,
-                                     uint32_t k1) {
+// Numbers base .. base + n - 1 of the draw under fold_in(key, dim) into out.
+__global__ void __launch_bounds__(BLOCK)
+threefry_uniform_kernel(float* __restrict__ out, int64_t n, uint64_t base,
+                        const uint32_t* __restrict__ key, uint32_t dim) {
+  __shared__ uint32_t folded[2];
+  if (threadIdx.x == 0) {  // fold_in: the counter (0, dim) under key
+    const uint32_t s0 = __ldg(key), s1 = __ldg(key + 1);
+    uint32_t x0 = 0, x1 = dim;
+    threefry(s0, s1, s0 ^ s1 ^ KS_PARITY, x0, x1);
+    folded[0] = x0;
+    folded[1] = x1;
+  }
+  __syncthreads();
+  const uint32_t k0 = folded[0], k1 = folded[1];
   const uint32_t k2 = k0 ^ k1 ^ KS_PARITY;
   const int64_t slots = (n + VEC - 1) / VEC;
   const int64_t stride = (int64_t)gridDim.x * BLOCK;
@@ -108,19 +131,6 @@ __device__ __forceinline__ void fill(float* __restrict__ out, int64_t n,
   }
 }
 
-__global__ void __launch_bounds__(BLOCK)
-threefry_uniform_kernel(float* __restrict__ out, int64_t n, uint64_t base,
-                        uint32_t k0, uint32_t k1) {
-  fill(out, n, base, k0, k1);
-}
-
-__global__ void __launch_bounds__(BLOCK)
-threefry_uniform_keyed_kernel(float* __restrict__ out, int64_t n,
-                              uint64_t base,
-                              const uint32_t* __restrict__ key) {
-  fill(out, n, base, __ldg(key), __ldg(key + 1));
-}
-
 // The grid of a launch over n numbers: one thread a vector, at most WAVES
 // waves of the card's resident blocks.
 cudaError_t grid_for(int64_t n, int* grid) {
@@ -141,23 +151,10 @@ cudaError_t grid_for(int64_t n, int* grid) {
 extern "C" {
 
 // out: (n,) f32, 16-byte aligned; numbers base .. base + n - 1 of the draw
-// under the key (k0, k1).  n = 0 launches nothing.
-int mitr_threefry_uniform(float* out, int64_t n, int64_t base, uint32_t k0,
-                          uint32_t k1, void* stream) {
-  if (n <= 0) return (int)cudaGetLastError();
-  if (reinterpret_cast<uintptr_t>(out) % 16) return (int)cudaErrorInvalidValue;
-  int grid = 0;
-  const cudaError_t err = grid_for(n, &grid);
-  if (err != cudaSuccess) return (int)err;
-  threefry_uniform_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
-      out, n, (uint64_t)base, k0, k1);
-  return (int)cudaGetLastError();
-}
-
-// The same draw under the key (key[0], key[1]) read from device memory
-// when the kernel runs (4-byte aligned).
-int mitr_threefry_uniform_keyed(float* out, int64_t n, int64_t base,
-                                const uint32_t* key, void* stream) {
+// under fold_in(K, dim), K the two uint32 words at key (4-byte aligned) when
+// the kernel runs.  n = 0 launches nothing.
+int mitr_threefry_uniform(float* out, int64_t n, int64_t base,
+                          const uint32_t* key, uint32_t dim, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
   if (reinterpret_cast<uintptr_t>(out) % 16 ||
       reinterpret_cast<uintptr_t>(key) % 4)
@@ -165,8 +162,8 @@ int mitr_threefry_uniform_keyed(float* out, int64_t n, int64_t base,
   int grid = 0;
   const cudaError_t err = grid_for(n, &grid);
   if (err != cudaSuccess) return (int)err;
-  threefry_uniform_keyed_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
-      out, n, (uint64_t)base, key);
+  threefry_uniform_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
+      out, n, (uint64_t)base, key, dim);
   return (int)cudaGetLastError();
 }
 

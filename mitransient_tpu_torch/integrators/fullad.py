@@ -22,13 +22,13 @@ from __future__ import annotations
 
 import torch
 
-from ..core.rng import Sampler
+from ..core.rng import Sampler, pass_keys
 from ..film.transient_film import develop_any, film_init_any
 from ..ops.bvh import BVH_MODE
 from ..scene.schema import Scene
 from ..sensors.perspective import build_camera, sample_rays
+from . import _split_spp
 from .nlos_path import (
-    _split_spp,
     can_skip_le,
     film_channels,
     prepare_nlos,
@@ -53,11 +53,11 @@ EXHAUSTIVE_REFUSAL = ("Exhaustive capture is not supported in differentiable "
                       "rendering (transientnlospath.py:729-731)")
 
 
-def fullad_grads(sd, ctx, gs, gt_full, seed, stream, inv_total, *,
-                 film_cfg, icfg, spp, hw, kind, skip_le: bool = False,
+def fullad_grads(sd, ctx, gs, gt_full, key, inv_total, *, film_cfg, icfg,
+                 spp, hw, kind, skip_le: bool = False,
                  bvh_mode: str = BVH_MODE, polarized: bool = False,
                  spectral: bool = False) -> DiffParams:
-    """The table gradients of one spp chunk's sample stream ``stream``:
+    """The table gradients of one spp chunk on the stream key ``key``:
     d/d(theta) of <gt_full, transient> + <gs, steady partial>, through the
     primal of the given variant."""
     leaves = as_leaves(extract_params(sd))
@@ -66,7 +66,7 @@ def fullad_grads(sd, ctx, gs, gt_full, seed, stream, inv_total, *,
         sdt = insert_params(sd, leaves)
         C = sdt.bsdf.reflectance.shape[-1] * (4 if polarized else 1)
         film = film_init_any(film_cfg, C, scan_pixels=hw, device=dev)
-        sampler = Sampler(seed, spp * hw, stream=stream, device=dev)
+        sampler = Sampler.on(key, spp * hw)
         if kind == "transient_nlos_path":
             ray, rw = sample_nlos_rays(ctx, spp, hw)
             film, L, _v, _r = sample_nlos_primal(
@@ -120,10 +120,11 @@ def render_backward_fullad(scene: Scene, grad_in, spp=None, seed=0,
     gs, gt = adjoint_images(grad_in, film_cfg, C, dev)
     gt = gt.reshape(film_cfg.height, film_cfg.width, T, C)
     spp_chunk, n_passes, total_spp = _split_spp(spp, hw, max_lanes)
+    keys = pass_keys(seed, range(n_passes), dev)
     grads = None
     for p in range(n_passes):
         grads = add_params(grads, fullad_grads(
-            scene.data, ctx, gs, gt, seed, p, 1.0 / total_spp,
+            scene.data, ctx, gs, gt, keys[p], 1.0 / total_spp,
             film_cfg=film_cfg, icfg=icfg, spp=spp_chunk, hw=hw, kind=kind,
             skip_le=skip_le, bvh_mode=bvh_mode, polarized=var.polarized,
             spectral=var.spectral))

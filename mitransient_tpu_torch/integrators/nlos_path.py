@@ -38,7 +38,8 @@ steady value convert to sRGB.
 RNG: each bounce draws its 10 sampler dimensions as one threefry block
 (``draw_bounce_block(key, it, n, 10)``): NEE 0-1 (unused by a delta laser),
 HG/BSDF choice 2, hidden point 4-5, BSDF lobe 6 and direction 7-8, Russian
-roulette 9.  Each pass draws ``Sampler(seed, n, stream=pass)``.
+roulette 9.  Each pass draws on its stream key, row ``pass`` of
+``pass_keys(seed, ...)``.
 
 The JAX package counts rays in float32; this module counts them in int64.
 Its hidden-point pick is ``DiscreteDistribution.sample_reuse`` (a
@@ -48,12 +49,13 @@ since the CDF never decreases.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from .. import trace
+from .. import passgraph, trace
 from ..bsdf import api as bsdf_api
 from ..bsdf.polarized import (
     polarization_factor_col0_soa,
@@ -69,7 +71,7 @@ from ..core.mueller import (
     stokes_apply_sandwich,
 )
 from ..core.records import Ray
-from ..core.rng import Sampler, draw_bounce_block
+from ..core.rng import Sampler, draw_bounce_block, pass_keys
 from ..core.spectra import N_WL, SpectralCtx
 from ..film.transient_film import (
     TransientFilmState,
@@ -96,7 +98,7 @@ from ..scene.scene import (
 )
 from ..scene.schema import FilmConfig, IntegratorConfig, Scene, SensorConfig
 from ..scene.shapes import Rectangle
-from . import DEFAULT_MAX_LANES
+from . import DEFAULT_MAX_LANES, _split_spp
 from .path import _half_vector_cos, pack_stokes
 
 NLOS_DIMS_PER_BOUNCE = 10
@@ -581,7 +583,7 @@ def sample_nlos_primal(
     splat_w = (ray_weight * sample_scale)[:, None]
     sctx = None
     if spectral:
-        sctx = SpectralCtx.make(key, n, dev)
+        sctx = SpectralCtx.make(key, n)
         C = N_WL
 
     o, d = ray.o, ray.d
@@ -605,7 +607,7 @@ def sample_nlos_primal(
 
     for it in range(icfg.max_depth):
         with trace.span("mitr:bounce"):
-            ub = draw_bounce_block(key, it, n, NLOS_DIMS_PER_BOUNCE, dev)
+            ub = draw_bounce_block(key, it, n, NLOS_DIMS_PER_BOUNCE)
             si = ray_intersect(sd, Ray.make(o, d), active, bvh_mode)
             hit = active & si.valid
             if account or it > 0:  # the sensor->wall segment (:751-752)
@@ -849,7 +851,7 @@ def sample_nlos_exhaustive_primal(
     depth = torch.zeros((n,), dtype=torch.int32, device=dev)
     n_rays = torch.zeros((), dtype=torch.int64, device=dev)
     for it in range(icfg.max_depth):
-        ub = draw_bounce_block(key, it, n, NLOS_DIMS_PER_BOUNCE, dev)
+        ub = draw_bounce_block(key, it, n, NLOS_DIMS_PER_BOUNCE)
         si = ray_intersect(sd, Ray.make(o, d), active, bvh_mode)
         hit = active & si.valid
         if account or it > 0:
@@ -887,22 +889,15 @@ def film_channels(variant) -> int:
     return variant.color_channels * (4 if variant.polarized else 1)
 
 
-def _split_spp(spp: int, hw: int, max_lanes: int):
-    """The JAX package's pass split -> (spp a pass, passes, total spp)."""
-    spp_chunk = max(1, min(spp, max_lanes // max(hw, 1)))
-    n_passes = (spp + spp_chunk - 1) // spp_chunk
-    spp_chunk = (spp + n_passes - 1) // n_passes
-    return spp_chunk, n_passes, spp_chunk * n_passes
-
-
-def _nlos_pass(sd, ctx, film, seed, pass_idx, inv_total, *, film_cfg, icfg,
-               spp, hw, skip_le, lanes=None, bvh_mode=BVH_MODE, variant):
-    """One pass of ``spp`` samples a scan pixel -> (film, n_rays).  With
-    ``lanes`` (one row per scan point, the confocal scan) every lane's
-    sensor ray aims at its own point and its NEE at its own laser."""
+def _nlos_pass(sd, ctx, film, key, inv_total, *, film_cfg, icfg, spp, hw,
+               skip_le, lanes=None, bvh_mode=BVH_MODE, variant):
+    """One pass of ``spp`` samples a scan pixel on the stream key ``key``
+    -> (film, n_rays).  With ``lanes`` (one row per scan point, the
+    confocal scan) every lane's sensor ray aims at its own point and its
+    NEE at its own laser."""
     n = spp * hw
     dev = ctx.sensor_origin.device
-    sampler = Sampler(seed, n, stream=pass_idx, device=dev)
+    sampler = Sampler.on(key, n)
     if lanes is None:
         ray, ray_weight = sample_nlos_rays(ctx, spp, hw)
     else:  # lanes are spp-major: lane s * hw + p takes row p
@@ -948,17 +943,15 @@ def render_nlos(scene: Scene, spp=None, seed=0, sensor=0,
     ctx = prepare_nlos(scene, cfg, bvh_mode)
     spp_chunk, n_passes, total_spp = _split_spp(spp, hw, max_lanes)
     skip_le = can_skip_le(scene.data)
-    film = film_init(film_cfg, film_channels(scene.variant), scan_pixels=hw,
-                     device=scene.device)
-    total_rays = 0
-    for p in range(n_passes):
-        film, n_rays = _nlos_pass(
-            primal_sd(scene.data), ctx, film, seed, p, 1.0 / total_spp,
-            film_cfg=film_cfg, icfg=icfg, spp=spp_chunk, hw=hw,
-            skip_le=skip_le, bvh_mode=bvh_mode, variant=scene.variant)
-        total_rays = total_rays + n_rays
-        if progress_callback is not None:
-            progress_callback((p + 1) / n_passes)
+    body = functools.partial(
+        _nlos_pass, film_cfg=film_cfg, icfg=icfg, spp=spp_chunk, hw=hw,
+        skip_le=skip_le, bvh_mode=bvh_mode, variant=scene.variant)
+    film, total_rays = passgraph.run_passes(
+        body, primal_sd(scene.data), ctx,
+        film_init(film_cfg, film_channels(scene.variant), scan_pixels=hw,
+                  device=scene.device),
+        seed=seed, first=0, n_passes=n_passes, scale=1.0 / total_spp,
+        progress_callback=progress_callback)
     steady, transient = develop(film, film_cfg, shape_hw=(h, w))
     extra = surface_sample_validation(film, film_cfg)
     if return_stats:
@@ -1000,17 +993,15 @@ def render_nlos_confocal_scan(scene: Scene, spp=None, seed=0, sensor=0,
         focus_emitter_at_relay_wall_3dpoint(targets[hw // 2], scene)
     ctx = prepare_nlos(scene, cfg, bvh_mode)
     spp_chunk, n_passes, total_spp = _split_spp(spp, hw, max_lanes)
-    film = film_init(film_cfg, film_channels(scene.variant), scan_pixels=hw,
-                     device=scene.device)
-    total_rays = 0
-    for p in range(n_passes):
-        film, n_rays = _nlos_pass(
-            primal_sd(scene.data), ctx, film, seed, p, 1.0 / total_spp,
-            film_cfg=film_cfg, icfg=icfg, spp=spp_chunk, hw=hw, skip_le=True,
-            lanes=lanes, bvh_mode=bvh_mode, variant=scene.variant)
-        total_rays = total_rays + n_rays
-        if progress_callback is not None:
-            progress_callback((p + 1) / n_passes)
+    body = functools.partial(
+        _nlos_pass, film_cfg=film_cfg, icfg=icfg, spp=spp_chunk, hw=hw,
+        skip_le=True, lanes=lanes, bvh_mode=bvh_mode, variant=scene.variant)
+    film, total_rays = passgraph.run_passes(
+        body, primal_sd(scene.data), ctx,
+        film_init(film_cfg, film_channels(scene.variant), scan_pixels=hw,
+                  device=scene.device),
+        seed=seed, first=0, n_passes=n_passes, scale=1.0 / total_spp,
+        progress_callback=progress_callback)
     steady, transient = develop(film, film_cfg, shape_hw=(ph, pw))
     if return_stats:
         return steady, transient, {"rays": total_rays, "spp": total_spp,
@@ -1095,11 +1086,12 @@ def render_nlos_exhaustive(scene: Scene, spp, seed=0, sensor=0,
         n_negative=torch.zeros((), dtype=f32, device=dev),
         n_invalid=torch.zeros((), dtype=f32, device=dev))
     total_rays = 0
+    keys = pass_keys(seed, range(n_passes), dev)
     for c in range(n_chunks):
         lasers_c = ExhaustiveLaser(*(a[c * Lc:(c + 1) * Lc] for a in lasers))
         film = film._replace(transient=transient[c])
         for p in range(n_passes):
-            sampler = Sampler(seed, spp_chunk * hw, stream=p, device=dev)
+            sampler = Sampler.on(keys[p], spp_chunk * hw)
             ray, ray_weight = sample_nlos_rays(ctx, spp_chunk, hw)
             film, L_sum, _valid, n_rays = sample_nlos_exhaustive_primal(
                 sd, ctx, lasers_c, sampler, ray, ray_weight, film, film_cfg,

@@ -129,7 +129,7 @@ def sample_primal(
     key = sampler.key
     sctx = None
     if spectral:
-        sctx = SpectralCtx.make(key, n, dev)
+        sctx = SpectralCtx.make(key, n)
         C = N_WL
 
     distance0 = (initial_distance if initial_distance is not None
@@ -260,7 +260,7 @@ def rr_step(beta, eta, cont, rr_active, u_rr, polarized: bool):
 def _bounce(sd, key, it, n, st: PathState, film_cfg, icfg, spp, splat_w,
             bvh_mode, enable_film, polarized: bool,
             sctx: SpectralCtx | None) -> PathState:
-    ub = draw_bounce_block(key, it, n, DIMS_PER_BOUNCE, st.o.device)
+    ub = draw_bounce_block(key, it, n, DIMS_PER_BOUNCE)
 
     def rnd1(k):
         return ub[:, k]

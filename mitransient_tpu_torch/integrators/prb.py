@@ -266,7 +266,7 @@ def sample_adjoint(
         with trace.span("mitr:bounce"):
             trace.count("lanes.launched", n)
             trace.count("lanes.active", active)
-            ub = draw_bounce_block(sampler_key, it, n, DIMS_PER_BOUNCE, dev)
+            ub = draw_bounce_block(sampler_key, it, n, DIMS_PER_BOUNCE)
             si = ray_intersect(sd, Ray.make(o, d), active, bvh_mode)
             hit = active & si.valid
             distance = distance + torch.where(hit, si.t, 0.0) * eta

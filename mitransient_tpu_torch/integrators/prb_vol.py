@@ -100,7 +100,7 @@ def sample_volpath_adjoint(
         prev_delta=ones, film=None, n_rays=None)
     grads = None
     for it in range(icfg.max_depth):
-        ub = draw_bounce_block(sampler_key, it, n, VOL_DIMS_PER_BOUNCE, dev)
+        ub = draw_bounce_block(sampler_key, it, n, VOL_DIMS_PER_BOUNCE)
         v = trace_vertex(sd, sampler_key, it, ub, st, icfg, bvh_mode)
         si, ds, ms = v.si, v.ds, v.medium_scatter
         m_idx = torch.clamp_min(st.medium, 0)

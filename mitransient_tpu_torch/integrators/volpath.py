@@ -65,7 +65,7 @@ from ..core.frame import Frame
 from ..core.math import dot, exp, log, mis_weight
 from ..core.mueller import msoa_depolarize_cols, msoa_matvec, msoa_product
 from ..core.records import Ray
-from ..core.rng import Sampler, draw_bounce_block, fold_in, uniform
+from ..core.rng import Sampler, draw_bounce_block, uniform
 from ..core.spectra import N_WL, SpectralCtx
 from ..core.warp import hg_pdf, square_to_hg
 from ..film.transient_film import splat_pair_any
@@ -153,16 +153,16 @@ def density(sd: SceneData, med_id: torch.Tensor,
     return c0 * (1 - tz) + c1 * tz
 
 
-def tracking_draw(key, tag: int, n: int, tail: tuple, device) -> torch.Tensor:
-    """``jax.random.uniform(fold_in(key, 0x6D50 + tag), (n, *tail))``,
-    drawn in slices of ``TRACKING_DRAW_LANES`` lanes (the same bits) so
-    that the threefry's int64 temporaries stay small."""
-    k = fold_in(key, GRID_STREAM_TAG + tag)
+def tracking_draw(key, tag: int, n: int, tail: tuple) -> torch.Tensor:
+    """``jax.random.uniform(fold_in(key, 0x6D50 + tag), (n, *tail))`` on
+    ``key``'s device, drawn in slices of ``TRACKING_DRAW_LANES`` lanes (the
+    same bits) so that the threefry's int64 temporaries stay small."""
+    dim = GRID_STREAM_TAG + tag
     shape = (n,) + tuple(tail)
     if n <= TRACKING_DRAW_LANES:
-        return uniform(k, shape, device)
+        return uniform(key, dim, shape)
     return torch.cat([
-        uniform(k, shape, device, rows=(r, min(r + TRACKING_DRAW_LANES, n)))
+        uniform(key, dim, shape, rows=(r, min(r + TRACKING_DRAW_LANES, n)))
         for r in range(0, n, TRACKING_DRAW_LANES)])
 
 
@@ -189,7 +189,7 @@ def delta_track_flight(sd: SceneData, key, tag: int, med_id, in_medium, o,
                      device=o.device)
     if not bool(walk.any()):
         return inf
-    u = tracking_draw(key, tag, n, (DELTA_STEPS, 2), o.device)
+    u = tracking_draw(key, tag, n, (DELTA_STEPS, 2))
     t = torch.zeros((n,), dtype=torch.float32, device=o.device)
     done = ~walk
     for i in range(DELTA_STEPS):
@@ -222,7 +222,7 @@ def segment_transmittance(sd: SceneData, key, tag: int, med_id, o, d, seg,
     if not bool(walk.any()):
         return ones
     scale = gather_rows(sd.medium.sigma_t, m)
-    u = tracking_draw(key, tag, n, (RATIO_STEPS,), o.device)
+    u = tracking_draw(key, tag, n, (RATIO_STEPS,))
     t = torch.zeros((n,), dtype=torch.float32, device=o.device)
     T = ones
     maj_safe = torch.clamp_min(maj, 1e-30)
@@ -555,7 +555,7 @@ def sample_volpath_primal(
     grids = has_grids(sd)
     sctx = None
     if spectral:
-        sctx = SpectralCtx.make(key, n, dev)
+        sctx = SpectralCtx.make(key, n)
         C = N_WL
     if polarized:
         vert = (cam_vertical if cam_vertical is not None
@@ -584,7 +584,7 @@ def sample_volpath_primal(
         prev_delta=ones, film=film,
         n_rays=torch.zeros((), dtype=torch.int64, device=dev))
     for it in range(icfg.max_depth):
-        ub = draw_bounce_block(key, it, n, VOL_DIMS_PER_BOUNCE, dev)
+        ub = draw_bounce_block(key, it, n, VOL_DIMS_PER_BOUNCE)
         v = trace_vertex(sd, key, it, ub, st, icfg, bvh_mode, sctx)
         beta = st.beta
         if not grids:

@@ -55,8 +55,7 @@ _SIGNATURES = {
                               _P, _P),
     "mitr_bvh_query": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                        _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
-    "mitr_threefry_uniform": (_P, _L, _L, _U, _U, _P),
-    "mitr_threefry_uniform_keyed": (_P, _L, _L, _P, _P),
+    "mitr_threefry_uniform": (_P, _L, _L, _P, _U, _P),
 }
 
 

@@ -36,7 +36,7 @@ from ..film.transient_film import (
     film_init_any,
     sum_rows,
 )
-from ..integrators import DEFAULT_MAX_LANES
+from ..integrators import DEFAULT_MAX_LANES, _split_spp
 from ..integrators.fullad import EXHAUSTIVE_REFUSAL, fullad_grads
 from ..integrators.nlos_path import (
     LANE_LASER_PAIRS,
@@ -44,7 +44,6 @@ from ..integrators.nlos_path import (
     _check_exhaustive,
     _nlos_pass,
     _pixel_uv,
-    _split_spp,
     can_skip_le,
     exhaustive_laser_targets,
     film_channels,
@@ -54,7 +53,7 @@ from ..integrators.nlos_path import (
     sample_nlos_rays,
 )
 from ..integrators.prb import adjoint_images, grads_to_named
-from ..core.rng import Sampler
+from ..core.rng import Sampler, pass_keys
 from ..ops.bvh import BVH_MODE
 from ..render import _backward_pass, _perspective_pass, _refuse_film
 from ..scene.scene import primal_sd
@@ -167,19 +166,21 @@ def render_sharded(
     skip_le = nlos and can_skip_le(scene.data)
     sds = replicate(primal_sd(scene.data), mesh)
     ctxs = replicate(ctx, mesh)
+    # shard i's stream keys: pass p draws stream p * ndev + g
+    keys = [pass_keys(seed, range(g, n_passes * ndev, ndev), dev)
+            for _i, g, dev in _shards(mesh)]
 
     def shard_pass(i, g, dev, p):
-        stream = p * ndev + g
         film = film_init_any(film_cfg, C, scan_pixels=scan_pixels,
                              device=dev)
         if nlos:
             film, n_rays = _nlos_pass(
-                sds[i], ctxs[i], film, seed, stream, inv_total,
+                sds[i], ctxs[i], film, keys[i][p], inv_total,
                 film_cfg=film_cfg, icfg=icfg, spp=chunk, hw=hw,
                 skip_le=skip_le, bvh_mode=bvh_mode, variant=var)
         else:
             film, n_rays = _perspective_pass(
-                sds[i], ctxs[i], film, seed, stream, inv_total,
+                sds[i], ctxs[i], film, keys[i][p], inv_total,
                 film_cfg=film_cfg, icfg=icfg, width=dw, height=dh,
                 spp_chunk=chunk, bvh_mode=bvh_mode, variant=var)
         return film, torch.as_tensor(n_rays, dtype=torch.int64, device=dev)
@@ -281,9 +282,10 @@ def render_nlos_exhaustive_sharded(
                               device=dev) for _i, _g, dev in shards]
     dev0 = mesh.devices[0]
     steady_sum = torch.zeros((hw, C), dtype=f32, device=dev0)
+    keys = [pass_keys(seed, range(n_passes), dev) for _i, _g, dev in shards]
 
     def shard_pass(i, dev, p):
-        sampler = Sampler(seed, spp_chunk * hw, stream=p, device=dev)
+        sampler = Sampler.on(keys[i][p], spp_chunk * hw)
         ray, ray_weight = sample_nlos_rays(ctxs[i], spp_chunk, hw)
         L_sum = n_rays = 0
         for j in range(n_sub):
@@ -378,6 +380,7 @@ def _render_nlos_exhaustive_sharded_perpoint(
 
     sds = replicate(primal_sd(scene.data), mesh)
     shards = _shards(mesh)
+    keys = [pass_keys(seed, range(n_passes), dev) for _i, _g, dev in shards]
     dev0 = mesh.devices[0]
     out = torch.zeros((h, w, lh, lw, T, C), device=dev0)
     steadies = torch.zeros((n_pts, h, w, C), device=dev0)
@@ -392,7 +395,7 @@ def _render_nlos_exhaustive_sharded_perpoint(
             film = film_init(film_cfg, C, scan_pixels=hw, device=dev)
             for p in range(n_passes):
                 film, n_rays = _nlos_pass(
-                    sds[i], ctx, film, seed, p, 1.0 / total_spp,
+                    sds[i], ctx, film, keys[i][p], 1.0 / total_spp,
                     film_cfg=film_cfg, icfg=icfg, spp=spp_chunk, hw=hw,
                     skip_le=skip_le, bvh_mode=bvh_mode, variant=var)
                 total_rays += torch.as_tensor(n_rays).to(dev0)
@@ -466,12 +469,12 @@ def render_backward_sharded(
         skip_le = kind == "transient_nlos_path" and can_skip_le(scene.data)
         reps = replicate((scene.data, ctx, gs, gt), mesh)
 
-        def shard_grads(i, g):
+        def shard_grads(i, g, dev):
             sd, ctx_, gs_, gt_ = reps[i]
             return fullad_grads(
-                sd, ctx_, gs_, gt_, seed, g, inv_total, film_cfg=film_cfg,
-                icfg=icfg, spp=spp_dev, hw=hw, kind=kind, skip_le=skip_le,
-                bvh_mode=bvh_mode, polarized=var.polarized,
+                sd, ctx_, gs_, gt_, pass_keys(seed, [g], dev)[0], inv_total,
+                film_cfg=film_cfg, icfg=icfg, spp=spp_dev, hw=hw, kind=kind,
+                skip_le=skip_le, bvh_mode=bvh_mode, polarized=var.polarized,
                 spectral=var.spectral)
     else:
         gs, gt = adjoint_images(grad_in, film_cfg, var.color_channels,
@@ -480,12 +483,12 @@ def render_backward_sharded(
         reps = replicate((primal_sd(scene.data), cam, gs,
                           gt.reshape(hw * T, -1)), mesh)
 
-        def shard_grads(i, g):
+        def shard_grads(i, g, dev):
             sd, cam_, gs_, gt_ = reps[i]
             return _backward_pass(
-                sd, cam_, gs_, gt_, seed, g, inv_total, film_cfg=film_cfg,
-                icfg=icfg, width=film_cfg.width, height=film_cfg.height,
-                spp=spp_dev, bvh_mode=bvh_mode)
+                sd, cam_, gs_, gt_, pass_keys(seed, [g], dev)[0], inv_total,
+                film_cfg=film_cfg, icfg=icfg, width=film_cfg.width,
+                height=film_cfg.height, spp=spp_dev, bvh_mode=bvh_mode)
 
-    grads = reduce_shards(mesh, (shard_grads(i, g) for i, g, _d in shards))
+    grads = reduce_shards(mesh, (shard_grads(i, g, d) for i, g, d in shards))
     return grads_to_named(scene, grads)

@@ -1,29 +1,36 @@
-"""The multi-pass render's pass as one CUDA graph, captured once and
-replayed.
+"""The multi-pass renders' pass loop, and the pass as one CUDA graph,
+captured once and replayed.
 
-Every pass of a multi-pass render (``render.py:_multipass_render``) runs
-one body, ``render._perspective_pass``: the camera rays, the
-``max_depth`` bounces of ``integrators/path.py`` (K1, K2, K3, a threefry
-block and the eager arithmetic of each) and the steady splat, over lanes
-of one shape.  On the card the host issues that body as some 4,100
-launches a pass of 2^21 lanes, more slowly than the card runs them.  A
-render that takes this route (:func:`eligible`) instead captures the body
-once into a ``torch.cuda.CUDAGraph`` and replays it for every later pass
-of every render of the same structure: one graph launch a pass, after one
-small copy of the pass's keys.  The graph replays the same kernels with
-the same arguments in the same order, so its films are bit for bit the
-eager body's.
+A multi-pass render (``render.py:_multipass_render``,
+``integrators/nlos_path.py:render_nlos`` and
+``render_nlos_confocal_scan``) runs its passes through :func:`run_passes`:
+pass p runs a body ``(sd, ctx, film, key, scale) -> (film, n_rays)`` on
+the scene, the camera or NLOS context, the film, the pass's stream key
+(row p of the render's ``rng.pass_keys``, one upload a render) and the
+splat scale (1 / total spp), eagerly or as a replay of a graph.
+
+The graph: every pass of a perspective multi-pass render runs one body,
+``render._perspective_pass``: the camera rays, the ``max_depth`` bounces
+of ``integrators/path.py`` (K1, K2, K3, a threefry block and the eager
+arithmetic of each) and the steady splat, over lanes of one shape.  On the
+card the host issues that body as some 4,100 launches a pass of 2^21
+lanes, more slowly than the card runs them.  A render that takes this
+route (:func:`route`, :func:`eligible`) instead captures the body once
+into a ``torch.cuda.CUDAGraph`` and replays it for every later pass of
+every render of the same structure: one graph launch a pass, after one
+copy of the pass's key.  The graph replays the same kernels with the same
+arguments in the same order, so its films are bit for bit the eager
+body's.
 
 * **What the graph reads.**  A graph keeps the addresses and arguments of
   its capture, so the body runs on buffers that a :class:`PassGraph`
   owns: copies of the scene's tensors and of the camera's, the splat scale
-  (1 / total spp) as a 0-dim tensor, the film's steady sums and counters,
-  which a pass makes anew and the graph copies back into them, and the key
-  slots its threefry draws read (``core/rng.py:KeyRecorder``).  A render
-  copies its scene, camera, scale, steady sums and counters into them once,
-  before its first pass; before each replay the pass's row of the render's
-  key table (``rng.pass_key_table``, uploaded once a render) is copied into
-  the slots.
+  as a 0-dim tensor, the film's steady sums and counters, which a pass
+  makes anew and the graph copies back into them, and one stream key,
+  which the threefry kernel reads when it runs (``csrc/rng.cu``).  A
+  render copies its scene, camera, scale, steady sums and counters into
+  them once, before its first pass; before each replay the pass's row of
+  the render's key table is copied into the key (8 bytes, on the device).
 * **The film.**  K3 splats into the transient film in place, and every
   render splats into a film of its own, as the eager body does: the
   graph's K3 launches read the film's address from a device slot when they
@@ -42,9 +49,9 @@ eager body's.
   The graph's private memory pool holds about one eager pass's
   intermediates as reserved memory (``torch.cuda.memory_reserved``), which
   ``max_memory_allocated`` does not count.  A capture that a captured
-  operation refuses (a host sync, an upload, a draw under a key the graph
-  cannot derive: :func:`refused`) leaves the structure to the eager body,
-  counted as ``graph.refusals``; any other error is raised.
+  operation refuses (a host sync, an upload, a new transient film:
+  :func:`refused`) leaves the structure to the eager body, counted as
+  ``graph.refusals``; any other error is raised.
 * **Tracing.**  The capture runs inside ``trace.capturing``: no span is
   opened (a span records CUDA events), and the body's counts go to the
   graph's sink, its active-lane sum to a device accumulator the graph
@@ -59,7 +66,6 @@ from __future__ import annotations
 
 import logging
 
-import numpy as np
 import torch
 
 from . import trace
@@ -67,7 +73,6 @@ from .core import math as tmath
 from .core import rng
 from .film.transient_film import splatting_at
 
-MAX_DRAWS = 64  # key slots: the threefry draws a pass may make
 STATS = {"captures": 0, "replays": 0, "eager_passes": 0, "refusals": 0}
 _GRAPHS: dict = {}  # device -> its PassGraph
 
@@ -86,16 +91,20 @@ def eligible(device, icfg, film_cfg, variant) -> bool:
             and not variant.spectral)
 
 
+class GraphRefusal(Exception):
+    """A pass body did what its graph cannot replay."""
+
+
 def refused(e: BaseException) -> bool:
     """Whether the error ``e``, raised in a capture, is the capture's
-    refusal of an operation: ``rng.GraphRefusal``, or an error of the CUDA
+    refusal of an operation: :class:`GraphRefusal`, or an error of the CUDA
     runtime or of PyTorch that names the capture ("operation not permitted
     when stream is capturing", "... during CUDA graph capture ...").  The
     first error of the chain decides: a refused capture's end raises one
     that names the capture whatever the body raised."""
     while e.__context__ is not None:
         e = e.__context__
-    return isinstance(e, rng.GraphRefusal) or "captur" in str(e).lower()
+    return isinstance(e, GraphRefusal) or "captur" in str(e).lower()
 
 
 def count(name: str) -> None:
@@ -125,11 +134,10 @@ class PassGraph:
     """The buffers of one structure's pass body on one device, and the
     graph captured on them (None until captured)."""
 
-    def __init__(self, structure, sd, cam, film, max_depth, device):
+    def __init__(self, structure, sd, cam, film, device):
         _, tree_map = _trees()
         self.structure = structure
         self.device = device
-        self.max_depth = max_depth
         self.sd = tree_map(torch.empty_like, sd)
         self.cam = tree_map(torch.empty_like, cam)
         # the film's fields that a pass makes anew; not the transient
@@ -137,19 +145,16 @@ class PassGraph:
                        for f in film._fields if f != "transient"}
         self.film_at = torch.zeros((1,), dtype=torch.int64, device=device)
         self.scale = torch.zeros((), dtype=torch.float32, device=device)
-        self.slots = torch.zeros((MAX_DRAWS, 2), dtype=torch.int32,
-                                 device=device)
+        self.key = torch.zeros((2,), dtype=torch.int32, device=device)
         self.graph = None
         self.refused = False  # a capture was refused: this structure is eager
-        self.film = self.sink = self.dims = self.n_rays = self.table = None
+        self.film = self.sink = self.n_rays = None
         self.kept = []  # the scalars the graph reads (core/math.py:divide)
-        self.seed, self.passes = 0, range(0)
 
-    def begin(self, sd, cam, film, scale: float, seed: int, passes):
+    def begin(self, sd, cam, film, scale: float):
         """Load a render's inputs: its scene, camera, scale and film, whose
-        transient its passes splat into; ``passes`` (a range) are the
-        passes it will run.  -> the film the passes accumulate into:
-        ``film``'s transient beside this graph's other fields."""
+        transient its passes splat into.  -> the film the passes accumulate
+        into: ``film``'s transient beside this graph's other fields."""
         tree_leaves, _ = _trees()
         for dst, src in zip(tree_leaves((self.sd, self.cam)),
                             tree_leaves((sd, cam))):
@@ -159,63 +164,53 @@ class PassGraph:
             dst.copy_(getattr(film, name))
         self.film_at.fill_(film.transient.data_ptr())
         self.film = film._replace(**self.fields)
-        self.seed, self.passes = seed, passes
-        self.table = None
-        if self.graph is not None:
-            self._upload()
         return self.film
 
-    def run(self, body, p: int, more: bool):
-        """Pass ``p``: one replay, or the eager body on these buffers
-        followed, where ``more`` passes remain, by the capture.  -> the
-        pass's ray count (a device scalar, which the next replay
-        overwrites)."""
+    def run(self, body, key: torch.Tensor, more: bool):
+        """One pass under the stream key ``key``: a replay, or the eager
+        body on these buffers followed, where ``more`` passes remain, by
+        the capture.  -> the pass's ray count (a device scalar, which the
+        next replay overwrites)."""
         if self.graph is not None:
-            self.slots[:len(self.dims)].copy_(
-                self.table[p - self.passes.start])
+            self.key.copy_(key)
             with trace.span("mitr:graph"):
                 self.graph.replay()
             trace.replay_counts(self.sink)
             count("replays")
             return self.n_rays
-        out, n_rays = body(self.sd, self.cam, self.film, self.seed, p,
-                           self.scale)
+        out, n_rays = body(self.sd, self.cam, self.film, key, self.scale)
         self._store(out)
         count("eager_passes")
         if more and not self.refused and self.device.type == "cuda":
-            self._capture(body, p + 1)
+            self._capture(body)
         return n_rays
 
     def _store(self, out) -> None:
         """Copy the fields a pass made anew into this graph's (K3 splats
         the transient in place)."""
         if out.transient.data_ptr() != self.film.transient.data_ptr():
-            raise rng.GraphRefusal("the pass made a new transient film")
+            raise GraphRefusal("the pass made a new transient film")
         for name, dst in self.fields.items():
             src = getattr(out, name)
             if src is not dst:
                 dst.copy_(src)
 
-    def _capture(self, body, p: int) -> None:
-        """Capture the body as pass ``p`` of the current seed would run it;
-        its draws' keys become slots, its film's address a slot.  A refused
-        capture (:func:`refused`) leaves this structure to the eager
-        body."""
+    def _capture(self, body) -> None:
+        """Capture the body on this graph's key; its film's address becomes
+        a slot.  A refused capture (:func:`refused`) leaves this structure
+        to the eager body."""
         sink = trace.CaptureSink()
-        rec = rng.KeyRecorder(rng.fold_in(rng.make_key(self.seed), p),
-                              self.slots, self.max_depth)
         kept: list = []
         graph = torch.cuda.CUDAGraph()
         stream = torch.cuda.current_stream(self.device)
         try:
-            with trace.capturing(sink), rng.recording(rec), \
-                    tmath.keeping(kept), \
+            with trace.capturing(sink), tmath.keeping(kept), \
                     splatting_at(self.film.transient, self.film_at), \
                     torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                out, n_rays = body(self.sd, self.cam, self.film, self.seed,
-                                   p, self.scale)
+                out, n_rays = body(self.sd, self.cam, self.film, self.key,
+                                   self.scale)
                 self._store(out)
-        except (RuntimeError, rng.GraphRefusal) as e:
+        except (RuntimeError, GraphRefusal) as e:
             torch.cuda.set_stream(stream)
             if not refused(e):
                 raise
@@ -225,16 +220,9 @@ class PassGraph:
                 "multi-pass render: the pass could not be captured as a CUDA "
                 "graph (%s); its passes run eagerly", e)
             return
-        self.graph, self.sink, self.dims = graph, sink, rec.dims
+        self.graph, self.sink = graph, sink
         self.n_rays, self.kept = n_rays, kept
         count("captures")
-        self._upload()
-
-    def _upload(self) -> None:
-        """The render's key table on the device, one upload."""
-        keys = rng.pass_key_table(self.seed, self.passes, self.dims)
-        host = torch.from_numpy(np.ascontiguousarray(keys).view(np.int32))
-        self.table = host.pin_memory().to(self.device, non_blocking=True)
 
 
 def route(sd, cam, film, *, film_cfg, icfg, variant, width, height,
@@ -251,6 +239,37 @@ def route(sd, cam, film, *, film_cfg, icfg, variant, width, height,
     g = _GRAPHS.get(dev)
     if g is None or g.structure != structure:
         _GRAPHS.pop(dev, None)
-        g = _GRAPHS[dev] = PassGraph(structure, sd, cam, film,
-                                     icfg.max_depth, dev)
+        g = _GRAPHS[dev] = PassGraph(structure, sd, cam, film, dev)
     return g
+
+
+def run_passes(body, sd, ctx, film, *, seed: int, first: int, n_passes: int,
+               scale: float, graph: PassGraph | None = None, rays=0,
+               progress_callback=None, checkpoint_callback=None):
+    """Passes ``first`` .. ``n_passes - 1`` of a multi-pass render into
+    ``film``: pass p calls ``body(sd, ctx, film, key, scale) -> (film,
+    n_rays)`` on its stream key, row p of ``rng.pass_keys(seed, ...)``,
+    eagerly, or through ``graph`` (:func:`route`).  After each pass
+    ``progress_callback(fraction done)`` and ``checkpoint_callback((film
+    as host numpy copies, passes done, rays so far))``, where given.
+    ``rays`` is the count of the passes before ``first``.  -> (film,
+    rays)."""
+    keys = rng.pass_keys(seed, range(first, n_passes), film.steady.device)
+    if graph is not None:
+        film = graph.begin(sd, ctx, film, scale)
+    for p in range(first, n_passes):
+        key = keys[p - first]
+        if graph is None:
+            film, n_rays = body(sd, ctx, film, key, scale)
+            count("eager_passes")
+        else:
+            n_rays = graph.run(body, key, more=p + 1 < n_passes)
+        # before the next replay overwrites the graph's n_rays
+        rays = rays + n_rays
+        if progress_callback is not None:
+            progress_callback((p + 1) / n_passes)
+        if checkpoint_callback is not None:
+            checkpoint_callback((
+                type(film)(*(a.detach().cpu().numpy().copy() for a in film)),
+                p + 1, int(rays)))
+    return film, rays

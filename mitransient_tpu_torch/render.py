@@ -8,10 +8,11 @@ A render takes one of two branches, chosen as the JAX package chooses:
   least 8 spp with a box filter, no crop and no ``camera_unwarp``;
 * the multi-pass accumulator otherwise: the spp budget is split into
   passes of at most ``max_lanes`` lanes, each an independently seeded
-  threefry stream (``Sampler(seed, n, stream=pass)``) traced by
-  ``integrators/path.py``, accumulated into one film.  On the card a
-  ``transient_path`` pass is captured once as a CUDA graph and replayed
-  (``passgraph.py``); elsewhere it runs eagerly.
+  threefry stream (row ``pass`` of ``rng.pass_keys(seed, ...)``) traced
+  by ``integrators/path.py``, accumulated into one film by
+  ``passgraph.run_passes``.  On the card a ``transient_path`` pass is
+  captured once as a CUDA graph and replayed (``passgraph.py``); elsewhere
+  it runs eagerly.
 
 The ``transient_prbvolpath`` integrator (participating media) always
 takes the multi-pass branch, each pass traced by
@@ -42,7 +43,7 @@ import numpy as np
 import torch
 
 from . import passgraph, trace
-from .core.rng import Sampler
+from .core.rng import Sampler, pass_keys
 from .core.math import divide
 from .film.transient_film import (
     TransientFilmState,
@@ -54,12 +55,12 @@ from .film.transient_film import (
     surface_sample_validation,
 )
 from .film.phasor_film import PhasorFilmState
-from .integrators import DEFAULT_MAX_LANES
+from .integrators import DEFAULT_MAX_LANES, _split_spp
 from .integrators.path import sample_primal
 from .integrators.path_regen import sample_primal_regen
 from .integrators.prb_vol import sample_volpath_adjoint
 from .integrators.volpath import sample_volpath_primal
-from .integrators.nlos_path import _split_spp, film_channels
+from .integrators.nlos_path import film_channels
 from .integrators.fullad import EXHAUSTIVE_REFUSAL
 from .integrators.prb import (
     DiffParams,
@@ -97,16 +98,13 @@ def _regen_render(sd, cam, film, seed, *, film_cfg, icfg, spp_total,
     return film, n_rays, iters, loop_iters
 
 
-def _perspective_pass(sd, cam, film, seed, pass_idx, inv_total_spp, *,
-                      film_cfg, icfg, width, height, spp_chunk, bvh_mode,
-                      variant):
+def _perspective_pass(sd, cam, film, key, inv_total_spp, *, film_cfg, icfg,
+                      width, height, spp_chunk, bvh_mode, variant):
     """One pass of ``spp_chunk`` samples a pixel over the data window
-    (``width`` x ``height``); returns (film, n_rays).  ``inv_total_spp``
-    is a Python number, or a 0-dim float32 tensor of the same value (the
-    pass graph's scale, ``passgraph.py``)."""
-    n = width * height * spp_chunk
-    dev = cam.origin.device
-    sampler = Sampler(seed, n, stream=pass_idx, device=dev)
+    (``width`` x ``height``) on the stream key ``key``; returns (film,
+    n_rays).  ``inv_total_spp`` is a Python number, or a 0-dim float32
+    tensor of the same value (the pass graph's scale, ``passgraph.py``)."""
+    sampler = Sampler.on(key, width * height * spp_chunk)
     # width/height are the data (crop) dims; the uv mapping uses the full
     # sensor
     ray, pix, ray_weight = sample_rays(
@@ -251,10 +249,7 @@ def _multipass_render(sd, cam, seed, spp, *, film_cfg, icfg, channels,
     dw, dh = film_cfg.data_width, film_cfg.data_height
     hw = dw * dh
     dev = cam.origin.device
-    spp_chunk = max(1, min(spp, max_lanes // max(hw, 1)))
-    n_passes = (spp + spp_chunk - 1) // spp_chunk
-    spp_chunk = (spp + n_passes - 1) // n_passes  # even-ish split
-    total_spp = spp_chunk * n_passes
+    spp_chunk, n_passes, total_spp = _split_spp(spp, hw, max_lanes)
 
     if film_state is not None:
         film, done_passes, total_rays = film_state
@@ -274,23 +269,11 @@ def _multipass_render(sd, cam, seed, spp, *, film_cfg, icfg, channels,
     graph = passgraph.route(
         sd, cam, film, film_cfg=film_cfg, icfg=icfg, variant=variant,
         width=dw, height=dh, spp_chunk=spp_chunk, bvh_mode=bvh_mode)
-    if graph is not None:
-        film = graph.begin(sd, cam, film, 1.0 / total_spp, seed,
-                           range(done_passes, n_passes))
-    for p in range(done_passes, n_passes):
-        if graph is None:
-            film, n_rays = body(sd, cam, film, seed, p, 1.0 / total_spp)
-            passgraph.count("eager_passes")
-        else:
-            n_rays = graph.run(body, p, more=p + 1 < n_passes)
-        # before the next replay overwrites the graph's n_rays
-        total_rays = total_rays + n_rays
-        if progress_callback is not None:
-            progress_callback((p + 1) / n_passes)
-        if checkpoint_callback is not None:
-            checkpoint_callback((
-                type(film)(*(a.detach().cpu().numpy().copy() for a in film)),
-                p + 1, int(total_rays)))
+    film, total_rays = passgraph.run_passes(
+        body, sd, cam, film, seed=seed, first=done_passes, n_passes=n_passes,
+        scale=1.0 / total_spp, graph=graph, rays=total_rays,
+        progress_callback=progress_callback,
+        checkpoint_callback=checkpoint_callback)
     loop_iters = (n_passes - done_passes) * icfg.max_depth
     return film, total_rays, total_spp, loop_iters
 
@@ -399,12 +382,12 @@ def _prb_setup(scene: Scene, spp, sensor,
     return cfg, icfg, film_cfg, spp, hw, spp_chunk, n_passes
 
 
-def _backward_pass(sd, cam, grad_st_flat, grad_tr_flat, seed, pass_idx,
-                   inv_spp, *, film_cfg, icfg, width, height, spp, bvh_mode):
-    """One spp chunk of the PRB backward: the primal sweep for L (no film),
-    then the adjoint replay.  -> DiffParams gradients."""
-    n = width * height * spp
-    sampler = Sampler(seed, n, stream=pass_idx, device=cam.origin.device)
+def _backward_pass(sd, cam, grad_st_flat, grad_tr_flat, key, inv_spp, *,
+                   film_cfg, icfg, width, height, spp, bvh_mode):
+    """One spp chunk of the PRB backward on the stream key ``key``: the
+    primal sweep for L (no film), then the adjoint replay.  -> DiffParams
+    gradients."""
+    sampler = Sampler.on(key, width * height * spp)
     ray, pix, ray_weight = sample_rays(cam, sampler, width, height, spp)
     _f, L, _v, _r = sample_primal(
         sd, sampler, ray, pix, ray_weight, None, film_cfg, icfg,
@@ -468,23 +451,24 @@ def render_backward(scene: Scene, grad_in, spp: int | None = None,
         cam = build_camera(cfg, device=scene.device)
         sd = primal_sd(scene.data)
         total_spp = spp_chunk * n_passes
+        keys = pass_keys(seed, range(n_passes), scene.device)
         grads = None
         for p in range(n_passes):
             grads = add_params(grads, _backward_pass(
-                sd, cam, gs, gt.reshape(hw * film_cfg.temporal_bins, -1), seed,
-                p, 1.0 / total_spp, film_cfg=film_cfg,
+                sd, cam, gs, gt.reshape(hw * film_cfg.temporal_bins, -1),
+                keys[p], 1.0 / total_spp, film_cfg=film_cfg,
                 icfg=icfg, width=film_cfg.width, height=film_cfg.height,
                 spp=spp_chunk, bvh_mode=bvh_mode))
         return grads_to_named(scene, grads)
 
 
-def _backward_pass_vol(sd, cam, grad_st_flat, grad_tr_flat, seed, pass_idx,
-                       inv_spp, *, film_cfg, icfg, spp, bvh_mode):
-    """One spp chunk of the volumetric PRB backward: the primal sweep for
-    L (no film), then the replay with per-term adjoint reads."""
+def _backward_pass_vol(sd, cam, grad_st_flat, grad_tr_flat, key, inv_spp, *,
+                       film_cfg, icfg, spp, bvh_mode):
+    """One spp chunk of the volumetric PRB backward on the stream key
+    ``key``: the primal sweep for L (no film), then the replay with
+    per-term adjoint reads."""
     width, height = film_cfg.width, film_cfg.height
-    n = width * height * spp
-    sampler = Sampler(seed, n, stream=pass_idx, device=cam.origin.device)
+    sampler = Sampler.on(key, width * height * spp)
     ray, pix, ray_weight = sample_rays(cam, sampler, width, height, spp)
     _f, L, _v, _r = sample_volpath_primal(
         sd, sampler, ray, pix, ray_weight, None, film_cfg, icfg,
@@ -526,24 +510,26 @@ def render_backward_volpath(scene: Scene, grad_in, spp: int | None = None,
                             scene.device)
     cam = build_camera(cfg, device=scene.device)
     sd = primal_sd(scene.data)
+    keys = pass_keys(seed, range(n_passes), scene.device)
     grads = None
     for p in range(n_passes):
         grads = add_params(grads, _backward_pass_vol(
-            sd, cam, gs, gt.reshape(hw * film_cfg.temporal_bins, -1), seed,
-            p, 1.0 / (spp_chunk * n_passes), film_cfg=film_cfg, icfg=icfg,
+            sd, cam, gs, gt.reshape(hw * film_cfg.temporal_bins, -1), keys[p],
+            1.0 / (spp_chunk * n_passes), film_cfg=film_cfg, icfg=icfg,
             spp=spp_chunk, bvh_mode=bvh_mode))
     return grads_to_named(scene, grads)
 
 
-def _forward_pass(sd, cam, tangents, seed, pass_idx, inv_spp, *, film_cfg,
-                  icfg, width, height, spp, bvh_mode):
-    """One spp chunk of the PRB forward replay -> the derivative film's
-    state (additive over chunks; the caller develops the sum).  Each
-    bounce's derivative splat goes into the film through K3."""
+def _forward_pass(sd, cam, tangents, key, inv_spp, *, film_cfg, icfg, width,
+                  height, spp, bvh_mode):
+    """One spp chunk of the PRB forward replay on the stream key ``key``
+    -> the derivative film's state (additive over chunks; the caller
+    develops the sum).  Each bounce's derivative splat goes into the film
+    through K3."""
     n = width * height * spp
     dev = cam.origin.device
     C = sd.bsdf.reflectance.shape[-1]
-    sampler = Sampler(seed, n, stream=pass_idx, device=dev)
+    sampler = Sampler.on(key, n)
     ray, pix, ray_weight = sample_rays(cam, sampler, width, height, spp)
     _f, L, _v, _r = sample_primal(
         sd, sampler, ray, pix, ray_weight, None, film_cfg, icfg,
@@ -596,10 +582,10 @@ def _build_tangents(scene: Scene, tangent: dict) -> DiffParams:
     return DiffParams(**out)
 
 
-def _forward_pass_jvp(sd, ctx, tangents, seed, pass_idx, inv_spp, *,
-                      film_cfg, icfg, spp, hw, kind, skip_le, bvh_mode,
-                      variant):
-    """Forward mode through the whole primal of one spp chunk, with
+def _forward_pass_jvp(sd, ctx, tangents, key, inv_spp, *, film_cfg, icfg,
+                      spp, hw, kind, skip_le, bvh_mode, variant):
+    """Forward mode through the whole primal of one spp chunk on the stream
+    key ``key``, with
     ``torch.autograd.forward_ad`` dual tables: the ray kernels get detached
     (plain) inputs, the film splat goes through K3's Function, whose jvp
     is K3 on the tangents.  The primal is the ``variant``'s (4 C Stokes
@@ -614,7 +600,7 @@ def _forward_pass_jvp(sd, ctx, tangents, seed, pass_idx, inv_spp, *,
             for p, t in zip(extract_params(sd), tangents)))
         sdt = insert_params(sd, theta)
         C = sdt.bsdf.reflectance.shape[-1] * (4 if variant.polarized else 1)
-        sampler = Sampler(seed, spp * hw, stream=pass_idx, device=dev)
+        sampler = Sampler.on(key, spp * hw)
         if kind == "transient_nlos_path":
             from .integrators.nlos_path import (
                 sample_nlos_primal,
@@ -673,6 +659,7 @@ def render_forward(scene: Scene, tangent: dict, spp: int | None = None,
     tangents = _build_tangents(scene, tangent)
     total_spp = spp_chunk * n_passes
     dev = scene.device
+    keys = pass_keys(seed, range(n_passes), dev)
 
     def add_states(a, b):
         return b if a is None else type(b)(*(x + y for x, y in zip(a, b)))
@@ -684,7 +671,7 @@ def render_forward(scene: Scene, tangent: dict, spp: int | None = None,
         dfilm = None
         for p in range(n_passes):
             dfilm = add_states(dfilm, _forward_pass(
-                primal_sd(scene.data), cam, tangents, seed, p,
+                primal_sd(scene.data), cam, tangents, keys[p],
                 1.0 / total_spp, film_cfg=film_cfg, icfg=icfg,
                 width=film_cfg.width, height=film_cfg.height,
                 spp=spp_chunk, bvh_mode=bvh_mode))
@@ -705,7 +692,7 @@ def render_forward(scene: Scene, tangent: dict, spp: int | None = None,
     s_tot = t_tot = None
     for p in range(n_passes):
         s_p, t_p = _forward_pass_jvp(
-            scene.data, ctx, tangents, seed, p, 1.0 / total_spp,
+            scene.data, ctx, tangents, keys[p], 1.0 / total_spp,
             film_cfg=film_cfg, icfg=icfg, spp=spp_chunk, hw=hw, kind=kind,
             skip_le=skip_le, bvh_mode=bvh_mode, variant=var)
         s_tot, t_tot = add_states(s_tot, s_p), add_states(t_tot, t_p)

@@ -23,8 +23,7 @@ bit.  The threefry kernel's draws are integers turned into floats
 exactly: bit-equal to the plain path on the host CPU, one launch a draw.
 The multi-pass render's pass graph (``passgraph.py``) replays the eager
 pass body's kernels with its arguments, so its films must be bit-equal to
-that body's called directly, and its keyed threefry draw to the argument
-version's.
+that body's called directly.
 """
 import copy
 import importlib
@@ -345,9 +344,8 @@ def test_small_render_on_cuda_goes_through_the_kernels(cuda):
 def test_multipass_render_on_cuda_goes_through_the_kernels(cuda):
     """The cbox_rgb config through the multi-pass accumulator (3 passes):
     each kernel launches once per bounce of each pass and the threefry
-    kernel once for each draw the CPU's render makes (through its argument
-    or its keyed entry point: passes replayed in the pass graph draw
-    through the keyed one), the images agree
+    kernel once for each draw the CPU's render makes (passes replayed in
+    the pass graph included), the images agree
     with the CPU under the golden rule, and a resumed render is bit for
     bit the uninterrupted one; the threefry draw is bit-equal to the
     CPU's."""
@@ -372,16 +370,16 @@ def test_multipass_render_on_cuda_goes_through_the_kernels(cuda):
     assert counts_c == {} and n == 3 * 6
     # a bounce block a bounce and the camera's two draws a pass
     assert cpu_draws == n + 3 * 2
-    draws_g = (counts_g.pop("threefry_uniform", 0)
-               + counts_g.pop("threefry_uniform_keyed", 0))
+    draws_g = counts_g.pop("threefry_uniform", 0)
     assert counts_g == {"closest_hit": n, "ray_test": n, "splat_accumulate": n}
     assert draws_g == cpu_draws
     for got, want in ((s_g, s_c), (t_g, t_c)):
         m = golden_mismatch(got, want)
         assert m["shape_ok"] and m["n_bad"] == 0, m
-    key = trng.Sampler(3, 1, 2).key
-    assert torch.equal(trng.draw_bounce_block(key, 5, 4099, 6, cuda).cpu(),
-                       trng.draw_bounce_block(key, 5, 4099, 6))
+    assert torch.equal(
+        trng.draw_bounce_block(trng.Sampler(3, 1, 2, device=cuda).key, 5,
+                               4099, 6).cpu(),
+        trng.draw_bounce_block(trng.Sampler(3, 1, 2).key, 5, 4099, 6))
 
 
 def _with_draws(fn):
@@ -411,43 +409,50 @@ def test_threefry_kernel_bounce_blocks_are_bit_equal_to_cpu_plain(cuda, n,
                                                                    dims):
     key = trng.Sampler(2**32 - 1, 1, 3).key
     reset_launch_counts()
-    got = trng.draw_bounce_block(key, 5, n, dims, cuda)
+    got = trng.draw_bounce_block(key.to(cuda), 5, n, dims)
     _same_draw(got, trng.draw_bounce_block(key, 5, n, dims), 1)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 3, 4099])
 def test_threefry_kernel_sampler_draws_are_bit_equal_to_cpu_plain(cuda, n):
-    """eval_1d, eval_2d (two draws), a fork's eval_2d and next_2d."""
+    """eval_1d, eval_2d (two draws) and next_2d."""
     for seed, stream in ((0, 0), (7, 2), (2**32 - 1, 5)):
         card = trng.Sampler(seed, n, stream, device=cuda)
         host = trng.Sampler(seed, n, stream)
         reset_launch_counts()
         _same_draw(card.eval_1d(3), host.eval_1d(3), 1)
         _same_draw(card.eval_2d(4), host.eval_2d(4), 3)
-        _same_draw(card.fork(9).eval_2d(0), host.fork(9).eval_2d(0), 5)
-        _same_draw(card.next_2d(), host.next_2d(), 7)
+        _same_draw(card.next_2d(), host.next_2d(), 5)
         assert card.dim == host.dim == 2
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape, rows", [
-    ((4099, 6), (1, 4098)),  # an unaligned r0 and a partial last vector
-    ((1000, 3), (7, 8)),
-    ((1 << 21, 32, 2), (3, 70003)),  # a tracking draw's slice
+@pytest.mark.parametrize("shape, rows, dim", [
+    # an unaligned r0 and a partial last vector
+    ((4099, 6), (1, 4098), 0x6D50),
+    ((1000, 3), (7, 8), 0x6D50),
+    ((1 << 21, 32, 2), (3, 70003), 0x6D50),  # a tracking draw's slice
     # counters 2^32 - 8 .. 2^32 + 2039: the high word turns from 0 to 1
-    ((2**31, 4), (2**30 - 2, 2**30 + 510)),
-    ((10, 6), (4, 4)),  # no rows: no launch
-    ((0, 6), None),
-    ((), None),
-    ((5,), None),
+    ((2**31, 4), (2**30 - 2, 2**30 + 510), 0x6D50),
+    ((10, 6), (4, 4), 0x6D50),  # no rows: no launch
+    ((0, 6), None, 0x6D50),
+    ((), None, 0x6D50),
+    ((5,), None, 0x6D50),
+    # a bounce block's size at dimensions past the sampler's and the
+    # bounce blocks': the wavelength tag and the last uint32
+    ((1 << 21, 6), None, 0x57AC),
+    ((1 << 21, 6), (5, 4099), 2**32 - 1),
 ])
 def test_threefry_kernel_rows_slices_are_bit_equal_to_cpu_plain(cuda, shape,
-                                                                rows):
-    key = trng.fold_in(trng.make_key(12345), 0x6D50)
+                                                                rows, dim):
+    """The key is row 1 of a pass key table: the kernel reads it 8 bytes
+    into the table, as a render's passes read theirs."""
+    key = trng.pass_keys(12345, [0, 3])[1]
     reset_launch_counts()
-    got = trng.uniform(key, shape, cuda, rows=rows)
-    want = trng.uniform(key, shape, rows=rows)
+    got = trng.uniform(trng.pass_keys(12345, [0, 3], cuda)[1], dim, shape,
+                       rows=rows)
+    want = trng.uniform(key, dim, shape, rows=rows)
     _same_draw(got, want, 1 if want.numel() else 0)
 
 
@@ -1021,9 +1026,10 @@ def _eager_render(scene, spp, seed, max_lanes, film_state=None,
         film, done, rays = film_state
         film = type(film)(*(torch.as_tensor(a).to(dev, copy=True)
                             for a in film))
+    keys = trng.pass_keys(seed, range(n_passes), dev)
     for p in range(done, n_passes):
         film, n = _render_mod._perspective_pass(
-            sd, cam, film, seed, p, 1.0 / total, film_cfg=fc, icfg=icfg,
+            sd, cam, film, keys[p], 1.0 / total, film_cfg=fc, icfg=icfg,
             width=dw, height=dh, spp_chunk=chunk, bvh_mode=bvh.BVH_MODE,
             variant=var)
         rays = rays + n
@@ -1054,15 +1060,14 @@ def test_pass_graph_renders_two_seeds_bit_for_bit_like_the_eager_body(
         cuda, graphs, size):
     """Two seeds in a row through one graph: 3 passes each, of 4 samples
     on the 16x16 cbox_rgb config, of 32 on the 256x256 cbox (2^21 lanes,
-    depth 8, 300 bins).  The first pass runs eagerly and draws through the
-    threefry kernel's argument entry point; the replays draw through its
-    keyed one."""
+    depth 8, 300 bins).  The first pass runs eagerly; the replays launch
+    the same kernels, the threefry kernel on the graph's key."""
     desc, kw = ((small_cbox(mt), dict(spp=12, max_lanes=4 * 256))
                 if size == "tiny" else
                 (mt.cornell_box(), dict(spp=96, max_lanes=1 << 21)))
     scene = mt.load_dict(desc, device=cuda)
     depth = scene.integrator.max_depth
-    for seed, eager in ((3, 1), (2**32 - 1, 0)):
+    for seed in (3, 2**32 - 1):
         reset_launch_counts()
         got = _graph_render(scene, seed=seed, **kw)
         counts = launch_counts()
@@ -1070,10 +1075,9 @@ def test_pass_graph_renders_two_seeds_bit_for_bit_like_the_eager_body(
         # each kernel launched once a bounce, replays included; a draw a
         # bounce and the camera's two draws a pass
         n = 3 * depth
-        assert counts.pop("threefry_uniform", 0) == eager * (depth + 2)
         assert counts == {
             "closest_hit": n, "ray_test": n, "splat_accumulate": n,
-            "threefry_uniform_keyed": (3 - eager) * (depth + 2)}
+            "threefry_uniform": 3 * (depth + 2)}
     assert graphs() == {"captures": 1, "replays": 2 + 3, "eager_passes": 1,
                         "refusals": 0}
 
@@ -1181,53 +1185,41 @@ def test_pass_graph_takes_the_other_multipass_configs(cuda, graphs, name):
 @pytest.mark.cuda
 def test_pass_graph_refusal_is_counted_and_other_errors_are_raised(
         cuda, graphs, monkeypatch):
-    """A capture refused (here: more draws than key slots) leaves the
-    structure to the eager body, bit for bit, and is counted; an error that
-    is no refusal, raised in the capture, reaches the caller, on the
-    stream it called on."""
+    """A capture refused (here: a body that makes a new transient film
+    while it is captured) leaves the structure to the eager body, bit for
+    bit, and is counted; an error that is no refusal, raised in the
+    capture by the draw wrapper, reaches the caller, on the stream it
+    called on."""
     scene = mt.load_dict(small_cbox(mt), device=cuda)
     kw = dict(spp=12, seed=6, max_lanes=4 * 256)
-    monkeypatch.setattr(passgraph, "MAX_DRAWS", 2)
+    body = _render_mod._perspective_pass
+
+    def new_film(*a, **k):
+        film, n_rays = body(*a, **k)
+        if torch.cuda.is_current_stream_capturing():
+            film = film._replace(transient=film.transient.clone())
+        return film, n_rays
+
+    monkeypatch.setattr(_render_mod, "_perspective_pass", new_film)
     for _ in range(2):
         _same_render(_graph_render(scene, **kw), _eager_render(scene, **kw))
     assert graphs() == {"captures": 0, "replays": 0, "eager_passes": 6,
                         "refusals": 1}
     monkeypatch.undo()
     passgraph.clear()
+    draw = trng._uniform_kernel
 
     def fail(*a):
-        raise RuntimeError("a wrapper's error")
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("a wrapper's error")
+        return draw(*a)
 
-    monkeypatch.setattr(trng, "_uniform_keyed", fail)
+    monkeypatch.setattr(trng, "_uniform_kernel", fail)
     stream = torch.cuda.current_stream()
     with pytest.raises(RuntimeError, match="a wrapper's error"):
         _graph_render(scene, **kw)
     assert torch.cuda.current_stream() == stream
     assert graphs()["refusals"] == 1 and graphs()["captures"] == 0
-
-
-@pytest.mark.cuda
-def test_keyed_threefry_kernel_matches_the_argument_version(cuda):
-    """At (2^21, 6), from a device slot or through a KeyRecorder."""
-    n, dims = 1 << 21, 6
-    base = trng.Sampler(7, 1, 3).key
-    key = trng.fold_in(base, trng.BOUNCE_STREAM_TAG + 2)
-    slots = torch.zeros((4, 2), dtype=torch.int32)
-    slots[1] = torch.from_numpy(np.array(key, np.uint32).view(np.int32))
-    slots = slots.to(cuda)
-    want = trng._uniform_kernel(key, 0, n * dims, cuda)
-    got = trng._uniform_keyed(slots.data_ptr() + 8, 0, n * dims, cuda)
-    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
-    part = trng._uniform_keyed(slots.data_ptr() + 8, 5, 4099, cuda)
-    assert torch.equal(part.view(torch.int32), want[5:4099].view(torch.int32))
-    rec = trng.KeyRecorder(base, slots[1:], 8)
-    reset_launch_counts()
-    with trng.recording(rec):
-        block = trng.draw_bounce_block(base, 2, n, dims, cuda)
-    assert rec.dims == [trng.BOUNCE_STREAM_TAG + 2]
-    assert torch.equal(block.reshape(-1).view(torch.int32),
-                       want.view(torch.int32))
-    assert launch_counts() == {"threefry_uniform_keyed": 1}
 
 
 @pytest.mark.cuda

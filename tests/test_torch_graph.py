@@ -1,6 +1,6 @@
 """The multi-pass render's pass graph (``mitransient_tpu_torch/passgraph.py``)
-on the CPU: the per-pass key table is the fold_in chain that ``Sampler``
-and ``draw_bounce_block`` draw under; the route is taken by the cbox's
+on the CPU: the draws under a row of the per-pass key table are the
+fold_in chain's, at every dimension; the route is taken by the cbox's
 multi-pass RGB pass on a CUDA device and refused on the CPU and by the
 routes that sync or upload; a CPU render is the eager pass body's, bit for
 bit, also on the graph's own buffers, into each render's own film; which
@@ -20,9 +20,11 @@ import mitransient_tpu_torch as mt
 from mitransient_tpu_torch import passgraph, trace
 from mitransient_tpu_torch.core import math as tmath
 from mitransient_tpu_torch.core import rng as trng
+from mitransient_tpu_torch.core.spectra import SPECTRAL_STREAM_TAG
 from mitransient_tpu_torch.core.spectrum import Variant
 from mitransient_tpu_torch.film import transient_film as tf
 from mitransient_tpu_torch.integrators.nlos_path import film_channels
+from mitransient_tpu_torch.integrators.volpath import GRID_STREAM_TAG
 from mitransient_tpu_torch.kernels import launch_counts
 from mitransient_tpu_torch.ops import bvh
 from mitransient_tpu_torch.parallel.distributed import tree_leaves
@@ -41,49 +43,45 @@ def scene():
     return mt.load_dict(small_cbox(mt), device="cpu")
 
 
+def _host_draw(words, d, shape):
+    """``uniform(fold_in(words, d), shape)`` on the CPU, the dimension
+    folded into the host key words on Python ints."""
+    n = int(np.prod(shape))
+    return trng._uniform_plain(trng.fold_in(words, d), 0, n,
+                               "cpu").reshape(shape)
+
+
+def _same_bits(got, want):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
 @pytest.mark.parametrize("seed", [0, 7, 2**32 - 1])
 @pytest.mark.parametrize("depth", [1, 8])
-def test_pass_key_table_is_the_fold_in_chain(monkeypatch, seed, depth):
-    """Row [pass, j]: the key of the j-th draw of that pass, as the
-    camera's ``Sampler`` and ``draw_bounce_block`` make it."""
+def test_stream_key_draws_are_the_fold_in_chain(seed, depth):
+    """Row i of ``pass_keys``: the key of pass ``passes[i]``, under which
+    the camera's ``Sampler`` and ``draw_bounce_block`` draw what the host
+    chain ``fold_in(fold_in(make_key(seed), pass), dim)`` gives."""
     passes = [0, 1, 5, 31, 2**20]
-    drawn = []
-    plain = trng.uniform
-    monkeypatch.setattr(trng, "uniform", lambda key, shape, device="cpu",
-                        rows=None: (drawn.append(key),
-                                    plain(key, shape, device, rows))[1])
-    want = []
-    for p in passes:
-        drawn.clear()
-        sampler = trng.Sampler(seed, 3, stream=p)
-        sampler.next_2d()
+    keys = trng.pass_keys(seed, passes)
+    assert keys.dtype == torch.int32 and keys.shape == (len(passes), 2)
+    for row, p in zip(keys, passes):
+        host = trng.fold_in(trng.make_key(seed), p)
+        sampler = trng.Sampler.on(row, 3)
+        _same_bits(sampler.next_2d(), torch.stack(
+            [_host_draw(host, 0, (3,)), _host_draw(host, 1, (3,))], dim=-1))
         for it in range(depth):
-            trng.draw_bounce_block(sampler.key, it, 3, 6)
-        want.append(list(drawn))
-    dims = [0, 1] + [TAG + it for it in range(depth)]
-    table = trng.pass_key_table(seed, passes, dims)
-    assert table.dtype == np.uint32 and table.shape == (len(passes),
-                                                        len(dims), 2)
-    assert [[tuple(int(w) for w in k) for k in row] for row in table] == want
+            _same_bits(trng.draw_bounce_block(sampler.key, it, 3, 6),
+                       _host_draw(host, TAG + it, (3, 6)))
 
 
-def test_key_recorder_gives_each_draw_its_slot_and_dimension():
-    base = trng.Sampler(11, 1, stream=3).key
-    slots = torch.zeros((3, 2), dtype=torch.int32)
-    rec = trng.KeyRecorder(base, slots, max_depth=8)
-    a = rec.slot(trng.fold_in(base, 1))
-    b = rec.slot(trng.fold_in(base, TAG + 7))
-    c = rec.slot(trng.fold_in(base, 1))
-    assert rec.dims == [1, TAG + 7, 1]
-    assert (a, b - a, c - a) == (slots.data_ptr(), 8, 16)
-    with pytest.raises(trng.GraphRefusal, match="more than 3"):
-        rec.slot(trng.fold_in(base, 0))
-    other = trng.KeyRecorder(base, slots, max_depth=8)
-    for key in (trng.fold_in(base, TAG + 8), trng.fold_in(base, 64),
-                trng.fold_in(trng.Sampler(12, 1, stream=3).key, 0)):
-        with pytest.raises(trng.GraphRefusal, match="not a dimension"):
-            other.slot(key)
-    assert other.dims == []
+def test_any_dimension_draws_from_the_stream_key():
+    """Past the sampler's and the bounce blocks' dimensions: the grid
+    tracking and wavelength tags and the last uint32."""
+    key = trng.pass_keys(11, [3])[0]
+    host = trng.fold_in(trng.make_key(11), 3)
+    for d in (64, GRID_STREAM_TAG + 3, SPECTRAL_STREAM_TAG, 2**32 - 1):
+        _same_bits(trng.uniform(key, d, (5, 7)), _host_draw(host, d, (5, 7)))
 
 
 def test_route_is_taken_by_the_cbox_multipass_pass_on_a_cuda_device():
@@ -114,10 +112,11 @@ def _eager_render(scene, spp, seed, max_lanes):
     chunk = -(-spp // n_passes)
     sd, cam = primal_sd(scene.data), build_camera(cfg, device="cpu")
     film = tf.film_init_any(fc, film_channels(scene.variant), device="cpu")
+    keys = trng.pass_keys(seed, range(n_passes))
     rays = 0
     for p in range(n_passes):
         film, n = render_mod._perspective_pass(
-            sd, cam, film, seed, p, 1.0 / (chunk * n_passes), film_cfg=fc,
+            sd, cam, film, keys[p], 1.0 / (chunk * n_passes), film_cfg=fc,
             icfg=icfg, width=fc.width, height=fc.height, spp_chunk=chunk,
             bvh_mode=bvh.BVH_MODE, variant=scene.variant)
         rays = rays + n
@@ -151,7 +150,7 @@ def test_pass_graph_buffers_give_the_eager_films(scene):
     fc = cfg.film
     sd, cam = primal_sd(scene.data), build_camera(cfg, device="cpu")
     g = passgraph.PassGraph(None, sd, cam, tf.film_init_any(fc, 3),
-                            icfg.max_depth, torch.device("cpu"))
+                            torch.device("cpu"))
     assert all(a is not b for a, b in zip(tree_leaves(g.sd),
                                           tree_leaves(sd)))
     assert set(g.fields) == {"steady", "steady_weight", "n_negative",
@@ -162,10 +161,11 @@ def test_pass_graph_buffers_give_the_eager_films(scene):
     kept = {}
     for seed in (2, 3):  # the steady sums are zeroed by begin
         own = tf.film_init_any(fc, 3)
-        film = g.begin(sd, cam, own, 1.0 / 12, seed, range(3))
+        film = g.begin(sd, cam, own, 1.0 / 12)
         assert film.transient is own.transient
         assert int(g.film_at) == own.transient.data_ptr()
-        rays = sum(int(g.run(body, p, more=p < 2)) for p in range(3))
+        keys = trng.pass_keys(seed, range(3))
+        rays = sum(int(g.run(body, keys[p], more=p < 2)) for p in range(3))
         assert g.graph is None
         kept[seed] = (*tf.develop_any(g.film, fc), rays)
     for seed, got in kept.items():
@@ -174,10 +174,11 @@ def test_pass_graph_buffers_give_the_eager_films(scene):
 
 
 def test_only_a_captures_refusal_leaves_a_structure_eager():
-    """``passgraph.refused``: the recorder's refusal and the errors that
+    """``passgraph.refused``: the graph's own refusal and the errors that
     name the capture; not another error, nor one that a refused capture's
     end raised over it."""
-    assert passgraph.refused(trng.GraphRefusal("more than 64 draws"))
+    assert passgraph.refused(passgraph.GraphRefusal(
+        "the pass made a new transient film"))
     assert passgraph.refused(RuntimeError(
         "CUDA error: operation not permitted when stream is capturing"))
     assert passgraph.refused(RuntimeError(

@@ -25,6 +25,12 @@ from mitransient_tpu_torch.kernels import _build
 torch.set_num_threads(1)
 
 
+def _key(words) -> torch.Tensor:
+    """The host key words ``(k0, k1)`` as a stream key (``rng.uniform``'s
+    ``(2,)`` int32 tensor on the CPU)."""
+    return torch.from_numpy(np.array(words, np.uint32).view(np.int32))
+
+
 def _triples(n=100_000, seed=0):
     rng = np.random.default_rng(seed)
     u32 = np.iinfo(np.uint32).max
@@ -104,11 +110,13 @@ def test_threefry_known_answer():
 @pytest.mark.parametrize("seed", SEEDS)
 @pytest.mark.parametrize("stream", range(4))
 def test_sampler_bit_equal(seed, stream):
-    """Keys, eval_1d / eval_2d at dims 0-7, the next_* counter and fork."""
+    """Keys, eval_1d / eval_2d at dims 0-7 and the next_* counter."""
     for n in LANES:
         js = jrng.Sampler(jnp.uint32(seed), n, stream=jnp.uint32(stream))
         ts = trng.Sampler(seed, n, stream)
-        assert ts.key == tuple(int(k) for k in jax.random.key_data(js.key))
+        assert ts.key.dtype == torch.int32 and ts.key.shape == (2,)
+        np.testing.assert_array_equal(ts.key.numpy().view(np.uint32),
+                                      np.asarray(jax.random.key_data(js.key)))
         for dim in range(8):
             _same_bits(ts.eval_1d(dim), js.eval_1d(dim))
         for dim in range(7):
@@ -119,8 +127,6 @@ def test_sampler_bit_equal(seed, stream):
             else:
                 _same_bits(ts.next_1d(), js.next_1d())
         assert ts.dim == js.dim == 7
-        _same_bits(ts.fork(stream + 9).eval_2d(3),
-                   js.fork(stream + 9).eval_2d(3))
 
 
 @pytest.mark.parametrize("seed", SEEDS)
@@ -136,7 +142,7 @@ def test_draw_bounce_block_bit_equal(seed, it):
 
 
 def test_uniform_is_in_the_unit_interval():
-    u = trng.uniform(trng.fold_in(trng.make_key(3), 1), (1 << 16,))
+    u = trng.uniform(_key(trng.make_key(3)), 1, (1 << 16,))
     assert float(u.min()) >= 0.0 and float(u.max()) < 1.0
     assert abs(float(u.mean()) - 0.5) < 0.01
 
@@ -155,11 +161,12 @@ def _python_uniform(key, counters):
 def test_plain_path_past_2_32_counters(seed):
     """A ``rows=`` slice of a (2^31, 4) draw whose counters cross 2^32:
     the high word of the counter turns from 0 to 1 at row 2^30."""
-    key = trng.fold_in(trng.make_key(seed), 11)
     r0, r1 = 2**30 - 2, 2**30 + 510
-    got = trng.uniform(key, (2**31, 4), rows=(r0, r1))
+    got = trng.uniform(_key(trng.make_key(seed)), 11, (2**31, 4),
+                       rows=(r0, r1))
     assert got.shape == (r1 - r0, 4)
-    want = _python_uniform(key, range(4 * r0, 4 * r1))
+    want = _python_uniform(trng.fold_in(trng.make_key(seed), 11),
+                           range(4 * r0, 4 * r1))
     np.testing.assert_array_equal(got.reshape(-1).numpy().view(np.uint32),
                                   want.view(np.uint32))
 
@@ -171,9 +178,8 @@ def test_cpu_draw_never_loads_the_kernel_library(monkeypatch):
     monkeypatch.setattr(_build, "library", refuse)
     key = trng.Sampler(3, 1, 2).key
     assert trng.draw_bounce_block(key, 1, 4099, 6).shape == (4099, 6)
-    assert trng.Sampler(3, 17, 2).fork(4).eval_2d(5).shape == (17, 2)
-    assert trng.uniform(key, (9, 2), rows=(3, 3)).shape == (0, 2)
-    assert trng.uniform(key, ()).shape == ()
+    assert trng.uniform(key, 0, (9, 2), rows=(3, 3)).shape == (0, 2)
+    assert trng.uniform(key, 0, ()).shape == ()
 
 
 def test_draws_are_counted_and_none_launches_on_the_cpu():

@@ -76,7 +76,7 @@ def test_wavelength_draw_matches_jax(ctx):
 
     n, jk, tk, jc, tc = ctx
     u = jax.random.uniform(jax.random.fold_in(jk, jnp.uint32(0x57AC)), (n,))
-    ut = trng.uniform(trng.fold_in(tk, TS.SPECTRAL_STREAM_TAG), (n,))
+    ut = trng.uniform(tk, TS.SPECTRAL_STREAM_TAG, (n,))
     assert np.array_equal(np.asarray(u), ut.numpy())
     jwl, twl = np.asarray(jc.wl), tc.wl.numpy()
     assert twl.shape == (n, TS.N_WL) and twl.dtype == np.float32

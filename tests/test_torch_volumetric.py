@@ -331,10 +331,10 @@ def test_tracking_draws_bit_equal(monkeypatch):
         want = np.asarray(jax.random.uniform(
             jax.random.fold_in(jkey, jnp.uint32(jvol.GRID_STREAM_TAG) + tag),
             (37,) + tail))
-        got = tvol.tracking_draw(key, tag, 37, tail, "cpu")
+        got = tvol.tracking_draw(key, tag, 37, tail)
         np.testing.assert_array_equal(got.numpy(), want)
-    whole = trng.uniform(key, (50, 6))
-    np.testing.assert_array_equal(trng.uniform(key, (50, 6),
+    whole = trng.uniform(key, 0, (50, 6))
+    np.testing.assert_array_equal(trng.uniform(key, 0, (50, 6),
                                                rows=(13, 29)).numpy(),
                                   whole[13:29].numpy())
 
