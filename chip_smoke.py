@@ -782,6 +782,7 @@ def flagship_iteration(mt, dev):
     active) under the kernel's name."""
     import torch
 
+    from mitransient_tpu_torch import regengraph
     from mitransient_tpu_torch.film import transient_film as tf
     from mitransient_tpu_torch.ops import intersect as isect
 
@@ -805,12 +806,15 @@ def flagship_iteration(mt, dev):
         return soup_kernel(kernel, table, m, *args)
 
     scene = mt.load_dict(mt.cornell_box(), device=dev)
+    # the regen loop's blocks run eagerly: a replayed block calls no wrapper
+    eligible, regengraph.eligible = regengraph.eligible, lambda *a: False
     tf.splat_accumulate, isect._soup_kernel = capture_splat, capture_soup
     try:
         mt.render(scene, spp=FLAGSHIP_EVENTS["spp"],
                   seed=FLAGSHIP_EVENTS["seed"])
     finally:
         tf.splat_accumulate, isect._soup_kernel = splat, soup_kernel
+        regengraph.eligible = eligible
     torch.cuda.synchronize()
     if len(kept.get("events", ())) != 4 or len(rays) != 2:
         raise AssertionError(f"the flagship render made {calls}, too few "
@@ -1613,6 +1617,7 @@ def capture_bounce(sizes, bounce=NLOS_EVENTS_BOUNCE, splat=None, picks=None):
     launches of a capture's constants do not count).  ``picks`` ({kernel:
     {launch index: key}}) keeps other launches instead, each under its
     key.  Yields the dict it fills."""
+    from mitransient_tpu_torch import regengraph
     from mitransient_tpu_torch.film import transient_film as tf
     from mitransient_tpu_torch.ops import intersect as isect
 
@@ -1636,11 +1641,14 @@ def capture_bounce(sizes, bounce=NLOS_EVENTS_BOUNCE, splat=None, picks=None):
             calls[kernel] += 1
         return soup_kernel(kernel, table, m, *args)
 
+    # the regen loop's blocks run eagerly: a replayed block calls no wrapper
+    eligible, regengraph.eligible = regengraph.eligible, lambda *a: False
     tf.splat_accumulate, isect._soup_kernel = capture, capture_soup
     try:
         yield kept
     finally:
         tf.splat_accumulate, isect._soup_kernel = splat, soup_kernel
+        regengraph.eligible = eligible
 
 
 def hold_captured(scene, kept, label, dev, hw, t_pad=301):

@@ -61,6 +61,10 @@ body's.
   not entered in a replayed pass.  The counters ``graph.captures``,
   ``graph.replays``, ``graph.eager_passes`` and ``graph.refusals`` say how
   often the route engages (:data:`STATS` counts them always).
+
+The regen loop's block graph (``regengraph.py``) shares :data:`STATS`
+(and its ``eager_blocks``) and a device's slot in ``_GRAPHS``, under a
+structure of its own, so one graph is kept a device across both routes.
 """
 from __future__ import annotations
 
@@ -73,8 +77,9 @@ from .core import math as tmath
 from .core import rng
 from .film.transient_film import splatting_at
 
-STATS = {"captures": 0, "replays": 0, "eager_passes": 0, "refusals": 0}
-_GRAPHS: dict = {}  # device -> its PassGraph
+STATS = {"captures": 0, "replays": 0, "eager_passes": 0, "refusals": 0,
+         "eager_blocks": 0}
+_GRAPHS: dict = {}  # device -> its PassGraph or regengraph.RegenGraph
 
 
 def eligible(device, icfg, film_cfg, variant) -> bool:

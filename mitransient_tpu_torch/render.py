@@ -5,7 +5,10 @@ A render takes one of two branches, chosen as the JAX package chooses:
 
 * the path-regeneration loop (``integrators/path_regen.py``), one pass
   over the whole spp budget, for plain ``transient_path`` renders of at
-  least 8 spp with a box filter, no crop and no ``camera_unwarp``;
+  least 8 spp with a box filter, no crop and no ``camera_unwarp``.  On
+  the card a block of the loop (the iterations between two live-lane
+  checks) into a transient film is captured once as a CUDA graph and
+  replayed (``regengraph.py``); elsewhere it runs eagerly;
 * the multi-pass accumulator otherwise: the spp budget is split into
   passes of at most ``max_lanes`` lanes, each an independently seeded
   threefry stream (row ``pass`` of ``rng.pass_keys(seed, ...)``) traced
@@ -42,7 +45,7 @@ import functools
 import numpy as np
 import torch
 
-from . import passgraph, trace
+from . import passgraph, regengraph, trace
 from .core.rng import Sampler, pass_keys
 from .core.math import divide
 from .film.transient_film import (
@@ -82,9 +85,13 @@ _FILM_STATES = {cls.__name__: cls for cls in (TransientFilmState,
 
 def _regen_render(sd, cam, film, seed, *, film_cfg, icfg, spp_total,
                   lanes_per_pixel, bvh_mode, polarized):
+    graph = regengraph.route(
+        sd, cam, film, film_cfg=film_cfg, icfg=icfg, spp_total=spp_total,
+        lanes_per_pixel=lanes_per_pixel, bvh_mode=bvh_mode,
+        polarized=polarized)
     film, steady_lanes, n_rays, iters, loop_iters = sample_primal_regen(
         sd, seed, cam, film, film_cfg, icfg, spp_total, lanes_per_pixel,
-        bvh_mode, polarized=polarized)
+        bvh_mode, polarized=polarized, graph=graph)
     # steady_lanes holds per-lane SUMS of finished-sample radiances; every
     # pixel finishes exactly spp_total samples, so add up the lane rows (in
     # row order) and count spp_total unit sample weights per pixel

@@ -23,10 +23,13 @@ bit.  The threefry kernel's draws are integers turned into floats
 exactly: bit-equal to the plain path on the host CPU, one launch a draw.
 The multi-pass render's pass graph (``passgraph.py``) replays the eager
 pass body's kernels with its arguments, so its films must be bit-equal to
-that body's called directly.
+that body's called directly; the regen loop's block graph
+(``regengraph.py``) likewise to the plain loop's.
 """
 import copy
+import gc
 import importlib
+import weakref
 
 import numpy as np
 import pytest
@@ -34,10 +37,11 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import mitransient_tpu_torch as mt
-from mitransient_tpu_torch import passgraph, trace
+from mitransient_tpu_torch import passgraph, regengraph, trace
 from mitransient_tpu_torch.core import rng as trng
 from mitransient_tpu_torch.convert import scene_data_from_numpy, scene_data_to_numpy
 from mitransient_tpu_torch.film import transient_film as tf
+from mitransient_tpu_torch.integrators import path_regen
 from mitransient_tpu_torch.kernels import launch_counts, reset_launch_counts
 from mitransient_tpu_torch.ops import bvh
 from mitransient_tpu_torch.ops import intersect as isect
@@ -1079,7 +1083,7 @@ def test_pass_graph_renders_two_seeds_bit_for_bit_like_the_eager_body(
             "closest_hit": n, "ray_test": n, "splat_accumulate": n,
             "threefry_uniform": 3 * (depth + 2)}
     assert graphs() == {"captures": 1, "replays": 2 + 3, "eager_passes": 1,
-                        "refusals": 0}
+                        "refusals": 0, "eager_blocks": 0}
 
 
 @pytest.mark.cuda
@@ -1116,7 +1120,7 @@ def test_pass_graph_checkpoints_and_resumes_like_the_eager_body(cuda,
     _same_render(resumed, got)
     _same_render(resumed, _eager_render(scene, film_state=states[1], **kw))
     assert graphs() == {"captures": 1, "replays": 2 + 1, "eager_passes": 1,
-                        "refusals": 0}
+                        "refusals": 0, "eager_blocks": 0}
 
 
 @pytest.mark.cuda
@@ -1140,7 +1144,7 @@ def test_pass_graph_leaves_a_kept_output_as_it_was(cuda, graphs):
     for seed, got in kept.items():
         _same_render(got, _eager_render(scene, seed=seed, **kw))
     assert graphs() == {"captures": 1, "replays": 3 * 6 - 1,
-                        "eager_passes": 1, "refusals": 0}
+                        "eager_passes": 1, "refusals": 0, "eager_blocks": 0}
 
 
 def _graph_case(name):
@@ -1204,7 +1208,7 @@ def test_pass_graph_refusal_is_counted_and_other_errors_are_raised(
     for _ in range(2):
         _same_render(_graph_render(scene, **kw), _eager_render(scene, **kw))
     assert graphs() == {"captures": 0, "replays": 0, "eager_passes": 6,
-                        "refusals": 1}
+                        "refusals": 1, "eager_blocks": 0}
     monkeypatch.undo()
     passgraph.clear()
     draw = trng._uniform_kernel
@@ -1250,3 +1254,200 @@ def test_splat_through_a_film_slot_matches_the_direct_launch(
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     assert torch.equal(other.view(torch.int32), want.view(torch.int32))
     assert bool(placeholder.isnan().all())
+
+
+# --------------------------------------------------------------------------
+# The regen loop's block graph (regengraph.py)
+# --------------------------------------------------------------------------
+
+def _regen_render(scene, graph=True, **kw):
+    """``render(regenerate=True)`` through the graph route, or with the
+    route closed (the plain loop on the render's own tensors) -> (steady,
+    transient, rays, iters, loop_iters, launch counts)."""
+    eligible = regengraph.eligible
+    if not graph:
+        regengraph.eligible = lambda *a: False
+    reset_launch_counts()
+    try:
+        s, t, stats = mt.render(scene, regenerate=True, return_stats=True,
+                                **kw)
+    finally:
+        regengraph.eligible = eligible
+    return (s, t, int(stats["rays"]), int(stats["iters"]),
+            stats["loop_iters"], launch_counts())
+
+
+def _same_regen(got, want):
+    _same_render(got[:3], want[:3])
+    assert got[3:] == want[3:]
+
+
+def _kernels(fn):
+    """The CUDA kernels ``fn()`` runs, from the profiler's device trace."""
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "memcpy" not in e.name.lower()
+               and "memset" not in e.name.lower())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", ["tiny", "full"])
+def test_regen_graph_renders_two_seeds_bit_for_bit_like_the_eager_loop(
+        cuda, graphs, size):
+    """Two seeds in a row through one graph at 1024 spp: the 16x16
+    cbox_rgb config at 4 lanes a pixel, and the 256x256 cbox (2^21 lanes,
+    depth 8, 300 bins: 216 iterations, 27 blocks).  The first render runs
+    its first block eagerly, captures, and replays the rest; the second
+    replays every block.  K1-K3 are counted once an iteration, replays
+    included, and the device runs the eager loop's kernels (the block's
+    copy-backs are copies, not kernels)."""
+    desc, kw = ((small_cbox(mt), dict(spp=1024, max_lanes=4 * 256))
+                if size == "tiny" else (mt.cornell_box(), dict(spp=1024)))
+    scene = mt.load_dict(desc, device=cuda)
+    counts = []
+    for seed in (3, 2**32 + 7):
+        before = graphs()
+        got = _regen_render(scene, seed=seed, **kw)
+        counts.append({k: v - before[k] for k, v in graphs().items()})
+        want = _regen_render(scene, graph=False, seed=seed, **kw)
+        _same_regen(got, want)
+        n = got[4]
+        assert got[5] == {"closest_hit": n, "ray_test": n,
+                          "splat_accumulate": n}
+    whole, tail = divmod(got[4], path_regen.LIVE_CHECK_EVERY)
+    assert counts[1] == {"captures": 0, "replays": whole, "eager_passes": 0,
+                         "refusals": 0, "eager_blocks": int(tail > 0)}
+    assert counts[0]["captures"] == 1 and counts[0]["refusals"] == 0
+    assert counts[0]["eager_blocks"] == 1 + int(tail > 0)
+    if size == "full":
+        assert got[4] == 216 and counts[1]["replays"] == 27
+        assert counts[0]["replays"] == 26
+        graph_kernels = _kernels(lambda: _regen_render(scene, seed=5, **kw))
+        eager_kernels = _kernels(lambda: _regen_render(scene, graph=False,
+                                                       seed=5, **kw))
+        print(f"kernels a render: graph {graph_kernels}, eager "
+              f"{eager_kernels}")
+        assert eager_kernels <= graph_kernels <= 1.01 * eager_kernels
+
+
+def _regen_graph_case(name):
+    if name == "mono_polarized":
+        with with_variant(mt, name):
+            return mt.load_dict(polarized_regen_cbox(), device="cuda")
+    if name == "sphere":
+        return mt.load_dict(small_sphere_cbox(mt), device="cuda")
+    return mt.load_dict(copy.deepcopy(small_cbox(mt)), device="cuda")
+
+
+def polarized_regen_cbox():
+    from torch_cases import polarized_cbox
+
+    return polarized_cbox(mt, 32, 120, 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, period", [("mono_polarized", 8),
+                                          ("sphere", 8), ("rgb", 1)])
+def test_regen_graph_takes_the_other_regen_configs(cuda, graphs, monkeypatch,
+                                                   name, period):
+    """The polarized variant (a gold GGX box, the Mueller carry and its
+    pending rotator), a scene with an accel (the BVH kernel) and a block of
+    one iteration (``LIVE_CHECK_EVERY`` = 1) take the graph, bit for bit
+    the eager loop."""
+    monkeypatch.setattr(path_regen, "LIVE_CHECK_EVERY", period)
+    scene = _regen_graph_case(name)
+    kw = dict(spp=64, max_lanes=4 * scene.sensors[0].film.width
+              * scene.sensors[0].film.height)
+    for seed in (1, 2):
+        _same_regen(_regen_render(scene, seed=seed, **kw),
+                    _regen_render(scene, graph=False, seed=seed, **kw))
+    assert graphs()["captures"] == 1 and graphs()["replays"] > 0
+    assert graphs()["refusals"] == 0
+
+
+@pytest.mark.cuda
+def test_regen_graph_leaves_a_kept_output_as_it_was(cuda, graphs):
+    """Every render splats into a film of its own and returns copies of
+    its ray and iteration counts: outputs kept across the next renders stay
+    as they were."""
+    scene = mt.load_dict(small_cbox(mt), device=cuda)
+    kw = dict(spp=64, max_lanes=4 * 256)
+    kept = {seed: _regen_render(scene, seed=seed, **kw) for seed in (8, 9, 10)}
+    for seed, got in kept.items():
+        _same_regen(got, _regen_render(scene, graph=False, seed=seed, **kw))
+    assert graphs()["captures"] == 1
+
+
+@pytest.mark.cuda
+def test_regen_graph_refusal_is_counted_and_other_errors_are_raised(
+        cuda, graphs, monkeypatch):
+    """A capture refused (here: a splat that makes a new transient film
+    while it is captured) leaves the structure to eager blocks on the
+    graph's buffers, bit for bit, and is counted; an error that is no
+    refusal, raised in the capture, reaches the caller on the stream it
+    called on."""
+    scene = mt.load_dict(small_cbox(mt), device=cuda)
+    kw = dict(spp=64, seed=6, max_lanes=4 * 256)
+    splat = path_regen.splat_pair_any
+
+    def new_film(*a, **k):
+        film = splat(*a, **k)
+        if torch.cuda.is_current_stream_capturing():
+            film = film._replace(transient=film.transient.clone())
+        return film
+
+    monkeypatch.setattr(path_regen, "splat_pair_any", new_film)
+    want = _regen_render(scene, graph=False, **kw)
+    before = graphs()
+    for _ in range(2):
+        _same_regen(_regen_render(scene, **kw), want)
+    counted = {k: v - before[k] for k, v in graphs().items()}
+    blocks = -(-want[4] // path_regen.LIVE_CHECK_EVERY)
+    assert counted == {"captures": 0, "replays": 0, "eager_passes": 0,
+                       "refusals": 1, "eager_blocks": 2 * blocks}
+
+    def fail(*a, **k):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("a wrapper's error")
+        return splat(*a, **k)
+
+    monkeypatch.setattr(path_regen, "splat_pair_any", fail)
+    passgraph.clear()
+    stream = torch.cuda.current_stream()
+    with pytest.raises(RuntimeError, match="a wrapper's error"):
+        _regen_render(scene, **kw)
+    assert torch.cuda.current_stream() == stream
+    assert graphs()["refusals"] == 1 and graphs()["captures"] == 0
+
+
+@pytest.mark.cuda
+def test_a_multipass_render_frees_the_regen_graph(cuda, graphs):
+    """One graph a device: a multi-pass render after a regen render
+    replaces the regen graph (its buffers freed), so the memory allocated
+    comes back to its level before the regen render; and a regen render
+    replaces the pass graph."""
+    scene = mt.load_dict(mt.cornell_box(), device=cuda)
+    regen = dict(spp=128, seed=1)
+    multipass = dict(spp=64, seed=2, regenerate=False)
+
+    def render(kw):
+        out = mt.render(scene, **kw)
+        del out
+        torch.cuda.synchronize()
+        return next(iter(passgraph._GRAPHS.values()))
+
+    for kw in (multipass, regen, multipass):  # every cache warm
+        render(kw)
+    before = torch.cuda.memory_allocated()
+    g = render(regen)
+    assert isinstance(g, regengraph.RegenGraph) and g.graph is not None
+    ref = weakref.ref(g)
+    del g
+    assert isinstance(render(multipass), passgraph.PassGraph)
+    gc.collect()
+    assert ref() is None
+    assert torch.cuda.memory_allocated() == before
+    assert graphs()["captures"] == 5

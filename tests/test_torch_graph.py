@@ -136,7 +136,8 @@ def test_cpu_multipass_render_is_the_eager_body_bit_for_bit(scene):
     s, t, stats = mt.render(scene, regenerate=False, return_stats=True, **kw)
     _bit_equal((s, t, stats["rays"]), _eager_render(scene, **kw))
     assert {k: passgraph.STATS[k] - before[k] for k in before} == {
-        "captures": 0, "replays": 0, "eager_passes": 3, "refusals": 0}
+        "captures": 0, "replays": 0, "eager_passes": 3, "refusals": 0,
+        "eager_blocks": 0}
     assert passgraph._GRAPHS == {}
 
 

@@ -6,6 +6,10 @@ Tolerance against goldens and JAX renders: test_golden's, rtol 5e-4 and
 atol 5e-5 * max.  The port draws the same samples as the JAX package (the
 PCG hash is bit-exact and sample ids do not depend on the lane budget), so
 the images agree per sample, not only statistically.
+
+The loop's seed on the device (``path_regen.stream_keys``) and its blocks
+run on the buffers of a ``regengraph.RegenGraph``, eagerly as on the CPU
+and before a capture on the card, are held to the plain loop bit for bit.
 """
 import os
 
@@ -15,8 +19,20 @@ import torch
 
 import mitransient_tpu as mitr
 import mitransient_tpu_torch as mt
+from mitransient_tpu_torch import passgraph, regengraph
+from mitransient_tpu_torch.film import transient_film as tf
 from mitransient_tpu_torch.integrators import path_regen
-from torch_cases import golden_mismatch, physics_checks, small_cbox
+from mitransient_tpu_torch.integrators.nlos_path import film_channels
+from mitransient_tpu_torch.ops.bvh import BVH_MODE
+from mitransient_tpu_torch.scene.scene import primal_sd
+from mitransient_tpu_torch.sensors.perspective import build_camera
+from torch_cases import (
+    golden_mismatch,
+    physics_checks,
+    polarized_cbox,
+    small_cbox,
+    with_variant,
+)
 
 torch.set_num_threads(1)
 
@@ -141,3 +157,108 @@ def test_unknown_bvh_mode_is_refused():
     scene = mt.load_dict(small_cbox(mt), device="cpu")
     with pytest.raises(ValueError, match="bvh_mode"):
         mt.render(scene, spp=8, bvh_mode="tree")
+
+
+SEEDS = [0, 7, 2**31 + 3, 2**32 + 5, 2**40 + 11]
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_hash_uniform_takes_the_seed_as_a_device_scalar(seed):
+    """A 0-dim int64 tensor seed draws the Python int's bits (both masked
+    to 32 bits; 2^32 + 5 is 5) at the camera's dimensions 0 and 1 and at a
+    bounce's, and the loop's stream keys (the seed's hash and the jitter
+    keys, made on the device once a render) draw them too."""
+    sid = torch.arange(0, 1 << 20, 4099, dtype=torch.int64)
+    depth = torch.arange(sid.shape[0], dtype=torch.int64) % 8
+    seed_t = torch.tensor(seed, dtype=torch.int64)
+    keys = path_regen.stream_keys(seed, "cpu")
+    assert keys.dtype == torch.int64 and keys.shape == (3,)
+    for dim in (0, 1, 2 + depth * path_regen.DIMS_PER_BOUNCE + 3):
+        want = path_regen.hash_uniform(seed, sid, dim)
+        got = path_regen.hash_uniform(seed_t, sid, dim)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        key = (keys[1 + dim] if isinstance(dim, int)
+               else path_regen._pcg((dim & path_regen._M32) ^ keys[0]))
+        drawn = path_regen._hash_draw(key, sid)
+        assert torch.equal(drawn.view(torch.int32), want.view(torch.int32))
+
+
+def _regen_case(name):
+    """(scene, spp, max_lanes) of a block-machinery case on the CPU."""
+    if name == "mono_polarized":
+        with with_variant(mt, name):
+            return (mt.load_dict(polarized_cbox(mt, 8, 40, 4), device="cpu"),
+                    12, 3 * 64)
+    if name == "mono":
+        with with_variant(mt, name):
+            return (mt.load_dict(small_cbox(mt, 8, 8, 40, 4), device="cpu"),
+                    12, 3 * 64)
+    if name == "tail":  # 15 iterations: a block of 8, then 7 eagerly
+        return mt.load_dict(small_cbox(mt, 8, 8, 60, 2), device="cpu"), 12, 128
+    return mt.load_dict(small_cbox(mt, 8, 8, 40, 4), device="cpu"), 12, 3 * 64
+
+
+def _regen(scene, spp, seed, max_lanes, graph=None):
+    """``sample_primal_regen`` on the scene's CPU tensors -> (transient,
+    steady lanes, n_rays, iters, loop_iters)."""
+    cfg, icfg, var = scene.sensors[0], scene.integrator, scene.variant
+    fc = cfg.film
+    lanes = max(1, min(spp, max_lanes // (fc.width * fc.height)))
+    film = tf.film_init_any(fc, film_channels(var), device="cpu")
+    out = path_regen.sample_primal_regen(
+        primal_sd(scene.data), seed, build_camera(cfg, device="cpu"), film,
+        fc, icfg, spp, lanes, BVH_MODE, polarized=var.polarized, graph=graph)
+    assert out[0].transient is film.transient
+    return out[0].transient, *out[1:]
+
+
+@pytest.mark.parametrize("name, period", [
+    ("mono", 8), ("rgb", 8), ("mono_polarized", 8), ("mono", 1), ("rgb", 1),
+    ("mono_polarized", 1), ("tail", 8)])
+def test_block_machinery_is_the_plain_loop_bit_for_bit(monkeypatch, name,
+                                                       period):
+    """Two seeds through one ``RegenGraph`` on the CPU, its blocks run
+    eagerly on its own buffers (copies of the scene and camera, the stream
+    keys, the carry), as the card's first block runs: the films, steady
+    sums, ``n_rays``, ``iters`` and ``loop_iters`` of the plain loop, and a
+    block counted for each live check that found a lane.  "tail" runs to
+    ``max_iters``, whose last 7 iterations are shorter than a block."""
+    monkeypatch.setattr(path_regen, "LIVE_CHECK_EVERY", period)
+    scene, spp, max_lanes = _regen_case(name)
+    cfg, icfg, var = scene.sensors[0], scene.integrator, scene.variant
+    fc = cfg.film
+    lanes = max(1, min(spp, max_lanes // (fc.width * fc.height)))
+    g = regengraph.RegenGraph(
+        None, primal_sd(scene.data), build_camera(cfg, device="cpu"),
+        tf.film_init_any(fc, film_channels(var)), torch.device("cpu"),
+        film_cfg=fc, icfg=icfg, spp_total=spp, lanes_per_pixel=lanes,
+        bvh_mode=BVH_MODE, polarized=var.polarized)
+    for seed in (2, 2**32 + 3):
+        before = dict(passgraph.STATS)
+        got = _regen(scene, spp, seed, max_lanes, graph=g)
+        counted = {k: passgraph.STATS[k] - before[k] for k in before}
+        want = _regen(scene, spp, seed, max_lanes)
+        for a, b in zip(got[:2], want[:2]):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert int(got[2]) == int(want[2]) and int(got[3]) == int(want[3])
+        assert got[4] == want[4]
+        assert counted == {"captures": 0, "replays": 0, "eager_passes": 0,
+                           "refusals": 0,
+                           "eager_blocks": -(-got[4] // period)}
+        assert g.graph is None and g.film is None
+    if name == "tail":
+        assert got[4] == 15  # 8 + 7
+
+
+def test_regen_graph_route_is_taken_on_a_cuda_device_into_a_transient_film():
+    """The predicate reads the device and the film's kind only; a CPU
+    render keeps no graph."""
+    cbox = mt.load_dict(mt.cornell_box(), device="cpu")
+    film = cbox.sensors[0].film
+    assert regengraph.eligible(torch.device("cuda", 0), film)
+    assert regengraph.eligible("cuda", film)
+    assert not regengraph.eligible("cpu", film)
+    assert not regengraph.eligible(
+        "cuda", film._replace(kind="phasor_hdr_film"))
+    _render(small_cbox(mt, 8, 8, 40, 4), spp=8, seed=0)
+    assert passgraph._GRAPHS == {}
