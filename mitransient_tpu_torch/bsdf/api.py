@@ -21,6 +21,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import trace
 from ..core.math import (
     cos_sin,
     cross,
@@ -114,13 +115,22 @@ def _apply_texture(bp: BSDFParams, idx: torch.Tensor, refl: torch.Tensor,
                    uv: torch.Tensor) -> torch.Tensor:
     """Reflectance of textured lanes: a bilinear 4-tap atlas lookup with
     repeat wrapping (Mitsuba's bitmap defaults: wrap_mode=repeat,
-    filter_type=bilinear)."""
-    tid = bp.tex_id.index_select(0, idx)
-    hw = bp.tex_hw.index_select(0, idx)
-    val = atlas_lookup(bp.textures, tid, torch.clamp_min(hw[:, 0], 1.0),
-                       torch.clamp_min(hw[:, 1], 1.0),
-                       bp.tex_uv.index_select(0, idx), uv)
-    return torch.where((tid >= 0)[:, None], val, refl)
+    filter_type=bilinear).  Every lane is looked up, textured or not: the
+    span ``mitr:texture`` and the counters ``texture.lookups`` (the lanes)
+    and ``texture.textured`` (those with a texture) measure that where the
+    lookup runs eagerly; a captured pass counts nothing, so that its graph
+    holds no work of the counters."""
+    with trace.span("mitr:texture"):
+        tid = bp.tex_id.index_select(0, idx)
+        textured = tid >= 0
+        if trace.recording():
+            trace.count("texture.lookups", idx.shape[0])
+            trace.count("texture.textured", textured)
+        hw = bp.tex_hw.index_select(0, idx)
+        val = atlas_lookup(bp.textures, tid, torch.clamp_min(hw[:, 0], 1.0),
+                           torch.clamp_min(hw[:, 1], 1.0),
+                           bp.tex_uv.index_select(0, idx), uv)
+        return torch.where(textured[:, None], val, refl)
 
 
 def _fdr(eta):

@@ -37,7 +37,8 @@ which a capture cannot hold), and counts and launches go to a
 becomes a device accumulator that the graph fills on every replay, a
 Python count and a launch a number the graph stands for.
 :func:`replay_counts` adds them after each replay, as the body's eager
-run would have.
+run would have.  A count that should not add work to the graph asks
+:func:`recording` first, and then counts only where a span would record.
 """
 from __future__ import annotations
 
@@ -249,6 +250,14 @@ def span(name: str):
         return _NOOP if _sink() is not None else _Span(name)
     _stale = True
     return _NOOP
+
+
+def recording() -> bool:
+    """Whether a span opened here records: a profiler records and no
+    capture is under way.  A count that would put work into a captured
+    graph, which every later replay runs, traced or not, asks this
+    first."""
+    return _enabled() and _sink() is None
 
 
 def count(name: str, value) -> None:
